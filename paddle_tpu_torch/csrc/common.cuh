@@ -43,6 +43,45 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// x rounded to T and back (the TPU kernels round p, ds and dl to the
+// input dtype before their products)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// n (0..4) valid elements starting at p as fp32, zero-filled
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n > 0) r.x = to_float(p[0]);
+  if (n > 1) r.y = to_float(p[1]);
+  if (n > 2) r.z = to_float(p[2]);
+  if (n > 3) r.w = to_float(p[3]);
+  return r;
+}
+
+// the first n (0..4) lanes of v, rounded to T
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v, int n) {
+  if (n > 0) p[0] = from_float<T>(v.x);
+  if (n > 1) p[1] = from_float<T>(v.y);
+  if (n > 2) p[2] = from_float<T>(v.z);
+  if (n > 3) p[3] = from_float<T>(v.w);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// acc += s * b
+__device__ __forceinline__ void axpy4(float4& acc, float s, float4 b) {
+  acc.x += s * b.x;
+  acc.y += s * b.y;
+  acc.z += s * b.z;
+  acc.w += s * b.w;
+}
+
 }  // namespace pt
 
 // error text for the codes the C entries return (cudaGetLastError())

@@ -28,7 +28,8 @@ __all__ = ["Request", "ResilientScheduler", "resolve_engine_weights"]
 
 
 def resolve_engine_weights(model, share_weights_with):
-    """The donor-or-build protocol: returns (cfg, head dict, blocks).
+    """The donor-or-build protocol: returns (cfg, head dict, per-layer
+    weight maps).
     With a donor, weights alias the donor's; otherwise they come from
     ``model``, which must be a dense stack."""
     if model is None:
@@ -45,11 +46,16 @@ def resolve_engine_weights(model, share_weights_with):
         if share_weights_with.cfg != cfg:
             raise ValueError(
                 "share_weights_with engine serves a different model")
-        return cfg, share_weights_with._head, share_weights_with._blocks
-    head = {"wte": model.wte, "wpe": model.wpe,
-            "lnf_scale": model.lnf_scale, "lnf_bias": model.lnf_bias,
-            "lm_head": model.lm_head}
-    return cfg, head, list(model.blocks)
+        return cfg, share_weights_with._head, share_weights_with._layers
+    # detached views: the engine runs no autograd, and sees every
+    # in-place update of the model's parameters
+    head = {n: None if t is None else t.detach() for n, t in (
+        ("wte", model.wte), ("wpe", model.wpe),
+        ("lnf_scale", model.lnf_scale), ("lnf_bias", model.lnf_bias),
+        ("lm_head", model.lm_head))}
+    layers = [{n: t.detach() for n, t in w.items()}
+              for w in model.layer_weights()]
+    return cfg, head, layers
 
 
 class Request:

@@ -52,7 +52,7 @@ from paddle_tpu_torch.inference.decode_engine import (Request,
                                                       _Inflight,
                                                       resolve_engine_weights)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
-from paddle_tpu_torch.models.gpt import final_ln
+from paddle_tpu_torch.models.gpt import GPTBlock, final_ln
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.paged_attention import (PageAllocator,
                                                   paged_append_attend,
@@ -92,7 +92,7 @@ class PagedDecodeEngine(ResilientScheduler):
         if warmup:
             raise _not_ported("warmup", "S5")
         self.device = device_lib.resolve(device)
-        cfg, head, blocks = resolve_engine_weights(model,
+        cfg, head, layers = resolve_engine_weights(model,
                                                    share_weights_with)
         if head["wte"].device != self.device:
             raise ValueError(f"model lives on {head['wte'].device}, engine "
@@ -105,7 +105,8 @@ class PagedDecodeEngine(ResilientScheduler):
         self.P = int(n_pages)
         self.chunk = int(steps_per_call)
         self.buckets = sorted(b for b in buckets if b <= cfg.max_seq_len)
-        self._head, self._blocks = head, blocks
+        self._head, self._layers = head, layers
+        self._block = GPTBlock(cfg)
         self.scale = 1.0 / math.sqrt(cfg.head_dim)
         self._mx = (cfg.max_seq_len + self.page - 1) // self.page
         L = cfg.n_layers
@@ -269,13 +270,14 @@ class PagedDecodeEngine(ResilientScheduler):
                             + base[None], self._scratch
                             ).to(torch.int32).contiguous()
         dt = self.kp.dtype
-        for i, blk in enumerate(self._blocks):
-            q, k, v = blk._qkv(x, lengths)
+        blk = self._block
+        for i, w in enumerate(self._layers):
+            q, k, v = blk._qkv(x, lengths, w)
             o, _, _ = paged_append_attend(
                 q[:, 0].to(dt).contiguous(), self.kp, self.vp,
                 k[:, 0].to(dt).contiguous(), v[:, 0].to(dt).contiguous(),
                 tables[i], wpids[i], lengths, scale=self.scale)
-            x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape))
+            x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape), w)
         logits = self._lm_head(x)[:, 0]
         bad = active & ~torch.isfinite(logits).all(dim=-1)
         ok = active & ~bad
@@ -315,11 +317,12 @@ class PagedDecodeEngine(ResilientScheduler):
         x = self._embed(tokens, torch.arange(tokens.shape[1],
                                              device=self.device))
         zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        for i, blk in enumerate(self._blocks):
-            q, k, v = blk._qkv(x, zero)
+        blk = self._block
+        for i, w in enumerate(self._layers):
+            q, k, v = blk._qkv(x, zero, w)
             attn = scaled_dot_product_attention(q, k, v, is_causal=True,
                                                 dropout_p=0.0)
-            x = blk._block_tail(x, attn.reshape(x.shape).to(x.dtype))
+            x = blk._block_tail(x, attn.reshape(x.shape).to(x.dtype), w)
             self._write_rows(i, k[0, :n], v[0, :n], tab, 0, n)
         logits = self._lm_head(x[:, n - 1:n])[:, 0]
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)[0]
@@ -349,13 +352,14 @@ class PagedDecodeEngine(ResilientScheduler):
         tables = self._fold(row_t[None].expand(bucket, -1))
         sp_t = torch.full((1,), sp, dtype=torch.int32, device=dev)
         dt = self.kp.dtype
-        for i, blk in enumerate(self._blocks):
-            q, k, v = blk._qkv(x, sp_t)
+        blk = self._block
+        for i, w in enumerate(self._layers):
+            q, k, v = blk._qkv(x, sp_t, w)
             self._write_rows(i, k[0, :n - sp], v[0, :n - sp], tab, sp, n)
             o = paged_decode_attention(q[0].to(dt).contiguous(), self.kp,
                                        self.vp, tables[i], lens_t,
                                        scale=self.scale)
-            x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape))
+            x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape), w)
         logits = self._lm_head(x[:, n - sp - 1:n - sp])[:, 0]
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)[0]
 

@@ -1,4 +1,4 @@
-"""Build the port's GPT from the JAX package's parameters.
+"""Carry GPT weights between the JAX package's names and the port.
 
 ``gpt_from_jax_state`` takes the flat name -> array dict of
 ``paddle_tpu`` ``GPT.state_dict()`` as numpy arrays (``wte``, ``wpe``,
@@ -6,6 +6,11 @@
 and returns the port's ``GPT`` with the same weights. Layouts stay as
 in JAX ((in, out) for every projection), so nothing is transposed. It
 fails on a missing or unexpected key and on a shape mismatch.
+
+``gpt_to_jax_state`` goes the other way: the port's parameters (or,
+with ``grads=True``, their gradients) as a flat name -> fp32 numpy dict
+in the JAX names, the slabs split into ``blocks.item_<i>.<name>`` — the
+keys of ``GPT.split_params()`` and of ``jax.grad`` over them.
 """
 
 from typing import Dict
@@ -17,16 +22,17 @@ from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch.models.gpt import (GPT, GPTConfig, block_param_specs,
                                          head_param_specs)
 
-__all__ = ["gpt_from_jax_state"]
+__all__ = ["gpt_from_jax_state", "gpt_to_jax_state"]
 
 
 def _tensor(arr, shape, dtype, dev, name):
-    a = np.asarray(arr, dtype=np.float32)  # bf16 arrays pass through fp32
+    # a fresh copy (bf16 arrays pass through fp32): the model trains in
+    # place and must never write into the caller's arrays
+    a = np.array(arr, dtype=np.float32, order="C", copy=True)
     if a.shape != tuple(shape):
         raise ValueError(f"{name}: shape {a.shape}, expected "
                          f"{tuple(shape)}")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
-                                                        dtype=dtype)
+    return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
 
 def gpt_from_jax_state(cfg: GPTConfig, state: Dict[str, np.ndarray],
@@ -49,3 +55,24 @@ def gpt_from_jax_state(cfg: GPTConfig, state: Dict[str, np.ndarray],
             _tensor(state[f"blocks.item_{i}.{n}"], s, dt, dev,
                     f"blocks.item_{i}.{n}") for i in range(L)])
     return GPT(cfg, device=dev, weights=weights)
+
+
+def _numpy(t, name, grads):
+    if grads:
+        t = t.grad
+        if t is None:
+            raise ValueError(f"{name} has no gradient (run a backward "
+                             f"or a train step first)")
+    return t.detach().float().cpu().numpy()
+
+
+def gpt_to_jax_state(model: GPT, grads: bool = False
+                     ) -> Dict[str, np.ndarray]:
+    cfg = model.cfg
+    out = {n: _numpy(getattr(model, n), n, grads)
+           for n in head_param_specs(cfg)}
+    for n in block_param_specs(cfg):
+        slab = _numpy(model.stacked[n], f"stacked.{n}", grads)
+        for i in range(cfg.n_layers):
+            out[f"blocks.item_{i}.{n}"] = slab[i]
+    return out

@@ -1,11 +1,13 @@
 """Attention functionals (counterpart of
 ``paddle_tpu/nn/functional/attention.py``).
 
-``scaled_dot_product_attention`` launches the hand-written flash
-forward (K1, ``ops/flash_attention.py``) for CUDA tensors, whatever the
-sequence length (the JAX package's ``q.shape[1] >= 128`` gate was a TPU
-tiling limit, not a semantic one), and runs ``attention_reference`` for
-CPU tensors. Nothing else chooses between the two. Layout (B, S, H, D);
+``scaled_dot_product_attention`` runs the differentiable flash path
+(``ops/flash_attention.py``) for CUDA tensors, whatever the sequence
+length (the JAX package's ``q.shape[1] >= 128`` gate was a TPU tiling
+limit, not a semantic one): the hand-written forward K1 and, under
+autograd, the backward kernels K3 and K4. CPU tensors run
+``attention_reference``, as the JAX package's CPU path runs its XLA
+reference. Nothing else chooses between the two. Layout (B, S, H, D);
 k/v may carry fewer heads (GQA). No amp casting in this slice.
 """
 
@@ -53,19 +55,19 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True,
                                  scale: Optional[float] = None,
                                  kv_lens: Optional[torch.Tensor] = None):
-    """Attention over (B, S, H, D): the flash kernel K1 on CUDA, the
-    plain reference on the CPU. ``kv_lens`` (B,) int32 masks keys at or
-    past kv_lens[b]. On CUDA, ``attn_mask`` and dropout raise (they
-    belong to the training and BERT slices)."""
+    """Attention over (B, S, H, D): the flash kernels (K1 forward, K3/K4
+    backward) on CUDA, the plain reference on the CPU. ``kv_lens`` (B,)
+    int32 masks keys at or past kv_lens[b]. Dropout raises (ROADMAP T1),
+    and so does ``attn_mask`` on CUDA (the flash bias, ROADMAP T1)."""
     eff_dropout = dropout_p if training else 0.0
     if eff_dropout > 0.0:
         raise NotImplementedError("attention dropout is not ported yet "
-                                  "(training slice)")
+                                  "(ROADMAP T1)")
     if query.device.type == "cuda":
         if attn_mask is not None:
             raise NotImplementedError("attn_mask on CUDA is not ported yet "
-                                      "(the flash kernel's bias: training "
-                                      "and BERT slices)")
+                                      "(the flash kernel's bias, ROADMAP "
+                                      "T1)")
         return flash_attention(query, key, value, causal=is_causal,
                                scale=scale, kv_lens=kv_lens)
     if attn_mask is None and kv_lens is not None:

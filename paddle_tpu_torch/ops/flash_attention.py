@@ -1,16 +1,24 @@
-"""Flash attention forward (kernel K1) and its plain PyTorch version.
+"""Flash attention: forward (kernel K1), backward (kernels K3, K4) and
+their plain PyTorch versions.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the CUDA
-kernel in ``csrc/flash_attention_fwd.cu`` replaces the TPU kernel
-``_fwd_kernel`` (launched by ``_fa_forward``, the ``pl.pallas_call`` at
-flash_attention.py:213). Its source note says what bounds it on the H100
-and what the design does about that.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``. The CUDA
+kernels replace its Pallas TPU kernels: K1 (``csrc/flash_attention_fwd.cu``)
+``_fwd_kernel`` (the ``pl.pallas_call`` at flash_attention.py:213); K3
+(``csrc/flash_attention_bwd.cu``) ``_bwd_dkdv_kernel`` (:395) and K4
+``_bwd_dq_kernel`` (:433), both run by ``_fa_backward`` (:359). Their
+source notes say what bounds them on the H100 and what the designs do
+about that.
 
-``flash_attention`` launches the kernel for CUDA tensors and runs
-``flash_attention_reference`` for CPU tensors; nothing else chooses
-between them. Layout (B, S, H, D) as in the JAX package. The backward
-kernels (K3, K4), the additive bias and dropout belong to later slices
-and raise here.
+``flash_attention`` is differentiable (a ``torch.autograd.Function``, the
+counterpart of the JAX ``_flash`` custom_vjp): the forward keeps (o, lse),
+the backward computes ``delta = rowsum(dO * O)`` in plain torch and then
+dK/dV (K3) and dQ (K4) from the saved LSE. CUDA tensors launch the
+kernels; CPU tensors run ``flash_attention_reference`` and
+``flash_attention_bwd_reference``; nothing else chooses between them.
+``flash_attention_plain`` is the same differentiable function through
+the plain versions on any device (what the kernels are held against).
+Layout (B, S, H, D) as in the JAX package. The additive bias and dropout
+raise (the GPT train path uses neither).
 """
 
 import ctypes
@@ -21,11 +29,35 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 
-__all__ = ["flash_attention", "flash_attention_reference", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_reference", "flash_attention_bwd_reference",
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_FLOOR = -1e30      # the kernels' floor on the running max
+
+
+def _visible(b, sq, sk, causal, kv_lens, device):
+    """(B, 1, Sq, Sk) bool: keys before kv_lens[b] and, when causal, at
+    or before the query row (the kernels' mask)."""
+    col = torch.arange(sk, device=device)
+    visible = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=device)
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device, dtype=torch.int64).clamp(max=sk)
+        visible = visible & (col[None, None, None, :]
+                             < lens[:, None, None, None])
+    if causal:
+        row = torch.arange(sq, device=device)
+        visible = visible & (col[None, :] <= row[:, None])[None, None]
+    return visible
+
+
+def _scores(q, k, scale, group):
+    """(B, Hq, Sq, Sk) fp32 q . k * scale, kv heads expanded for GQA."""
+    kf = k.float().repeat_interleave(group, dim=2)
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
 
 
 def flash_attention_reference(q, k, v, causal: bool = False,
@@ -35,97 +67,235 @@ def flash_attention_reference(q, k, v, causal: bool = False,
     in q's dtype and lse (B * Hq, Sq) fp32, computed in fp32. Same
     semantics as the kernel: keys at or past ``kv_lens[b]`` and, when
     causal, keys after the query row are masked; a row with no visible
-    key gives 0 and LSE 0."""
+    key gives 0 and LSE 0; p is rounded to v's dtype before p . v (a
+    no-op in fp32)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
-    col = torch.arange(sk, device=q.device)
-    visible = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=q.device)
-    if kv_lens is not None:
-        lens = kv_lens.to(device=q.device, dtype=torch.int64).clamp(max=sk)
-        visible = visible & (col[None, None, None, :]
-                             < lens[:, None, None, None])
-    if causal:
-        row = torch.arange(sq, device=q.device)
-        visible = visible & (col[None, :] <= row[:, None])[None, None]
-    s = s.masked_fill(~visible, float("-inf"))
+    s = _scores(q, k, scale, group)
+    s = s.masked_fill(~_visible(b, sq, sk, causal, kv_lens, q.device),
+                      float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m.clamp(min=_MASK_FLOOR))
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum("bhqk,bkhd->bqhd", p / l_safe, vf)
+    # p is rounded to v's dtype for p . v, as the TPU kernel does
+    o = (torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
+         / l_safe.permute(0, 2, 1, 3))
     lse = torch.where(l == 0, torch.zeros_like(l), m + torch.log(l_safe))
     return o.to(q.dtype), lse.reshape(b * hq, sq)
 
 
-def _lib():
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.pt_flash_attention_fwd
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
-                       ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
-    return lib
+def _delta(o, do):
+    """rowsum(dO * O) in fp32, (B * Hq, Sq) like the LSE."""
+    b, sq, hq, _ = o.shape
+    dlt = (do.float() * o.float()).sum(-1)            # (B, Sq, Hq)
+    return dlt.permute(0, 2, 1).reshape(b * hq, sq).contiguous()
 
 
-def _launch(q, k, v, causal, scale, kv_lens):
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                                  scale: Optional[float] = None,
+                                  kv_lens: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K3 and K4: ``(dq, dk, dv)`` of the
+    attention ``o`` (K1's output, with its (B * Hq, Sq) ``lse``) for the
+    cotangent ``do``, in fp32, cast to the inputs' dtypes. P is
+    recomputed from the LSE as the kernels do, masked keys give p = 0,
+    and dk/dv sum the query heads of each GQA group. As in the JAX
+    kernels, p and ds are rounded to the inputs' dtype before their
+    products (nothing changes in fp32)."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = _scores(q, k, scale, group)
+    s = s.masked_fill(~_visible(b, sq, sk, causal, kv_lens, q.device),
+                      float("-inf"))
+    p = torch.exp(s - lse.reshape(b, hq, sq, 1))
+    dof = do.float()
+    vf = v.float().repeat_interleave(group, dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = _delta(o, do).reshape(b, hq, sq, 1)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    p = p.to(do.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds,
+                      k.float().repeat_interleave(group, dim=2))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, hkv, group, d).sum(3)
+    dv = dv.reshape(b, sk, hkv, group, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "pt_flash_attention_fwd": [_I] + [_VP] * 6 + [_I] * 7 + [_F, _VP],
+    "pt_flash_attention_bwd_dkdv": [_I] + [_VP] * 9 + [_I] * 7 + [_F, _VP],
+    "pt_flash_attention_bwd_dq": [_I] + [_VP] * 8 + [_I] * 7 + [_F, _VP],
+}
+
+
+def _entry(lib_name, fn_name):
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[fn_name]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_inputs(q, k, v, kv_lens, do=None):
+    """Raise on what the kernels do not take."""
+    b = q.shape[0]
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_attention kernel takes float32 or "
+        raise TypeError(f"flash_attention kernels take float32 or "
                         f"bfloat16, got {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernels take head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {q.shape[3]}")
+    others = (("k", k), ("v", v)) + ((("do", do),) if do is not None
+                                     else ())
+    for name, t in others:
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{name} must match q's dtype and device")
-    if not (q.is_contiguous() and k.is_contiguous()
-            and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, *dict(others).values())):
+        raise ValueError("flash_attention kernels need contiguous, "
+                         "16-byte aligned inputs")
     if kv_lens is not None:
         if (kv_lens.dtype != torch.int32 or kv_lens.device != q.device
                 or kv_lens.shape != (b,) or not kv_lens.is_contiguous()):
             raise ValueError("kv_lens must be a contiguous (B,) int32 "
                              "tensor on q's device")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, causal, scale, kv_lens):
+    """K1: (o, lse) for CUDA tensors."""
+    _check_inputs(q, k, v, kv_lens)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b * hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    lib = _lib()
+    lib, fn = _entry("flash_attention_fwd", "pt_flash_attention_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         flash_attention.launches += 1
-        rc = lib.pt_flash_attention_fwd(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), None if kv_lens is None else kv_lens.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, sq, sk, hq, hkv, d,
-            int(bool(causal)), float(scale), stream)
+        rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), _ptr(kv_lens), o.data_ptr(), lse.data_ptr(),
+                b, sq, sk, hq, hkv, d, int(bool(causal)), float(scale),
+                stream)
     _build.check(lib, rc, "flash_attention_fwd launch")
     return o, lse
 
 
-def flash_attention(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None,
-                    kv_lens: Optional[torch.Tensor] = None, bias=None,
-                    dropout_p: float = 0.0, return_lse: bool = False):
-    """Flash attention over (B, S, H, D) inputs; returns o (B, Sq, Hq, D)
-    and, with ``return_lse``, the (B * Hq, Sq) fp32 log-sum-exp.
+def _check_residuals(q, lse, delta):
+    b, sq, hq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (b * hq, sq)
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (B * Hq, Sq) "
+                             f"float32 tensor on q's device")
 
-    k/v (B, Sk, Hkv, D) with Hq % Hkv == 0 (GQA: query head h reads kv
-    head h // (Hq // Hkv)); ``causal`` needs Sq == Sk; ``kv_lens`` (B,)
-    int32 masks keys at or past kv_lens[b]. CUDA tensors launch K1
-    (float32 or bfloat16, D <= 128); CPU tensors run the plain version.
-    """
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool,
+                             scale: float,
+                             kv_lens: Optional[torch.Tensor] = None):
+    """K3: (dk, dv), each like k, for CUDA tensors (q, do (B, Sq, Hq, D),
+    k, v (B, Sk, Hkv, D), lse and delta (B * Hq, Sq) fp32)."""
+    _check_inputs(q, k, v, kv_lens, do=do)
+    _check_residuals(q, lse, delta)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    lib, fn = _entry("flash_attention_bwd", "pt_flash_attention_bwd_dkdv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        flash_attention_bwd_dkdv.launches += 1
+        rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), _ptr(kv_lens), dk.data_ptr(),
+                dv.data_ptr(), b, sq, sk, hq, hkv, d, int(bool(causal)),
+                float(scale), stream)
+    _build.check(lib, rc, "flash_attention_bwd_dkdv launch")
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
+                           scale: float,
+                           kv_lens: Optional[torch.Tensor] = None):
+    """K4: dq, like q, for CUDA tensors (arguments as for K3)."""
+    _check_inputs(q, k, v, kv_lens, do=do)
+    _check_residuals(q, lse, delta)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    lib, fn = _entry("flash_attention_bwd", "pt_flash_attention_bwd_dq")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        flash_attention_bwd_dq.launches += 1
+        rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), _ptr(kv_lens), dq.data_ptr(), b, sq, sk,
+                hq, hkv, d, int(bool(causal)), float(scale), stream)
+    _build.check(lib, rc, "flash_attention_bwd_dq launch")
+    return dq
+
+
+class _Flash(torch.autograd.Function):
+    """(o, lse) = attention(q, k, v); the backward recomputes P from the
+    saved LSE. ``plain`` runs the plain versions, else the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, scale, plain):
+        if plain:
+            o, lse = flash_attention_reference(q, k, v, causal, scale,
+                                               kv_lens)
+        else:
+            o, lse = _launch(q, k, v, causal, scale, kv_lens)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, kv_lens = ctx.saved_tensors
+        if ctx.plain:
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, o, lse, do, ctx.causal, ctx.scale, kv_lens)
+        else:
+            do = do.contiguous()
+            delta = _delta(o, do)
+            dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                              ctx.causal, ctx.scale,
+                                              kv_lens)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                        ctx.causal, ctx.scale, kv_lens)
+        return dq, dk, dv, None, None, None, None
+
+
+def _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p, return_lse,
+            plain):
     if bias is not None:
         raise NotImplementedError("flash_attention bias is not ported yet "
-                                  "(training and BERT slices)")
+                                  "(ROADMAP T1)")
     if dropout_p > 0.0:
         raise NotImplementedError("flash_attention dropout is not ported "
-                                  "yet (training slice)")
+                                  "yet (ROADMAP T1)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B,Sq,Hq,D) and k/v (B,Sk,Hkv,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -141,16 +311,43 @@ def flash_attention(q, k, v, causal: bool = False,
                          f"{sq} vs {k.shape[1]}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        o, lse = flash_attention_reference(q, k, v, causal, scale, kv_lens)
-    elif q.device.type == "cuda":
-        if d > MAX_HEAD_DIM:
-            raise ValueError(f"flash_attention kernel takes head_dim <= "
-                             f"{MAX_HEAD_DIM}, got {d}")
-        o, lse = _launch(q, k, v, causal, scale, kv_lens)
-    else:
-        raise ValueError(f"unsupported device {q.device}")
+    o, lse = _Flash.apply(q, k, v, kv_lens, bool(causal), float(scale),
+                          plain)
     return (o, lse) if return_lse else o
 
 
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None, bias=None,
+                    dropout_p: float = 0.0, return_lse: bool = False):
+    """Flash attention over (B, S, H, D) inputs; returns o (B, Sq, Hq, D)
+    and, with ``return_lse``, the (B * Hq, Sq) fp32 log-sum-exp.
+    Differentiable in q, k and v.
+
+    k/v (B, Sk, Hkv, D) with Hq % Hkv == 0 (GQA: query head h reads kv
+    head h // (Hq // Hkv)); ``causal`` needs Sq == Sk; ``kv_lens`` (B,)
+    int32 masks keys at or past kv_lens[b]. CUDA tensors launch K1 and,
+    in the backward, K3 and K4 (float32 or bfloat16, D <= 128); CPU
+    tensors run the plain versions.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p,
+                   return_lse, plain=q.device.type == "cpu")
+
+
+def flash_attention_plain(q, k, v, causal: bool = False,
+                          scale: Optional[float] = None,
+                          kv_lens: Optional[torch.Tensor] = None, bias=None,
+                          dropout_p: float = 0.0, return_lse: bool = False):
+    """``flash_attention`` through the plain versions on any device (the
+    forward ``flash_attention_reference``, the backward
+    ``flash_attention_bwd_reference``): the function the kernels are
+    held against on the card. Launches nothing."""
+    return _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p,
+                   return_lse, plain=True)
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0

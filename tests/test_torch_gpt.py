@@ -2,7 +2,7 @@
 through ``gpt_from_jax_state`` give the same logits (fp32, CPU), for
 gpt_tiny and for a tiny GQA + rope + untied + bias-free config; the
 converter refuses a missing or unexpected key; the random init is
-seeded and the per-layer blocks are views of the stacked slabs."""
+seeded and the per-layer weights are views of the stacked slabs."""
 
 import dataclasses
 
@@ -90,8 +90,8 @@ def test_seeded_init_and_stacked_views():
     c = gpt.GPT(cfg, seed=6, device="cpu")
     assert torch.equal(a.stacked["wqkv"], b.stacked["wqkv"])
     assert not torch.equal(a.stacked["wqkv"], c.stacked["wqkv"])
-    for i, blk in enumerate(a.blocks):
-        assert blk.wqkv.data_ptr() == a.stacked["wqkv"][i].data_ptr()
+    for i, w in enumerate(a.layer_weights()):
+        assert w["wqkv"].data_ptr() == a.stacked["wqkv"][i].data_ptr()
     # the JAX init's shapes and constants
     assert a.stacked["wqkv"].shape == (2, 64, 192)
     assert torch.equal(a.stacked["ln1_scale"], torch.ones(2, 64))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 GPU (marker ``cuda``; each test skips without a CUDA device). The plain
 versions are held against the JAX package on the CPU in
-test_torch_flash_attention.py and test_torch_paged_attention.py.
+test_torch_flash_attention.py, test_torch_flash_attention_bwd.py,
+test_torch_fused_ce.py and test_torch_paged_attention.py.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -15,8 +16,12 @@ import torch
 
 from paddle_tpu_torch.inference.paged_engine import PagedDecodeEngine
 from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_reference)
+from paddle_tpu_torch.ops.fused_ce import (
+    fused_ce_bwd_reference, fused_ce_dw, fused_ce_dx, fused_ce_fwd,
+    fused_ce_reference, fused_softmax_cross_entropy)
 from paddle_tpu_torch.ops.paged_attention import (
     paged_append_attend, paged_append_attend_reference,
     paged_decode_attention, paged_decode_attention_reference)
@@ -47,6 +52,7 @@ def _randn(gen, shape, dtype, dev):
     (1, 100, 100, 4, 2, 128, True, None),
     (2, 70, 190, 2, 2, 32, False, [0, 150]),
     (1, 300, 300, 8, 1, 128, True, [257]),
+    (1, 90, 90, 4, 2, 40, True, [70]),     # D % 16 != 0: the FP32 pipes
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d,
                                     causal, lens):
@@ -149,3 +155,163 @@ def test_engine_on_gpu_matches_engine_on_cpu(dev):
         eng.run()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+def _close(got, ref, dtype):
+    """Within 1e-4 (fp32: summation order) or 2^-7 (bf16: one rounding
+    of the output) of max(1, the largest |ref|)."""
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= rel * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, s, hq, hkv, d, causal, lens", [
+    (2, 128, 4, 4, 64, True, None),
+    (1, 100, 4, 2, 128, True, None),
+    (2, 190, 2, 2, 32, False, [0, 150]),
+    (1, 300, 8, 1, 128, True, [257]),
+    (2, 77, 4, 2, 96, False, None),
+    (1, 90, 4, 2, 40, True, [70]),         # D % 16 != 0: the FP32 pipes
+])
+def test_flash_backward_kernels_match_plain(dev, dtype, b, s, hq, hkv, d,
+                                            causal, lens):
+    """K3 and K4 on the same (o, lse, delta) as the plain backward."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q = _randn(gen, (b, s, hq, d), dtype, dev)
+    k = _randn(gen, (b, s, hkv, d), dtype, dev)
+    v = _randn(gen, (b, s, hkv, d), dtype, dev)
+    do = _randn(gen, (b, s, hq, d), dtype, dev)
+    kv_lens = (None if lens is None
+               else torch.tensor(lens, dtype=torch.int32, device=dev))
+    scale = d ** -0.5
+    o, lse = flash_attention_reference(q, k, v, causal, scale, kv_lens)
+    delta = fa._delta(o, do)
+    before = (fa.flash_attention_bwd_dkdv.launches,
+              fa.flash_attention_bwd_dq.launches)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                         scale, kv_lens)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale,
+                                   kv_lens)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dkdv.launches,
+            fa.flash_attention_bwd_dq.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    rq, rk, rv = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), o, lse, do.float(), causal, scale,
+        kv_lens)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == dtype
+        _close(got, ref, dtype)
+
+
+def test_flash_autograd_on_gpu_matches_cpu(dev):
+    """fp32 end to end: autograd through K1/K3/K4 on the GPU against the
+    plain path on the CPU."""
+    rs = np.random.RandomState(0)
+    arrs = [rs.randn(2, 130, h, 64).astype(np.float32) for h in (4, 2, 2)]
+    do = torch.from_numpy(rs.randn(2, 130, 4, 64).astype(np.float32))
+    grads = []
+    for device in ("cpu", dev):
+        qkv = [torch.from_numpy(a).to(device).requires_grad_()
+               for a in arrs]
+        o = flash_attention(*qkv, causal=True)
+        grads.append(torch.autograd.grad(o, qkv, do.to(device)))
+    for c, g in zip(*grads):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, d, V", [(200, 64, 1000), (64, 32, 256),
+                                     (333, 128, 4096), (1, 8, 130)])
+def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V):
+    """K5 against fused_ce_reference (loss and lse to 1e-4 of the
+    largest; both sum fp32 products of the same inputs), K6/K7 against
+    fused_ce_bwd_reference (tolerance as for attention). Ragged rows,
+    a vocabulary that is no multiple of the 128-column tile, ignored
+    labels."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    x = _randn(gen, (n, d), dtype, dev)
+    w = (0.5 * _randn(gen, (V, d), torch.float32, dev)).to(dtype)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels[::3] = -1
+    g = torch.randn((n,), generator=gen, device=dev)
+    g = torch.where(labels >= 0, g, torch.zeros_like(g))
+    before = [f.launches for f in (fused_ce_fwd, fused_ce_dx, fused_ce_dw)]
+    loss, lse = fused_ce_fwd(x, w, labels)
+    dx = fused_ce_dx(x, w, labels, lse, g)
+    dw = fused_ce_dw(x, w, labels, lse, g)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (fused_ce_fwd, fused_ce_dx,
+                                 fused_ce_dw)] == [c + 1 for c in before]
+    rloss, rlse = fused_ce_reference(x.float(), w.float(), labels)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
+    assert torch.all(loss[labels < 0] == 0)
+    rdx, rdw = fused_ce_bwd_reference(x.float(), w.float(), labels, lse, g)
+    assert dx.dtype == dw.dtype == dtype
+    _close(dx, rdx, dtype)
+    _close(dw, rdw, dtype)
+
+
+def test_fused_ce_autograd_on_gpu_matches_cpu(dev):
+    rs = np.random.RandomState(1)
+    x = rs.randn(150, 64).astype(np.float32)
+    w = rs.randn(640, 64).astype(np.float32)
+    lab = rs.randint(-1, 640, size=150).astype(np.int32)
+    gl = torch.from_numpy(rs.randn(150).astype(np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        wt = torch.from_numpy(w).to(device).requires_grad_()
+        per = fused_softmax_cross_entropy(xt, wt,
+                                          torch.from_numpy(lab).to(device))
+        outs.append((per,) + torch.autograd.grad(per, (xt, wt),
+                                                 gl.to(device)))
+    for c, g in zip(*outs):
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_gpu_matches_cpu(dev):
+    """fp32 tiny GPT: two train steps through the kernels on the GPU and
+    through the plain versions on the CPU give the same losses, step-1
+    gradients and parameters. Adam divides by |g|, so an entry whose
+    step-1 gradient is below 1e-4 of its parameter's largest steps by
+    about +-lr on rounding noise and may differ by 2 lr per step."""
+    from paddle_tpu_torch.optimizer import AdamW
+    lr = 1e-3
+    cfg = gpt.GPTConfig(vocab_size=256, max_seq_len=64, d_model=64,
+                        n_layers=2, n_heads=2, use_bias=False,
+                        dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, size=(2, 48)).astype(np.int32))
+    results = []
+    for device in ("cpu", dev):
+        model = gpt.GPT(cfg, seed=0, device="cpu")
+        if device != "cpu":
+            model = gpt.GPT(cfg, device=dev, weights={
+                n.removeprefix("stacked."): p.detach().to(dev)
+                for n, p in model.named_parameters()})
+        opt = AdamW(learning_rate=lr, moment_dtype=torch.bfloat16)
+        params, state = gpt.init_train_state(model, opt)
+        step = gpt.build_train_step(model, opt)
+        losses, grads = [], None
+        for _ in range(2):
+            params, state, loss = step(params, state, tokens.to(device))
+            losses.append(loss.item())
+            if grads is None:
+                grads = {n: p.grad.cpu() for n, p in params.items()}
+        results.append((losses, grads, {n: p.detach().cpu()
+                                        for n, p in params.items()}))
+    (cpu_loss, cpu_grad, cpu_p), (gpu_loss, gpu_grad, gpu_p) = results
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-5)
+    for n, p in cpu_p.items():
+        torch.testing.assert_close(gpu_grad[n], cpu_grad[n], atol=1e-5,
+                                   rtol=1e-4)
+        g = cpu_grad[n].abs()
+        atol = torch.where(g > 1e-4 * g.max(), 2e-5, 4 * lr)
+        assert ((gpu_p[n] - p).abs() <= atol).all(), n

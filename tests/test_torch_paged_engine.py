@@ -155,7 +155,7 @@ def test_suffix_prefill_matches_full_prefill_and_donor_weights(port_model):
         eng.run()
         streams.append([r.tokens for r in reqs])
         donor = eng
-    assert eng._blocks is donor._blocks and eng._prefix is None
+    assert eng._layers is donor._layers and eng._prefix is None
     assert streams[0] == streams[1]
 
 

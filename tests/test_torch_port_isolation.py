@@ -41,6 +41,9 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch\n"
             "import paddle_tpu_torch.inference.factory\n"
             "import paddle_tpu_torch.models.convert\n"
+            "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.ops.fused_ce\n"
+            "import paddle_tpu_torch.ops.flash_attention\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -74,5 +77,6 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert sorted(_build.sources()) == ["flash_attention_fwd",
+    assert sorted(_build.sources()) == ["flash_attention_bwd",
+                                        "flash_attention_fwd", "fused_ce",
                                         "paged_attention"]
