@@ -34,24 +34,55 @@ Phases, each fatal on failure:
    relative L2. Then 5 more kernel steps: the loss must fall; step time,
    tokens/s, MFU, peak memory, launches per step (K1, K3, K4 = L; K5,
    K6, K7 = 1, counted from zero over the kernel steps) and a
-   torch.profiler breakdown of one step.
+   torch.profiler breakdown of one step;
+6. K10 and K12 kernels, at the contiguous engine's shapes: K10
+   flash-decode (B 8, 16 query heads over 16 and 4 kv heads of 128, T
+   2048, lengths 0..2047 including an empty row), with and without
+   (m, l); K12 int8 matmul, the four gpt3_1p3b block products at M 8
+   (decode) and M 128 (a prefill bucket). Checks: ``decode_attention_
+   check`` and ``quant_matmul_check``;
+7. contiguous serving — the same gpt3_1p3b through
+   ``make_engine(engine="contiguous")`` (cache 2048, so decode takes
+   K10): 8 prompts of 128 tokens and one of 1,200 (chunked prefill over
+   buckets of 512), 64 new tokens each; launches K10 = L x decode steps,
+   K12 = K1 = 0; the teacher-forced check;
+8. int8 serving — ``DecodeEngine(None, share_weights_with=<7's engine>,
+   weight_dtype="int8")`` on the same prompts; launches K12 = 4 L per
+   decode step and per prefill chunk, K10 as in 7; tokens checked
+   against a teacher-forced forward of the same int8 weights with K12
+   replaced by its plain version; the share of tokens equal to 7's;
+9. decode device time — per decode step of each engine, from a
+   torch.profiler window of decode dispatches, beside its weight-read
+   floor;
+10. generate — ``GPT.generate``, greedy, 4 prompts of 128 tokens, 32 new
+   tokens, cache 2048: K10 = L x 31 launches; the teacher-forced check.
+
+Phases 6-10 run before 5 (which needs the card's memory for training).
 
 Then one ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Imports neither jax nor paddle_tpu.
 """
 
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+H100_L2_BYTES = 50e6
 # dense bf16 tensor-core peak (the JAX bench's MFU denominator too)
 H100_BF16_FLOPS = 989.4e12
 # a bf16 output rounds each entry by at most 2^-8 of itself (about 2^-9
 # root mean square): the kernels' outputs are held within 2^-7 relative
 # L2 of their plain versions, per tile or row that one block writes
 REL_L2_TOL = 2.0 ** -7
+# K10's (m, l) against the plain softmax's: fp32 sums in another order
+STATS_REL_TOL = 1e-3
+# an emitted token's logit within this of its row's maximum under a
+# teacher-forced plain forward: four bf16 ulps at |logit| in [4, 8)
+TEACHER_FORCED_TOL = 0.125
 SEED = 0
 
 
@@ -81,6 +112,41 @@ def _event_ms(torch, fn, iters=20, warmup=3):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _device_ms(torch, fn, keys=None, iters=20, warmup=3):
+    """Mean device milliseconds per call of ``fn`` spent in CUDA kernels
+    (those whose name holds one of ``keys``, or all), summed from a
+    torch.profiler trace: the kernels' own time, without the host's
+    gaps between launches, which CUDA events around back-to-back calls
+    also count when a call's Python is slower than its kernels. None
+    when the profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start
+                for e in prof.events() if e.device_type == DeviceType.CUDA
+                and (keys is None or any(k in e.name for k in keys)))
+    return total / 1e3 / iters if total else None
+
+
+def _cold(operands, nbytes):
+    """A function returning, call after call, one of enough copies of
+    ``operands`` (a tuple of tensors) that ``nbytes`` read from each
+    copy add up to twice the 50 MB L2: a timed loop then finds every
+    operand cold, as the serving path finds each layer's own weights
+    and cache. The first copy is ``operands`` itself."""
+    n = max(1, math.ceil(2 * H100_L2_BYTES / nbytes))
+    copies = [operands] + [tuple(t.clone() for t in operands)
+                           for _ in range(n - 1)]
+    return itertools.cycle(copies).__next__
 
 
 def _bound(nbytes, flops):
@@ -143,6 +209,46 @@ def ce_grads_check(dx, dw, ref_dx, ref_dw, labels):
                                (1,)).item()}
     rec["ok"] = bool(rec["dx_row_rel_l2_max"] <= REL_L2_TOL
                      and rec["dw_row_rel_l2_max"] <= REL_L2_TOL)
+    return rec
+
+
+def decode_attention_check(o, m, l, ref_o, ref_m, ref_l, lengths):
+    """K10's (o, m, l) against the plain version's on a (B, Hq, D)
+    output: o per (row, head) within REL_L2_TOL where the row sees a
+    key; an empty row exactly o = 0, m = -inf, l = 0; m and l within
+    STATS_REL_TOL (of max(1, |ref|) for m, which crosses zero). ``m``
+    and ``l`` may be None (the call without stats)."""
+    live = lengths > 0
+    rows = rel_l2(o, ref_o, (2,))
+    rec = {"row_rel_l2_max": rows[live].max().item(),
+           "finite": bool(o.float().isfinite().all().item()),
+           "empty_o_zero": bool((o[~live] == 0).all().item())}
+    ok = (rec["row_rel_l2_max"] <= REL_L2_TOL and rec["finite"]
+          and rec["empty_o_zero"])
+    if m is not None:
+        rm, rl = ref_m[live], ref_l[live]
+        rec["m_rel_err_max"] = ((m[live] - rm).abs()
+                                / rm.abs().clamp_min(1.0)).max().item()
+        rec["l_rel_err_max"] = ((l[live] - rl).abs()
+                                / rl.abs()).max().item()
+        rec["empty_stats_exact"] = bool(
+            (m[~live] == float("-inf")).all().item()
+            and (l[~live] == 0).all().item())
+        ok = (ok and rec["m_rel_err_max"] <= STATS_REL_TOL
+              and rec["l_rel_err_max"] <= STATS_REL_TOL
+              and rec["empty_stats_exact"])
+    rec["ok"] = bool(ok)
+    return rec
+
+
+def quant_matmul_check(out, ref):
+    """K12's (M, N) output against the plain version's, per row within
+    REL_L2_TOL."""
+    rows = rel_l2(out, ref, (1,))
+    rec = {"row_rel_l2_max": rows.max().item(),
+           "finite": bool(out.float().isfinite().all().item())}
+    rec["ok"] = bool(rec["row_rel_l2_max"] <= REL_L2_TOL
+                     and rec["finite"])
     return rec
 
 
@@ -473,14 +579,171 @@ def ce_case(torch, dev, gen):
     return rec
 
 
-def _train_counters():
+K10_LENGTHS = [0, 1, 127, 128, 517, 1023, 1024, 2047]
+# the four gpt3_1p3b block products (K, N): wqkv, wo, wup, wdown
+K12_PRODUCTS = (("wqkv", 2048, 6144), ("wo", 2048, 2048),
+                ("wup", 2048, 8192), ("wdown", 8192, 2048))
+
+
+def k10_case(torch, dev, gen, hkv):
+    """K10 at the contiguous engine's decode shape: B 8, 16 query heads,
+    T 2048, D 128, bf16, mixed lengths with an empty row; with and
+    without (m, l), each held by ``decode_attention_check``."""
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    import torch.nn.functional as F
+    B, Hq, T, D = len(K10_LENGTHS), 16, 2048, 128
+    bf = torch.bfloat16
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(bf)
+    k = torch.randn((B, hkv, T, D), generator=gen, device=dev).to(bf)
+    v = torch.randn((B, hkv, T, D), generator=gen, device=dev).to(bf)
+    lens = torch.tensor(K10_LENGTHS, dtype=torch.int32, device=dev)
+    o, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    o_plain = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ro, rm, rl = decode_attention_reference(q, k, v, lens,
+                                            return_stats=True)
+    with_stats = decode_attention_check(o, m, l, ro, rm, rl, lens)
+    without = decode_attention_check(o_plain, None, None, ro, None, None,
+                                     lens)
+    live = lens > 0
+    err = (o.float() - ro.float())[live].abs().max().item()
+    elt = q.element_size()
+    n_keys = sum(K10_LENGTHS)
+    nbytes = (2 * n_keys * hkv * D * elt + 2 * q.numel() * elt
+              + 2 * B * Hq * 4 + B * 4)
+    # device time of the kernel (profiler) over caches found cold, beside
+    # CUDA events around back-to-back calls, which count the wrapper's
+    # host time too
+    kv = _cold((k, v), nbytes)
+    call = (lambda: decode_attention(q, *kv(), lens, return_stats=True))
+    ms = _device_ms(torch, call, ("decode_kernel",))
+    call_ms = _event_ms(torch, call)
+    ms_no_stats = _device_ms(torch, lambda: decode_attention(q, *kv(), lens),
+                             ("decode_kernel",))
+    plain_ms = _device_ms(torch, lambda: decode_attention_reference(
+        q, *kv(), lens, return_stats=True), iters=5, warmup=1)
+    del kv
+    # the library: sdpa over the whole cache with a length mask, kv
+    # heads expanded outside the timed region (the empty row gives NaN
+    # there; only the time is used)
+    kvt = _cold(tuple(x.repeat_interleave(Hq // hkv, dim=1)
+                      for x in (k, v)), 2 * n_keys * Hq * D * elt)
+    mask = (torch.arange(T, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], *kvt(), attn_mask=mask))
+    del kvt
+    flops = 4 * n_keys * Hq * D
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {"phase": f"k10_decode_attention_hkv{hkv}", "B": B, "Hq": Hq,
+           "Hkv": hkv, "T": T, "D": D, "lengths": K10_LENGTHS,
+           "dtype": "bfloat16", "check_stats": with_stats,
+           "check_no_stats": without, "tol_rel_l2": REL_L2_TOL,
+           "stats_tol_rel": STATS_REL_TOL, "max_abs_err": err,
+           "kernel_ms": ms, "kernel_ms_no_stats": ms_no_stats,
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "timing": "device time (torch.profiler), caches cold; "
+                     "call_ms: CUDA events around back-to-back calls",
+           "library": "F.scaled_dot_product_attention over the cache, "
+                      "length mask",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": bool(with_stats["ok"] and without["ok"]
+                      and None not in (ms, ms_no_stats, plain_ms,
+                                       lib_ms))}
+    _phase(rec)
+    return rec
+
+
+K12_KERNELS = ("rows_kernel", "tiles_kernel", "finalize_kernel")
+
+
+def k12_case(torch, dev, gen):
+    """K12 on the four gpt3_1p3b block products at M 8 (decode: the
+    weight stream) and M 128 (a prefill bucket: the wmma tiles), bf16,
+    weights drawn at std 0.02 and quantized per output column; each
+    output held by ``quant_matmul_check``. The library yardstick is
+    ``torch.matmul`` on the weight dequantized to bf16 beforehand, which
+    reads twice the weight bytes."""
+    from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                   int8_matmul_reference)
+    from paddle_tpu_torch.quantization import quantize_tensor
+    bf = torch.bfloat16
+    cases, ok, err = [], True, 0.0
+    for name, K, N in K12_PRODUCTS:
+        qt = quantize_tensor((0.02 * torch.randn(
+            (K, N), generator=gen, device=dev)).to(bf))
+        w_deq = qt.dequantize()
+        for M in (8, 128):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            out = int8_matmul(x, qt.q, qt.scale)
+            torch.cuda.synchronize()
+            ref = int8_matmul_reference(x, qt.q, qt.scale)
+            check = quant_matmul_check(out, ref)
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            # every layer reads its own weights: time them cold
+            wq = _cold((qt.q,), K * N)
+            call = (lambda: int8_matmul(x, *wq(), qt.scale))
+            ms = _device_ms(torch, call, K12_KERNELS)
+            call_ms = _event_ms(torch, call)
+            plain_ms = _device_ms(torch, lambda: int8_matmul_reference(
+                x, *wq(), qt.scale), iters=5, warmup=1)
+            wd = _cold((w_deq,), 2 * K * N)
+            lib_ms = _device_ms(torch, lambda: torch.matmul(x, *wd()))
+            del wq, wd
+            bound_ms, bound_by = _bound(nbytes, 2 * M * K * N)
+            cases.append({"product": name, "M": M, "K": K, "N": N,
+                          "check": check, "kernel_ms": ms,
+                          "call_ms": call_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by})
+            ok = (ok and check["ok"]
+                  and None not in (ms, plain_ms, lib_ms))
+    decode = [c for c in cases if c["M"] == 8]
+    rec = {"phase": "k12_int8_matmul", "dtype": "bfloat16",
+           "tol_rel_l2": REL_L2_TOL, "cases": cases, "max_abs_err": err,
+           "timing": "device time (torch.profiler), weights cold; "
+                     "call_ms: CUDA events around back-to-back calls",
+           "library": "torch.matmul on the bf16-dequantized weight "
+                      "(twice the weight bytes)",
+           # one decode layer's four products at M 8, summed
+           "decode_layer_ms": sum(c["kernel_ms"] for c in decode),
+           "decode_layer_plain_ms": sum(c["plain_ms"] for c in decode),
+           "decode_layer_library_ms": sum(c["library_ms"] for c in decode),
+           "decode_layer_bound_ms": sum(c["bound_ms"] for c in decode),
+           "ok": bool(ok)}
+    _phase(rec)
+    return rec
+
+
+def _counters():
+    """Every ported kernel's wrapper, by name: a path's launches are
+    these counters, zeroed just before the path and read just after."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as ce
+    from paddle_tpu_torch.ops.decode_attention import decode_attention
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_append_attend, paged_decode_attention)
+    from paddle_tpu_torch.ops.quant_matmul import int8_matmul
     return {"flash_attention": fa.flash_attention,
+            "paged_append_attend": paged_append_attend,
+            "paged_decode_attention": paged_decode_attention,
             "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_dx": ce.fused_ce_dx,
-            "fused_ce_dw": ce.fused_ce_dw}
+            "fused_ce_dw": ce.fused_ce_dw,
+            "decode_attention": decode_attention,
+            "int8_matmul": int8_matmul}
+
+
+def _zero_counters():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counters():
+    return {n: fn.launches for n, fn in _counters().items()}
 
 
 def train_phase(torch, dev, n_steps=6):
@@ -531,11 +794,9 @@ def train_phase(torch, dev, n_steps=6):
     opt = optimizer()
     params, state = gpt.init_train_state(model, opt)
     step = gpt.build_train_step(model, opt)
-    counters = _train_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counters()
     losses, step_s = [], []
     grad_err = {}
     for i in range(n_steps):
@@ -550,12 +811,13 @@ def train_phase(torch, dev, n_steps=6):
                 grad_err[n] = ((p.grad.float() - ref).norm()
                                / ref.norm().clamp(min=1e-30)).item()
             del plain_grads
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(dev)
     L = cfg.n_layers
-    expected = {"flash_attention": L, "flash_attention_bwd_dkdv": L,
-                "flash_attention_bwd_dq": L, "fused_ce_fwd": 1,
-                "fused_ce_dx": 1, "fused_ce_dw": 1}
+    expected = {n: 0 for n in launches}
+    expected.update({"flash_attention": L, "flash_attention_bwd_dkdv": L,
+                     "flash_attention_bwd_dq": L, "fused_ce_fwd": 1,
+                     "fused_ce_dx": 1, "fused_ce_dw": 1})
     per_step = {n: c / n_steps for n, c in launches.items()}
     counts_ok = all(per_step[n] == e for n, e in expected.items())
     loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
@@ -595,7 +857,9 @@ _FAMILIES = (("flash_fwd", ("flash_fwd_",)),
              ("flash_bwd", ("flash_bwd_",)),
              ("fused_ce", ("ce_fwd_kernel", "ce_fwd_merge", "ce_dx_kernel",
                            "ce_dw_kernel", "sum_ranges")),
-             ("paged_attention", ("paged_kernel",)))
+             ("paged_attention", ("paged_kernel",)),
+             ("decode_attention", ("decode_kernel",)),
+             ("int8_matmul", K12_KERNELS))
 
 
 def _family(name):
@@ -658,61 +922,14 @@ def train_breakdown(torch, step, params, state, tokens):
     _phase(rec)
 
 
-def serving_phase(torch, dev):
-    import numpy as np
-    from paddle_tpu_torch import stats
-    from paddle_tpu_torch.inference.factory import make_engine
-    from paddle_tpu_torch.models import gpt
+def teacher_forced(torch, dev, model, reqs, tol=TEACHER_FORCED_TOL):
+    """Each emitted token's logit within ``tol`` of its row's maximum
+    under a teacher-forced plain forward of ``model`` (plain attention,
+    the model's dtype): the serving paths round their bf16 matmuls at
+    other shapes (a few decode rows vs one sequence). Returns the worst
+    gap, the share of tokens that are the row's argmax, whether every
+    logit is finite, and ok."""
     from paddle_tpu_torch.nn.functional import attention_reference
-    from paddle_tpu_torch.ops.flash_attention import flash_attention
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_append_attend, paged_decode_attention)
-
-    cfg = gpt.gpt3_1p3b()
-    t0 = time.perf_counter()
-    model = gpt.GPT(cfg, seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    chunk, n_new = 16, 64
-    eng = make_engine(model, n_pages=64, max_slots=8, steps_per_call=chunk)
-    rs = np.random.RandomState(SEED)
-    prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
-               for _ in range(8)]
-    prompts.append(prompts[0][:128]
-                   + rs.randint(0, cfg.vocab_size, size=40).tolist())
-
-    stats.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention.launches = 0
-    paged_append_attend.launches = 0
-    paged_decode_attention.launches = 0
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
-    eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "paged_append_attend": paged_append_attend.launches,
-                "paged_decode_attention": paged_decode_attention.launches}
-    peak = torch.cuda.max_memory_allocated(dev)
-
-    L = cfg.n_layers
-    n_suffix = int(stats.get("serve/dispatches/prefill_suffix"))
-    n_cold = len(prompts) - n_suffix
-    decode_steps = eng.steps * eng.chunk
-    counts_ok = (launches["flash_attention"] == L * n_cold
-                 and launches["paged_append_attend"] == L * decode_steps
-                 and launches["paged_decode_attention"] > 0
-                 and n_suffix == 1)
-    done_ok = all(r.done and not r.failed and len(r.tokens) == n_new
-                  for r in reqs)
-
-    # teacher-forced check: each emitted token's logit within `tol` of
-    # its row's maximum under a plain forward (plain attention, bf16):
-    # four bf16 ulps at |logit| in [4, 8) — the two paths round their
-    # bf16 matmuls at different shapes (8 decode rows vs one sequence)
-    tol = 0.125
     worst, exact, total = 0.0, 0, 0
     finite = True
     for r in reqs:
@@ -726,31 +943,295 @@ def serving_phase(torch, dev):
         worst = max(worst, gap.max().item())
         exact += int((gap == 0).sum().item())
         total += len(r.tokens)
+    return {"teacher_forced_max_gap": worst, "teacher_forced_tol": tol,
+            "teacher_forced_exact_frac": exact / max(1, total),
+            "logits_finite": finite, "ok": bool(finite and worst <= tol)}
+
+
+def _serve_batch(torch, dev, eng, prompts, n_new):
+    """One closed batch through ``eng`` with every kernel counter zeroed
+    just before and read just after: (requests, wall s, launches, peak
+    device memory)."""
+    from paddle_tpu_torch import stats
+    stats.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (reqs, wall, _read_counters(),
+            torch.cuda.max_memory_allocated(dev))
+
+
+def _latency(reqs, wall):
     # exact medians over the requests' own timestamps (upper median)
     ttfts = sorted(r.ttft_s for r in reqs)
     tpots = sorted(r.tpot_s for r in reqs)
     n_tok = sum(len(r.tokens) for r in reqs)
+    return {"requests": len(reqs), "new_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+            "tpot_p50_s": tpots[len(tpots) // 2], "tpot_max_s": tpots[-1]}
+
+
+def serving_phase(torch, dev, model=None):
+    import numpy as np
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.factory import make_engine
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.gpt3_1p3b()
+    init_s = None
+    if model is None:
+        t0 = time.perf_counter()
+        model = gpt.GPT(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    chunk, n_new = 16, 64
+    eng = make_engine(model, n_pages=64, max_slots=8, steps_per_call=chunk)
+    rs = np.random.RandomState(SEED)
+    prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
+               for _ in range(8)]
+    prompts.append(prompts[0][:128]
+                   + rs.randint(0, cfg.vocab_size, size=40).tolist())
+
+    reqs, wall, launches, peak = _serve_batch(torch, dev, eng, prompts,
+                                              n_new)
+    L = cfg.n_layers
+    n_suffix = int(stats.get("serve/dispatches/prefill_suffix"))
+    n_cold = len(prompts) - n_suffix
+    decode_steps = eng.steps * eng.chunk
+    others = set(launches) - {"flash_attention", "paged_append_attend",
+                              "paged_decode_attention"}
+    counts_ok = (launches["flash_attention"] == L * n_cold
+                 and launches["paged_append_attend"] == L * decode_steps
+                 and launches["paged_decode_attention"] > 0
+                 and n_suffix == 1
+                 and all(launches[n] == 0 for n in others))
+    done_ok = all(r.done and not r.failed and len(r.tokens) == n_new
+                  for r in reqs)
+    check = teacher_forced(torch, dev, model, reqs)
     rec = {"phase": "serving_gpt3_1p3b", "params": cfg.num_params(),
            "layers": L, "d_model": cfg.d_model, "slots": 8,
-           "steps_per_call": chunk, "requests": len(reqs),
-           "new_tokens": n_tok, "init_s": init_s, "wall_s": wall,
-           "tokens_per_s": n_tok / wall,
-           "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
-           "tpot_p50_s": tpots[len(tpots) // 2], "tpot_max_s": tpots[-1],
+           "steps_per_call": chunk, "init_s": init_s,
+           **_latency(reqs, wall),
            "peak_mem_bytes": peak, "launches": launches,
            "cold_prefills": n_cold, "suffix_prefills": n_suffix,
            "decode_steps": decode_steps, "dispatches": eng.steps,
            "counts_ok": bool(counts_ok), "all_done": bool(done_ok),
-           "teacher_forced_max_gap": worst, "teacher_forced_tol": tol,
-           "teacher_forced_exact_frac": exact / max(1, total),
-           "logits_finite": finite,
-           "ok": bool(counts_ok and done_ok and finite and worst <= tol)}
+           **{k: v for k, v in check.items() if k != "ok"},
+           "ok": bool(counts_ok and done_ok and check["ok"])}
     _phase(rec)
     # fresh prompts: a cold batch like the first, not prefix-cache hits
     breakdown_phase(torch, eng, [rs.randint(0, cfg.vocab_size,
                                             size=128).tolist()
                                  for _ in range(8)], n_new)
     return rec
+
+
+def contiguous_phase(torch, dev, model):
+    """gpt3_1p3b through ``make_engine(engine="contiguous")``; see the
+    module docstring (phase 7). Returns (record, engine, requests)."""
+    import numpy as np
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.factory import make_engine
+    cfg = model.cfg
+    chunk, n_new = 16, 64
+    eng = make_engine(model, engine="contiguous", max_slots=8,
+                      steps_per_call=chunk)
+    rs = np.random.RandomState(SEED + 1)
+    prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
+               for _ in range(8)]
+    # longer than the largest bucket (512): chunked prefill, 512 + 512 +
+    # a 256 bucket, interleaved with the others' decode
+    prompts.append(rs.randint(0, cfg.vocab_size, size=1200).tolist())
+    reqs, wall, launches, peak = _serve_batch(torch, dev, eng, prompts,
+                                              n_new)
+    L = cfg.n_layers
+    decode_steps = eng.steps * eng.chunk
+    chunks = int(stats.get("serve/dispatches/prefill"))
+    expected = {n: 0 for n in launches}
+    expected["decode_attention"] = L * decode_steps
+    counts_ok = launches == expected
+    done_ok = all(r.done and not r.failed and len(r.tokens) == n_new
+                  for r in reqs)
+    check = teacher_forced(torch, dev, model, reqs)
+    rec = {"phase": "contiguous_gpt3_1p3b", "engine": "contiguous",
+           "cache_len": eng.T, "slots": eng.S, "steps_per_call": chunk,
+           "prompt_lens": [len(p) for p in prompts], "buckets": eng.buckets,
+           **_latency(reqs, wall), "peak_mem_bytes": peak,
+           "launches": launches, "expected_launches": expected,
+           "prefill_chunks": chunks, "decode_steps": decode_steps,
+           "dispatches": eng.steps, "counts_ok": bool(counts_ok),
+           "all_done": bool(done_ok),
+           **{k: v for k, v in check.items() if k != "ok"},
+           "ok": bool(counts_ok and done_ok and check["ok"])}
+    _phase(rec)
+    return rec, eng, reqs
+
+
+def int8_phase(torch, dev, model, donor, bf16_reqs):
+    """The int8 engine over the bf16 engine's weights; see the module
+    docstring (phase 8). Returns (record, engine)."""
+    from paddle_tpu_torch import quantization as quant
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.decode_engine import DecodeEngine
+    from paddle_tpu_torch.ops.quant_matmul import int8_matmul_reference
+    cfg = model.cfg
+    chunk, n_new = donor.chunk, 64
+    eng = DecodeEngine(None, share_weights_with=donor, weight_dtype="int8",
+                       max_slots=donor.S, max_len=donor.T,
+                       steps_per_call=chunk)
+    prompts = [r.prompt for r in bf16_reqs]
+    reqs, wall, launches, peak = _serve_batch(torch, dev, eng, prompts,
+                                              n_new)
+    L = cfg.n_layers
+    decode_steps = eng.steps * eng.chunk
+    chunks = int(stats.get("serve/dispatches/prefill"))
+    expected = {n: 0 for n in launches}
+    expected["decode_attention"] = L * decode_steps
+    expected["int8_matmul"] = 4 * L * (decode_steps + chunks)
+    counts_ok = launches == expected
+    done_ok = all(r.done and not r.failed and len(r.tokens) == n_new
+                  for r in reqs)
+    # the same int8 weights (quantize_tensor per layer, as the engine),
+    # K12 replaced by its plain version for the teacher-forced forward
+    qmodel = quant.quantize_for_inference(model)
+    kernel = quant.int8_matmul
+    quant.int8_matmul = int8_matmul_reference
+    try:
+        check = teacher_forced(torch, dev, qmodel, reqs)
+    finally:
+        quant.int8_matmul = kernel
+    del qmodel
+    same = sum(a == b for r, rb in zip(reqs, bf16_reqs)
+               for a, b in zip(r.tokens, rb.tokens))
+    total = sum(len(r.tokens) for r in reqs)
+    rec = {"phase": "int8_gpt3_1p3b", "engine": "contiguous",
+           "weight_dtype": "int8", **_latency(reqs, wall),
+           "peak_mem_bytes": peak, "launches": launches,
+           "expected_launches": expected, "prefill_chunks": chunks,
+           "decode_steps": decode_steps, "dispatches": eng.steps,
+           "counts_ok": bool(counts_ok), "all_done": bool(done_ok),
+           **{k: v for k, v in check.items() if k != "ok"},
+           "tokens_equal_to_bf16_share": same / max(1, total),
+           "ok": bool(counts_ok and done_ok and check["ok"])}
+    _phase(rec)
+    return rec, eng
+
+
+def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
+                        n_dispatches=2):
+    """Device time per decode step of ``eng``: 8 fresh 128-token prompts
+    are admitted first, then ``n_dispatches`` decode dispatches
+    (``steps_per_call`` steps each) run under torch.profiler; the
+    device's busy time over their decode steps, beside the weight-read
+    floor (every block weight and the LM head read once per step)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    cfg = eng.cfg
+    rs = np.random.RandomState(SEED + 2)
+    reqs = [eng.submit(rs.randint(0, cfg.vocab_size, size=128).tolist(),
+                       max_new_tokens=64) for _ in range(eng.S)]
+    while eng._waiting or eng._admitting:
+        eng.step()
+    eng.drain()
+    torch.cuda.synchronize()
+    steps0 = eng.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_dispatches):
+            eng.step()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    decode_steps = (eng.steps - steps0) * eng.chunk
+    eng.run()
+    floor_ms = (weight_bytes + head_bytes) / H100_BYTES_PER_S * 1e3
+    rec = {"phase": f"decode_device_{name}", "slots": eng.S,
+           "decode_steps": decode_steps, "wall_ms": wall_us / 1e3,
+           "block_weight_bytes": weight_bytes, "lm_head_bytes": head_bytes,
+           "weight_read_floor_ms": floor_ms}
+    bd = _device_breakdown(prof, wall_us)
+    rec["measured"] = bd is not None
+    if bd is not None:
+        rec.update(bd)
+        rec["device_ms_per_decode_step"] = (bd["device_busy_ms"]
+                                            / max(1, decode_steps))
+        rec["wall_ms_per_decode_step"] = wall_us / 1e3 / max(1,
+                                                             decode_steps)
+    rec["ok"] = bool(decode_steps > 0
+                     and all(r.done and not r.failed for r in reqs))
+    _phase(rec)
+    return rec
+
+
+def generate_phase(torch, dev, model):
+    """``GPT.generate``, greedy, 4 prompts of 128 tokens, 32 new tokens,
+    cache 2048; see the module docstring (phase 10)."""
+    import numpy as np
+    cfg = model.cfg
+    B, S0, n_new = 4, 128, 32
+    toks = np.random.RandomState(SEED + 3).randint(0, cfg.vocab_size,
+                                                   size=(B, S0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = model.generate(toks, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {n: 0 for n in launches}
+    expected["decode_attention"] = cfg.n_layers * (n_new - 1)
+
+    class _Row:                       # the teacher-forced check's view
+        def __init__(self, row):
+            self.prompt = row[:S0]
+            self.tokens = row[S0:]
+
+    rows = [_Row(r) for r in out.tolist()]
+    check = teacher_forced(torch, dev, model, rows)
+    rec = {"phase": "generate_gpt3_1p3b", "batch": B, "prompt_len": S0,
+           "new_tokens": n_new, "cache_len": cfg.max_seq_len,
+           "shape": list(out.shape), "wall_s": wall,
+           "tokens_per_s": B * n_new / wall, "peak_mem_bytes": peak,
+           "launches": launches, "expected_launches": expected,
+           "counts_ok": launches == expected,
+           **{k: v for k, v in check.items() if k != "ok"},
+           "ok": bool(launches == expected and check["ok"]
+                      and tuple(out.shape) == (B, S0 + n_new))}
+    _phase(rec)
+    return rec
+
+
+def serving_paths(torch, dev):
+    """Every serving path on one gpt3_1p3b (seed SEED): paged serving
+    and its breakdown (phase 4), contiguous bf16 serving (7), int8
+    serving (8), the decode device time of both engines (9), generate
+    (10). Returns path -> launches."""
+    from paddle_tpu_torch.models import gpt
+    model = gpt.GPT(gpt.gpt3_1p3b(), seed=SEED, device=dev)
+    serve = serving_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    contig, eng, reqs = contiguous_phase(torch, dev, model)
+    int8, q8 = int8_phase(torch, dev, model, eng, reqs)
+    cfg = model.cfg
+    blocks = sum(w[n].numel() for w in eng._layers
+                 for n in ("wqkv", "wo", "wup", "wdown"))
+    head = cfg.vocab_size * cfg.d_model * 2
+    decode_device_phase(torch, eng, "bf16", 2 * blocks, head)
+    decode_device_phase(torch, q8, "int8", blocks, head)
+    del eng, q8, reqs
+    torch.cuda.empty_cache()
+    gen = generate_phase(torch, dev, model)
+    return {"serving": serve["launches"], "contiguous": contig["launches"],
+            "int8": int8["launches"], "generate": gen["launches"]}
 
 
 def breakdown_phase(torch, eng, prompts, n_new):
@@ -829,15 +1310,18 @@ def main():
     k1.append(k1_case(torch, dev, 2048, 16, gen, B=4))
     k34 = [k34_case(torch, dev, gen, hkv) for hkv in (16, 4)]
     k567 = ce_case(torch, dev, gen)
+    # the contiguous engine's shapes
+    k10 = [k10_case(torch, dev, gen, hkv) for hkv in (16, 4)]
+    k12 = k12_case(torch, dev, gen)
     torch.cuda.empty_cache()
-    serve = serving_phase(torch, dev)
+    paths = serving_paths(torch, dev)
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
+    paths["train"] = train["launches"]
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms,
               err):
-        by_path = {"serving": serve["launches"].get(name, 0),
-                   "train": train["launches"].get(name, 0)}
+        by_path = {p: launches[name] for p, launches in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -894,6 +1378,17 @@ def main():
               ce_r["library_bwd_ms"],
               max(c["dw_max_abs_err"] for c in (ce_r["check_init_head"],
                                                 ce_r["check_peaked"]))),
+        entry("decode_attention", "decode_attention.cu",
+              "paddle_tpu/ops/pallas/decode_attention.py:258",
+              k10[0]["kernel_ms"], k10[0]["plain_ms"],
+              (k10[0]["bound_ms"], k10[0]["bound_by"]),
+              k10[0]["library_ms"], max(r["max_abs_err"] for r in k10)),
+        # one decode layer's four block products at M 8, summed
+        entry("int8_matmul", "quant_matmul.cu",
+              "paddle_tpu/ops/pallas/quant_matmul.py:91",
+              k12["decode_layer_ms"], k12["decode_layer_plain_ms"],
+              (k12["decode_layer_bound_ms"], "bytes"),
+              k12["decode_layer_library_ms"], k12["max_abs_err"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,3 @@
 """Serving engines of the port (counterpart of
-``paddle_tpu/inference``): the paged engine and its factory."""
+``paddle_tpu/inference``): the paged engine, the slot-contiguous
+``DecodeEngine`` and their factory."""

@@ -1,37 +1,75 @@
-"""The serving engines' shared parts (counterpart of the parts of
-``paddle_tpu/inference/decode_engine.py`` the paged engine inherits):
-``Request``, the in-flight dispatch record, ``resolve_engine_weights``
-and the ``ResilientScheduler`` core — the lag-one dispatch/harvest
-pipeline, retirement on eos or budget, deadline eviction and
-non-finite eviction.
+"""Continuous-batching decode over slot-contiguous KV caches, and the
+serving engines' shared parts (counterpart of
+``paddle_tpu/inference/decode_engine.py``).
 
-The pipeline maps onto CUDA's stream order: a dispatch enqueues its
-kernels and returns at once; a harvest copies the OLDEST dispatch's
-packed int32 record to the host (the one device→host transfer per
-dispatch), which waits for that dispatch only, while younger ones keep
-the card busy.
+Shared with the paged engine: ``Request``, the in-flight dispatch
+record, ``resolve_engine_weights`` and the ``ResilientScheduler`` core
+— the lag-one dispatch/harvest pipeline, retirement on eos or budget,
+deadline eviction and non-finite eviction. The pipeline maps onto
+CUDA's stream order: a dispatch enqueues its kernels and returns at
+once; a harvest copies the OLDEST dispatch's packed int32 record to the
+host (the one device->host transfer per dispatch), which waits for that
+dispatch only, while younger ones keep the card busy.
 
-Left for later slices: the slot-contiguous ``DecodeEngine`` itself,
-speculative-decode records, fault injection (``_poison_mask``), trace
-spans and the flight recorder.
+``DecodeEngine``, as in the JAX engine:
+
+- **Slot-contiguous caches**: one (L, S, Hkv, T, D) K and V cache for S
+  slots; admission assigns a request a free slot, retirement frees it.
+- **Ragged decode**: every active slot advances one token per step at
+  its own cache position. Each layer's ``GPTBlock.decode_step`` writes
+  the slot's new row, then attends over it and the prefix (K10 at
+  T >= 1024); an inactive slot keeps the row it has.
+- **Bucketed chunked prefill**, interleaved with decode dispatches
+  under a per-step prompt-token budget (``prefill_tokens``, default the
+  largest bucket); a tail chunk that would overrun the cache slides
+  back over written positions.
+- **Chunked device-side stepping** (``steps_per_call``) with per-slot
+  eos/budget/non-finite early stop on the device, one packed
+  (3, chunk, S) int32 record per dispatch.
+- **Weight-only int8** (``weight_dtype="int8"``): the four block matmul
+  weights become per-(layer, output column) int8 ``QuantTensor``s, and
+  every block matmul runs K12.
+- **Sampling**: temperature / top-k / top-p from a ``torch.Generator``
+  seeded with ``seed``.
+
+Not ported, raising ``NotImplementedError`` with their ROADMAP item:
+speculative decode (``speculative_k``, S3), KV handoff (S4), ``warmup``,
+``dispatch_cost`` and ``dispatch_fn_args`` (S5), tensor-parallel
+serving (``mesh``), and the front-end hooks, fault injection
+(``_poison_mask``), trace spans and the flight recorder.
+
 """
 
 import collections
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from paddle_tpu_torch import stats
+from paddle_tpu_torch import device as device_lib
+from paddle_tpu_torch import dtypes, stats
+from paddle_tpu_torch.models.gpt import (GPTBlock, _sample_token, cache_rows,
+                                         final_ln)
+from paddle_tpu_torch.quantization import (_BLOCK_MATMULS, QuantTensor,
+                                           quantize_tensor)
 
-__all__ = ["Request", "ResilientScheduler", "resolve_engine_weights"]
+__all__ = ["DecodeEngine", "Request", "ResilientScheduler",
+           "resolve_engine_weights"]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP "
+        f"'Port queue' item {item})")
 
 
 def resolve_engine_weights(model, share_weights_with):
     """The donor-or-build protocol: returns (cfg, head dict, per-layer
-    weight maps).
-    With a donor, weights alias the donor's; otherwise they come from
-    ``model``, which must be a dense stack."""
+    weight maps). The head dict's ``proj`` is the LM projection
+    (``GPT.head_weight``). With a donor, weights alias the donor's;
+    otherwise they come from ``model``, which must be a dense stack; an
+    int8 model's QuantTensors pass through as they are."""
     if model is None:
         if share_weights_with is None:
             raise ValueError(
@@ -49,11 +87,14 @@ def resolve_engine_weights(model, share_weights_with):
         return cfg, share_weights_with._head, share_weights_with._layers
     # detached views: the engine runs no autograd, and sees every
     # in-place update of the model's parameters
-    head = {n: None if t is None else t.detach() for n, t in (
+    def detach(t):
+        return t.detach() if isinstance(t, torch.Tensor) else t
+
+    head = {n: detach(t) for n, t in (
         ("wte", model.wte), ("wpe", model.wpe),
         ("lnf_scale", model.lnf_scale), ("lnf_bias", model.lnf_bias),
-        ("lm_head", model.lm_head))}
-    layers = [{n: t.detach() for n, t in w.items()}
+        ("proj", model.head_weight()))}
+    layers = [{n: detach(t) for n, t in w.items()}
               for w in model.layer_weights()]
     return cfg, head, layers
 
@@ -246,11 +287,21 @@ class ResilientScheduler:
             if bads[:, slot].any() and not req.done:
                 self._fail(req, "non-finite logits", slot=slot,
                            stat="serve/nonfinite_evictions")
+        self._after_replay(rec)
         self._resync_budgets(rec.live)
         return total
 
     def _apply_token(self, slot: int, req: Request, token: int):
         raise NotImplementedError
+
+    def _lm_head(self, x):
+        """Final LN + the LM projection on (S, L, d) -> (S, L, V)."""
+        head = self._head
+        x = final_ln(x, head["lnf_scale"], head["lnf_bias"])
+        return x @ head["proj"]
+
+    def _after_replay(self, rec):
+        """Post-replay hook (the contiguous engine retires here)."""
 
     def drain(self) -> None:
         """Block until every in-flight dispatch is harvested and applied;
@@ -296,3 +347,388 @@ class ResilientScheduler:
                 if (req is not None and req.deadline is not None
                         and now > req.deadline):
                     self._fail(req, "deadline exceeded", slot=slot)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class DecodeEngine(ResilientScheduler):
+    """Continuous-batching generation over a dense GPT model with
+    slot-contiguous KV caches.
+
+        eng = DecodeEngine(model, max_slots=8, max_len=512)
+        r1 = eng.submit(prompt_a, max_new_tokens=32)
+        r2 = eng.submit(prompt_b, max_new_tokens=8)   # joins mid-flight
+        eng.run()                                     # drains everything
+        r1.tokens, r2.tokens
+
+    Greedy by default; temperature / top-k / top-p as ``gpt.generate``.
+    ``device`` defaults to CUDA and must be the model's device."""
+
+    def __init__(self, model, max_slots: int = 8,
+                 max_len: Optional[int] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, seed: int = 0, cache_dtype=None,
+                 speculative_k: int = 0, steps_per_call: int = 1,
+                 share_weights_with: "Optional[DecodeEngine]" = None,
+                 weight_dtype: Optional[str] = None, mesh=None,
+                 inflight: int = 2, warmup: bool = False,
+                 prefill_tokens: Optional[int] = None, device=None):
+        if speculative_k:
+            raise _not_ported("speculative decode (speculative_k)", "S3")
+        if warmup:
+            raise _not_ported("warmup", "S5")
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh) is not ported to "
+                "paddle_tpu_torch yet (ROADMAP 'Port queue': distributed "
+                "on torch.distributed)")
+        self.device = device_lib.resolve(device)
+        cfg, head, layers = resolve_engine_weights(model,
+                                                   share_weights_with)
+        if head["wte"].device != self.device:
+            raise ValueError(f"model lives on {head['wte'].device}, engine "
+                             f"device is {self.device}")
+        self.cfg = cfg
+        # a 128-multiple cache length keeps K10 engaged, never past the
+        # position table
+        cap = cfg.max_seq_len
+        self.T = min(_round_up(min(max_len or cap, cap), 128), cap)
+        self.S = int(max_slots)
+        self.sample = (float(temperature), float(top_p), int(top_k))
+        if buckets is None:
+            buckets = [b for b in (16, 32, 64, 128, 256, 512)
+                       if b <= self.T] or [self.T]
+        self.buckets = sorted(set(int(b) for b in buckets))
+        if self.buckets[-1] > self.T:
+            raise ValueError(
+                f"bucket {self.buckets[-1]} exceeds cache length {self.T}")
+        self._head, self._layers = head, layers
+        if weight_dtype == "int8":
+            self._quantize_stacked_int8()
+        elif weight_dtype is not None:
+            raise ValueError(f"weight_dtype must be None or 'int8', got "
+                             f"{weight_dtype!r}")
+        self._block = GPTBlock(cfg)
+        self.chunk = int(steps_per_call)
+        if self.chunk < 1:
+            raise ValueError("steps_per_call must be >= 1")
+
+        dev = self.device
+        dt = (dtypes.to_dtype(cache_dtype) if cache_dtype is not None
+              else cfg.dtype)
+        shape = (cfg.n_layers, self.S, cfg.kv_heads, self.T, cfg.head_dim)
+        self.kc = torch.zeros(shape, dtype=dt, device=dev)
+        self.vc = torch.zeros(shape, dtype=dt, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros((self.S,), **i32)
+        self.last = torch.zeros((self.S,), **i32)
+        self.active = torch.zeros((self.S,), dtype=torch.bool, device=dev)
+        # budgets / eos ids persist on the device across dispatches
+        self.remaining = torch.zeros((self.S,), **i32)
+        self.eos_ids = torch.full((self.S,), -1, **i32)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(int(seed))
+
+        self._slot_req: List[Optional[Request]] = [None] * self.S
+        self._waiting: collections.deque = collections.deque()
+        self.steps = 0            # decode dispatches
+        self.tokens_emitted = 0
+        self._init_pipeline(inflight)
+        self._admitting: collections.deque = collections.deque()
+        # per-step prompt-token budget (default the largest bucket), at
+        # least one bucket so an open admission always progresses
+        self._prefill_budget = max(int(prefill_tokens or self.buckets[-1]),
+                                   self.buckets[0])
+
+    # -- not ported yet -----------------------------------------------------
+
+    def _verify_impl(self, *args, **kwargs):
+        raise _not_ported("speculative verify", "S3")
+
+    def _spec_multi_impl(self, *args, **kwargs):
+        raise _not_ported("speculative decode", "S3")
+
+    def detach_handoff(self, *args, **kwargs):
+        raise _not_ported("KV handoff and migration", "S4")
+
+    def submit_handoff(self, *args, **kwargs):
+        raise _not_ported("KV handoff and migration", "S4")
+
+    def warmup(self):
+        raise _not_ported("warmup", "S5")
+
+    def dispatch_cost(self, *args, **kwargs):
+        raise _not_ported("dispatch_cost", "S5")
+
+    def dispatch_fn_args(self):
+        raise _not_ported("dispatch_fn_args", "S5")
+
+    # -- weights ------------------------------------------------------------
+
+    def _quantize_stacked_int8(self):
+        """Replace each layer's four block matmul weights with int8
+        QuantTensors (symmetric absmax, per-(layer, output column)
+        scales: the JAX engine's stacked formula, taken one layer at a
+        time). New per-layer maps, so a donor's weights
+        (``share_weights_with``) are never touched; the LM head stays
+        float."""
+        self._layers = [
+            {n: (quantize_tensor(t) if n in _BLOCK_MATMULS
+                 and not isinstance(t, QuantTensor) else t)
+             for n, t in w.items()}
+            for w in self._layers]
+
+    # -- device bodies ------------------------------------------------------
+
+    def _sample(self, logits):
+        temperature, top_p, top_k = self.sample
+        return _sample_token(logits.float(), self._gen, temperature, top_p,
+                             top_k)
+
+    def _one_token(self, lengths, last, active):
+        """Advance every active slot one token. Returns the new lengths,
+        the next tokens and the per-slot non-finite flags (a bad slot
+        emits nothing and does not advance)."""
+        head = self._head
+        x = head["wte"][last.long()]
+        if head["wpe"] is not None:
+            pos = lengths.long().clamp(max=self.cfg.max_seq_len - 1)
+            x = x + head["wpe"][pos]
+        x = x[:, None, :]
+        # an inactive slot keeps its row: its device length is stale, and
+        # with interleaved admission the row there may be a prompt row a
+        # prefill wrote
+        rows = cache_rows(lengths, 1, self.T, write=active)
+        for i, w in enumerate(self._layers):
+            x, _ = self._block.decode_step(x, w, (self.kc[i], self.vc[i]),
+                                           rows)
+        logits = self._lm_head(x)[:, 0]
+        bad = active & ~torch.isfinite(logits).all(dim=-1)
+        ok = active & ~bad
+        nxt = torch.where(ok, self._sample(logits), last)
+        return lengths + ok.to(torch.int32), nxt, bad
+
+    def _multi_impl(self, lengths, last, active, remaining, eos):
+        """``chunk`` decode steps in one dispatch with per-slot early
+        stop on the device: a slot stops at its eos id, at the end of
+        its budget, or on non-finite logits. Tokens, emit flags and
+        non-finite flags come back packed as one (3, chunk, S) int32
+        tensor."""
+        toks, flags, bads = [], [], []
+        for _ in range(self.chunk):
+            lengths, nxt, bad = self._one_token(lengths, last, active)
+            emit = active & ~bad
+            remaining = remaining - emit.to(torch.int32)
+            hit_eos = (nxt == eos) & (eos >= 0)
+            active = active & ~bad & ~hit_eos & (remaining > 0)
+            last = nxt
+            toks.append(nxt)
+            flags.append(emit)
+            bads.append(bad)
+        packed = torch.stack([torch.stack(toks),
+                              torch.stack(flags).to(torch.int32),
+                              torch.stack(bads).to(torch.int32)])
+        return lengths, last, active, remaining, packed
+
+    def _prefill_impl(self, slot: int, tokens, start: int, true_total: int,
+                      is_final: bool, rem0: int, eos0: int):
+        """Run one prompt chunk (tokens (1, bucket)) through the slot's
+        cache at [start, start + bucket). On the final chunk, sample the
+        first generated token and flip the slot live on the device
+        (lengths / last / active / remaining / eos_ids), so decode
+        dispatches enqueued behind it pick the slot up with no host
+        round trip; returns that token (a device scalar), else None."""
+        head = self._head
+        bucket = tokens.shape[1]
+        x = head["wte"][tokens]
+        if head["wpe"] is not None:
+            x = x + head["wpe"][start:start + bucket]
+        rows = cache_rows(torch.full((1,), start, dtype=torch.int32,
+                                     device=self.device), bucket, self.T)
+        for i, w in enumerate(self._layers):
+            kv = (self.kc[i, slot:slot + 1], self.vc[i, slot:slot + 1])
+            x, _ = self._block.verify_step(x, w, kv, rows)
+        if not is_final:
+            return None
+        idx = min(max(true_total - 1 - start, 0), bucket - 1)
+        nxt = self._sample(self._lm_head(x[:, idx:idx + 1])[:, 0])[0]
+        alive = (nxt != eos0) | (eos0 < 0) if rem0 > 0 else torch.zeros(
+            (), dtype=torch.bool, device=self.device)
+        self.lengths[slot] = true_total
+        self.last[slot] = nxt
+        self.active[slot] = alive
+        self.remaining[slot] = rem0
+        self.eos_ids[slot] = eos0
+        return nxt
+
+    # -- scheduler ----------------------------------------------------------
+
+    def check_request(self, prompt_len: int, max_new_tokens: int):
+        """Admission feasibility check without enqueueing. Raises
+        ValueError."""
+        if prompt_len < 1:
+            raise ValueError("empty prompt")
+        if prompt_len + max_new_tokens > self.T:
+            raise ValueError(
+                f"{prompt_len} prompt + {max_new_tokens} new tokens "
+                f"exceed cache length {self.T}")
+
+    def submit(self, prompt, max_new_tokens: int = 32,
+               eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> Request:
+        """``deadline_s``: wall-time budget for this request (queue wait
+        included); past it the request is evicted alone."""
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        self.check_request(len(prompt), max_new_tokens)
+        req = Request(prompt, max_new_tokens, eos_id,
+                      deadline=(None if deadline_s is None
+                                else time.monotonic() + deadline_s))
+        self._waiting.append(req)
+        return req
+
+    def _free_slot(self) -> Optional[int]:
+        for s, r in enumerate(self._slot_req):
+            if r is None:
+                return s
+        return None
+
+    def _admit_next(self) -> bool:
+        """Move the next waiting request into a free slot as an
+        incremental prefill job; its chunks dispatch under the per-step
+        token budget, interleaved with decode dispatches."""
+        slot = self._free_slot()
+        if slot is None or not self._waiting:
+            return False
+        req = self._waiting.popleft()
+        self._slot_req[slot] = req      # reserved; decode skips it until
+        self._disp_rem[slot] = 0        # the final chunk flips it live
+        self._admitting.append({
+            "req": req, "slot": slot, "start": 0,
+            "prompt": np.asarray(req.prompt, np.int64)})
+        return True
+
+    def _dispatch_prefill_chunk(self, job):
+        """Dispatch ONE bucket-sized prompt chunk. On the final chunk the
+        slot goes live on the device and the sampled first token rides
+        the harvest queue as a 'prefill' record. Returns (bucket tokens
+        consumed, finished)."""
+        req, slot = job["req"], job["slot"]
+        prompt, start = job["prompt"], job["start"]
+        total = len(prompt)
+        bucket = next((x for x in self.buckets if x >= total - start),
+                      self.buckets[-1])
+        s0 = start
+        if s0 + bucket > self.T:
+            # the tail window would overrun the cache: slide it back over
+            # prefilled positions (the same tokens at the same positions
+            # recompute the same K/V)
+            s0 = self.T - bucket
+        n = min(total - s0, bucket)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = prompt[s0:s0 + n]
+        is_final = s0 + n >= total
+        rem0 = req.max_new_tokens - 1
+        eos0 = -1 if req.eos_id is None else int(req.eos_id)
+        stats.add("serve/dispatch_launches")
+        stats.add("serve/dispatches/prefill")
+        nxt = self._prefill_impl(slot, torch.from_numpy(padded).to(
+            self.device), s0, total, is_final, rem0, eos0)
+        job["start"] = s0 + n
+        if is_final:
+            self._disp_rem[slot] = rem0
+            self._pending.append(_Inflight("prefill", [(slot, req)], nxt))
+        return bucket, is_final
+
+    def _advance_admissions(self):
+        """Dispatch up to ``_prefill_budget`` prompt tokens of prefill
+        chunks (at least one chunk when a job is open), pulling new
+        requests into free slots as jobs finish."""
+        if self._admitting:
+            # a job whose request was evicted mid-admission is dropped:
+            # its slot is free again, the partial prefill inert
+            self._admitting = collections.deque(
+                j for j in self._admitting if not j["req"].done)
+        budget = self._prefill_budget
+        while budget > 0:
+            if not self._admitting and not self._admit_next():
+                return
+            used, finished = self._dispatch_prefill_chunk(
+                self._admitting[0])
+            budget -= used
+            if finished:
+                self._admitting.popleft()
+
+    def _emit(self, slot: int, req: Request, token: int):
+        req.tokens.append(token)
+        self._obs_first_token(req)
+        hit_eos = req.eos_id is not None and token == req.eos_id
+        if hit_eos or len(req.tokens) >= req.max_new_tokens:
+            req.done = True
+            self._slot_req[slot] = None
+            self.active[slot] = False
+            self._obs_request_end(req)
+
+    def step(self) -> int:
+        """Evict expired requests, dispatch waiting prefill chunks and
+        one decode dispatch, then harvest the oldest in-flight dispatch
+        once ``depth`` are queued. Returns tokens applied this call."""
+        t0 = time.perf_counter()
+        base = self.tokens_emitted
+        self._evict_expired()
+        self._advance_admissions()
+        self._pump(self._dispatch_decode())
+        live = self.num_active
+        n = self.tokens_emitted - base
+        if live or n:
+            self._obs_step(t0, n, live)
+        return n
+
+    def _dispatch_decode(self) -> bool:
+        """Enqueue ONE decode dispatch over every live slot."""
+        live = [(s, r) for s, r in enumerate(self._slot_req)
+                if r is not None and self._disp_rem[s] > 0]
+        if not live:
+            return False
+        self.steps += 1
+        self._obs_host_gap()
+        (self.lengths, self.last, self.active, self.remaining,
+         packed) = self._multi_impl(self.lengths, self.last, self.active,
+                                    self.remaining, self.eos_ids)
+        self._finish_dispatch("decode", live, packed)
+        return True
+
+    def _retire_done(self, live):
+        """Free slots whose request hit its budget or eos (the device
+        already stopped them); a slot freed and re-admitted since the
+        dispatch is left alone."""
+        for slot, req in live:
+            if req.done or self._slot_req[slot] is not req:
+                continue
+            if len(req.tokens) >= req.max_new_tokens or (
+                    req.eos_id is not None and req.tokens
+                    and req.tokens[-1] == req.eos_id):
+                req.done = True
+                self._slot_req[slot] = None
+                self._disp_rem[slot] = 0
+                self._obs_request_end(req)
+
+    def _apply_token(self, slot: int, req: Request, token: int):
+        req.tokens.append(token)
+
+    def _after_replay(self, rec):
+        self._retire_done(rec.live)
+
+    def run(self) -> None:
+        """Run steps until every submitted request is done, then harvest
+        the trailing dispatches."""
+        while self._waiting or any(r is not None for r in self._slot_req):
+            self.step()
+        self._drain()
+
+    @property
+    def num_active(self) -> int:
+        return sum(r is not None for r in self._slot_req)
+

@@ -50,21 +50,16 @@ from paddle_tpu_torch import stats
 from paddle_tpu_torch.inference.decode_engine import (Request,
                                                       ResilientScheduler,
                                                       _Inflight,
+                                                      _not_ported,
                                                       resolve_engine_weights)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
-from paddle_tpu_torch.models.gpt import GPTBlock, final_ln
+from paddle_tpu_torch.models.gpt import GPTBlock
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.paged_attention import (PageAllocator,
                                                   paged_append_attend,
                                                   paged_decode_attention)
 
 __all__ = ["PagedDecodeEngine"]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP "
-        f"'Port queue' item {item})")
 
 
 class PagedDecodeEngine(ResilientScheduler):
@@ -243,12 +238,6 @@ class PagedDecodeEngine(ResilientScheduler):
         return (self._layer_base[:, None, None] + table[None]).contiguous()
 
     # -- device bodies ------------------------------------------------------
-
-    def _lm_head(self, x):
-        head = self._head
-        x = final_ln(x, head["lnf_scale"], head["lnf_bias"])
-        w = head["wte"].t() if head["lm_head"] is None else head["lm_head"]
-        return x @ w
 
     def _embed(self, tokens, positions):
         x = self._head["wte"][tokens.long()]

@@ -17,9 +17,19 @@ Python loop over the layers replaces the scan.
 
 The train step (``init_train_state``, ``build_train_step``) takes the
 fused cross-entropy (K5-K7) where the JAX package does; attention
-backward runs K3/K4 on the card. MoE and dropout > 0 raise (dropout
-masks come from ``jax.random`` and cannot be reproduced). ``dtype``
-takes a ``torch.dtype`` or one of the names of ``paddle_tpu_torch.dtypes``.
+backward runs K3/K4 on the card.
+
+The cached-decode half (``GPTBlock.decode_rows`` / ``verify_step`` /
+``decode_step`` over a step's ``cache_rows``, ``GPT.init_cache`` /
+``embed_at`` / ``forward_cached``, ``generate``) keeps head-major
+(B, Hkv, T, D) caches, written in place. One-token decode writes the
+fresh row, then runs the flash-decode kernel (K10) over the prefix and
+that row when the cache is long enough (``_use_decode_kernel``);
+everything else takes the dense grouped einsum. A weight map entry may
+be an int8 ``QuantTensor`` (``quantization.quantize_for_inference``),
+whose ``x @ w`` runs K12. MoE and dropout > 0 raise (dropout masks come
+from ``jax.random`` and cannot be reproduced). ``dtype`` takes a
+``torch.dtype`` or one of the names of ``paddle_tpu_torch.dtypes``.
 """
 
 import dataclasses
@@ -34,12 +44,18 @@ from torch.utils.checkpoint import checkpoint
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops.decode_attention import decode_attention
 from paddle_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 
-__all__ = ["GPTConfig", "GPTBlock", "GPT", "final_ln", "block_param_specs",
+__all__ = ["GPTConfig", "GPTBlock", "GPT", "CacheRows", "cache_rows",
+           "final_ln", "block_param_specs",
            "lm_loss", "fused_lm_loss", "build_train_step",
-           "init_train_state", "gpt_tiny", "gpt3_125m", "gpt3_350m",
-           "gpt3_1p3b", "llama_style_1b"]
+           "init_train_state", "generate", "gpt_tiny", "gpt3_125m",
+           "gpt3_350m", "gpt3_1p3b", "llama_style_1b"]
+
+# the JAX flag ``decode_kernel_min_t`` (paddle_tpu/flags.py:194): the
+# shortest cache whose one-token decode goes to K10
+DECODE_KERNEL_MIN_T = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +177,44 @@ def final_ln(x, scale, bias, eps: float = 1e-5):
             + bias).to(x.dtype)
 
 
+def _use_decode_kernel(T: int) -> bool:
+    """Whether one-token decode over a cache of length ``T`` runs the
+    flash-decode kernel K10: a 128-multiple cache of at least
+    ``DECODE_KERNEL_MIN_T`` (the JAX package's rule for its engine and
+    ``generate``; the port has no kernel flag and no multi-device
+    mesh)."""
+    return T % 128 == 0 and T >= DECODE_KERNEL_MIN_T
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheRows:
+    """Where one step's K new rows per batch row go in head-major caches
+    of length T: built once per step by ``cache_rows`` and shared by
+    every layer, so the index tensors cost no launches per layer."""
+    positions: torch.Tensor          # (B,) int32: each row's first position
+    bi: torch.Tensor                 # (B, 1) batch index
+    t: torch.Tensor                  # (B, K) cache rows written
+    write: Optional[torch.Tensor]    # (B,) bool: False keeps the rows
+    lengths: torch.Tensor            # (B,) int32: positions + K, at most T
+
+
+def cache_rows(positions, K: int, T: int, write=None) -> CacheRows:
+    """``CacheRows`` for K rows at per-row ``positions`` (B,). A window
+    that would pass the cache's end starts at T - K, as
+    ``lax.dynamic_update_slice`` clamps it; ``write`` (B,) bool marks
+    the rows to write (a row marked False keeps its entries: the
+    engine's idle and admitting slots)."""
+    b = positions.shape[0]
+    dev = positions.device
+    start = positions.long().clamp(0, T - K)
+    return CacheRows(
+        positions=positions,
+        bi=torch.arange(b, device=dev)[:, None],
+        t=start[:, None] + torch.arange(K, device=dev)[None],
+        write=write,
+        lengths=(positions + K).clamp(max=T).to(torch.int32))
+
+
 class GPTBlock(nn.Module):
     """Pre-LN decoder block with fused QKV. It holds no weights: every
     method takes ``w``, a mapping of the JAX parameter names to one
@@ -254,6 +308,90 @@ class GPTBlock(nn.Module):
         a = attn_fn(q, k, v, is_causal=True)
         return self._block_tail(x, a.reshape(b, s, d).to(x.dtype), w)
 
+    # -- cached decode (gpt.py:323-430 of the JAX package) ---------------
+
+    def _write_kv_rows(self, kv, k, v, rows: CacheRows):
+        """Write each row's K new KV entries ((B, K, Hkv, D), any dtype)
+        into the head-major caches at ``rows``, in place. Returns the
+        caches."""
+        for cache, new in zip(kv, (k, v)):
+            new = new.to(cache.dtype)
+            if rows.write is not None:
+                new = torch.where(rows.write[:, None, None, None], new,
+                                  cache[rows.bi, :, rows.t, :])
+            cache[rows.bi, :, rows.t, :] = new
+        return kv
+
+    def decode_rows(self, x, w, kv, positions):
+        """K-token ragged decode that does NOT write the cache.
+
+        x: (B, K, d) embeddings at positions [positions[b],
+        positions[b] + K); kv: head-major (B, Hkv, T, D) caches holding
+        each row's prefix [0, positions[b]) (later entries are ignored).
+        Row (b, j) attends to the prefix plus new rows i <= j through a
+        grouped einsum that reads the whole T. Returns (y, k_rows,
+        v_rows), the rows (B, K, Hkv, D) in cache dtype for the caller
+        to write."""
+        b, K, d = x.shape
+        k_cache, v_cache = kv
+        T = k_cache.shape[2]
+        q, k, v = self._qkv(x, positions, w)
+        # the new rows round-trip through the cache dtype before they
+        # enter attention: row i < j looks to row j as it will to a
+        # later step reading it from the cache
+        k = k.to(k_cache.dtype)
+        v = v.to(v_cache.dtype)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        group = self.n_heads // self.kv_heads
+        # GQA through a grouped einsum against the un-expanded cache
+        ct = torch.promote_types(q.dtype, k_cache.dtype)
+        qg = q.reshape(b, K, self.kv_heads, group, self.head_dim)
+        att = torch.einsum("bkhgd,bhtd->bhgkt", qg.to(ct),
+                           k_cache.to(ct)) * scale
+        k_pos = torch.arange(T, device=x.device)
+        seen = k_pos[None, :] < positions.long()[:, None]
+        att = att.float().masked_fill(~seen[:, None, None, None, :],
+                                      float("-inf"))
+        # the K new rows attend to each other causally
+        nt = torch.promote_types(q.dtype, k.dtype)
+        att_new = torch.einsum("bkhgd,bihd->bhgki", qg.to(nt),
+                               k.to(nt)) * scale
+        causal = torch.ones((K, K), dtype=torch.bool,
+                            device=x.device).tril()
+        att_new = att_new.float().masked_fill(~causal, float("-inf"))
+        full = torch.softmax(torch.cat([att, att_new], dim=-1), dim=-1)
+        # probabilities stay in the compute dtype
+        p_cache = full[..., :T].to(x.dtype)
+        p_new = full[..., T:].to(x.dtype)
+        vt = torch.promote_types(x.dtype, v_cache.dtype)
+        attn = (torch.einsum("bhgkt,bhtd->bkhgd", p_cache.to(vt),
+                             v_cache.to(vt))
+                + torch.einsum("bhgki,bihd->bkhgd", p_new.to(vt),
+                               v.to(vt)))
+        attn = attn.reshape(b, K, d).to(x.dtype)
+        return self._block_tail(x, attn, w), k, v
+
+    def verify_step(self, x, w, kv, rows: CacheRows):
+        """K-token decode at ragged per-row positions that writes the
+        rows into the caches: ``decode_rows`` plus the write."""
+        y, k_rows, v_rows = self.decode_rows(x, w, kv, rows.positions)
+        return y, self._write_kv_rows(kv, k_rows, v_rows, rows)
+
+    def decode_step(self, x, w, kv, rows: CacheRows):
+        """One-token ragged decode: write the row, then K10 over
+        [0, positions + 1) when ``_use_decode_kernel``, else
+        ``verify_step``."""
+        if not _use_decode_kernel(kv[0].shape[2]):
+            return self.verify_step(x, w, kv, rows)
+        b, _, d = x.shape
+        q, k, v = self._qkv(x, rows.positions, w)
+        k_cache, v_cache = self._write_kv_rows(kv, k, v, rows)
+        attn = decode_attention(
+            q[:, 0].to(k_cache.dtype).contiguous(), k_cache, v_cache,
+            rows.lengths, scale=1.0 / math.sqrt(self.head_dim))
+        attn = attn.to(x.dtype).reshape(b, 1, d)
+        return self._block_tail(x, attn, w), (k_cache, v_cache)
+
 
 class GPT(nn.Module):
     """Decoder-only LM with learned positions (or rope), tied or untied
@@ -286,19 +424,41 @@ class GPT(nn.Module):
                 n: _init((L, *s), dt, init, gen, dev)
                 for n, (s, dt, init) in block_param_specs(cfg).items()})
         self.wpe = self.lm_head = None
+        # int8 weights (quantization.quantize_for_inference): a
+        # QuantTensor for a head weight, a list of per-layer QuantTensors
+        # for a block slab; they are not parameters
+        self.quantized = {n: w for n, w in weights.items()
+                          if not isinstance(w, torch.Tensor)}
         for n in head_param_specs(cfg):
-            setattr(self, n, nn.Parameter(weights[n].detach()))
+            if n not in self.quantized:
+                setattr(self, n, nn.Parameter(weights[n].detach()))
         self.stacked = nn.ParameterDict({
             n: nn.Parameter(weights[n].detach())
-            for n in block_param_specs(cfg)})
+            for n in block_param_specs(cfg) if n not in self.quantized})
         self.block = GPTBlock(cfg)
 
     def layer_weights(self):
         """Per-layer name -> tensor maps, one ``unbind(0)`` per slab (views
-        of the slabs, differentiable)."""
+        of the slabs, differentiable), with the quantized block weights'
+        per-layer QuantTensors in their places."""
         names = list(self.stacked.keys())
-        layers = zip(*(self.stacked[n].unbind(0) for n in names))
-        return [dict(zip(names, ts)) for ts in layers]
+        layers = [dict(zip(names, ts)) for ts in
+                  zip(*(self.stacked[n].unbind(0) for n in names))]
+        if not names:
+            layers = [{} for _ in range(self.cfg.n_layers)]
+        for n, per_layer in self.quantized.items():
+            if n in block_param_specs(self.cfg):
+                for w, qt in zip(layers, per_layer):
+                    w[n] = qt
+        return layers
+
+    def head_weight(self):
+        """The LM projection (d, V), chosen here only: the tied ``wte``
+        transposed, or the untied ``lm_head`` (its QuantTensor in an
+        int8 model)."""
+        if self.cfg.tie_embeddings:
+            return self.wte.t()
+        return self.quantized.get("lm_head", self.lm_head)
 
     def embed(self, tokens):
         x = self.wte[tokens]
@@ -308,8 +468,7 @@ class GPT(nn.Module):
 
     def head(self, x):
         x = final_ln(x, self.lnf_scale, self.lnf_bias)
-        w = self.wte.t() if self.lm_head is None else self.lm_head
-        return x @ w
+        return x @ self.head_weight()
 
     def hidden_states(self, tokens, attn: Optional[Callable] = None):
         """Final hidden states (B, S, d): forward minus the LM head. With
@@ -328,6 +487,154 @@ class GPT(nn.Module):
     def forward(self, tokens, attn: Optional[Callable] = None):
         """(B, S) int tokens → (B, S, V) logits in the model dtype."""
         return self.head(self.hidden_states(tokens, attn))
+
+    # -- KV-cache decoding (gpt.py:680-712 of the JAX package) -----------
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None,
+                   dtype=None):
+        """Per-layer (k, v) caches, head-major (B, Hkv, T, D) each, zeros
+        on the model's device."""
+        cfg = self.cfg
+        T = max_len or cfg.max_seq_len
+        dt = dtypes.to_dtype(dtype) if dtype is not None else cfg.dtype
+        shape = (batch, cfg.kv_heads, T, cfg.head_dim)
+        dev = self.wte.device
+        return [(torch.zeros(shape, dtype=dt, device=dev),
+                 torch.zeros(shape, dtype=dt, device=dev))
+                for _ in range(cfg.n_layers)]
+
+    def embed_at(self, tokens, pos: int):
+        """Embedding of a chunk (B, L) starting at position ``pos``."""
+        x = self.wte[tokens.long()]
+        if self.wpe is None:
+            return x
+        return x + self.wpe[pos:pos + tokens.shape[-1]]
+
+    @torch.no_grad()
+    def forward_cached(self, tokens, cache, pos: int):
+        """(B, L) tokens at positions [pos, pos + L) -> (logits, cache):
+        the caches (``init_cache``) are written in place and returned."""
+        return _cached_forward(self, self.layer_weights(), tokens, cache,
+                               pos), cache
+
+
+# ---------------------------------------------------------------------------
+# Sampling and generation (counterparts of gpt.py:715-775, :887-930)
+# ---------------------------------------------------------------------------
+
+def _filter_logits(logits, temperature: float, top_p: float, top_k: int):
+    """Temperature, then top-k, then nucleus (top-p) filtering of (B, V)
+    fp32 logits: dropped entries become -inf. The same kept set as the
+    JAX ``_sample_token``: top-k keeps logits >= the k-th largest; top-p
+    keeps the smallest prefix of the sorted distribution whose mass
+    reaches top_p (the first token crossing it included)."""
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_l, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p
+        cutoff = torch.where(keep, sorted_l,
+                             torch.full_like(sorted_l, float("inf"))
+                             ).amin(dim=-1)
+        logits = logits.masked_fill(logits < cutoff[:, None],
+                                    float("-inf"))
+    return logits
+
+
+def _sample_token(logits, generator: Optional[torch.Generator],
+                  temperature: float, top_p: float, top_k: int):
+    """Greedy (temperature 0) or temperature / top-k / top-p sampling of
+    (B, V) fp32 logits -> (B,) int32, drawn from ``generator`` on the
+    logits' device. A draw is argmax(p / E) with E ~ Exp(1), which picks
+    token i with probability p_i and needs no host synchronisation; the
+    JAX package draws with ``jax.random.categorical``, so the two agree
+    in distribution, not draw for draw."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(_filter_logits(logits, temperature, top_p,
+                                         top_k), dim=-1)
+    noise = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)
+
+
+def _cached_forward(m: "GPT", layers, tokens, caches, pos: int):
+    """Logits of (B, L) tokens at [pos, pos + L) through per-layer
+    (k, v) caches, written in place: one ``decode_step`` per layer for
+    one token, ``verify_step`` for more, the rows' indices built once."""
+    x = m.embed_at(tokens, pos)
+    b, n = tokens.shape
+    positions = torch.full((b,), int(pos), dtype=torch.int32,
+                           device=tokens.device)
+    rows = cache_rows(positions, n, caches[0][0].shape[2])
+    step = m.block.decode_step if n == 1 else m.block.verify_step
+    for w, kv in zip(layers, caches):
+        x, _ = step(x, w, kv, rows)
+    return m.head(x)
+
+
+def _generate_scan(m: "GPT", b, s0, T, max_new_tokens, temperature, top_p,
+                   top_k, eos_id, tokens, generator):
+    """The dense stack's generation loop: the prompt, then each new
+    token, through ``_cached_forward``."""
+    layers = m.layer_weights()
+    caches = m.init_cache(b, T)
+    logits = _cached_forward(m, layers, tokens, caches, 0)
+    nxt = _sample_token(logits[:, -1].float(), generator, temperature,
+                        top_p, top_k)
+    done = (torch.zeros((b,), dtype=torch.bool, device=tokens.device)
+            if eos_id is None else nxt == eos_id)
+    out = [nxt]
+    for pos in range(s0, s0 + max_new_tokens - 1):
+        logits = _cached_forward(m, layers, out[-1][:, None], caches, pos)
+        nx = _sample_token(logits[:, -1].float(), generator, temperature,
+                           top_p, top_k)
+        if eos_id is not None:
+            nx = torch.where(done, torch.full_like(nx, eos_id), nx)
+            done = done | (nx == eos_id)
+        out.append(nx)
+    return torch.cat([tokens.to(torch.int32), torch.stack(out, dim=1)],
+                     dim=1)
+
+
+@torch.no_grad()
+def generate(model: GPT, tokens, max_new_tokens: int,
+             temperature: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+             eos_id: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             max_len: Optional[int] = None):
+    """Autoregressive generation with a KV cache of length ``max_len``
+    (default ``max_seq_len``). tokens: (B, S0) prompt (tensor or
+    array). Returns (B, S0 + max_new_tokens) int32 on the model's
+    device; after eos (if given) a row is padded with eos. Greedy by
+    default; temperature / top-k / top-p sampling draws from
+    ``generator`` (default: a fresh one seeded 0 on the model's
+    device)."""
+    cfg = model.cfg
+    dev = model.wte.device
+    tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.int64)
+    b, s0 = tokens.shape
+    T = max_len or cfg.max_seq_len
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+    if s0 + max_new_tokens > T:
+        raise ValueError(f"{s0 + max_new_tokens} tokens exceed cache "
+                         f"length {T}")
+    if T > cfg.max_seq_len and not cfg.rope:
+        raise ValueError(f"cache length {T} exceeds the position table "
+                         f"({cfg.max_seq_len})")
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    return _generate_scan(model, b, s0, T, max_new_tokens, temperature,
+                          top_p, top_k, eos_id, tokens, generator)
+
+
+GPT.generate = generate
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +672,11 @@ def fused_lm_loss(m: GPT, tokens, attn: Optional[Callable] = None,
     x = m.hidden_states(tokens, attn)
     b, s, d = x.shape
     xn = final_ln(x, m.lnf_scale, m.lnf_bias)
-    w = m.wte if m.lm_head is None else m.lm_head.t()   # (V, d)
+    w = m.head_weight()
+    if not isinstance(w, torch.Tensor):
+        raise NotImplementedError("an int8 model serves; it does not "
+                                  "train")
+    w = w.t()   # (V, d)
     rows = xn[:, :-1].reshape(b * (s - 1), d)
     labels = tokens[:, 1:].reshape(-1)
     per_tok = (ce or fused_softmax_cross_entropy)(rows, w, labels)

@@ -2,7 +2,8 @@
 GPU (marker ``cuda``; each test skips without a CUDA device). The plain
 versions are held against the JAX package on the CPU in
 test_torch_flash_attention.py, test_torch_flash_attention_bwd.py,
-test_torch_fused_ce.py and test_torch_paged_attention.py.
+test_torch_fused_ce.py, test_torch_paged_attention.py,
+test_torch_decode_attention.py and test_torch_quant_matmul.py.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -14,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import quantization as quant
+from paddle_tpu_torch.inference.decode_engine import DecodeEngine
 from paddle_tpu_torch.inference.paged_engine import PagedDecodeEngine
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -22,9 +25,13 @@ from paddle_tpu_torch.ops.flash_attention import (flash_attention,
 from paddle_tpu_torch.ops.fused_ce import (
     fused_ce_bwd_reference, fused_ce_dw, fused_ce_dx, fused_ce_fwd,
     fused_ce_reference, fused_softmax_cross_entropy)
+from paddle_tpu_torch.ops.decode_attention import (
+    decode_attention, decode_attention_reference)
 from paddle_tpu_torch.ops.paged_attention import (
     paged_append_attend, paged_append_attend_reference,
     paged_decode_attention, paged_decode_attention_reference)
+from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                               int8_matmul_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -315,3 +322,123 @@ def test_train_step_on_gpu_matches_cpu(dev):
         g = cpu_grad[n].abs()
         atol = torch.where(g > 1e-4 * g.max(), 2e-5, 4 * lr)
         assert ((gpu_p[n] - p).abs() <= atol).all(), n
+
+
+def _gpu_copy(cpu_model, dev):
+    return gpt.GPT(cpu_model.cfg, device=dev, weights={
+        n.removeprefix("stacked."): p.detach().to(dev)
+        for n, p in cpu_model.named_parameters()})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq, hkv, d, T, lengths", [
+    (4, 4, 128, 256, [0, 1, 100, 256]),
+    (8, 2, 64, 384, [383, 0, 129]),
+    (16, 4, 128, 2048, [0, 1, 127, 128, 517, 1023, 1024, 2047]),
+    (8, 1, 32, 128, [77, 128]),
+    (6, 3, 36, 256, [5, 250]),   # bf16 rows of 72 bytes: scalar loads
+])
+def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, T,
+                                               lengths):
+    """K10 against its plain version: outputs per (row, head) within
+    2^-7 relative L2 (bf16) or 1e-4 (fp32), (m, l) within 1e-4
+    relative, an empty row exactly o = 0, m = -inf, l = 0."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b = len(lengths)
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    k = _randn(gen, (b, hkv, T, d), dtype, dev)
+    v = _randn(gen, (b, hkv, T, d), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    o, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    o2 = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    ro, rm, rl = decode_attention_reference(q, k, v, lens,
+                                            return_stats=True)
+    assert o.dtype == dtype and torch.equal(o, o2)
+    live = lens > 0
+    err = ((o.float() - ro.float()).norm(dim=-1)
+           / ro.float().norm(dim=-1).clamp_min(1e-30))[live]
+    assert err.max().item() <= (1e-4 if dtype == torch.float32
+                                else 2.0 ** -7)
+    assert (o[~live] == 0).all()
+    assert torch.isneginf(m[~live]).all() and (l[~live] == 0).all()
+    torch.testing.assert_close(m[live], rm[live], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m, k, n", [
+    (1, 64, 48), (3, 200, 130), (8, 2048, 2048), (16, 300, 520),
+    (17, 128, 256), (64, 520, 136), (130, 2048, 6144), (5, 8192, 64)])
+def test_int8_matmul_kernel_matches_plain(dev, dtype, m, k, n):
+    """K12 against its plain version on both regimes (the weight stream
+    for M <= 16 and every fp32 M, the wmma tiles for bf16 M > 16), with
+    ragged M, K and N and split K: per row within 2^-7 relative L2
+    (bf16: one rounding of fp32 sums in another order) or 1e-5 (fp32)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = _randn(gen, (m, k), dtype, dev)
+    q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((1, n), generator=gen, device=dev) * 0.02 + 1e-3
+    before = int8_matmul.launches
+    out = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_reference(x.float(), q, scale)
+    assert out.dtype == dtype and out.shape == (m, n)
+    err = ((out.float() - ref).norm(dim=-1)
+           / ref.norm(dim=-1).clamp_min(1e-30))
+    assert err.max().item() <= (1e-5 if dtype == torch.float32
+                                else 2.0 ** -7)
+
+
+def test_contiguous_engines_on_gpu_match_cpu(dev):
+    """fp32 tiny model with a 1024 cache: the contiguous engine's greedy
+    streams through K10 on the GPU equal the plain path's on the CPU,
+    and so do the int8 engine's through K12."""
+    cfg = gpt.GPTConfig(vocab_size=96, max_seq_len=1024, d_model=64,
+                        n_layers=2, n_heads=2, dtype=torch.float32)
+    cpu_model = gpt.GPT(cfg, seed=0, device="cpu")
+    gpu_model = _gpu_copy(cpu_model, dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 96, size=n).tolist() for n in (5, 40, 600)]
+    streams = []
+    for model, device in ((cpu_model, "cpu"), (gpu_model, dev)):
+        k10, k12 = decode_attention.launches, int8_matmul.launches
+        eng = DecodeEngine(model, max_slots=2, steps_per_call=4,
+                           device=device)
+        q8 = DecodeEngine(None, share_weights_with=eng, max_slots=2,
+                          steps_per_call=4, weight_dtype="int8",
+                          device=device)
+        out = []
+        for e in (eng, q8):
+            reqs = [e.submit(p, max_new_tokens=10) for p in prompts]
+            e.run()
+            out.append([r.tokens for r in reqs])
+        streams.append(out)
+        if device != "cpu":
+            assert decode_attention.launches > k10
+            assert int8_matmul.launches > k12
+    assert streams[0] == streams[1]
+
+
+def test_generate_on_gpu_matches_cpu(dev):
+    cfg = gpt.GPTConfig(vocab_size=96, max_seq_len=1024, d_model=64,
+                        n_layers=2, n_heads=4, n_kv_heads=2, rope=True,
+                        use_bias=False, tie_embeddings=False,
+                        dtype=torch.float32)
+    cpu_model = gpt.GPT(cfg, seed=1, device="cpu")
+    gpu_model = _gpu_copy(cpu_model, dev)
+    toks = np.random.RandomState(1).randint(0, 96, size=(3, 11))
+    want = cpu_model.generate(toks, max_new_tokens=12)
+    got = gpu_model.generate(toks, max_new_tokens=12)
+    assert torch.equal(got.cpu(), want)
+    q_want = quant.quantize_for_inference(cpu_model).generate(
+        toks, max_new_tokens=12)
+    q_got = quant.quantize_for_inference(gpu_model).generate(
+        toks, max_new_tokens=12)
+    assert torch.equal(q_got.cpu(), q_want)

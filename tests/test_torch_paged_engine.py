@@ -14,6 +14,7 @@ from paddle_tpu.inference.paged_engine import (
     PagedDecodeEngine as JaxPagedEngine)
 from paddle_tpu.models import gpt as jax_gpt
 from paddle_tpu_torch import stats
+from paddle_tpu_torch.inference.decode_engine import DecodeEngine
 from paddle_tpu_torch.inference.factory import make_engine
 from paddle_tpu_torch.inference.paged_engine import PagedDecodeEngine
 from paddle_tpu_torch.models import gpt
@@ -223,8 +224,9 @@ def test_unported_methods_and_engines_raise(port_model):
                  "submit_handoff", "attach_fleet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, name)()
-    with pytest.raises(NotImplementedError, match="DecodeEngine"):
-        make_engine(port_model, engine="contiguous", device="cpu")
+    # the contiguous engine is ported now: the factory builds it
+    assert isinstance(make_engine(port_model, engine="contiguous",
+                                  device="cpu"), DecodeEngine)
     with pytest.raises(ValueError, match="'paged' or 'contiguous'"):
         make_engine(port_model, engine="ragged", device="cpu")
     with pytest.raises(ValueError, match="in-flight depth"):

@@ -40,10 +40,14 @@ def test_import_in_fresh_interpreter_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch\n"
             "import paddle_tpu_torch.inference.factory\n"
+            "import paddle_tpu_torch.inference.decode_engine\n"
             "import paddle_tpu_torch.models.convert\n"
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.ops.fused_ce\n"
             "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.ops.decode_attention\n"
+            "import paddle_tpu_torch.ops.quant_matmul\n"
+            "import paddle_tpu_torch.quantization\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -65,6 +69,9 @@ def test_entry_points_raise_without_cuda():
         make_engine(model, n_pages=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_engine(model, n_pages=4, device="cuda")
+    for kw in ({}, {"weight_dtype": "int8"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_engine(model, engine="contiguous", **kw)
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -77,6 +84,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert sorted(_build.sources()) == ["flash_attention_bwd",
+    assert sorted(_build.sources()) == ["decode_attention",
+                                        "flash_attention_bwd",
                                         "flash_attention_fwd", "fused_ce",
-                                        "paged_attention"]
+                                        "paged_attention", "quant_matmul"]
