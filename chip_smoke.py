@@ -21,7 +21,8 @@ Phases, each fatal on failure:
    where PyTorch has one call for the same function, and its bound: the
    larger of bytes / 3.35 TB/s and FLOPs / 989.4 TFLOP/s;
 4. serving — gpt3_1p3b at full width (random weights from a seed)
-   through ``make_engine``: 8 prompts of 128 tokens plus one that shares
+   through ``make_engine(mega=False)`` (the per-layer decode): 8 prompts
+   of 128 tokens plus one that shares
    the first's 128-token prefix (suffix prefill), 64 new tokens each.
    The kernels' launch counters, zeroed just before, must show K1 = L x
    cold prefills, K2 = L x decode steps, K2' > 0. Every emitted token is
@@ -51,13 +52,32 @@ Phases, each fatal on failure:
    decode step and per prefill chunk, K10 as in 7; tokens checked
    against a teacher-forced forward of the same int8 weights with K12
    replaced by its plain version; the share of tokens equal to 7's;
-9. decode device time — per decode step of each engine, from a
-   torch.profiler window of decode dispatches, beside its weight-read
-   floor;
+9. decode device time — per decode step of each engine (contiguous
+   bf16 and int8, paged single-dispatch and per-layer), from a
+   torch.profiler window of decode dispatches: device ms and kernel
+   launches per decode step, beside the weight-read floor;
 10. generate — ``GPT.generate``, greedy, 4 prompts of 128 tokens, 32 new
    tokens, cache 2048: K10 = L x 31 launches; the teacher-forced check.
 
-Phases 6-10 run before 5 (which needs the card's memory for training).
+11. K8 and K9, at the single-dispatch engine's shapes (B 8 rows, 7
+   slots of two 128-token pages, positions 0..255, an inactive row, two
+   rows of one slot): K8 on one gpt3_1p3b layer (weights at
+   1/sqrt(fan_in)) and on two llama_style_1b-shaped layers (4 kv heads,
+   rope, no biases), x_out per row and the written pool rows within
+   REL_L2_TOL, every other pool row bit-identical
+   (``mega_layers_check``); on the model's 24 layers, x_out within
+   THROUGH_DEPTH_TOL; K9 on the 24-layer output and the tied head (V
+   50,304) with a planted tie, an overflowing row and a poisoned row
+   (``mega_logits_check``). Device times of K8, its plain version and
+   the per-layer path at the same shapes, and of K9;
+12. single-dispatch serving — the same model and prompts as 4 through
+   ``make_engine(model)``, whose default runs one K8 and one K9 launch
+   per decode step: K8 = K9 = decode steps, K2 = 0, K1 = L x cold
+   prefills, K2' > 0; the teacher-forced check; a second batch under
+   torch.profiler.
+
+Phases 11, 4, 12 and 6-10 run before 5 (which needs the card's memory
+for training).
 
 Then one ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Imports neither jax nor paddle_tpu.
@@ -119,22 +139,27 @@ def _device_ms(torch, fn, keys=None, iters=20, warmup=3):
     (those whose name holds one of ``keys``, or all), summed from a
     torch.profiler trace: the kernels' own time, without the host's
     gaps between launches, which CUDA events around back-to-back calls
-    also count when a call's Python is slower than its kernels. None
-    when the profiler recorded no device activity."""
+    also count when a call's Python is slower than its kernels. A window
+    in which the profiler recorded none of the kernels is profiled again
+    (up to three windows); None when none recorded them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start
-                for e in prof.events() if e.device_type == DeviceType.CUDA
-                and (keys is None or any(k in e.name for k in keys)))
-    return total / 1e3 / iters if total else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.end - e.time_range.start
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and (keys is None or any(k in e.name for k in keys)))
+        if total:
+            return total / 1e3 / iters
+    return None
 
 
 def _cold(operands, nbytes):
@@ -249,6 +274,161 @@ def quant_matmul_check(out, ref):
            "finite": bool(out.float().isfinite().all().item())}
     rec["ok"] = bool(rec["row_rel_l2_max"] <= REL_L2_TOL
                      and rec["finite"])
+    return rec
+
+
+# K8's rows at the single-dispatch engine's shapes, (slot, position,
+# write): positions 0..255 over 8 rows, an inactive row (slot 5), and
+# two rows of slot 6 at consecutive positions, so the second attends
+# over the first's fresh row
+K8_ROWS = ((0, 0, 1), (1, 37, 1), (2, 127, 1), (3, 128, 1), (4, 200, 1),
+           (5, 255, 0), (6, 1, 1), (6, 2, 1))
+K8_PAGES = 2                       # pages of 128 per slot: 256 tokens
+# x_out through 24 layers: bf16 roundings at other places compound over
+# depth (the train phase's gradient tolerance, for the same reason)
+THROUGH_DEPTH_TOL = 2.5e-2
+
+
+def mega_inputs(torch, dev, gen, dm, hq, hkv, d, n_layers, bias=True,
+                rope=False, dtype=None, weights=None, rows=K8_ROWS,
+                page=128):
+    """K8's operands: ``weights`` (the (L, ...) slabs by name), or slabs
+    drawn at std 1/sqrt(fan_in), so every product moves the residual by
+    about as much as it holds and an attention or write fault shows in
+    x_out; LayerNorm vectors fp32 near 1 and 0; x and pools from randn;
+    slot s maps pages [K8_PAGES s, K8_PAGES (s + 1)). Also returns
+    ``written``, the (L*P + 1, page) mask of the pool rows the active
+    rows write, and the geometry kwargs."""
+    dtype = dtype or torch.bfloat16
+    L = n_layers
+    if weights is None:
+        f, nq = 4 * dm, (hq + 2 * hkv) * d
+        shapes = {"ln1_scale": (L, dm), "ln1_bias": (L, dm),
+                  "wqkv": (L, dm, nq), "bqkv": (L, nq),
+                  "wo": (L, hq * d, dm), "bo": (L, dm),
+                  "ln2_scale": (L, dm), "ln2_bias": (L, dm),
+                  "wup": (L, dm, f), "bup": (L, f), "wdown": (L, f, dm),
+                  "bdown": (L, dm)}
+        weights = {}
+        for n, shape in shapes.items():
+            if n.startswith("b") and not bias:
+                continue
+            z = torch.randn(shape, generator=gen, device=dev)
+            if n.startswith("ln"):
+                weights[n] = (1.0 if n.endswith("scale") else 0.0) + 0.1 * z
+            elif n.startswith("w"):
+                weights[n] = (z / shape[1] ** 0.5).to(dtype)
+            else:
+                weights[n] = (0.1 * z).to(dtype)
+    slots = max(s for s, _, _ in rows) + 1
+    P = slots * K8_PAGES
+    shape = (L * P + 1, hkv, page, d)
+    kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    table = torch.arange(P, dtype=torch.int32, device=dev).reshape(
+        slots, K8_PAGES)
+    i32 = dict(dtype=torch.int32, device=dev)
+    slot, pos, write = (torch.tensor(c, **i32) for c in zip(*rows))
+    written = torch.zeros((L * P + 1, page), dtype=torch.bool, device=dev)
+    for layer in range(L):
+        for s, p, wr in rows:
+            if wr:
+                written[layer * P + K8_PAGES * s + p // page,
+                        p % page] = True
+    x = torch.randn((len(rows), dm), generator=gen, device=dev).to(dtype)
+    geo = dict(page=page, n_pages=P, n_heads=hq, kv_heads=hkv,
+               head_dim=d, rope=rope)
+    return dict(x=x, w=weights, kp=kp, vp=vp, table=table, pos=pos,
+                slot=slot, write=write, written=written, geo=geo)
+
+
+def mega_layers_check(x_out, ref_x, pools, ref_pools, pools0, written,
+                      tol):
+    """K8 against its plain version on the same inputs: x_out per row
+    and each fresh K/V row written (per pool row, offset and head, at
+    ``written``) within ``tol`` relative L2 (REL_L2_TOL at one layer;
+    THROUGH_DEPTH_TOL through depth, where deep layers' rows carry the
+    compounded error); every other pool row bit-identical to
+    ``pools0``, the scratch page (the pools' last row) excepted."""
+    rec = {"row_rel_l2_max": rel_l2(x_out, ref_x, (1,)).max().item(),
+           "finite": bool(x_out.float().isfinite().all().item())}
+    keep = ~written
+    keep[-1] = False
+    errs, same = [], True
+    for got, ref, before in zip(pools, ref_pools, pools0):
+        got, ref, before = (t.transpose(1, 2) for t in (got, ref, before))
+        errs.append(rel_l2(got[written], ref[written], (2,)).max().item())
+        same = same and got[keep].equal(before[keep])
+    rec.update({"written_row_rel_l2_max": max(errs),
+                "untouched_bit_identical": same})
+    rec["ok"] = bool(rec["finite"] and rec["row_rel_l2_max"] <= tol
+                     and rec["written_row_rel_l2_max"] <= tol
+                     and same)
+    return rec
+
+
+def mega_logits_inputs(torch, x, head_w, lnf_scale, lnf_bias,
+                       tie_rows=(0, 1), overflow_row=4, poison_row=2):
+    """K9's planted cases on copies of x and of the head ``head_w``
+    (V, dm), the tied ``wte``: row 0's maximum at two equal columns in
+    different 32-column strips, row 1's at two neighbours in one strip;
+    depth 7 of x zeroed but for a large value in ``overflow_row`` and a
+    small positive one in the tie rows, and one column (V - 5) that
+    reads only depth 7, at -1e38, so that ``overflow_row``'s logit alone
+    overflows to inf, in one strip (the tie rows' is near -2e38);
+    ``poison_row`` poisoned. Returns (x, w, poison, ties {row: the
+    lowest tied column})."""
+    from paddle_tpu_torch.models.gpt import final_ln
+    x = x.clone()
+    w = head_w.clone()
+    V = w.shape[0]
+    k0, col = 7, V - 5
+    x[:, k0] = 0
+    x[overflow_row, k0] = -40
+    std = x.float().std(dim=1)
+    for r in tie_rows:
+        x[r, k0] = 2 * std[r]
+    w[col] = 0
+    w[col, k0] = -1e38
+    h = final_ln(x, lnf_scale, lnf_bias).float()
+    ties = {}
+    for r, cols in zip(tie_rows, ((1000, V // 2 + 17), (2000, 2001))):
+        ties[r] = cols[0]
+        for c in cols:
+            w[c] = (3 * h[r] / h[r].norm()).to(w.dtype)
+            w[c, k0] = 0
+    poison = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    poison[poison_row] = 1
+    return x, w, poison, ties
+
+
+def mega_logits_check(tok, nonfin, ref_logits, ref_nonfin, ties):
+    """K9 against its plain version: non-finite flags exact; tokens
+    equal to the plain argmax where the row is not flagged and its top
+    two logits differ by more than two bf16 ulps of the maximum (closer
+    ones may swap under another summation order), and on every row not
+    flagged, the picked token's plain logit within two such ulps of the
+    row's maximum; at each planted tie ({row: the lowest of the equal
+    columns}), exactly that column."""
+    lg = ref_logits.float()
+    fin = lg.masked_fill(~lg.isfinite(), -3e38)
+    top2 = fin.topk(2, dim=1).values
+    ulp = (top2[:, 0].abs().clamp_min(1e-30).log2().floor() - 7).exp2()
+    clear = (top2[:, 0] - top2[:, 1] > 2 * ulp) & (ref_nonfin == 0)
+    ref_tok = fin.argmax(dim=1).to(tok.dtype)
+    rec = {"flags_exact": nonfin.equal(ref_nonfin),
+           "flags": nonfin.tolist(),
+           "rows_compared": int(clear.sum().item()),
+           "tokens_equal": bool((tok[clear] == ref_tok[clear]).all().item()),
+           "ties_lowest": all(int(tok[r]) == c and int(nonfin[r]) == 0
+                              for r, c in ties.items())}
+    live = ref_nonfin == 0
+    picked = fin.gather(1, tok.long()[:, None])[:, 0]
+    gap = top2[:, 0] - picked
+    rec["token_logit_gap_max"] = gap[live].max().item()
+    rec["gaps_within_2ulp"] = bool((gap[live] <= 2 * ulp[live]).all().item())
+    rec["ok"] = bool(rec["flags_exact"] and rec["tokens_equal"]
+                     and rec["ties_lowest"] and rec["gaps_within_2ulp"])
     return rec
 
 
@@ -658,6 +838,11 @@ def k10_case(torch, dev, gen, hkv):
 K12_KERNELS = ("rows_kernel", "tiles_kernel", "finalize_kernel")
 
 
+def _sum_or_none(values):
+    values = list(values)
+    return None if None in values else sum(values)
+
+
 def k12_case(torch, dev, gen):
     """K12 on the four gpt3_1p3b block products at M 8 (decode: the
     weight stream) and M 128 (a prefill bucket: the wmma tiles), bf16,
@@ -707,14 +892,187 @@ def k12_case(torch, dev, gen):
                      "call_ms: CUDA events around back-to-back calls",
            "library": "torch.matmul on the bf16-dequantized weight "
                       "(twice the weight bytes)",
-           # one decode layer's four products at M 8, summed
-           "decode_layer_ms": sum(c["kernel_ms"] for c in decode),
-           "decode_layer_plain_ms": sum(c["plain_ms"] for c in decode),
-           "decode_layer_library_ms": sum(c["library_ms"] for c in decode),
+           # one decode layer's four products at M 8, summed (None where
+           # a time is missing: the phase then fails on ``ok``)
+           "decode_layer_ms": _sum_or_none(c["kernel_ms"] for c in decode),
+           "decode_layer_plain_ms": _sum_or_none(c["plain_ms"]
+                                                 for c in decode),
+           "decode_layer_library_ms": _sum_or_none(c["library_ms"]
+                                                   for c in decode),
            "decode_layer_bound_ms": sum(c["bound_ms"] for c in decode),
            "ok": bool(ok)}
     _phase(rec)
     return rec
+
+
+def _k8_bound(inp, n_layers):
+    """K8's least time: every slab read once, each row's valid K/V rows
+    read once per layer, each fresh row written once per layer, x read
+    and written; the operations of the products and of attention."""
+    x, w, geo = inp["x"], inp["w"], inp["geo"]
+    elt = x.element_size()
+    hkv, d, hq = geo["kv_heads"], geo["head_dim"], geo["n_heads"]
+    lens = [min(int(p) + 1, inp["table"].shape[1] * geo["page"])
+            for p in inp["pos"].tolist()]
+    B = x.shape[0]
+    slabs = sum(t.numel() * t.element_size() for t in w.values())
+    kv = 2 * sum(lens) * hkv * d * elt * n_layers
+    fresh = 2 * B * hkv * d * elt * n_layers
+    nbytes = slabs + kv + fresh + 2 * x.numel() * elt + 4 * 4 * B
+    macs = sum(w[n].numel() for n in ("wqkv", "wo", "wup", "wdown"))
+    flops = 2 * B * macs + 4 * sum(lens) * hq * d * n_layers
+    return _bound(nbytes, flops)
+
+
+def _mega_call(mk, inp, kp, vp, plain=False):
+    fn = mk.mega_decode_layers_reference if plain else mk.mega_decode_layers
+    return fn(inp["x"], inp["w"], kp, vp, inp["table"], inp["pos"],
+              inp["slot"], inp["write"], **inp["geo"])
+
+
+def _per_layer_call(torch, inp, kp, vp):
+    """One step of the per-layer (``mega=False``) engine's layer loop at
+    K8's shapes, for context: per layer ``_qkv``, K2 with the inactive
+    row writing the scratch page, ``_block_tail``."""
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    from paddle_tpu_torch.ops.paged_attention import paged_append_attend
+    geo, w = inp["geo"], inp["w"]
+    hq, hkv, d = geo["n_heads"], geo["kv_heads"], geo["head_dim"]
+    L, P, page = w["wqkv"].shape[0], geo["n_pages"], geo["page"]
+    blk = GPTBlock(GPTConfig(d_model=hq * d, n_layers=L, n_heads=hq,
+                             n_kv_heads=hkv, rope=geo["rope"]))
+    pos, table = inp["pos"], inp["table"][inp["slot"].long()]
+    base = table.gather(1, (pos // page)[:, None].long())[:, 0]
+    x = inp["x"][:, None]
+    for layer in range(L):
+        lw = {n: t[layer] for n, t in w.items()}
+        q, k, v = blk._qkv(x, pos, lw)
+        wp = torch.where(inp["write"] == 1, layer * P + base,
+                         L * P).to(torch.int32)
+        o, _, _ = paged_append_attend(
+            q[:, 0].contiguous(), kp, vp, k[:, 0].contiguous(),
+            v[:, 0].contiguous(), (layer * P + table).contiguous(), wp, pos)
+        x = blk._block_tail(x, o.reshape(x.shape), lw)
+    return x[:, 0]
+
+
+def k8_case(torch, name, inp, tol, timed=False, context=False):
+    """K8 once against its plain version on the same inputs
+    (``mega_layers_check``) and its bound; with ``timed``, its device
+    time (profiler: at gpt3_1p3b width the weights, far larger than L2,
+    are read cold by every call) and the plain version's; with
+    ``context``, also the per-layer path's at the same shapes and its
+    kernel launches. Returns (record, x_out)."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    L = inp["w"]["wqkv"].shape[0]
+    kp, vp = inp["kp"].clone(), inp["vp"].clone()
+    out = _mega_call(mk, inp, kp, vp)
+    torch.cuda.synchronize()
+    rkp, rvp = inp["kp"].clone(), inp["vp"].clone()
+    ref = _mega_call(mk, inp, rkp, rvp, plain=True)
+    check = mega_layers_check(out, ref, (kp, vp), (rkp, rvp),
+                              (inp["kp"], inp["vp"]), inp["written"], tol)
+    del rkp, rvp
+    bound_ms, bound_by = _k8_bound(inp, L)
+    rec = {"phase": f"k8_{name}", "layers": L, "rows": K8_ROWS,
+           **{k: v for k, v in inp["geo"].items()},
+           "d_model": inp["x"].shape[1], "dtype": str(inp["x"].dtype),
+           "biases": "bqkv" in inp["w"], "tol_rel_l2": tol,
+           "check": check,
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    ok = check["ok"]
+    if timed:
+        rec["kernel_ms"] = _device_ms(
+            torch, lambda: _mega_call(mk, inp, kp, vp), ("mega_kernel",),
+            iters=10, warmup=2)
+        rec["plain_ms"] = _device_ms(
+            torch, lambda: _mega_call(mk, inp, kp, vp, plain=True), iters=2,
+            warmup=1)
+        rec["library_ms"] = None
+        ok = ok and None not in (rec["kernel_ms"], rec["plain_ms"])
+    if context:
+        rec["per_layer_path_ms"] = _device_ms(
+            torch, lambda: _per_layer_call(torch, inp, kp, vp), iters=5,
+            warmup=1)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _per_layer_call(torch, inp, kp, vp)
+            torch.cuda.synchronize()
+        rec["per_layer_path_launches"] = sum(
+            e.device_type == DeviceType.CUDA for e in prof.events())
+        rec["timing"] = ("device time (torch.profiler); the per-layer "
+                         "path (mega=False) at the same shapes is context, "
+                         "not a library call")
+        ok = ok and rec["per_layer_path_ms"] is not None
+    rec["ok"] = bool(ok)
+    _phase(rec)
+    return rec, out
+
+
+def k89_phase(torch, dev, gen, model):
+    """K8 and K9 at the single-dispatch engine's shapes (phase 11): one
+    gpt3_1p3b layer at full width (weights at 1/sqrt(fan_in)), one layer
+    at d_model 128 (the per-layer fixed cost), two
+    llama_style_1b-shaped layers (4 kv heads, rope, no biases), all 24
+    of the model's own layers, each against the plain version; then K9
+    on the 24-layer output and a copy of the model's tied head with a
+    planted tie, an overflowing row and a poisoned row. Returns (K8
+    record, K9 record)."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    cfg = model.cfg
+    dm, hq, d = cfg.d_model, cfg.n_heads, cfg.head_dim
+    one = mega_inputs(torch, dev, gen, dm, hq, hq, d, 1)
+    k8_case(torch, "gpt3_1p3b_1layer", one, REL_L2_TOL, timed=True)
+    del one
+    # d_model 128: the weight stream is negligible, so the time is what
+    # one layer's phases cost whatever the width (barriers, staging,
+    # reductions, attention at these positions)
+    narrow = mega_inputs(torch, dev, gen, 128, 2, 2, 64, 1)
+    k8_case(torch, "narrow_1layer", narrow, REL_L2_TOL, timed=True)
+    del narrow
+    lla = mega_inputs(torch, dev, gen, dm, hq, 4, d, 2, bias=False,
+                      rope=True)
+    k8_case(torch, "llama_shaped_2layers", lla, REL_L2_TOL)
+    del lla
+    slabs = {n: t.detach() for n, t in model.stacked.items()}
+    deep = mega_inputs(torch, dev, gen, dm, hq, hq, d, cfg.n_layers,
+                       weights=slabs)
+    k8, x24 = k8_case(torch, "gpt3_1p3b_24layers", deep, THROUGH_DEPTH_TOL,
+                      timed=True, context=True)
+    del deep
+    torch.cuda.empty_cache()
+
+    x, w, poison, ties = mega_logits_inputs(
+        torch, x24, model.wte.detach(), model.lnf_scale.detach(),
+        model.lnf_bias.detach())
+    s, b = model.lnf_scale.detach(), model.lnf_bias.detach()
+    tok, nonfin = mk.mega_logits_sample(x, s, b, w.t(), poison)
+    torch.cuda.synchronize()
+    logits = mk.epilogue_logits(x, s, b, w.t(), poison)
+    _, ref_nonfin = mk.mega_logits_sample_reference(x, s, b, w.t(), poison)
+    check = mega_logits_check(tok, nonfin, logits, ref_nonfin, ties)
+    del logits
+    ms = _device_ms(torch, lambda: mk.mega_logits_sample(x, s, b, w.t(),
+                                                         poison),
+                    ("logits_kernel",))
+    plain_ms = _device_ms(torch, lambda: mk.mega_logits_sample_reference(
+        x, s, b, w.t(), poison), iters=5, warmup=1)
+    B, V = x.shape[0], w.shape[0]
+    elt = x.element_size()
+    bound_ms, bound_by = _bound(V * dm * elt + B * dm * elt + 2 * dm * 4
+                                + 3 * B * 4, 2 * B * dm * V)
+    k9 = {"phase": "k9_gpt3_1p3b_head", "B": B, "d_model": dm, "V": V,
+          "dtype": str(x.dtype), "check": check, "ties": ties,
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "timing": "device time (torch.profiler); the head (0.21 GB) "
+                    "is read cold by every call",
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "ok": bool(check["ok"] and None not in (ms, plain_ms))}
+    _phase(k9)
+    return k8, k9
 
 
 def _counters():
@@ -723,6 +1081,8 @@ def _counters():
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as ce
     from paddle_tpu_torch.ops.decode_attention import decode_attention
+    from paddle_tpu_torch.ops.decode_megakernel import (mega_decode_layers,
+                                                        mega_logits_sample)
     from paddle_tpu_torch.ops.paged_attention import (
         paged_append_attend, paged_decode_attention)
     from paddle_tpu_torch.ops.quant_matmul import int8_matmul
@@ -734,7 +1094,9 @@ def _counters():
             "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_dx": ce.fused_ce_dx,
             "fused_ce_dw": ce.fused_ce_dw,
             "decode_attention": decode_attention,
-            "int8_matmul": int8_matmul}
+            "int8_matmul": int8_matmul,
+            "mega_decode_layers": mega_decode_layers,
+            "mega_logits_sample": mega_logits_sample}
 
 
 def _zero_counters():
@@ -977,7 +1339,10 @@ def _latency(reqs, wall):
             "tpot_p50_s": tpots[len(tpots) // 2], "tpot_max_s": tpots[-1]}
 
 
-def serving_phase(torch, dev, model=None):
+def serving_phase(torch, dev, model=None, mega=False):
+    """gpt3_1p3b through the paged engine (phase 4, ``mega=False``: K2
+    per layer; phase 12, ``make_engine(model)``'s default single-dispatch
+    decode: one K8 and one K9 launch per decode step)."""
     import numpy as np
     from paddle_tpu_torch import stats
     from paddle_tpu_torch.inference.factory import make_engine
@@ -991,7 +1356,14 @@ def serving_phase(torch, dev, model=None):
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
     chunk, n_new = 16, 64
-    eng = make_engine(model, n_pages=64, max_slots=8, steps_per_call=chunk)
+    if mega:
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=chunk)
+        if not eng.mega:
+            _fail("make_engine(model) did not turn the megakernel on")
+    else:
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=chunk, mega=False)
     rs = np.random.RandomState(SEED)
     prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
                for _ in range(8)]
@@ -1004,17 +1376,22 @@ def serving_phase(torch, dev, model=None):
     n_suffix = int(stats.get("serve/dispatches/prefill_suffix"))
     n_cold = len(prompts) - n_suffix
     decode_steps = eng.steps * eng.chunk
-    others = set(launches) - {"flash_attention", "paged_append_attend",
-                              "paged_decode_attention"}
+    per_step = ({"mega_decode_layers": decode_steps,
+                 "mega_logits_sample": decode_steps} if mega
+                else {"paged_append_attend": L * decode_steps})
+    others = set(launches) - set(per_step) - {"flash_attention",
+                                              "paged_decode_attention"}
     counts_ok = (launches["flash_attention"] == L * n_cold
-                 and launches["paged_append_attend"] == L * decode_steps
+                 and all(launches[n] == c for n, c in per_step.items())
                  and launches["paged_decode_attention"] > 0
                  and n_suffix == 1
                  and all(launches[n] == 0 for n in others))
     done_ok = all(r.done and not r.failed and len(r.tokens) == n_new
                   for r in reqs)
     check = teacher_forced(torch, dev, model, reqs)
-    rec = {"phase": "serving_gpt3_1p3b", "params": cfg.num_params(),
+    rec = {"phase": "serving_mega_gpt3_1p3b" if mega
+           else "serving_gpt3_1p3b", "mega": eng.mega,
+           "params": cfg.num_params(),
            "layers": L, "d_model": cfg.d_model, "slots": 8,
            "steps_per_call": chunk, "init_s": init_s,
            **_latency(reqs, wall),
@@ -1028,7 +1405,9 @@ def serving_phase(torch, dev, model=None):
     # fresh prompts: a cold batch like the first, not prefix-cache hits
     breakdown_phase(torch, eng, [rs.randint(0, cfg.vocab_size,
                                             size=128).tolist()
-                                 for _ in range(8)], n_new)
+                                 for _ in range(8)], n_new,
+                    "serving_mega_breakdown" if mega
+                    else "serving_breakdown")
     return rec
 
 
@@ -1136,7 +1515,7 @@ def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
     rs = np.random.RandomState(SEED + 2)
     reqs = [eng.submit(rs.randint(0, cfg.vocab_size, size=128).tolist(),
                        max_new_tokens=64) for _ in range(eng.S)]
-    while eng._waiting or eng._admitting:
+    while eng._waiting or getattr(eng, "_admitting", ()):
         eng.step()
     eng.drain()
     torch.cuda.synchronize()
@@ -1164,6 +1543,8 @@ def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
                                             / max(1, decode_steps))
         rec["wall_ms_per_decode_step"] = wall_us / 1e3 / max(1,
                                                              decode_steps)
+        rec["launches_per_decode_step"] = (bd["kernel_launches"]
+                                           / max(1, decode_steps))
     rec["ok"] = bool(decode_steps > 0
                      and all(r.done and not r.failed for r in reqs))
     _phase(rec)
@@ -1210,14 +1591,24 @@ def generate_phase(torch, dev, model):
     return rec
 
 
-def serving_paths(torch, dev):
-    """Every serving path on one gpt3_1p3b (seed SEED): paged serving
-    and its breakdown (phase 4), contiguous bf16 serving (7), int8
-    serving (8), the decode device time of both engines (9), generate
-    (10). Returns path -> launches."""
+def serving_paths(torch, dev, gen=None):
+    """Every serving path on one gpt3_1p3b (seed SEED): K8 and K9 at the
+    single-dispatch engine's shapes (phase 11), paged serving per layer
+    and its breakdown (phase 4), single-dispatch paged serving and its
+    breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
+    decode device time of all four engines (9), generate (10). Returns
+    (path -> launches, (K8 record, K9 record))."""
+    from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
     model = gpt.GPT(gpt.gpt3_1p3b(), seed=SEED, device=dev)
+    k89 = k89_phase(torch, dev, gen, model)
+    torch.cuda.empty_cache()
     serve = serving_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    mega = serving_phase(torch, dev, model, mega=True)
     torch.cuda.empty_cache()
     contig, eng, reqs = contiguous_phase(torch, dev, model)
     int8, q8 = int8_phase(torch, dev, model, eng, reqs)
@@ -1229,12 +1620,20 @@ def serving_paths(torch, dev):
     decode_device_phase(torch, q8, "int8", blocks, head)
     del eng, q8, reqs
     torch.cuda.empty_cache()
-    gen = generate_phase(torch, dev, model)
-    return {"serving": serve["launches"], "contiguous": contig["launches"],
-            "int8": int8["launches"], "generate": gen["launches"]}
+    for on in (True, False):
+        paged = make_engine(model, n_pages=64, max_slots=8,
+                            steps_per_call=16, mega=on)
+        decode_device_phase(torch, paged, "paged_mega" if on else "paged",
+                            2 * blocks, head)
+        del paged
+        torch.cuda.empty_cache()
+    generated = generate_phase(torch, dev, model)
+    return ({"serving": serve["launches"], "serving_mega": mega["launches"],
+             "contiguous": contig["launches"], "int8": int8["launches"],
+             "generate": generated["launches"]}, k89)
 
 
-def breakdown_phase(torch, eng, prompts, n_new):
+def breakdown_phase(torch, eng, prompts, n_new, name="serving_breakdown"):
     """Where the serving time goes: a second batch through the same
     engine under torch.profiler, the device time of every CUDA kernel
     summed by family, and the device's busy share of the wall time.
@@ -1251,7 +1650,7 @@ def breakdown_phase(torch, eng, prompts, n_new):
         eng.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rec = {"phase": "serving_breakdown", "requests": len(reqs),
+    rec = {"phase": name, "requests": len(reqs),
            "wall_ms": wall_us / 1e3}
     bd = _device_breakdown(prof, wall_us)
     rec["measured"] = bd is not None
@@ -1314,7 +1713,7 @@ def main():
     k10 = [k10_case(torch, dev, gen, hkv) for hkv in (16, 4)]
     k12 = k12_case(torch, dev, gen)
     torch.cuda.empty_cache()
-    paths = serving_paths(torch, dev)
+    paths, (k8, k9) = serving_paths(torch, dev, gen)
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
     paths["train"] = train["launches"]
@@ -1389,6 +1788,18 @@ def main():
               k12["decode_layer_ms"], k12["decode_layer_plain_ms"],
               (k12["decode_layer_bound_ms"], "bytes"),
               k12["decode_layer_library_ms"], k12["max_abs_err"]),
+        # all 24 layers of one decode step at B 8
+        entry("mega_decode_layers", "decode_megakernel.cu",
+              "paddle_tpu/ops/pallas/decode_megakernel.py:366",
+              k8["kernel_ms"], k8["plain_ms"],
+              (k8["bound_ms"], k8["bound_by"]), None, k8["max_abs_err"]),
+        # max_abs_err: the worst gap between the picked token's plain
+        # logit and the row's plain maximum
+        entry("mega_logits_sample", "decode_megakernel.cu",
+              "paddle_tpu/ops/pallas/decode_megakernel.py:458",
+              k9["kernel_ms"], k9["plain_ms"],
+              (k9["bound_ms"], k9["bound_by"]), None,
+              k9["check"]["token_logit_gap_max"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

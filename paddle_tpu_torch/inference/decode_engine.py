@@ -66,10 +66,13 @@ def _not_ported(what: str, item: str):
 
 def resolve_engine_weights(model, share_weights_with):
     """The donor-or-build protocol: returns (cfg, head dict, per-layer
-    weight maps). The head dict's ``proj`` is the LM projection
-    (``GPT.head_weight``). With a donor, weights alias the donor's;
-    otherwise they come from ``model``, which must be a dense stack; an
-    int8 model's QuantTensors pass through as they are."""
+    weight maps, stacked slabs). The head dict's ``proj`` is the LM
+    projection (``GPT.head_weight``); the stacked slabs are the model's
+    (L, ...) block slabs by name (``GPT.stacked``, the megakernel's
+    operands; the quantized ones absent). With a donor, weights alias
+    the donor's; otherwise they come from ``model``, which must be a
+    dense stack; an int8 model's QuantTensors pass through as they
+    are."""
     if model is None:
         if share_weights_with is None:
             raise ValueError(
@@ -84,7 +87,8 @@ def resolve_engine_weights(model, share_weights_with):
         if share_weights_with.cfg != cfg:
             raise ValueError(
                 "share_weights_with engine serves a different model")
-        return cfg, share_weights_with._head, share_weights_with._layers
+        return (cfg, share_weights_with._head, share_weights_with._layers,
+                share_weights_with._stacked)
     # detached views: the engine runs no autograd, and sees every
     # in-place update of the model's parameters
     def detach(t):
@@ -96,7 +100,8 @@ def resolve_engine_weights(model, share_weights_with):
         ("proj", model.head_weight()))}
     layers = [{n: detach(t) for n, t in w.items()}
               for w in model.layer_weights()]
-    return cfg, head, layers
+    stacked = {n: t.detach() for n, t in model.stacked.items()}
+    return cfg, head, layers, stacked
 
 
 class Request:
@@ -386,8 +391,8 @@ class DecodeEngine(ResilientScheduler):
                 "paddle_tpu_torch yet (ROADMAP 'Port queue': distributed "
                 "on torch.distributed)")
         self.device = device_lib.resolve(device)
-        cfg, head, layers = resolve_engine_weights(model,
-                                                   share_weights_with)
+        cfg, head, layers, stacked = resolve_engine_weights(
+            model, share_weights_with)
         if head["wte"].device != self.device:
             raise ValueError(f"model lives on {head['wte'].device}, engine "
                              f"device is {self.device}")
@@ -405,7 +410,7 @@ class DecodeEngine(ResilientScheduler):
         if self.buckets[-1] > self.T:
             raise ValueError(
                 f"bucket {self.buckets[-1]} exceeds cache length {self.T}")
-        self._head, self._layers = head, layers
+        self._head, self._layers, self._stacked = head, layers, stacked
         if weight_dtype == "int8":
             self._quantize_stacked_int8()
         elif weight_dtype is not None:
@@ -474,7 +479,11 @@ class DecodeEngine(ResilientScheduler):
         scales: the JAX engine's stacked formula, taken one layer at a
         time). New per-layer maps, so a donor's weights
         (``share_weights_with``) are never touched; the LM head stays
-        float."""
+        float. The float slabs of the four products leave the engine's
+        stacked map, so an engine sharing these weights sees them as
+        int8."""
+        self._stacked = {n: t for n, t in self._stacked.items()
+                         if n not in _BLOCK_MATMULS}
         self._layers = [
             {n: (quantize_tensor(t) if n in _BLOCK_MATMULS
                  and not isinstance(t, QuantTensor) else t)

@@ -1,7 +1,11 @@
 """Engine factory for the serving surface (counterpart of
 ``paddle_tpu/inference/factory.py``).
 
-``make_engine(model)`` builds the paged engine, the serving default;
+``make_engine(model)`` builds the paged engine, the serving default,
+with single-dispatch decode on for a dense bf16 or fp32 stack (each
+decode step one launch of the decode megakernel K8 and one of the
+sampling epilogue K9; ``mega=False`` keeps the per-layer path, which a
+``quantize_for_inference`` model takes by default);
 ``engine="contiguous"`` builds the slot-contiguous ``DecodeEngine``,
 which serves prompts longer than the paged prefill's largest bucket and
 is the sampling surface (temperature / top-k / top-p). The JAX

@@ -19,19 +19,28 @@ Design, as in the JAX engine:
   only the suffix — each layer writes the suffix rows into the slot's
   pages, then the paged kernel K2' attends with one query row per
   suffix position.
-- **Fused per-layer decode**: each decode step runs, per layer, one
-  ``paged_append_attend`` launch (K2) that folds the fresh K/V row into
-  the attention and writes it into its page in place; ``steps_per_call``
-  steps run per dispatch with per-slot eos/budget/non-finite early stop
-  on the device, and return ONE packed (3, chunk, S) int32 record, so a
-  harvest is one device→host copy.
+- **Single-dispatch decode** (``mega``, the default for a dense bf16
+  or fp32 stack, as in the JAX engine): each decode step embeds the
+  tokens, runs every layer in ONE launch of the decode megakernel (K8)
+  over the unfolded page table — one row per slot, the active slots
+  writing their fresh K/V rows into their pages, the others into the
+  scratch page — and samples with ONE launch of the fused final-norm ->
+  logits -> argmax epilogue (K9), whose non-finite flag evicts a slot.
+  A ``quantize_for_inference`` model (int8 ``QuantTensor`` blocks) has
+  no int8 weight stream in the megakernel, in either package: it takes
+  the per-layer path, and ``mega=True`` raises for it.
+- **Fused per-layer decode** (``mega=False``): each decode step runs,
+  per layer, one ``paged_append_attend`` launch (K2) that folds the
+  fresh K/V row into the attention and writes it into its page in
+  place.
+- ``steps_per_call`` steps run per dispatch with per-slot
+  eos/budget/non-finite early stop on the device, and return ONE packed
+  (3, chunk, S) int32 record, so a harvest is one device→host copy.
 - **Pipelined dispatch** (``inflight``, default 2): see
   ``decode_engine.ResilientScheduler``.
 
-Only ``mega=False`` exists here: the layer-folded megakernel and its
-sampling epilogue (``mega=True``, the JAX engine's default) are the next
-slice. ``speculative_k > 0``, ``prefill_only``, the handoff and
-migration methods, ``warmup``, ``autotune`` and ``dispatch_cost`` raise
+``speculative_k > 0``, ``prefill_only``, the handoff and migration
+methods, ``warmup``, ``autotune`` and ``dispatch_cost`` raise
 ``NotImplementedError`` naming the ROADMAP item that ports them. The
 JAX engine's read-only-pool fallback (``fused=False``) is a reference
 formulation and has no counterpart here.
@@ -55,6 +64,9 @@ from paddle_tpu_torch.inference.decode_engine import (Request,
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models.gpt import GPTBlock
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops.decode_megakernel import (_WEIGHT_ORDER,
+                                                    mega_decode_layers,
+                                                    mega_logits_sample)
 from paddle_tpu_torch.ops.paged_attention import (PageAllocator,
                                                   paged_append_attend,
                                                   paged_decode_attention)
@@ -76,10 +88,8 @@ class PagedDecodeEngine(ResilientScheduler):
                  buckets=(16, 32, 64, 128, 256, 512),
                  share_weights_with=None, inflight: int = 2,
                  warmup: bool = False, prefix: bool = True,
-                 prefill_only: bool = False, mega: bool = False,
+                 prefill_only: bool = False, mega: Optional[bool] = None,
                  speculative_k: int = 0, device=None):
-        if mega:
-            raise _not_ported("the decode megakernel (mega=True)", "S1")
         if speculative_k:
             raise _not_ported("speculative decode", "S3")
         if prefill_only:
@@ -87,8 +97,8 @@ class PagedDecodeEngine(ResilientScheduler):
         if warmup:
             raise _not_ported("warmup", "S5")
         self.device = device_lib.resolve(device)
-        cfg, head, layers = resolve_engine_weights(model,
-                                                   share_weights_with)
+        cfg, head, layers, stacked = resolve_engine_weights(
+            model, share_weights_with)
         if head["wte"].device != self.device:
             raise ValueError(f"model lives on {head['wte'].device}, engine "
                              f"device is {self.device}")
@@ -100,7 +110,20 @@ class PagedDecodeEngine(ResilientScheduler):
         self.P = int(n_pages)
         self.chunk = int(steps_per_call)
         self.buckets = sorted(b for b in buckets if b <= cfg.max_seq_len)
-        self._head, self._layers = head, layers
+        self._head, self._layers, self._stacked = head, layers, stacked
+        # the megakernel streams dense (L, ...) slabs and a dense head;
+        # int8 QuantTensors go through K12 on the per-layer path
+        dense = (isinstance(head["proj"], torch.Tensor)
+                 and all(n in stacked for n in _WEIGHT_ORDER
+                         if n in layers[0]))
+        if mega is None:
+            mega = dense and cfg.dtype in (torch.bfloat16, torch.float32)
+        elif mega and not dense:
+            raise ValueError(
+                "mega=True needs dense weights: the decode megakernel has "
+                "no int8 weight stream (serve a quantize_for_inference "
+                "model with mega=False)")
+        self.mega = bool(mega)
         self._block = GPTBlock(cfg)
         self.scale = 1.0 / math.sqrt(cfg.head_dim)
         self._mx = (cfg.max_seq_len + self.page - 1) // self.page
@@ -122,6 +145,8 @@ class PagedDecodeEngine(ResilientScheduler):
         # zeroed as they return to the free list (see _release)
         self._tainted: set = set()
         i32 = dict(dtype=torch.int32, device=dev)
+        # the megakernel's flat rows: row s is slot s
+        self._rows = torch.arange(self.S, **i32)
         self.lengths = torch.zeros((self.S,), **i32)
         self.last = torch.zeros((self.S,), **i32)
         self.active = torch.zeros((self.S,), dtype=torch.bool, device=dev)
@@ -274,17 +299,50 @@ class PagedDecodeEngine(ResilientScheduler):
         nxt = torch.where(ok, nxt, last)
         return lengths + ok.to(torch.int32), nxt, bad
 
+    def _mega_rows(self, table, pos, row_slot, row_write, tokens):
+        """One megakernel pass over a flat row batch (the counterpart of
+        the JAX engine's ``_mega_rows``): embed ``tokens`` at ``pos``,
+        run every layer in one K8 launch over the unfolded ``table``
+        (pools in place), then one K9 launch on the LM projection.
+        Returns the greedy token and the non-finite flag per row."""
+        cfg = self.cfg
+        x = self._embed(tokens, pos)
+        x = mega_decode_layers(
+            x, self._stacked, self.kp, self.vp, table, pos, row_slot,
+            row_write, page=self.page, n_pages=self.P,
+            n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+            head_dim=cfg.head_dim, rope=cfg.rope,
+            rope_theta=cfg.rope_theta, scale=self.scale)
+        head = self._head
+        return mega_logits_sample(x, head["lnf_scale"], head["lnf_bias"],
+                                  head["proj"])
+
+    def _one_token_mega(self, tables, table, lengths, last, active):
+        """Single-dispatch ``_one_token``: the same signature and greedy
+        stream in two kernel launches (K8 + K9) plus the embedding and
+        the bookkeeping below; ``tables`` (the folded tables of the
+        per-layer path) is unused."""
+        tok, nf = self._mega_rows(table, lengths, self._rows,
+                                  active.to(torch.int32), last)
+        bad = active & (nf > 0)
+        ok = active & ~bad
+        nxt = torch.where(ok, tok, last)
+        return lengths + ok.to(torch.int32), nxt, bad
+
     def _multi(self, table, lengths, last, active, remaining, eos):
         """``chunk`` decode steps in one dispatch, per-slot eos/budget/
         non-finite early stop on the device (pages for the whole chunk
         are reserved before the dispatch, so ``table`` is fixed). Tokens,
         emit flags and non-finite flags come back packed as one
         (3, chunk, S) int32 tensor."""
-        tables = self._fold(table)
+        if self.mega:
+            one_tok, tables = self._one_token_mega, None
+        else:
+            one_tok, tables = self._one_token, self._fold(table)
         toks, flags, bads = [], [], []
         for _ in range(self.chunk):
-            lengths, nxt, bad = self._one_token(tables, table, lengths,
-                                                last, active)
+            lengths, nxt, bad = one_tok(tables, table, lengths, last,
+                                        active)
             emit = active & ~bad
             remaining = remaining - emit.to(torch.int32)
             hit_eos = (nxt == eos) & (eos >= 0)

@@ -1,5 +1,5 @@
-"""The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K10 and K12
-kernels to, rehearsed on the CPU at small shapes: a stand-in for a
+"""The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K8, K9, K10 and
+K12 kernels to, rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
 products, bf16 outputs, as the kernels do), held against the plain
@@ -16,6 +16,9 @@ import chip_smoke
 from paddle_tpu_torch.ops.fused_ce import (fused_ce_bwd_reference,
                                            fused_ce_reference)
 from paddle_tpu_torch.ops.decode_attention import decode_attention_reference
+from paddle_tpu_torch.ops.decode_megakernel import (
+    epilogue_logits, mega_decode_layers_reference,
+    mega_logits_sample_reference)
 from paddle_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference, flash_attention_reference)
 from paddle_tpu_torch.ops.quant_matmul import int8_matmul_reference
@@ -222,3 +225,146 @@ def test_int8_check_fails_planted_faults():
     tail[:, -32:] = 0
     rec = chip_smoke.quant_matmul_check(tail, ref)
     assert not rec["ok"] and rec["row_rel_l2_max"] > 0.05
+
+
+def _mega_inputs(n_layers=1):
+    """K8's phase at a narrow width (d_model 64, 4 query heads of 16
+    over 2 kv heads, rope), the chip's rows: the inputs in bf16, and the
+    same values in fp32 for the reference."""
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    inp = chip_smoke.mega_inputs(torch, "cpu", gen, 64, 4, 2, 16, n_layers,
+                                 bias=True, rope=True)
+    ref = dict(inp, x=inp["x"].float(), kp=inp["kp"].float(),
+               vp=inp["vp"].float(),
+               w={n: t.float() for n, t in inp["w"].items()})
+    return inp, ref
+
+
+def _mega_run(inp, fault=None):
+    """The plain K8 loop on ``inp``, or with one planted fault:
+    ``skip_last_page`` (a row spanning pages attends only over its full
+    pages), ``inactive_writes`` (the inactive row writes its slot's
+    page), ``attend_before_write`` (each row writes then attends at
+    once, last row first: the second of two rows of one slot attends
+    before the first has written). Returns (x_out, kp, vp)."""
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_reference as attend)
+    kp, vp = inp["kp"].clone(), inp["vp"].clone()
+    if fault is None:
+        out = mega_decode_layers_reference(
+            inp["x"], inp["w"], kp, vp, inp["table"], inp["pos"],
+            inp["slot"], inp["write"], **inp["geo"])
+        return out, kp, vp
+    geo, w = inp["geo"], inp["w"]
+    L, P, page = w["wqkv"].shape[0], geo["n_pages"], geo["page"]
+    blk = GPTBlock(GPTConfig(d_model=64, n_layers=L, n_heads=4,
+                             n_kv_heads=2, rope=True))
+    pos = inp["pos"]
+    tables = inp["table"][inp["slot"].long()]
+    pid = tables.gather(1, (pos // page)[:, None].long())[:, 0].long()
+    offs = (pos % page).long()
+    lens = pos + 1
+    if fault == "skip_last_page":
+        lens = torch.where(pos >= page, pos // page * page, lens)
+    write = (torch.ones_like(inp["write"]) if fault == "inactive_writes"
+             else inp["write"])
+    h = inp["x"][:, None]
+    B = h.shape[0]
+    for layer in range(L):
+        lw = {n: t[layer] for n, t in w.items()}
+        q, k, v = blk._qkv(h, pos, lw)
+        g = torch.where(write == 1, layer * P + pid, L * P)
+        order = range(B - 1, -1, -1) if fault == "attend_before_write" \
+            else range(B)
+        if fault != "attend_before_write":
+            kp[g, :, offs] = k[:, 0]
+            vp[g, :, offs] = v[:, 0]
+        o = [None] * B
+        for r in order:
+            if fault == "attend_before_write":
+                kp[g[r], :, offs[r]] = k[r, 0]
+                vp[g[r], :, offs[r]] = v[r, 0]
+            o[r] = attend(q[r:r + 1, 0], kp, vp,
+                          layer * P + tables[r:r + 1], lens[r:r + 1])
+        h = blk._block_tail(h, torch.cat(o).reshape(B, 1, -1), lw)
+    return h[:, 0], kp, vp
+
+
+def test_mega_layers_check_passes_bf16_rounding():
+    inp, ref = _mega_inputs()
+    rx, rkp, rvp = _mega_run(ref)
+    gx, gkp, gvp = _mega_run(inp)
+    rec = chip_smoke.mega_layers_check(gx, rx, (gkp, gvp), (rkp, rvp),
+                                       (inp["kp"], inp["vp"]),
+                                       inp["written"], TOL)
+    assert rec["ok"], rec
+    assert 0 < rec["row_rel_l2_max"] < TOL
+    assert 0 < rec["written_row_rel_l2_max"] < TOL
+
+
+@pytest.mark.parametrize("fault, why", [
+    ("skip_last_page", "row_rel_l2_max"),
+    ("inactive_writes", "untouched_bit_identical"),
+    ("attend_before_write", "row_rel_l2_max"),
+])
+def test_mega_layers_check_fails_planted_faults(fault, why):
+    inp, ref = _mega_inputs()
+    rx, rkp, rvp = _mega_run(ref)
+    bx, bkp, bvp = _mega_run(inp, fault)
+    rec = chip_smoke.mega_layers_check(bx, rx, (bkp, bvp), (rkp, rvp),
+                                       (inp["kp"], inp["vp"]),
+                                       inp["written"], TOL)
+    assert not rec["ok"], rec
+    if why == "row_rel_l2_max":
+        assert rec[why] > 2 * TOL, rec
+    else:
+        assert not rec[why]
+
+
+def _logits():
+    """K9's phase at a narrow width: d_model 64, V 4096, a head at the
+    init's std 0.02, bf16, with ``mega_logits_inputs``' planted cases."""
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(8, 64).astype(np.float32)).bfloat16()
+    wte = torch.from_numpy(
+        (0.02 * rs.randn(4096, 64)).astype(np.float32)).bfloat16()
+    s, b = torch.ones(64), torch.zeros(64)
+    x, w, poison, ties = chip_smoke.mega_logits_inputs(torch, x, wte, s, b)
+    logits = epilogue_logits(x, s, b, w.t(), poison)
+    tok, nf = mega_logits_sample_reference(x, s, b, w.t(), poison)
+    return logits, tok, nf, ties
+
+
+def test_mega_logits_check_passes_and_plants():
+    logits, tok, nf, ties = _logits()
+    rec = chip_smoke.mega_logits_check(tok, nf, logits, nf, ties)
+    assert rec["ok"], rec
+    # the poisoned row and the overflowing row flag, nothing else
+    assert nf.tolist() == [0, 0, 1, 0, 1, 0, 0, 0]
+    assert rec["rows_compared"] >= 4
+    assert ties == {0: 1000, 1: 2000}
+
+
+def test_mega_logits_check_fails_planted_faults():
+    logits, tok, nf, ties = _logits()
+    check = chip_smoke.mega_logits_check
+    # the last of equal maxima
+    V = logits.shape[1]
+    last = (V - 1 - logits.float().flip(1).argmax(1)).to(tok.dtype)
+    rec = check(torch.where(nf == 0, last, tok), nf, logits, nf, ties)
+    assert not rec["ok"] and not rec["ties_lowest"]
+    # the flags of one 32-column strip (the one holding the overflow)
+    # dropped
+    keep = torch.ones(V, dtype=torch.bool)
+    keep[(V - 5) // 32 * 32:(V - 5) // 32 * 32 + 32] = False
+    nf_bad = (~torch.isfinite(logits[:, keep]).all(1)).to(torch.int32)
+    rec = check(tok, nf_bad, logits, nf, ties)
+    assert not rec["ok"] and not rec["flags_exact"]
+    # a token far below its row's maximum where the top two are close
+    near = [r for r in range(8) if nf[r] == 0 and r not in ties]
+    bad = tok.clone()
+    bad[near[0]] = logits[near[0]].float().argmin()
+    rec = check(bad, nf, logits, nf, ties)
+    assert not rec["ok"] and not rec["gaps_within_2ulp"]

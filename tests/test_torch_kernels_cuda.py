@@ -3,7 +3,10 @@ GPU (marker ``cuda``; each test skips without a CUDA device). The plain
 versions are held against the JAX package on the CPU in
 test_torch_flash_attention.py, test_torch_flash_attention_bwd.py,
 test_torch_fused_ce.py, test_torch_paged_attention.py,
-test_torch_decode_attention.py and test_torch_quant_matmul.py.
+test_torch_decode_attention.py, test_torch_quant_matmul.py and
+test_torch_decode_megakernel.py; K8's and K9's checks are
+``chip_smoke``'s (rehearsed with planted faults in
+test_torch_chip_smoke_checks.py).
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -14,6 +17,8 @@ This file imports no JAX, so it also runs where JAX is absent:
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from paddle_tpu_torch import quantization as quant
 from paddle_tpu_torch.inference.decode_engine import DecodeEngine
@@ -27,6 +32,9 @@ from paddle_tpu_torch.ops.fused_ce import (
     fused_ce_reference, fused_softmax_cross_entropy)
 from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
+from paddle_tpu_torch.ops.decode_megakernel import (
+    epilogue_logits, mega_decode_layers, mega_decode_layers_reference,
+    mega_logits_sample, mega_logits_sample_reference)
 from paddle_tpu_torch.ops.paged_attention import (
     paged_append_attend, paged_append_attend_reference,
     paged_decode_attention, paged_decode_attention_reference)
@@ -442,3 +450,67 @@ def test_generate_on_gpu_matches_cpu(dev):
     q_got = quant.quantize_for_inference(gpu_model).generate(
         toks, max_new_tokens=12)
     assert torch.equal(q_got.cpu(), q_want)
+
+
+@pytest.mark.parametrize("case", ["gpt3_1p3b", "llama_shaped", "fp32"])
+def test_mega_decode_kernel_matches_plain(dev, case):
+    """K8 over 2 layers against its plain version: full-width gpt3_1p3b
+    blocks (16 kv heads, biases), llama_style_1b-shaped blocks (4 kv
+    heads, rope, no biases), and a narrow fp32 stack; the chip's rows
+    (an inactive row, two rows of one slot)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    if case == "gpt3_1p3b":
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 16, 128, 2)
+    elif case == "llama_shaped":
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 4, 128, 2,
+                                     bias=False, rope=True)
+    else:
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 64, 4, 2, 16, 2,
+                                     rope=True, dtype=torch.float32)
+    args = (inp["table"], inp["pos"], inp["slot"], inp["write"])
+    kp, vp = inp["kp"].clone(), inp["vp"].clone()
+    before = mega_decode_layers.launches
+    out = mega_decode_layers(inp["x"], inp["w"], kp, vp, *args,
+                             **inp["geo"])
+    torch.cuda.synchronize()
+    assert mega_decode_layers.launches == before + 1
+    rkp, rvp = inp["kp"].clone(), inp["vp"].clone()
+    ref = mega_decode_layers_reference(inp["x"], inp["w"], rkp, rvp, *args,
+                                       **inp["geo"])
+    tol = 1e-4 if case == "fp32" else chip_smoke.REL_L2_TOL
+    rec = chip_smoke.mega_layers_check(out, ref, (kp, vp), (rkp, rvp),
+                                       (inp["kp"], inp["vp"]),
+                                       inp["written"], tol)
+    assert rec["ok"], rec
+
+
+@pytest.mark.parametrize("dtype, dm, V", [(torch.bfloat16, 2048, 50304),
+                                          (torch.float32, 64, 4096)])
+@pytest.mark.parametrize("tied", [True, False])
+def test_mega_logits_kernel_matches_plain(dev, dtype, dm, V, tied):
+    """K9 on the gpt3_1p3b head (and a narrow fp32 one), tied (the
+    (V, dm) ``wte`` read along dm) and untied ((dm, V) row-major), with a
+    planted tie, an overflowing row and a poisoned row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = _randn(gen, (8, dm), dtype, dev)
+    wte = (0.02 * torch.randn((V, dm), generator=gen, device=dev)).to(dtype)
+    s = 1.0 + 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    x, w, poison, ties = chip_smoke.mega_logits_inputs(torch, x, wte, s, b)
+    head = w.t() if tied else w.t().contiguous()
+    before = mega_logits_sample.launches
+    tok, nf = mega_logits_sample(x, s, b, head, poison)
+    torch.cuda.synchronize()
+    assert mega_logits_sample.launches == before + 1
+    logits = epilogue_logits(x, s, b, head, poison)
+    _, ref_nf = mega_logits_sample_reference(x, s, b, head, poison)
+    rec = chip_smoke.mega_logits_check(tok, nf, logits, ref_nf, ties)
+    assert rec["ok"], rec
+    assert nf.tolist() == [0, 0, 1, 0, 1, 0, 0, 0]
+    # the merge words are left zeroed: a second call agrees
+    tok2, nf2 = mega_logits_sample(x, s, b, head)
+    ref_tok2, ref_nf2 = mega_logits_sample_reference(x, s, b, head)
+    torch.cuda.synchronize()
+    assert torch.equal(nf2, ref_nf2)

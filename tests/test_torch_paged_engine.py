@@ -2,8 +2,11 @@
 ``PagedDecodeEngine(mega=False)`` (its documented bit-parity path) on the
 same numpy weights, on the CPU: token streams, and the K/V rows the page
 tables map, for mixed prompt lengths and one page-aligned prefix hit.
-Plus the engine's own contracts: eos and budget retirement, deadline
-and non-finite eviction, and the options that are not ported yet."""
+The single-dispatch decode (``mega``, the default: K8 + K9's plain
+versions on the CPU) emits the JAX ``mega=False`` streams too, and the
+port's own per-layer path's and ``generate``'s. Plus the engine's own
+contracts: eos and budget retirement, deadline and non-finite eviction,
+the mega default, and the options that are not ported yet."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,8 +38,8 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _state(seed=0):
-    jmodel = jax_gpt.GPT(JAX_CFG, seed=0)
+def _state(seed=0, cfg=JAX_CFG):
+    jmodel = jax_gpt.GPT(cfg, seed=0)
     rs = np.random.RandomState(seed)
     state = {}
     for k, v in sorted(jmodel.state_dict().items()):
@@ -47,9 +50,9 @@ def _state(seed=0):
     return jmodel, state
 
 
-def _port_model(state):
+def _port_model(state, **kw):
     cfg = gpt.GPTConfig(vocab_size=96, max_seq_len=256, d_model=32,
-                        n_layers=2, n_heads=4, dtype=torch.float32)
+                        n_layers=2, n_heads=4, dtype=torch.float32, **kw)
     return gpt_from_jax_state(cfg, state, device="cpu")
 
 
@@ -208,7 +211,6 @@ def test_nonfinite_logits_evict_and_scrub():
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    (dict(mega=True), "megakernel"),
     (dict(speculative_k=3), "speculative"),
     (dict(prefill_only=True), "prefill-only"),
     (dict(warmup=True), "warmup"),
@@ -260,3 +262,110 @@ def test_request_checks(port_model):
     with pytest.raises(ValueError, match="caps prompts"):
         PagedDecodeEngine(port_model, n_pages=4, buckets=(16, 32),
                           device="cpu").submit([1] * 40, max_new_tokens=2)
+
+
+ROPE_GQA = dict(n_kv_heads=2, rope=True)
+
+
+@pytest.mark.parametrize("kw, chunk", [({}, 1), ({}, 3), (ROPE_GQA, 1),
+                                       (ROPE_GQA, 3)],
+                         ids=["mha-1", "mha-3", "rope-gqa-1", "rope-gqa-3"])
+def test_mega_streams_match_jax_per_layer_and_generate(kw, chunk):
+    """Prompts of 5, 23 and 170 tokens and a page-aligned prefix hit:
+    the port's mega engine, the JAX per-layer engine, the port's
+    per-layer engine and ``generate`` emit the same greedy streams."""
+    jcfg = jax_gpt.GPTConfig(vocab_size=96, max_seq_len=256, d_model=32,
+                             n_layers=2, n_heads=4, dtype=jnp.float32,
+                             **kw)
+    jmodel, state = _state(cfg=jcfg)
+    model = _port_model(state, **kw)
+    prompts = _prompts()
+    n_new = 9
+    jeng = JaxPagedEngine(jmodel, n_pages=12, max_slots=4,
+                          steps_per_call=chunk, mega=False)
+    jreqs = [jeng.submit(p, max_new_tokens=n_new) for p in prompts]
+    jeng.run()
+    want = [r.tokens for r in jreqs]
+    for mega in (True, False):
+        stats.reset()
+        eng = PagedDecodeEngine(model, n_pages=12, max_slots=4,
+                                steps_per_call=chunk, mega=mega,
+                                device="cpu")
+        assert eng.mega is mega
+        reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        eng.run()
+        assert [r.tokens for r in reqs] == want, mega
+        assert stats.get("serve/prefix_hit_tokens") == PAGE
+    for p, toks in zip(prompts, want):
+        out = model.generate(torch.tensor([p]), max_new_tokens=n_new)
+        assert out[0, len(p):].tolist() == toks
+        assert len(set(toks)) > 1              # not a degenerate stream
+
+
+def test_mega_eos_inside_a_chunk_matches_jax():
+    jmodel, state = _state()
+    model = _port_model(state)
+    prompt = _prompts()[1]
+    full = PagedDecodeEngine(model, n_pages=8, max_slots=2,
+                             steps_per_call=4, device="cpu")
+    r = full.submit(prompt, max_new_tokens=12)
+    full.run()
+    # an eos whose first occurrence lands mid-chunk: token i > 0 comes
+    # from step (i - 1) % 4 of a 4-step dispatch
+    i = next(i for i in range(2, 12) if r.tokens[i] not in r.tokens[:i]
+             and (i - 1) % 4 not in (0, 3))
+    eos = r.tokens[i]
+    jeng = JaxPagedEngine(jmodel, n_pages=8, max_slots=2, steps_per_call=4,
+                          mega=False)
+    jr = jeng.submit(prompt, max_new_tokens=12, eos_id=eos)
+    jeng.run()
+    eng = PagedDecodeEngine(model, n_pages=8, max_slots=2,
+                            steps_per_call=4, device="cpu")
+    got = eng.submit(prompt, max_new_tokens=12, eos_id=eos)
+    eng.run()
+    assert got.tokens == jr.tokens == r.tokens[:i + 1] and got.done
+
+
+def test_mega_step_layer0_pool_rows_equal_per_layer_path():
+    """After admission and one decode dispatch, the layer-0 pool slab of
+    the mega engine equals the per-layer engine's bit for bit (the same
+    K/V rows from the same inputs); deeper layers within fp32 order."""
+    model = _port_model(_state()[1])
+    engs = []
+    for mega in (True, False):
+        eng = PagedDecodeEngine(model, n_pages=12, max_slots=4,
+                                steps_per_call=2, mega=mega, device="cpu")
+        for p in _prompts():
+            eng.submit(p, max_new_tokens=6)
+        eng.step()
+        eng.drain()
+        engs.append(eng)
+    mega, plain = engs
+    P = mega.P
+    assert mega._tables == plain._tables
+    for a, b in ((mega.kp, plain.kp), (mega.vp, plain.vp)):
+        assert torch.equal(a[:P], b[:P])
+        torch.testing.assert_close(a[:-1], b[:-1], atol=ATOL, rtol=RTOL)
+
+
+def test_mega_default_and_quantized_models(port_model):
+    from paddle_tpu_torch.quantization import quantize_for_inference
+    assert make_engine(port_model, n_pages=4, device="cpu").mega
+    qmodel = quantize_for_inference(port_model)
+    eng = make_engine(qmodel, n_pages=4, device="cpu")
+    assert not eng.mega
+    with pytest.raises(ValueError, match="int8 weight stream"):
+        make_engine(qmodel, n_pages=4, mega=True, device="cpu")
+    # an engine serving an int8 engine's weights is per-layer too
+    q8 = make_engine(port_model, engine="contiguous", weight_dtype="int8",
+                     device="cpu")
+    shared = PagedDecodeEngine(None, n_pages=4, share_weights_with=q8,
+                               device="cpu")
+    assert not shared.mega
+    # and a dense donor's slabs are shared, not copied
+    dense = PagedDecodeEngine(None, n_pages=4, device="cpu",
+                              share_weights_with=make_engine(
+                                  port_model, n_pages=4, device="cpu"))
+    assert dense.mega
+    assert (dense._stacked["wqkv"].data_ptr()
+            == port_model.stacked["wqkv"].data_ptr())

@@ -46,6 +46,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch.ops.fused_ce\n"
             "import paddle_tpu_torch.ops.flash_attention\n"
             "import paddle_tpu_torch.ops.decode_attention\n"
+            "import paddle_tpu_torch.ops.decode_megakernel\n"
             "import paddle_tpu_torch.ops.quant_matmul\n"
             "import paddle_tpu_torch.quantization\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -85,6 +86,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert sorted(_build.sources()) == ["decode_attention",
+                                        "decode_megakernel",
                                         "flash_attention_bwd",
                                         "flash_attention_fwd", "fused_ce",
                                         "paged_attention", "quant_matmul"]
