@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""A/B readings of the flash kernels K1, K3 and K4 on one GPU.
+
+    python3 kernel_ab.py DIR_A DIR_B [--rounds 1]
+
+DIR_A and DIR_B are checkouts of the repository (for example a parent
+commit unpacked with ``git archive`` and the working tree ``.``). Each
+round runs A, B, B, A, so that a drift over the run falls on both
+alike. Every run is a process of its own, started in its checkout's
+root: it builds that checkout's flash kernels and times them, without
+a bias or dropout (the GPT paths' calls), at the GPT paths' shapes, in
+bf16: K1 at the serving shapes (B 1, S 128 and 512, 16 heads of 128,
+causal) and at the train shape (B 4, S 2048), K3 and K4 at the train
+shape. Each time is read twice: the kernel's device time from a
+torch.profiler trace (``kernel_ms``) and the call's, wrapper included,
+by CUDA events around back-to-back calls (``call_ms``). Prints each
+run's readings as one JSON line tagged with its checkout and round,
+then one line with each checkout's medians. Exits non-zero if a run
+fails.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from paddle_tpu_torch.ops import flash_attention as fa
+if not torch.cuda.is_available():
+    sys.exit("kernel_ab: no CUDA device")
+
+
+def device_ms(fn, key, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start
+                for e in prof.events()
+                if e.device_type == DeviceType.CUDA and key in e.name)
+    return total / 1e3 / iters
+
+
+def call_ms(fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev)
+gen.manual_seed(0)
+out = {}
+
+
+def operands(B, S, H=16, D=128):
+    return [torch.randn((B, S, H, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(4)]
+
+
+for name, B, S, iters in (("k1_B1_S128", 1, 128, 50),
+                          ("k1_B1_S512", 1, 512, 50),
+                          ("k1_B4_S2048", 4, 2048, 10)):
+    q, k, v, _ = operands(B, S)
+    fn = lambda: fa.flash_attention(q, k, v, causal=True)
+    out[name] = {"kernel_ms": device_ms(fn, "flash_fwd", iters),
+                 "call_ms": call_ms(fn, iters)}
+q, k, v, do = operands(4, 2048)
+scale = 128 ** -0.5
+o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+delta = fa._delta(o, do)
+k3 = lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, True,
+                                         scale)
+k4 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                       scale)
+out["k3_B4_S2048"] = {"kernel_ms": device_ms(k3, "flash_bwd_dkdv", 10),
+                      "call_ms": call_ms(k3, 10)}
+out["k4_B4_S2048"] = {"kernel_ms": device_ms(k4, "flash_bwd_dq", 10),
+                      "call_ms": call_ms(k4, 10)}
+print("KERNEL_AB " + json.dumps(out), flush=True)
+"""
+
+
+def run_one(root, timeout):
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root,
+                         capture_output=True, text=True, timeout=timeout)
+    recs = [json.loads(line[len("KERNEL_AB "):])
+            for line in out.stdout.splitlines()
+            if line.startswith("KERNEL_AB ")]
+    if out.returncode or not recs:
+        sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
+        raise SystemExit(f"kernel_ab: run in {root} failed "
+                         f"(rc {out.returncode})")
+    return recs[0]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("a")
+    ap.add_argument("b")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    args = ap.parse_args()
+    roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
+    got = {"a": [], "b": []}
+    for rnd in range(args.rounds):
+        for tag in ("a", "b", "b", "a"):
+            rec = run_one(roots[tag], args.timeout)
+            got[tag].append(rec)
+            print(json.dumps({"kernel_ab": tag, "root": roots[tag],
+                              "round": rnd, **rec}), flush=True)
+    print(json.dumps({"kernel_ab_medians": {
+        tag: {case: {key: statistics.median(r[case][key] for r in recs)
+                     for key in ("kernel_ms", "call_ms")}
+              for case in recs[0]}
+        for tag, recs in got.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -70,6 +70,85 @@ __device__ __forceinline__ void store4(T* p, float4 v, int n) {
   if (n > 3) p[3] = from_float<T>(v.w);
 }
 
+// lowbias32, the dropout hash of the TPU kernels (ops/_hash.py holds the
+// plain version): K11 keeps a cell of the flattened (M, N) tensor when
+// mix(mix((row * N + col) ^ seed)) >= threshold; attention (K1, K3, K4)
+// when mix(mix((row * stride + col) ^ seed) ^ (b * Hq + h)) >= threshold,
+// with stride the key length JAX pads to. All uint32, wrapping.
+__device__ __forceinline__ unsigned mix(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// the attention kernels' additive bias and hash dropout (K1, K3, K4), as
+// the C entries receive them: bias is fp32 (B|1, Hq|1, Sq|1, Sk) with
+// stride 0 along a size-1 dim (null for none); seed_ptr points at the
+// int32 seed on the device (null without dropout), so drawing a seed
+// never waits for the card
+struct AttnArgs {
+  const float* bias;
+  long long sb, sh, sq;
+  const int* seed_ptr;
+  unsigned thresh;
+  float keep_div;
+  int stride;
+};
+
+// AttnArgs with the bias and the dropout switched at compile time, so a
+// call with neither (the GPT paths) runs code built without them: a cell
+// (row, col) of query head bh = b * Hq + h is kept when
+// mix(mix((row * stride + col) ^ seed) ^ bh) >= thresh, and a kept value
+// is divided by keep_div = 1 - p. A kernel calls load_seed() once before
+// its first drop().
+template <bool kBias, bool kDrop>
+struct AttnExtra : AttnArgs {
+  unsigned seed;
+
+  __device__ __forceinline__ void load_seed() {
+    if constexpr (kDrop) seed = static_cast<unsigned>(*seed_ptr);
+  }
+  // the cell's logit s * scale, plus its bias (with no bias the product
+  // stays one term, so `logit - lse` still contracts to one FMA)
+  __device__ __forceinline__ float logit(float s, float scale, int b, int h,
+                                         int row, int col) const {
+    if constexpr (kBias)
+      return s * scale +
+             bias[b * sb + h * sh + static_cast<long long>(row) * sq + col];
+    else
+      return s * scale;
+  }
+  __device__ __forceinline__ bool keep(unsigned bh, int row,
+                                       int col) const {
+    const unsigned lin = static_cast<unsigned>(row) *
+                             static_cast<unsigned>(stride) +
+                         static_cast<unsigned>(col);
+    return mix(mix(lin ^ seed) ^ bh) >= thresh;
+  }
+  // x kept and scaled, or 0; x itself without dropout
+  __device__ __forceinline__ float drop(float x, unsigned bh, int row,
+                                        int col) const {
+    if constexpr (kDrop)
+      return keep(bh, row, col) ? x / keep_div : 0.f;
+    else
+      return x;
+  }
+};
+
+// f(AttnExtra<kBias, kDrop>) for the flags `a` sets (a bias pointer, a
+// seed pointer): one instantiation of each kernel per combination
+template <typename F>
+int with_attn_extra(const AttnArgs& a, F&& f) {
+  if (a.bias != nullptr) {
+    if (a.seed_ptr != nullptr) return f(AttnExtra<true, true>{a, 0u});
+    return f(AttnExtra<true, false>{a, 0u});
+  }
+  if (a.seed_ptr != nullptr) return f(AttnExtra<false, true>{a, 0u});
+  return f(AttnExtra<false, false>{a, 0u});
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }

@@ -6,10 +6,18 @@
 // (:359) runs after the forward K1. Both recompute the attention
 // probabilities from the log-sum-exp K1 saved (`_recompute_p`, :244):
 //
-//   p  = exp(q . k * scale - lse)   (0 where the key is masked)
+//   p  = exp(q . k * scale + bias - lse)   (0 where the key is masked)
 //   dp = dO . v
 //   ds = p * (dp - delta) * scale   with delta = rowsum(dO * O)
 //   K3: dv += p * dO,  dk += ds * q      K4: dq += ds * k
+//
+// With dropout the forward's mask is replayed from the seed on the device
+// (common.cuh pt::AttnExtra): dv takes the dropped p (keep * p /
+// (1 - rate)) and dp is masked and scaled the same way, while ds
+// multiplies the un-dropped p, as in the JAX kernels (:292-302,
+// :346-349). The bias is a constant (no gradient), as there. Bias and
+// dropout are template switches, so the GPT paths, which use neither,
+// run code built without them.
 //
 // `delta` (B * Hq, Sq) fp32 comes from plain PyTorch (the JAX code also
 // computes it outside the kernel, :365). Layout (B, S, H, D), as the
@@ -113,7 +121,7 @@ __device__ __forceinline__ void stage(float4 (*dst)[kC4], const T* src,
 }
 
 // K4: dq for one (b * Hq + h, 64-row query tile)
-template <typename T>
+template <typename T, typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -121,9 +129,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta,
                     const int* __restrict__ kv_lens, T* __restrict__ dq,
                     int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                    float scale) {
+                    float scale, Ex ex) {
   __shared__ float4 ks[kTile][kC4];
   __shared__ float4 vs[kTile][kC4];
+  ex.load_seed();
 
   const int bh = blockIdx.x;
   const int b = bh / Hq;
@@ -166,7 +175,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp = row_sum(dp);
       const int col = k0 + j;
       const bool ok = row_ok && col < kvlen && (!causal || col <= row);
-      const float p = ok ? __expf(s * scale - lse_r) : 0.f;
+      const float p =
+          ok ? __expf(ex.logit(s, scale, b, h, row, col) - lse_r) : 0.f;
+      dp = ex.drop(dp, bh, row, col);
       const float ds = pt::round_to<T>(p * (dp - delta_r) * scale);
 #pragma unroll
       for (int i = 0; i < kCPT; ++i)
@@ -178,7 +189,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // K3: dk and dv for one (b * Hkv + hk, 64-key tile), summed over the
 // query heads of the GQA group
-template <typename T>
+template <typename T, typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -186,11 +197,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta,
                       const int* __restrict__ kv_lens, T* __restrict__ dk,
                       T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
-                      int D, int causal, float scale) {
+                      int D, int causal, float scale, Ex ex) {
   __shared__ float4 qs[kTile][kC4];
   __shared__ float4 dos[kTile][kC4];
   __shared__ float lse_s[kTile];
   __shared__ float delta_s[kTile];
+  ex.load_seed();
 
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
@@ -239,9 +251,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = r0 + i;
         const bool ok = key_ok && row < Sq && key < kvlen &&
                         (!causal || key <= row);
-        const float p = ok ? __expf(s * scale - lse_s[i]) : 0.f;
+        const float p =
+            ok ? __expf(ex.logit(s, scale, b, h, row, key) - lse_s[i]) : 0.f;
+        dp = ex.drop(dp, bh, row, key);
         const float ds = pt::round_to<T>(p * (dp - delta_s[i]) * scale);
-        const float pr = pt::round_to<T>(p);
+        const float pr = pt::round_to<T>(ex.drop(p, bh, row, key));
 #pragma unroll
         for (int c = 0; c < kCPT; ++c) {
           pt::axpy4(dv_acc[c], pr, dos[i][part + kTPR * c]);
@@ -379,6 +393,7 @@ __device__ __forceinline__ void zero_frags(FragAcc (&acc)[2][2]) {
 }
 
 // K4 on the tensor cores: dq for one (b * Hq + h, 64-row query tile)
+template <typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -386,7 +401,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const float* __restrict__ delta,
                 const int* __restrict__ kv_lens, bf16* __restrict__ dq,
                 int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                float scale) {
+                float scale, Ex ex) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kT * kLd;
@@ -397,6 +412,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dss = reinterpret_cast<bf16*>(dps + kT * kLs);
   float* lse_s = reinterpret_cast<float*>(dss + 2 * kT * kLp);
   float* delta_s = lse_s + kT;
+  ex.load_seed();
 
   const int bh = blockIdx.x;
   const int b = bh / Hq;
@@ -433,9 +449,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = q0 + rr, col = k0 + cc;
       const bool ok = row < Sq && col < kvlen && (!causal || col <= row);
       const float p =
-          ok ? __expf(ss[rr * kLs + cc] * scale - lse_s[rr]) : 0.f;
-      dss[rr * kLp + cc] =
-          __float2bfloat16(p * (dps[rr * kLs + cc] - delta_s[rr]) * scale);
+          ok ? __expf(ex.logit(ss[rr * kLs + cc], scale, b, h, row, col) -
+                      lse_s[rr])
+             : 0.f;
+      const float dp = ex.drop(dps[rr * kLs + cc], bh, row, col);
+      dss[rr * kLp + cc] = __float2bfloat16(p * (dp - delta_s[rr]) * scale);
     }
     __syncthreads();
     if (n0 < D) {
@@ -462,6 +480,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // K3 on the tensor cores: dk and dv for one (b * Hkv + hk, 64-key tile),
 // summed over the query heads of the GQA group
+template <typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -469,7 +488,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ delta,
                   const int* __restrict__ kv_lens, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
-                  int D, int causal, float scale) {
+                  int D, int causal, float scale, Ex ex) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kT * kLd;
@@ -481,6 +500,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* dss = ps + kT * kLp;                             // [q][key]
   float* lse_s = reinterpret_cast<float*>(dss + kT * kLp);
   float* delta_s = lse_s + kT;
+  ex.load_seed();
 
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
@@ -522,10 +542,12 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int row = r0 + rr, key = k0 + cc;
         const bool ok = row < Sq && key < kvlen && (!causal || key <= row);
         const float p =
-            ok ? __expf(ss[rr * kLs + cc] * scale - lse_s[rr]) : 0.f;
-        ps[rr * kLp + cc] = __float2bfloat16(p);
-        dss[rr * kLp + cc] = __float2bfloat16(
-            p * (dps[rr * kLs + cc] - delta_s[rr]) * scale);
+            ok ? __expf(ex.logit(ss[rr * kLs + cc], scale, b, h, row, key) -
+                        lse_s[rr])
+               : 0.f;
+        const float dp = ex.drop(dps[rr * kLs + cc], bh, row, key);
+        ps[rr * kLp + cc] = __float2bfloat16(ex.drop(p, bh, row, key));
+        dss[rr * kLp + cc] = __float2bfloat16(p * (dp - delta_s[rr]) * scale);
       }
       __syncthreads();
       if (n0 < D) {
@@ -570,84 +592,101 @@ int allow_tc_smem(const void* kernel) {
 
 // q, dout (B, Sq, Hq, D) and k, v (B, Sk, Hkv, D) contiguous and of one
 // dtype; lse and delta (B * Hq, Sq) fp32; kv_lens (B,) int32 or null;
-// dk, dv like k; dq like q. The caller guarantees D <= 128,
-// Hq % Hkv == 0 and non-empty shapes.
+// dk, dv like k; dq like q; the bias and dropout arguments as K1's
+// (pt::AttnArgs). The caller guarantees D <= 128, Hq % Hkv == 0 and
+// non-empty shapes.
 extern "C" int pt_flash_attention_bwd_dkdv(
     int dtype, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta,
     const void* kv_lens, void* dk, void* dv, int B, int Sq, int Sk,
-    int Hq, int Hkv, int D, int causal, float scale, void* stream) {
+    int Hq, int Hkv, int D, int causal, float scale, const void* bias,
+    long long sb, long long sh, long long sq, const void* seed,
+    unsigned thresh, float keep_div, int stride, void* stream) {
+  const pt::AttnArgs args{static_cast<const float*>(bias), sb, sh, sq,
+                          static_cast<const int*>(seed), thresh, keep_div,
+                          stride};
   const dim3 grid(B * Hkv, (Sk + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
-  if (dtype == pt::kBFloat16 && D % 16 == 0) {
-    const int rc = allow_tc_smem(reinterpret_cast<const void*>(
-        flash_bwd_dkdv_tc));
-    if (rc != 0) return rc;
-    const dim3 tc_grid(B * Hkv, (Sk + kT - 1) / kT);
-    flash_bwd_dkdv_tc<<<tc_grid, kThreads, kTcSmem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse_f,
-        delta_f, lens, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
-        Sk, Hq, Hkv, D, causal, scale);
-  } else if (dtype == pt::kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dkdv_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
-        delta_f, lens, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk,
-        Hq, Hkv, D, causal, scale);
-  } else if (dtype == pt::kFloat32) {
-    using T = float;
-    flash_bwd_dkdv_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
-        delta_f, lens, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk,
-        Hq, Hkv, D, causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pt::with_attn_extra(args, [&](auto ex) -> int {
+    using Ex = decltype(ex);
+    if (dtype == pt::kBFloat16 && D % 16 == 0) {
+      const int rc = allow_tc_smem(reinterpret_cast<const void*>(
+          flash_bwd_dkdv_tc<Ex>));
+      if (rc != 0) return rc;
+      const dim3 tc_grid(B * Hkv, (Sk + kT - 1) / kT);
+      flash_bwd_dkdv_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          lse_f, delta_f, lens, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+    } else if (dtype == pt::kBFloat16) {
+      using T = __nv_bfloat16;
+      flash_bwd_dkdv_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
+          delta_f, lens, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk,
+          Hq, Hkv, D, causal, scale, ex);
+    } else if (dtype == pt::kFloat32) {
+      using T = float;
+      flash_bwd_dkdv_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
+          delta_f, lens, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk,
+          Hq, Hkv, D, causal, scale, ex);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int pt_flash_attention_bwd_dq(
     int dtype, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta,
     const void* kv_lens, void* dq, int B, int Sq, int Sk, int Hq, int Hkv,
-    int D, int causal, float scale, void* stream) {
+    int D, int causal, float scale, const void* bias, long long sb,
+    long long sh, long long sq, const void* seed, unsigned thresh,
+    float keep_div, int stride, void* stream) {
+  const pt::AttnArgs args{static_cast<const float*>(bias), sb, sh, sq,
+                          static_cast<const int*>(seed), thresh, keep_div,
+                          stride};
   const dim3 grid(B * Hq, (Sq + kRows - 1) / kRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   const int* lens = static_cast<const int*>(kv_lens);
-  if (dtype == pt::kBFloat16 && D % 16 == 0) {
-    const int rc = allow_tc_smem(reinterpret_cast<const void*>(
-        flash_bwd_dq_tc));
-    if (rc != 0) return rc;
-    const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
-    flash_bwd_dq_tc<<<tc_grid, kThreads, kTcSmem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse_f,
-        delta_f, lens, static_cast<bf16*>(dq), Sq, Sk, Hq, Hkv, D, causal,
-        scale);
-  } else if (dtype == pt::kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dq_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
-        delta_f, lens, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, D, causal,
-        scale);
-  } else if (dtype == pt::kFloat32) {
-    using T = float;
-    flash_bwd_dq_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
-        delta_f, lens, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, D, causal,
-        scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pt::with_attn_extra(args, [&](auto ex) -> int {
+    using Ex = decltype(ex);
+    if (dtype == pt::kBFloat16 && D % 16 == 0) {
+      const int rc = allow_tc_smem(reinterpret_cast<const void*>(
+          flash_bwd_dq_tc<Ex>));
+      if (rc != 0) return rc;
+      const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
+      flash_bwd_dq_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          lse_f, delta_f, lens, static_cast<bf16*>(dq), Sq, Sk, Hq, Hkv, D,
+          causal, scale, ex);
+    } else if (dtype == pt::kBFloat16) {
+      using T = __nv_bfloat16;
+      flash_bwd_dq_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
+          delta_f, lens, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, D, causal,
+          scale, ex);
+    } else if (dtype == pt::kFloat32) {
+      using T = float;
+      flash_bwd_dq_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse_f,
+          delta_f, lens, static_cast<T*>(dq), Sq, Sk, Hq, Hkv, D, causal,
+          scale, ex);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -7,9 +7,16 @@
 //
 // What it computes, on the (B, S, H, D) layout the public API uses (no
 // head-major copy): for query row r of head h, softmax over the keys c
-// with c < kv_len[b] and, when causal, c <= r, of (q_r . k_c) * scale,
-// times V; GQA query head h reads kv head h / (Hq / Hkv). A row with no
-// visible key gives 0 and LSE 0, as on the TPU.
+// with c < kv_len[b] and, when causal, c <= r, of (q_r . k_c) * scale +
+// bias[b, h, r, c] (an optional fp32 bias, each leading dim full or
+// broadcast), times V; GQA query head h reads kv head h / (Hq / Hkv). A
+// row with no visible key gives 0 and LSE 0, as on the TPU. With dropout
+// the normaliser l sums the un-dropped p, and p . v takes p kept by the
+// TPU kernel's hash of (row, col, seed, head) divided by 1 - rate, or 0
+// (common.cuh pt::AttnExtra); the row stride of the hash is the padded
+// key length of the JAX kernel, which the wrapper passes, and the seed is
+// read from the device. The bias and the dropout are template switches:
+// a call with neither runs code built without them.
 //
 // Design. One block per (b * Hq + h, 64-row query tile); a loop inside
 // the block walks the key tiles and carries the running (m, l, acc), which
@@ -45,14 +52,15 @@ constexpr int kThreads = kBQ * kTPR;       // 256
 constexpr int kC4 = kDMax / 4;             // float4 chunks per row (32)
 constexpr int kCPT = kC4 / kTPR;           // float4 chunks per thread (8)
 
-template <typename T>
+template <typename T, typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_lens,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-                 int Hq, int Hkv, int D, int causal, float scale) {
+                 int Hq, int Hkv, int D, int causal, float scale, Ex ex) {
   __shared__ float4 ks[kBK][kC4];
   __shared__ float4 vs[kBK][kC4];
+  ex.load_seed();
 
   const int bh = blockIdx.x;               // b * Hq + h
   const int b = bh / Hq;
@@ -116,8 +124,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int col = k0 + j;
-      const bool ok = col < kvlen && (!causal || col <= row);
-      s[j] = ok ? dot * scale : -INFINITY;
+      const bool ok = row_ok && col < kvlen && (!causal || col <= row);
+      s[j] = ok ? ex.logit(dot, scale, b, h, row, col) : -INFINITY;
       tmax = fmaxf(tmax, s[j]);
     }
     const float m_new = fmaxf(fmaxf(m, tmax), pt::kMaxFloor);
@@ -133,8 +141,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kBK; ++j) {
       const float p = __expf(s[j] - m_new);
-      psum += p;
-      const float pr = pt::round_to<T>(p);  // as the TPU rounds p for p.v
+      psum += p;                           // l sums the un-dropped p
+      // as the TPU rounds p for p . v
+      const float pr = pt::round_to<T>(ex.drop(p, bh, row, k0 + j));
 #pragma unroll
       for (int i = 0; i < kCPT; ++i) {
         const float4 vv = vs[j][part + kTPR * i];
@@ -206,11 +215,12 @@ __device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int b,
   }
 }
 
+template <typename Ex>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const int* __restrict__ kv_lens,
              bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-             int Hq, int Hkv, int D, int causal, float scale) {
+             int Hq, int Hkv, int D, int causal, float scale, Ex ex) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + kT * kLd;
@@ -221,6 +231,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* m_s = os + kT * kLo;
   float* l_s = m_s + kT;
   float* a_s = l_s + kT;
+  ex.load_seed();
 
   const int bh = blockIdx.x;
   const int b = bh / Hq;
@@ -280,7 +291,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int cc = part * 16 + c;
         const int col = k0 + cc;
         const bool ok = row < Sq && col < kvlen && (!causal || col <= row);
-        sv[c] = ok ? ss[rr * kLs + cc] * scale : -INFINITY;
+        sv[c] = ok ? ex.logit(ss[rr * kLs + cc], scale, b, h, row, col)
+                   : -INFINITY;
         tmax = fmaxf(tmax, sv[c]);
       }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -291,8 +303,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const float p = __expf(sv[c] - m_new);
-        psum += p;
-        ps[rr * kLp + part * 16 + c] = __float2bfloat16(p);
+        psum += p;                         // l sums the un-dropped p
+        ps[rr * kLp + part * 16 + c] =
+            __float2bfloat16(ex.drop(p, bh, row, k0 + part * 16 + c));
       }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
       psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -369,41 +382,50 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace
 
 // q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D) all contiguous
-// and of one dtype; kv_lens (B,) int32 or null; lse (B * Hq, Sq) fp32.
-// The caller guarantees D <= 128, Hq % Hkv == 0 and non-empty shapes.
-extern "C" int pt_flash_attention_fwd(int dtype, const void* q,
-                                      const void* k, const void* v,
-                                      const void* kv_lens, void* o,
-                                      void* lse, int B, int Sq, int Sk,
-                                      int Hq, int Hkv, int D, int causal,
-                                      float scale, void* stream) {
+// and of one dtype; kv_lens (B,) int32 or null; lse (B * Hq, Sq) fp32;
+// bias fp32 or null, read at b * sb + h * sh + row * sq + col; seed the
+// device int32 seed of the dropout (null for none), the other dropout
+// arguments as in pt::AttnExtra. The caller guarantees D <= 128,
+// Hq % Hkv == 0 and non-empty shapes.
+extern "C" int pt_flash_attention_fwd(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* kv_lens, void* o, void* lse, int B, int Sq, int Sk, int Hq,
+    int Hkv, int D, int causal, float scale, const void* bias,
+    long long sb, long long sh, long long sq, const void* seed,
+    unsigned thresh, float keep_div, int stride, void* stream) {
+  const pt::AttnArgs args{static_cast<const float*>(bias), sb, sh, sq,
+                          static_cast<const int*>(seed), thresh, keep_div,
+                          stride};
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_lens);
   float* lse_f = static_cast<float*>(lse);
-  if (dtype == pt::kBFloat16 && D % 16 == 0) {
-    const int rc = static_cast<int>(cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(flash_fwd_tc),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem));
-    if (rc != 0) return rc;
-    const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
-    flash_fwd_tc<<<tc_grid, kThreads, kTcSmem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), lse_f, Sq,
-        Sk, Hq, Hkv, D, causal, scale);
-  } else if (dtype == pt::kBFloat16) {
-    using T = __nv_bfloat16;
-    flash_fwd_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), lens, static_cast<T*>(o), lse_f, Sq, Sk,
-        Hq, Hkv, D, causal, scale);
-  } else if (dtype == pt::kFloat32) {
-    flash_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), lens, static_cast<float*>(o), lse_f,
-        Sq, Sk, Hq, Hkv, D, causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pt::with_attn_extra(args, [&](auto ex) -> int {
+    using Ex = decltype(ex);
+    if (dtype == pt::kBFloat16 && D % 16 == 0) {
+      const int rc = static_cast<int>(cudaFuncSetAttribute(
+          reinterpret_cast<const void*>(flash_fwd_tc<Ex>),
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem));
+      if (rc != 0) return rc;
+      const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
+      flash_fwd_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), lse_f,
+          Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+    } else if (dtype == pt::kBFloat16) {
+      using T = __nv_bfloat16;
+      flash_fwd_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), lens, static_cast<T*>(o), lse_f, Sq,
+          Sk, Hq, Hkv, D, causal, scale, ex);
+    } else if (dtype == pt::kFloat32) {
+      flash_fwd_kernel<float, Ex><<<grid, kThreads, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), lens, static_cast<float*>(o),
+          lse_f, Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }

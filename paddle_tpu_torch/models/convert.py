@@ -11,8 +11,17 @@ fails on a missing or unexpected key and on a shape mismatch.
 with ``grads=True``, their gradients) as a flat name -> fp32 numpy dict
 in the JAX names, the slabs split into ``blocks.item_<i>.<name>`` — the
 keys of ``GPT.split_params()`` and of ``jax.grad`` over them.
+
+``load_jax_state`` fills any port ``nn.Module`` whose JAX counterpart
+has the same structure (the ``nn`` and ``incubate.nn`` layers) from
+that module's ``state_dict()``: JAX names (``weight``, ``norm_bias``,
+``linear1.weight``, ...; a ``LayerList`` item ``item_<i>`` is the
+port's ``ModuleList`` index ``<i>``) and JAX layouts ((in, out), and
+(3, H, dh, D) for a packed QKV), nothing transposed. It fails on a
+missing or unexpected key and on a shape mismatch.
 """
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -22,7 +31,7 @@ from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch.models.gpt import (GPT, GPTConfig, block_param_specs,
                                          head_param_specs)
 
-__all__ = ["gpt_from_jax_state", "gpt_to_jax_state"]
+__all__ = ["gpt_from_jax_state", "gpt_to_jax_state", "load_jax_state"]
 
 
 def _tensor(arr, shape, dtype, dev, name):
@@ -76,3 +85,26 @@ def gpt_to_jax_state(model: GPT, grads: bool = False
         for i in range(cfg.n_layers):
             out[f"blocks.item_{i}.{n}"] = slab[i]
     return out
+
+
+_ITEM = re.compile(r"(^|\.)item_(\d+)(?=\.|$)")
+
+
+def load_jax_state(module: torch.nn.Module, state: Dict[str, np.ndarray]
+                   ) -> torch.nn.Module:
+    """Copy ``state`` (the JAX module's name -> array dict) into
+    ``module``'s parameters in place, each cast to the parameter's dtype
+    on its device; returns ``module``."""
+    own = dict(module.named_parameters())
+    mapped = {_ITEM.sub(r"\1\2", n): n for n in state}
+    missing = sorted(set(own) - set(mapped))
+    unexpected = sorted(mapped[n] for n in set(mapped) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state does not match {type(module).__name__}: "
+                       f"missing={missing}, unexpected={unexpected}")
+    with torch.no_grad():
+        for name, jax_name in mapped.items():
+            p = own[name]
+            p.copy_(_tensor(state[jax_name], p.shape, p.dtype, p.device,
+                            jax_name))
+    return module

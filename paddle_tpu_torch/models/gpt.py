@@ -527,10 +527,13 @@ def _filter_logits(logits, temperature: float, top_p: float, top_k: int):
     fp32 logits: dropped entries become -inf. The same kept set as the
     JAX ``_sample_token``: top-k keeps logits >= the k-th largest; top-p
     keeps the smallest prefix of the sorted distribution whose mass
-    reaches top_p (the first token crossing it included)."""
+    reaches top_p (the first token crossing it included); a top_k past
+    V keeps every logit."""
     logits = logits / temperature
     if top_k > 0:
-        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        # a k past the vocab keeps every logit, as the JAX index clamps
+        k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[:, -1:]
         logits = logits.masked_fill(logits < kth, float("-inf"))
     if top_p < 1.0:
         sorted_l = torch.sort(logits, dim=-1, descending=True).values

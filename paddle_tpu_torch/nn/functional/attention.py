@@ -5,10 +5,14 @@
 (``ops/flash_attention.py``) for CUDA tensors, whatever the sequence
 length (the JAX package's ``q.shape[1] >= 128`` gate was a TPU tiling
 limit, not a semantic one): the hand-written forward K1 and, under
-autograd, the backward kernels K3 and K4. CPU tensors run
+autograd, the backward kernels K3 and K4, with ``attn_mask`` as their
+additive bias and their hash dropout. CPU tensors run
 ``attention_reference``, as the JAX package's CPU path runs its XLA
-reference. Nothing else chooses between the two. Layout (B, S, H, D);
-k/v may carry fewer heads (GQA). No amp casting in this slice.
+reference, except with dropout: the JAX CPU path draws its mask from
+``jax.random``, which no port can match, so the port's CPU call takes
+the kernels' plain versions and their hash, the mask the TPU kernels
+draw. Layout (B, S, H, D); k/v may carry fewer heads (GQA). No amp
+casting in this slice.
 """
 
 import math
@@ -16,9 +20,12 @@ from typing import Optional
 
 import torch
 
-from paddle_tpu_torch.ops.flash_attention import flash_attention
+from paddle_tpu_torch.ops import _hash
+from paddle_tpu_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_plain)
 
-__all__ = ["scaled_dot_product_attention", "attention_reference"]
+__all__ = ["scaled_dot_product_attention", "attention_reference",
+           "mask_to_bias", "draw_seed"]
 
 
 def attention_reference(q, k, v, mask=None, is_causal: bool = False,
@@ -49,27 +56,63 @@ def attention_reference(q, k, v, mask=None, is_causal: bool = False,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def draw_seed(generator=None, device=None) -> torch.Tensor:
+    """One int32 seed drawn from ``generator`` (None is torch's default
+    CPU generator), as the 0-dim int32 tensor on ``device`` (default:
+    the generator's) that the kernels' hash dropout reads, as the JAX
+    package draws ``jax.random.bits`` of a key. Nothing waits for the
+    card: a CUDA generator draws on the card, and a CPU generator's draw
+    reaches the card as a fill."""
+    gdev = torch.device("cpu") if generator is None else generator.device
+    device = gdev if device is None else torch.device(device)
+    draw = torch.randint(-2 ** 31, 2 ** 31, (), dtype=torch.int64,
+                         generator=generator, device=gdev)
+    if gdev.type == "cpu":
+        return _hash.seed_tensor(int(draw), device)
+    return draw.to(device=device, dtype=torch.int32)
+
+
+def mask_to_bias(attn_mask):
+    """The flash kernels' additive bias for ``attn_mask``: a bool mask
+    (True = visible) becomes 0 / -1e30 in fp32, a float mask is the bias
+    itself; leading dims of 1 pad it to 4-D (JAX attention.py:92-100)."""
+    if attn_mask.dtype == torch.bool:
+        bias = torch.where(attn_mask, 0.0, -1e30).to(torch.float32)
+    else:
+        bias = attn_mask
+    while bias.dim() < 4:
+        bias = bias[None]
+    return bias
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
                                  training: bool = True,
                                  scale: Optional[float] = None,
-                                 kv_lens: Optional[torch.Tensor] = None):
+                                 kv_lens: Optional[torch.Tensor] = None,
+                                 generator: Optional[torch.Generator] = None,
+                                 dropout_seed=None):
     """Attention over (B, S, H, D): the flash kernels (K1 forward, K3/K4
-    backward) on CUDA, the plain reference on the CPU. ``kv_lens`` (B,)
-    int32 masks keys at or past kv_lens[b]. Dropout raises (ROADMAP T1),
-    and so does ``attn_mask`` on CUDA (the flash bias, ROADMAP T1)."""
+    backward) on CUDA, the plain versions on the CPU. ``kv_lens`` (B,)
+    int32 masks keys at or past kv_lens[b]; ``attn_mask`` (bool, True =
+    visible, or additive, broadcastable to (B, H, Sq, Sk)) is the
+    kernels' bias (``mask_to_bias``). Dropout (``dropout_p`` while
+    ``training``) is the kernels' hash dropout, seeded by
+    ``dropout_seed`` or by one draw from ``generator``; on the CPU such a
+    call runs ``flash_attention_plain``, so both devices drop the same
+    cells. A CPU call without dropout runs ``attention_reference``."""
     eff_dropout = dropout_p if training else 0.0
-    if eff_dropout > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet "
-                                  "(ROADMAP T1)")
-    if query.device.type == "cuda":
-        if attn_mask is not None:
-            raise NotImplementedError("attn_mask on CUDA is not ported yet "
-                                      "(the flash kernel's bias, ROADMAP "
-                                      "T1)")
-        return flash_attention(query, key, value, causal=is_causal,
-                               scale=scale, kv_lens=kv_lens)
+    seed = dropout_seed
+    if eff_dropout > 0.0 and seed is None:
+        seed = draw_seed(generator, query.device)
+    if query.device.type == "cuda" or eff_dropout > 0.0:
+        attend = (flash_attention if query.device.type == "cuda"
+                  else flash_attention_plain)
+        bias = None if attn_mask is None else mask_to_bias(attn_mask)
+        return attend(query, key, value, causal=is_causal, scale=scale,
+                      kv_lens=kv_lens, bias=bias, dropout_p=eff_dropout,
+                      dropout_seed=seed)
     if attn_mask is None and kv_lens is not None:
         sk = key.shape[1]
         keep = (torch.arange(sk, device=key.device)[None, :]

@@ -368,3 +368,135 @@ def test_mega_logits_check_fails_planted_faults():
     bad[near[0]] = logits[near[0]].float().argmin()
     rec = check(bad, nf, logits, nf, ties)
     assert not rec["ok"] and not rec["gaps_within_2ulp"]
+
+
+# ---- the fifth slice: K11, the attention bias and dropout, the encoder --
+
+def _k11(N=96, M=256, p=0.1, seed=-77):
+    from paddle_tpu_torch.ops import _hash
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm_reference
+    rs = np.random.RandomState(1)
+    x, res = (torch.from_numpy(rs.randn(M, N).astype(np.float32))
+              for _ in range(2))
+    gamma, beta, bias = (torch.from_numpy(rs.randn(N).astype(np.float32))
+                         for _ in range(3))
+    ref = fused_layer_norm_reference(x, gamma, beta, bias, res, seed, 1e-5,
+                                     p)
+    # the stand-in: the plain version on bf16 inputs, bf16 outputs
+    good = fused_layer_norm_reference(x.bfloat16(), gamma, beta, bias,
+                                      res.bfloat16(), seed, 1e-5, p)
+    keep = _hash.layer_norm_keep(seed, (M, N), p)
+    return ref, good, keep
+
+
+def test_layer_norm_check_passes_bf16_rounding():
+    ref, good, keep = _k11()
+    # the statistics of bf16 inputs differ from the fp32 ones by the
+    # inputs' rounding: compare them with the plain version's on the
+    # same bf16 inputs, as the chip does
+    good_stats = (good[0], good[1], ref[2], ref[3])
+    rec = chip_smoke.layer_norm_check(good_stats, ref, keep.clone(), keep)
+    assert rec["ok"], rec
+    assert 0 < rec["y_row_rel_l2_max"] < TOL
+
+
+def test_layer_norm_check_fails_planted_faults():
+    ref, good, keep = _k11()
+    y, pre, mean, rstd = good[0], good[1], ref[2], ref[3]
+    flipped = keep.clone()
+    flipped[200, 17] = ~flipped[200, 17]            # one mask bit
+    assert not chip_smoke.layer_norm_check((y, pre, mean, rstd), ref,
+                                           flipped, keep)["ok"]
+    bad_y = y.clone()
+    bad_y[100] = 0                                  # one row not written
+    assert not chip_smoke.layer_norm_check((bad_y, pre, mean, rstd), ref,
+                                           keep, keep)["ok"]
+    bad_rstd = rstd.clone()
+    bad_rstd[5] *= 1 + 1e-3                         # a variance off
+    assert not chip_smoke.layer_norm_check((y, pre, mean, bad_rstd), ref,
+                                           keep, keep)["ok"]
+    bad_mean = mean.clone()
+    bad_mean[9] += 1e-3
+    assert not chip_smoke.layer_norm_check((y, pre, bad_mean, rstd), ref,
+                                           keep, keep)["ok"]
+
+
+def _attention_bias_dropout(B=2, S=128, Sk=200, H=2, D=16, p=0.1,
+                            seed=5):
+    rs = np.random.RandomState(2)
+    q, do = (torch.from_numpy(rs.randn(B, S, H, D).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rs.randn(B, Sk, H, D).astype(np.float32))
+            for _ in range(2))
+    bias = torch.from_numpy(rs.randn(B, 1, 1, Sk).astype(np.float32))
+    q, k, v, do = (t.to(torch.bfloat16).float() for t in (q, k, v, do))
+    o, lse = flash_attention_reference(q, k, v, False, None, None, bias,
+                                       p, seed)
+    ref = flash_attention_bwd_reference(q, k, v, o, lse, do, False, None,
+                                        None, bias, p, seed)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
+    good_o = flash_attention_reference(*bf[:3], False, None, None, bias, p,
+                                       seed)[0]
+    good = flash_attention_bwd_reference(*bf[:4], lse, bf[4], False, None,
+                                         None, bias, p, seed)
+    return o, ref, good_o, good
+
+
+def test_attention_bias_dropout_check_passes_and_fails():
+    o, ref, good_o, good = _attention_bias_dropout()
+    rec = chip_smoke.attention_bias_dropout_check(good_o, o, good, ref,
+                                                  None)
+    assert rec["ok"], rec
+    # a gradient that reached the bias
+    assert not chip_smoke.attention_bias_dropout_check(
+        good_o, o, good, ref, torch.zeros(2, 1, 1, 200))["ok"]
+    # the output of a row dropped wholesale
+    bad_o = good_o.clone()
+    bad_o[1, 70] = 0
+    assert not chip_smoke.attention_bias_dropout_check(bad_o, o, good, ref,
+                                                       None)["ok"]
+    # dv without the 1 / (1 - p) scale of the kept cells
+    assert not chip_smoke.attention_bias_dropout_check(
+        good_o, o, (good[0], good[1], ref[2] * 0.9), ref, None)["ok"]
+
+
+@pytest.mark.parametrize("sk", [200, 600])
+def test_dropout_pattern_check_fails_a_wrong_stride(sk):
+    """The pattern read through one-hot V (``dropout_pattern``, the
+    plain K1 on the CPU) matches the JAX-stride mask; a kernel hashing
+    with Sk as its stride does not."""
+    from paddle_tpu_torch.ops import _hash
+    B, Sq, H, D, p, seed = 1, 48, 2, 64, 0.2, 31
+    rs = np.random.RandomState(4)
+    q = torch.from_numpy(0.3 * rs.randn(B, Sq, H, D).astype(np.float32))
+    k = torch.from_numpy(0.3 * rs.randn(B, sk, H, D).astype(np.float32))
+    got = chip_smoke.dropout_pattern(torch, q, k, seed, p, D)
+    stride = _hash.jax_key_stride(sk)
+    assert stride != sk
+    want = _hash.attention_keep(seed, B, H, Sq, sk, p, stride)
+    assert chip_smoke.mask_check(got, want)["ok"]
+    wrong = _hash.attention_keep(seed, B, H, Sq, sk, p, sk)
+    assert not chip_smoke.mask_check(wrong, want)["ok"]
+    flipped = got.clone()
+    flipped[0, 1, 3, 7] = ~flipped[0, 1, 3, 7]
+    rec = chip_smoke.mask_check(flipped, want)
+    assert not rec["ok"] and rec["mask_mismatches"] == 1
+
+
+def test_encoder_step_check():
+    grads = {"0.qkv_weight": 0.004, "11.ln2_bias": 0.01}
+    assert chip_smoke.encoder_step_check(2.0, 2.0005, grads)["ok"]
+    assert not chip_smoke.encoder_step_check(2.0, 2.01, grads)["ok"]
+    assert not chip_smoke.encoder_step_check(
+        2.0, 2.0, {**grads, "3.linear_bias": 0.03})["ok"]
+
+
+def test_cached_decode_check():
+    rs = np.random.RandomState(6)
+    full = torch.from_numpy(rs.randn(2, 4, 64).astype(np.float32))
+    steps = full + 1e-6 * torch.from_numpy(
+        rs.randn(2, 4, 64).astype(np.float32))
+    assert chip_smoke.cached_decode_check(steps, full)["ok"]
+    bad = steps.clone()
+    bad[1, 3] = full[1, 2]              # a token attending one step late
+    assert not chip_smoke.cached_decode_check(bad, full)["ok"]

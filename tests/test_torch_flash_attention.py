@@ -98,10 +98,13 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("kwargs, exc", [
-    (dict(bias=torch.zeros(1, 1, 64, 64)), NotImplementedError),
-    (dict(dropout_p=0.1), NotImplementedError),
+    (dict(bias=torch.zeros(1, 1, 32, 64)), ValueError),
+    (dict(dropout_p=0.1), ValueError),
 ])
 def test_unported_options_raise(kwargs, exc):
+    """The bias and dropout are ported (tests/test_torch_attention_bias_
+    dropout.py); what the kernels still refuse raises: a bias whose Sq
+    dim is neither 1 nor Sq, and dropout without a seed."""
     q = torch.zeros(1, 64, 2, 16)
     with pytest.raises(exc):
         flash_attention(q, q, q, causal=True, **kwargs)

@@ -159,14 +159,20 @@ def test_eos_padding_matches_jax(models_1024):
     np.testing.assert_array_equal(got[0, :cut], free[0, :cut])
 
 
-@pytest.mark.parametrize("temperature, top_k, top_p", [
-    (1.0, 5, 1.0), (0.7, 0, 0.9), (1.3, 20, 0.5), (1.0, 0, 0.999)])
-def test_filter_kept_set_matches_jax(temperature, top_k, top_p,
+@pytest.mark.parametrize("temperature, top_k, top_p, vocab", [
+    pytest.param(1.0, 5, 1.0, 96, id="1.0-5-1.0"),
+    pytest.param(0.7, 0, 0.9, 96, id="0.7-0-0.9"),
+    pytest.param(1.3, 20, 0.5, 96, id="1.3-20-0.5"),
+    pytest.param(1.0, 0, 0.999, 96, id="1.0-0-0.999"),
+    # top_k past the vocab: JAX's index clamps and keeps every logit
+    pytest.param(1.0, 20, 1.0, 16, id="vocab16-1.0-20-1.0")])
+def test_filter_kept_set_matches_jax(temperature, top_k, top_p, vocab,
                                      monkeypatch):
     """The JAX sampler's filtered logits are the ones it hands to
     ``jax.random.categorical``; the port keeps the same set and the same
     filtered values."""
-    logits = np.random.RandomState(4).randn(6, 96).astype(np.float32) * 3
+    logits = np.random.RandomState(4).randn(6, vocab).astype(
+        np.float32) * 3
     seen = {}
 
     def categorical(key, lg, axis=-1):
@@ -181,7 +187,10 @@ def test_filter_kept_set_matches_jax(temperature, top_k, top_p,
                              top_k).numpy()
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
     kept = ~np.isneginf(want)
-    assert 0 < kept.sum() < kept.size
+    if top_k >= vocab and top_p >= 1.0:
+        assert kept.all()
+    else:
+        assert 0 < kept.sum() < kept.size
     np.testing.assert_allclose(got[kept], want[kept], rtol=1e-6)
 
 

@@ -514,3 +514,167 @@ def test_mega_logits_kernel_matches_plain(dev, dtype, dm, V, tied):
     ref_tok2, ref_nf2 = mega_logits_sample_reference(x, s, b, head)
     torch.cuda.synchronize()
     assert torch.equal(nf2, ref_nf2)
+
+
+# ---- K11 and the attention bias and dropout of K1/K3/K4 ----------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, bias, residual, p", [
+    (768, True, True, 0.1), (1000, True, True, 0.1),
+    (1024, False, True, 0.5), (96, True, False, 0.0),
+    (4096, False, False, 0.3)])
+def test_layer_norm_kernel_matches_plain(dev, dtype, n, bias, residual, p):
+    from paddle_tpu_torch.ops import _hash
+    from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm_fwd,
+                                                 fused_layer_norm_reference)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    m = 300
+    x = _randn(gen, (m, n), dtype, dev)
+    res = _randn(gen, (m, n), dtype, dev) if residual else None
+    gamma, beta = (_randn(gen, (n,), dtype, dev) for _ in range(2))
+    b = _randn(gen, (n,), dtype, dev) if bias else None
+    args = (x, gamma, beta, b, res, -3, 1e-5, p)
+    before = fused_layer_norm_fwd.launches
+    got = fused_layer_norm_fwd(*args)
+    ones = torch.ones_like(x)
+    probe = fused_layer_norm_fwd(ones, gamma, beta, None, None, -3, 1e-5,
+                                 p)[1]
+    torch.cuda.synchronize()
+    assert fused_layer_norm_fwd.launches == before + 2
+    ref = fused_layer_norm_reference(*args)
+    for g, r in zip(got[:2], ref[:2]):
+        assert (g.float() - r.float()).abs().max().item() <= \
+            TOL[dtype](r.float())
+    torch.testing.assert_close(got[2], ref[2], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got[3], ref[3], atol=0, rtol=1e-5)
+    if p > 0:
+        assert torch.equal(probe != 0,
+                           _hash.layer_norm_keep(-3, (m, n), p, device=dev))
+
+
+def test_layer_norm_kernel_refuses_a_row_too_wide(dev):
+    from paddle_tpu_torch.ops.layer_norm import MAX_N, fused_layer_norm_fwd
+    x = torch.zeros((2, MAX_N + 1), device=dev)
+    g = torch.ones(MAX_N + 1, device=dev)
+    with pytest.raises(ValueError, match="N <="):
+        fused_layer_norm_fwd(x, g, g)
+
+
+def test_layer_norm_autograd_on_gpu_matches_cpu(dev):
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
+    rs = np.random.RandomState(3)
+    arrs = [rs.randn(*s).astype(np.float32)
+            for s in ((4, 50, 200), (200,), (200,), (200,), (4, 50, 200),
+                      (4, 50, 200), (4, 50, 200))]
+    out = []
+    for d in ("cpu", dev):
+        ts = [torch.from_numpy(a).to(d).requires_grad_() for a in arrs[:5]]
+        y, pre = fused_layer_norm(ts[0], ts[1], ts[2], residual=ts[4],
+                                  bias=ts[3], dropout_p=0.2,
+                                  dropout_seed=11)
+        (y * torch.from_numpy(arrs[5]).to(d)
+         + pre * torch.from_numpy(arrs[6]).to(d)).sum().backward()
+        out.append([y.detach().cpu(), pre.detach().cpu()]
+                   + [t.grad.cpu() for t in ts])
+    for g, c in zip(out[1], out[0]):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, sq, sk, hq, hkv, d, causal, bshape, lens", [
+    (2, 128, 128, 4, 4, 64, False, (2, 1, 1, 128), [128, 70]),
+    (2, 100, 200, 4, 2, 64, False, (1, 4, 100, 200), None),
+    (1, 96, 96, 2, 2, 40, True, (1, 1, 96, 96), None),
+    (2, 64, 600, 2, 1, 128, False, (2, 2, 64, 600), [600, 333]),
+])
+def test_flash_bias_dropout_kernels_match_plain(dev, dtype, b, sq, sk, hq,
+                                                hkv, d, causal, bshape,
+                                                lens):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    k = _randn(gen, (b, sk, hkv, d), dtype, dev)
+    v = _randn(gen, (b, sk, hkv, d), dtype, dev)
+    do = _randn(gen, (b, sq, hq, d), dtype, dev)
+    bias = torch.randn(bshape, generator=gen, device=dev)
+    bias[..., :3] = float("-inf")
+    kv_lens = (None if lens is None
+               else torch.tensor(lens, dtype=torch.int32, device=dev))
+    kw = dict(causal=causal, kv_lens=kv_lens, bias=bias, dropout_p=0.2,
+              dropout_seed=-5)
+    res = []
+    for fn, cast in ((flash_attention, lambda t: t),
+                     (fa.flash_attention_plain, lambda t: t.float())):
+        ts = [cast(t).clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ts, **kw)
+        o.backward(cast(do))
+        res.append([o.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    for g, r in zip(*res):
+        assert (g.float() - r).abs().max().item() <= TOL[dtype](r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias, p", [(False, 0.0), (True, 0.0),
+                                          (False, 0.2), (True, 0.2)])
+def test_flash_kernels_each_bias_dropout_build(dev, dtype, with_bias, p):
+    """K1, K3 and K4 are built once per (bias, dropout) pair: each of
+    the four builds against the plain versions, the seed drawn on the
+    card by a CUDA generator (a device tensor the kernels read)."""
+    from paddle_tpu_torch.nn.functional.attention import draw_seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    b, s, h, d = 2, 192, 2, 64
+    q, k, v, do = (_randn(gen, (b, s, h, d), dtype, dev) for _ in range(4))
+    bias = (torch.randn((b, 1, 1, s), generator=gen, device=dev)
+            if with_bias else None)
+    seed = draw_seed(gen, dev) if p > 0 else None
+    if seed is not None:
+        assert seed.device.type == "cuda" and seed.dtype == torch.int32
+    kw = dict(bias=bias, dropout_p=p, dropout_seed=seed)
+    res = []
+    for fn, cast in ((flash_attention, lambda t: t),
+                     (fa.flash_attention_plain, lambda t: t.float())):
+        ts = [cast(t).clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ts, **kw)
+        o.backward(cast(do))
+        res.append([o.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    for g, r in zip(*res):
+        assert (g.float() - r).abs().max().item() <= TOL[dtype](r)
+
+
+def test_incubate_encoder_block_on_gpu_matches_plain(dev):
+    """One BERT-shaped post-LN block of the incubate functionals through
+    the kernels (K1, K3, K4, K11) against the same block through their
+    plain versions, dropout on, in fp32."""
+    B, S, L = 2, 128, 1
+    w = chip_smoke.encoder_weights(torch, dev, L, 128, 2, 512,
+                                   dtype=torch.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn((B, S, 128), generator=g, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < torch.tensor([[S], [77]], device=dev))[:, None, None, :]
+    res = []
+    for plain in (True, False):
+        g.manual_seed(1)
+        for t in w.values():
+            t.grad = None
+        if plain:
+            with chip_smoke.plain_kernels():
+                out = chip_smoke.encoder_forward(w, x, mask, g, L)
+                out.square().mean().backward()
+        else:
+            chip_smoke._zero_counters()
+            out = chip_smoke.encoder_forward(w, x, mask, g, L)
+            out.square().mean().backward()
+            launches = chip_smoke._read_counters()
+        res.append([out.detach()] + [t.grad for t in w.values()])
+    torch.cuda.synchronize()
+    assert launches["fused_layer_norm"] == L
+    assert launches["flash_attention"] == L
+    assert launches["flash_attention_bwd_dq"] == L
+    for got, want in zip(res[1], res[0]):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)

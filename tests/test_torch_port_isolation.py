@@ -49,6 +49,11 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch.ops.decode_megakernel\n"
             "import paddle_tpu_torch.ops.quant_matmul\n"
             "import paddle_tpu_torch.quantization\n"
+            "import paddle_tpu_torch.ops.layer_norm\n"
+            "import paddle_tpu_torch.nn\n"
+            "import paddle_tpu_torch.nn.functional.common\n"
+            "import paddle_tpu_torch.incubate.nn\n"
+            "import paddle_tpu_torch.incubate.nn.functional\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -89,4 +94,5 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
                                         "decode_megakernel",
                                         "flash_attention_bwd",
                                         "flash_attention_fwd", "fused_ce",
-                                        "paged_attention", "quant_matmul"]
+                                        "layer_norm", "paged_attention",
+                                        "quant_matmul"]
