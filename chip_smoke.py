@@ -17,9 +17,9 @@ Phases, each fatal on failure:
    softmax and with a peaked one. Each output is held by its relative
    L2 error per tile or row that one block writes (``REL_L2_TOL``), so
    small entries count as much as the largest. Each prints its time
-   (K1: the kernel's profiler device time, and its call's by CUDA
-   events; the others by CUDA events), its plain version's time, the
-   library call's time
+   (K1, K2, K2': the kernel's profiler device time, and its call's by
+   CUDA events; the others by CUDA events), its plain version's time,
+   the library call's time
    where PyTorch has one call for the same function, and its bound: the
    larger of bytes / 3.35 TB/s and FLOPs / 989.4 TFLOP/s;
 4. serving — gpt3_1p3b at full width (random weights from a seed)
@@ -113,8 +113,34 @@ Phases, each fatal on failure:
    through its caches after a 128-token prompt matches its full causal
    forward (``cached_decode_check``); K11 = 1 and K1 = 12 launches.
 
+17. K13, the launch probe (``ops/launch_probe.py``): one (8, 128) fp32
+   copy, equal to its input bit for bit, its counter equal to the
+   launches made; its device time and bound, and the launch tax
+   ``devprof.pallas_launch_tax_s`` meters with it beside
+   ``launch_tax_s``'s x + 1 and the same readback round around
+   ``clone`` (median microseconds each);
+18. the sixth slice, the serving engines' own instrumentation, on
+   gpt3_1p3b from seed 0 with every kernel counter zeroed just before
+   and read just after: ``paddle_tpu_torch.tools.profile_decode``'s
+   ``prof`` section (contiguous and single-dispatch paged, prompts of
+   128, 512 and 1024 tokens, 8 slots, 64 new tokens, chunk 32; each
+   row's roofline fraction within (0, ROOFLINE_FRAC_MAX], its launch-tax
+   fraction within (0, 1], a step split) and ``mega`` section
+   (single-dispatch <= 2 launches per decode step, per layer 24),
+   called in this process; a fault run (``faults.inject`` poisons slot
+   3 for one dispatch: only that request is evicted, the others keep
+   the clean batch's streams, its flight dump runs from ``admit`` to
+   ``evicted``); a warmup check (TTFT of the first request cold and
+   after ``warmup()``, no kernel library loaded inside either window);
+   the tracing cost per decode step (off, on, on, off) and the trace
+   file written under ``PT_TRACE_DIR`` (``build/traces/``) and parsed
+   back for ``serve/dispatch`` and ``serve/harvest`` spans. The path
+   must launch K1, K2, K2', K8, K9, K10 and K13.
+
 Phases 11, 4, 12 and 6-10 run before 5 (which needs the card's memory
-for training), 13 and 14 before them, 15 and 16 after 5.
+for training), 13, 14 and 17 before them, 15, 16 and 18 after 5. Should
+the script near its time limit, phase 18's sweep may drop to prompts of
+128 and 1024 tokens, at full width.
 
 Then one ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Imports neither jax nor paddle_tpu.
@@ -491,7 +517,7 @@ def mega_logits_check(tok, nonfin, ref_logits, ref_nonfin, ties):
 
 def k1_case(torch, dev, S, hkv, gen, B=1):
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_cost, flash_attention_reference)
     import torch.nn.functional as F
     Hq, D = 16, 128
     bf = torch.bfloat16
@@ -524,10 +550,8 @@ def k1_case(torch, dev, S, hkv, gen, B=1):
                   .transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms = _event_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    elt = q.element_size()
-    nbytes = (2 * B * S * Hq * D + 2 * B * S * hkv * D) * elt \
-        + B * Hq * S * 4
-    flops = 4 * B * Hq * D * S * (S + 1) // 2
+    flops, nbytes = flash_attention_cost(B, S, S, Hq, hkv, D, causal=True,
+                                         elt=q.element_size())
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k1_flash_fwd_B{B}_S{S}_hkv{hkv}", "B": B, "S": S,
            "Hq": Hq, "Hkv": hkv, "D": D, "dtype": "bfloat16",
@@ -555,17 +579,10 @@ def _paged_inputs(torch, dev, gen, hkv, lengths, page=128, max_pages=2):
     return q, kp, vp, table, lens
 
 
-def _paged_bytes(q, kp, lengths, hkv, rows=0):
-    elt = q.element_size()
-    D = q.shape[-1]
-    kv = 2 * sum(lengths) * hkv * D * elt
-    return (2 * q.numel() * elt + kv + 8 * q.shape[0] * 4
-            + rows * 2 * q.shape[0] * hkv * D * elt)
-
-
 def k2_fused_case(torch, dev, gen, hkv):
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_append_attend, paged_append_attend_reference)
+        paged_append_attend, paged_append_attend_cost,
+        paged_append_attend_reference)
     lengths = [0, 1, 127, 128, 255, 64, 200, 17]
     page = 128
     q, kp0, vp0, table, lens = _paged_inputs(torch, dev, gen, hkv, lengths)
@@ -591,22 +608,26 @@ def k2_fused_case(torch, dev, gen, hkv):
     changed = (kp1 != kp0).any(-1) | (vp1 != vp0).any(-1)
     rows_ok = bool((changed & ~target).sum().item() == 0
                    and torch.equal(kp1, kp2) and torch.equal(vp1, vp2))
-    ms = _event_ms(torch, lambda: paged_append_attend(
-        q, kp1, vp1, k_row, v_row, table, wp, lens))
-    plain_ms = _event_ms(torch, lambda: paged_append_attend_reference(
-        q, kp2, vp2, k_row, v_row, table, wp, lens), iters=5)
-    n_ctx = [n + 1 for n in lengths]
-    nbytes = _paged_bytes(q, kp0, lengths, hkv, rows=2)
-    flops = 4 * sum(n_ctx) * q.shape[1] * D
+    call = (lambda: paged_append_attend(q, kp1, vp1, k_row, v_row, table,
+                                        wp, lens))
+    ms = _device_ms(torch, call, ("paged_kernel",))
+    call_ms = _event_ms(torch, call)
+    plain_ms = _device_ms(torch, lambda: paged_append_attend_reference(
+        q, kp2, vp2, k_row, v_row, table, wp, lens), iters=5, warmup=1)
+    flops, nbytes = paged_append_attend_cost(lengths, q.shape[1], hkv, D,
+                                             q.element_size())
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k2_paged_fused_hkv{hkv}", "B": B, "Hq": q.shape[1],
            "Hkv": hkv, "D": D, "page": page, "lengths": lengths,
            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
            "row_rel_l2_max": row_err, "tol_rel_l2": REL_L2_TOL,
            "pool_write_exact": rows_ok, "kernel_ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by,
-           "ok": bool(err <= tol and row_err <= REL_L2_TOL and rows_ok)}
+           "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": None,
+           "timing": "device time (torch.profiler); call_ms: CUDA "
+                     "events around back-to-back calls",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": bool(err <= tol and row_err <= REL_L2_TOL and rows_ok
+                      and None not in (ms, plain_ms))}
     _phase(rec)
     return rec
 
@@ -614,7 +635,8 @@ def k2_fused_case(torch, dev, gen, hkv):
 def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
                   name=""):
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_reference)
+        paged_decode_attention, paged_decode_attention_cost,
+        paged_decode_attention_reference)
     q, kp, vp, table, lens = _paged_inputs(torch, dev, gen, hkv, lengths)
     if table_rows is not None:
         # every query row reads the same sequence (the suffix prefill)
@@ -633,22 +655,27 @@ def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
                     and torch.allclose(m[fin], rm[fin], rtol=1e-4,
                                        atol=1e-4)
                     and torch.allclose(l, rl, rtol=1e-4, atol=1e-5))
-    ms = _event_ms(torch, lambda: paged_decode_attention(q, kp, vp, table,
-                                                         lens))
-    plain_ms = _event_ms(torch, lambda: paged_decode_attention_reference(
-        q, kp, vp, table, lens), iters=5)
+    call = (lambda: paged_decode_attention(q, kp, vp, table, lens))
+    ms = _device_ms(torch, call, ("paged_kernel",))
+    call_ms = _event_ms(torch, call)
+    plain_ms = _device_ms(torch, lambda: paged_decode_attention_reference(
+        q, kp, vp, table, lens), iters=5, warmup=1)
     D = q.shape[-1]
-    nbytes = _paged_bytes(q, kp, lengths if table_rows is None
-                          else [max(lengths)], hkv)
-    flops = 4 * sum(lengths) * q.shape[1] * D
+    flops, nbytes = paged_decode_attention_cost(
+        lengths, q.shape[1], hkv, D, q.element_size(),
+        kv_tokens=None if table_rows is None else max(lengths))
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k2p_paged_plain{name}_hkv{hkv}", "B": len(lengths),
            "Hq": q.shape[1], "Hkv": hkv, "D": D, "page": kp.shape[2],
            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
            "row_rel_l2_max": row_err, "tol_rel_l2": REL_L2_TOL,
-           "stats_ok": stats_ok, "kernel_ms": ms, "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-           "ok": bool(err <= tol and row_err <= REL_L2_TOL and stats_ok)}
+           "stats_ok": stats_ok, "kernel_ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "timing": "device time (torch.profiler); call_ms: CUDA "
+                     "events around back-to-back calls",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": bool(err <= tol and row_err <= REL_L2_TOL and stats_ok
+                      and None not in (ms, plain_ms))}
     _phase(rec)
     return rec
 
@@ -831,7 +858,7 @@ def k10_case(torch, dev, gen, hkv):
     T 2048, D 128, bf16, mixed lengths with an empty row; with and
     without (m, l), each held by ``decode_attention_check``."""
     from paddle_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_cost, decode_attention_reference)
     import torch.nn.functional as F
     B, Hq, T, D = len(K10_LENGTHS), 16, 2048, 128
     bf = torch.bfloat16
@@ -851,8 +878,8 @@ def k10_case(torch, dev, gen, hkv):
     err = (o.float() - ro.float())[live].abs().max().item()
     elt = q.element_size()
     n_keys = sum(K10_LENGTHS)
-    nbytes = (2 * n_keys * hkv * D * elt + 2 * q.numel() * elt
-              + 2 * B * Hq * 4 + B * 4)
+    flops, nbytes = decode_attention_cost(K10_LENGTHS, Hq, hkv, D, elt,
+                                          return_stats=True)
     # device time of the kernel (profiler) over caches found cold, beside
     # CUDA events around back-to-back calls, which count the wrapper's
     # host time too
@@ -875,7 +902,6 @@ def k10_case(torch, dev, gen, hkv):
     lib_ms = _device_ms(torch, lambda: F.scaled_dot_product_attention(
         q[:, :, None], *kvt(), attn_mask=mask))
     del kvt
-    flops = 4 * n_keys * Hq * D
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k10_decode_attention_hkv{hkv}", "B": B, "Hq": Hq,
            "Hkv": hkv, "T": T, "D": D, "lengths": K10_LENGTHS,
@@ -912,6 +938,7 @@ def k12_case(torch, dev, gen):
     ``torch.matmul`` on the weight dequantized to bf16 beforehand, which
     reads twice the weight bytes."""
     from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
+                                                   int8_matmul_cost,
                                                    int8_matmul_reference)
     from paddle_tpu_torch.quantization import quantize_tensor
     bf = torch.bfloat16
@@ -927,7 +954,7 @@ def k12_case(torch, dev, gen):
             ref = int8_matmul_reference(x, qt.q, qt.scale)
             check = quant_matmul_check(out, ref)
             err = max(err, (out.float() - ref.float()).abs().max().item())
-            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            flops, nbytes = int8_matmul_cost(M, K, N, x.element_size())
             # every layer reads its own weights: time them cold
             wq = _cold((qt.q,), K * N)
             call = (lambda: int8_matmul(x, *wq(), qt.scale))
@@ -938,7 +965,7 @@ def k12_case(torch, dev, gen):
             wd = _cold((w_deq,), 2 * K * N)
             lib_ms = _device_ms(torch, lambda: torch.matmul(x, *wd()))
             del wq, wd
-            bound_ms, bound_by = _bound(nbytes, 2 * M * K * N)
+            bound_ms, bound_by = _bound(nbytes, flops)
             cases.append({"product": name, "M": M, "K": K, "N": N,
                           "check": check, "kernel_ms": ms,
                           "call_ms": call_ms, "plain_ms": plain_ms,
@@ -966,22 +993,19 @@ def k12_case(torch, dev, gen):
     return rec
 
 
-def _k8_bound(inp, n_layers):
-    """K8's least time: every slab read once, each row's valid K/V rows
-    read once per layer, each fresh row written once per layer, x read
-    and written; the operations of the products and of attention."""
-    x, w, geo = inp["x"], inp["w"], inp["geo"]
-    elt = x.element_size()
-    hkv, d, hq = geo["kv_heads"], geo["head_dim"], geo["n_heads"]
+def _k8_bound(inp):
+    """K8's least time (``mega_decode_layers_cost``): every slab read
+    once, each row's valid K/V rows read once per layer, each fresh row
+    written once per layer, x read and written; the operations of the
+    products and of attention."""
+    from paddle_tpu_torch.ops.decode_megakernel import (
+        mega_decode_layers_cost)
+    geo = inp["geo"]
     lens = [min(int(p) + 1, inp["table"].shape[1] * geo["page"])
             for p in inp["pos"].tolist()]
-    B = x.shape[0]
-    slabs = sum(t.numel() * t.element_size() for t in w.values())
-    kv = 2 * sum(lens) * hkv * d * elt * n_layers
-    fresh = 2 * B * hkv * d * elt * n_layers
-    nbytes = slabs + kv + fresh + 2 * x.numel() * elt + 4 * 4 * B
-    macs = sum(w[n].numel() for n in ("wqkv", "wo", "wup", "wdown"))
-    flops = 2 * B * macs + 4 * sum(lens) * hq * d * n_layers
+    flops, nbytes = mega_decode_layers_cost(
+        lens, inp["w"], geo["n_heads"], geo["kv_heads"], geo["head_dim"],
+        inp["x"].element_size())
     return _bound(nbytes, flops)
 
 
@@ -1034,7 +1058,7 @@ def k8_case(torch, name, inp, tol, timed=False, context=False):
     check = mega_layers_check(out, ref, (kp, vp), (rkp, rvp),
                               (inp["kp"], inp["vp"]), inp["written"], tol)
     del rkp, rvp
-    bound_ms, bound_by = _k8_bound(inp, L)
+    bound_ms, bound_by = _k8_bound(inp)
     rec = {"phase": f"k8_{name}", "layers": L, "rows": K8_ROWS,
            **{k: v for k, v in inp["geo"].items()},
            "d_model": inp["x"].shape[1], "dtype": str(inp["x"].dtype),
@@ -1122,9 +1146,8 @@ def k89_phase(torch, dev, gen, model):
     plain_ms = _device_ms(torch, lambda: mk.mega_logits_sample_reference(
         x, s, b, w.t(), poison), iters=5, warmup=1)
     B, V = x.shape[0], w.shape[0]
-    elt = x.element_size()
-    bound_ms, bound_by = _bound(V * dm * elt + B * dm * elt + 2 * dm * 4
-                                + 3 * B * 4, 2 * B * dm * V)
+    flops, nbytes = mk.mega_logits_sample_cost(B, dm, V, x.element_size())
+    bound_ms, bound_by = _bound(nbytes, flops)
     k9 = {"phase": "k9_gpt3_1p3b_head", "B": B, "d_model": dm, "V": V,
           "dtype": str(x.dtype), "check": check, "ties": ties,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
@@ -1137,29 +1160,11 @@ def k89_phase(torch, dev, gen, model):
 
 
 def _counters():
-    """Every ported kernel's wrapper, by name: a path's launches are
-    these counters, zeroed just before the path and read just after."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import fused_ce as ce
-    from paddle_tpu_torch.ops.decode_attention import decode_attention
-    from paddle_tpu_torch.ops.decode_megakernel import (mega_decode_layers,
-                                                        mega_logits_sample)
-    from paddle_tpu_torch.ops.paged_attention import (
-        paged_append_attend, paged_decode_attention)
-    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm_fwd
-    from paddle_tpu_torch.ops.quant_matmul import int8_matmul
-    return {"flash_attention": fa.flash_attention,
-            "paged_append_attend": paged_append_attend,
-            "paged_decode_attention": paged_decode_attention,
-            "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_dx": ce.fused_ce_dx,
-            "fused_ce_dw": ce.fused_ce_dw,
-            "decode_attention": decode_attention,
-            "int8_matmul": int8_matmul,
-            "mega_decode_layers": mega_decode_layers,
-            "mega_logits_sample": mega_logits_sample,
-            "fused_layer_norm": fused_layer_norm_fwd}
+    """Every ported kernel's wrapper, by name (``ops.launch_counters``): a
+    path's launches are these counters, zeroed just before the path and
+    read just after."""
+    from paddle_tpu_torch.ops import launch_counters
+    return launch_counters()
 
 
 def _zero_counters():
@@ -2249,6 +2254,263 @@ def fused_layers_phase(torch, dev, n_new=4, prompt=128):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Sixth slice: K13, and the serving engines' own instrumentation through
+# paddle_tpu_torch.tools.profile_decode at gpt3_1p3b
+# ---------------------------------------------------------------------------
+
+def _readback_us(torch, fn, x, iters=64):
+    """Median microseconds of ``fn(x)`` followed by a scalar readback,
+    the round ``devprof.pallas_launch_tax_s`` times (one untimed round
+    first)."""
+    float(fn(x).reshape(-1)[0])
+    samples = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        float(fn(x).reshape(-1)[0])
+        samples.append(time.perf_counter() - t0)
+    return sorted(samples)[iters // 2] * 1e6
+
+
+def k13_phase(torch, dev, gen):
+    """K13, the launch probe (phase 17): its output equal to its input
+    bit for bit, its counter equal to the launches made, its device time
+    beside its bound, and the launch tax it meters
+    (``pallas_launch_tax_s``) beside ``launch_tax_s``'s x + 1 and the
+    same readback round around ``clone``."""
+    from paddle_tpu_torch.observability import devprof
+    from paddle_tpu_torch.ops.launch_probe import (noop_copy,
+                                                   noop_copy_cost,
+                                                   noop_copy_reference)
+    x = torch.randn((8, 128), generator=gen, device=dev)
+    n0 = noop_copy.launches
+    ys = [noop_copy(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    exact = all(torch.equal(y, x) for y in ys)
+    counted = noop_copy.launches - n0
+    ms = _device_ms(torch, lambda: noop_copy(x), ("noop_copy",))
+    clone_ms = _device_ms(torch, lambda: noop_copy_reference(x))
+    probe_us = devprof.pallas_launch_tax_s(force=True) * 1e6
+    add_us = devprof.launch_tax_s(force=True, device=dev) * 1e6
+    clone_us = _readback_us(torch, noop_copy_reference, x)
+    flops, nbytes = noop_copy_cost()
+    bound_ms, bound_by = _bound(nbytes, flops)
+    rec = {"phase": "k13_launch_probe", "shape": [8, 128],
+           "dtype": "float32", "exact": exact, "launches_made": 3,
+           "launches_counted": counted, "kernel_ms": ms,
+           "plain_ms": clone_ms, "library_ms": clone_ms,
+           "timing": "device time (torch.profiler); plain and library: "
+                     "x.clone(), one measurement",
+           "launch_tax_probe_us": probe_us, "launch_tax_add_us": add_us,
+           "launch_tax_clone_us": clone_us,
+           "launch_tax": "median wall time of a launch and a scalar "
+                         "readback (devprof.pallas_launch_tax_s, "
+                         "launch_tax_s, the same round around clone)",
+           "max_abs_err": 0.0 if exact else None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": bool(exact and counted == 3
+                      and None not in (ms, clone_ms))}
+    _phase(rec)
+    return rec
+
+
+# the roofline fraction a sound count can reach: a measured rate past
+# the analytic bound means dispatch_cost counted too much
+ROOFLINE_FRAC_MAX = 1.05
+SLICE_KERNELS = ("flash_attention", "paged_append_attend",
+                 "paged_decode_attention", "decode_attention",
+                 "mega_decode_layers", "mega_logits_sample", "noop_copy")
+
+
+def _slice_prompts(cfg, n=8, length=128, seed=SEED + 4):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, cfg.vocab_size, size=length).tolist()
+            for _ in range(n)]
+
+
+def fault_check(torch, model, out_dir):
+    """One poisoned slot of a single-dispatch engine: ``faults.inject``
+    NaNs slot 3's logits for one dispatch. Only that request is evicted
+    (``serve/nonfinite_evictions`` = 1), the others finish with the
+    streams of the same batch served clean, and its flight dump (written
+    under ``PT_TRACE_DIR``) runs from ``admit`` to ``evicted``."""
+    import glob
+    import os
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.factory import make_engine
+    from paddle_tpu_torch.testing import faults
+    prompts = _slice_prompts(model.cfg)
+    runs = {}
+    for poisoned in (False, True):
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=16)
+        stats.reset("serve/")
+        tag = "poisoned" if poisoned else "clean"
+        reqs = [eng.submit(pr, max_new_tokens=64, req_id=f"{tag}-{i}")
+                for i, pr in enumerate(prompts)]
+        if poisoned:
+            with faults.inject("engine.poison_logits", "nan", slot=3,
+                               after=1, count=1):
+                eng.run()
+        else:
+            eng.run()
+        runs[poisoned] = (reqs, int(stats.get("serve/nonfinite_evictions")))
+        del eng
+    clean, poisoned = runs[False][0], runs[True][0]
+    others = [i for i in range(len(prompts)) if i != 3]
+    dumps = glob.glob(os.path.join(out_dir,
+                                   f"flight_poisoned-3.{os.getpid()}.json"))
+    events = []
+    if dumps:
+        with open(dumps[0]) as f:
+            events = [e["event"] for e in json.load(f)["events"]]
+    rec = {"evicted_error": poisoned[3].error,
+           "evicted_tokens": len(poisoned[3].tokens),
+           "nonfinite_evictions": runs[True][1],
+           "clean_nonfinite_evictions": runs[False][1],
+           "others_equal_clean": all(poisoned[i].tokens == clean[i].tokens
+                                     for i in others),
+           "others_done": all(poisoned[i].done and not poisoned[i].failed
+                              and len(poisoned[i].tokens) == 64
+                              for i in others),
+           "flight_events": events}
+    rec["ok"] = bool(poisoned[3].error == "non-finite logits"
+                     and runs[True][1] == 1 and runs[False][1] == 0
+                     and rec["others_equal_clean"] and rec["others_done"]
+                     and events[:1] == ["admit"]
+                     and events[-1:] == ["evicted"])
+    return rec
+
+
+def warmup_check(torch, model):
+    """TTFT of the first request of a batch, on a single-dispatch engine
+    built cold and one built with ``warmup=True``; no kernel library is
+    loaded inside either timed window. In one process both engines find
+    every library and shape already used by earlier phases: the gap is
+    what the engine itself pays on first use."""
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.factory import make_engine
+    from paddle_tpu_torch.ops import _build
+    prompts = _slice_prompts(model.cfg, seed=SEED + 5)
+    rec = {}
+    for warm in (False, True):
+        stats.reset("serve/")
+        t0 = time.perf_counter()
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=16, warmup=warm)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        libs = _build.loaded()
+        reqs = [eng.submit(pr, max_new_tokens=16) for pr in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        rec["warm" if warm else "cold"] = {
+            "engine_build_s": build_s,
+            "warmup_s": stats.snapshot("serve/warmup_s").get(
+                "serve/warmup_s.sum") if warm else None,
+            "first_ttft_s": reqs[0].ttft_s,
+            "ttft_p50_s": sorted(r.ttft_s for r in reqs)[len(reqs) // 2],
+            "libraries_loaded_in_window": sorted(
+                set(_build.loaded()) - set(libs))}
+        del eng
+    rec["warmup_recorded"] = stats.get("serve/warmup_s") == 1
+    rec["ok"] = bool(rec["warmup_recorded"] and not any(
+        rec[k]["libraries_loaded_in_window"] for k in ("cold", "warm")))
+    return rec
+
+
+def trace_check(torch, model, out_dir):
+    """Tracing cost and the trace file: the same batch through a
+    single-dispatch engine with tracing off, on, on, off (ms per decode
+    step of each), then the ring exported where ``PT_TRACE_DIR`` points
+    and parsed back: it must hold ``serve/dispatch`` and
+    ``serve/harvest`` spans."""
+    import os
+    from paddle_tpu_torch.inference.factory import make_engine
+    from paddle_tpu_torch.observability import trace
+    prompts = _slice_prompts(model.cfg, seed=SEED + 6)
+    eng = make_engine(model, n_pages=64, max_slots=8, steps_per_call=16)
+    per_step = {"off": [], "on": []}
+    trace.clear()
+    for on in (False, True, True, False):
+        if on:
+            trace.enable()
+        steps0 = eng.steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=64)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trace.disable()
+        per_step["on" if on else "off"].append(
+            wall * 1e3 / max(1, (eng.steps - steps0) * eng.chunk))
+    path = trace.export()
+    trace.clear()
+    names = set()
+    if path is not None:
+        with open(path) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+    del eng
+    rec = {"ms_per_decode_step_off": per_step["off"],
+           "ms_per_decode_step_on": per_step["on"],
+           "trace_file": None if path is None
+           else os.path.relpath(path),
+           "span_names": sorted(names)}
+    rec["ok"] = bool({"serve/dispatch", "serve/harvest"} <= names)
+    return rec
+
+
+def slice_phase(torch, dev):
+    """The sixth slice at full width (phase 18): gpt3_1p3b from seed 0
+    through ``paddle_tpu_torch.tools.profile_decode``'s sections, called
+    in this process with every kernel counter zeroed just before and
+    read just after: ``prof`` (contiguous and single-dispatch paged,
+    prompts of 128, 512 and 1024 tokens, 8 slots, 64 new tokens, chunk
+    32), ``mega``, then ``fault_check``, ``warmup_check`` and
+    ``trace_check``. Returns the record (its ``launches`` is the slice
+    path's)."""
+    import os
+    from paddle_tpu_torch.tools import profile_decode as pd
+    out_dir = os.path.abspath(os.path.join("build", "traces"))
+    old = os.environ.get("PT_TRACE_DIR")
+    os.environ["PT_TRACE_DIR"] = out_dir
+    try:
+        model = pd.build_model("1p3b", dev)
+        torch.cuda.synchronize()
+        _zero_counters()
+        rows = pd.prof_section(model, "1p3b", lengths=[128, 512, 1024])
+        mega = pd.mega_section(model, "1p3b")
+        fault = fault_check(torch, model, out_dir)
+        warm = warmup_check(torch, model)
+        traced = trace_check(torch, model, out_dir)
+        launches = _read_counters()
+    finally:
+        if old is None:
+            os.environ.pop("PT_TRACE_DIR", None)
+        else:
+            os.environ["PT_TRACE_DIR"] = old
+    rows_ok = all(0 < r["roofline_frac"] <= ROOFLINE_FRAC_MAX
+                  and 0 < r["launch_tax_frac"] <= 1 and r["step"]
+                  for r in rows)
+    launched = all(launches[n] > 0 for n in SLICE_KERNELS)
+    mega_ok = (mega["mega"] <= 2
+               and mega["per_layer"] == model.cfg.n_layers)
+    rec = {"phase": "slice_profile_decode_gpt3_1p3b", "prof": rows,
+           "roofline_frac_max": ROOFLINE_FRAC_MAX,
+           "mega_launches_per_step": mega, "fault": fault,
+           "warmup": warm, "trace": traced, "launches": launches,
+           "launched_on_path": list(SLICE_KERNELS),
+           "rows_ok": bool(rows_ok), "launched_ok": bool(launched),
+           "ok": bool(rows_ok and launched and mega_ok and fault["ok"]
+                      and warm["ok"] and traced["ok"])}
+    _phase(rec)
+    return rec
+
+
+
 def main():
     try:
         import torch
@@ -2308,6 +2570,7 @@ def main():
                            bias_kind="padding_kv_lens"),
             attention_case(torch, dev, gen, "full", bias_kind="full"),
             attention_case(torch, dev, gen, "sk600", Sk=600)]
+    k13 = k13_phase(torch, dev, gen)
     torch.cuda.empty_cache()
     paths, (k8, k9) = serving_paths(torch, dev, gen)
     torch.cuda.empty_cache()
@@ -2317,6 +2580,8 @@ def main():
     paths["encoder"] = encoder_phase(torch, dev)["launches"]
     torch.cuda.empty_cache()
     paths["fused_layers"] = fused_layers_phase(torch, dev)["launches"]
+    torch.cuda.empty_cache()
+    paths["slice"] = slice_phase(torch, dev)["launches"]
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms,
               err, counter=None, only=None):
@@ -2431,6 +2696,11 @@ def main():
               k134[0]["library_bwd_ms"],
               max(r["max_abs_err"] for r in k134),
               counter="flash_attention_bwd_dq", only="encoder"),
+        # one (8, 128) fp32 copy; plain and library: x.clone()
+        entry("noop_copy", "launch_probe.cu",
+              "paddle_tpu/observability/devprof.py:291", k13["kernel_ms"],
+              k13["plain_ms"], (k13["bound_ms"], k13["bound_by"]),
+              k13["library_ms"], k13["max_abs_err"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

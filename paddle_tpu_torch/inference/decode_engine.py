@@ -32,12 +32,30 @@ dispatch only, while younger ones keep the card busy.
 - **Sampling**: temperature / top-k / top-p from a ``torch.Generator``
   seeded with ``seed``.
 
-Not ported, raising ``NotImplementedError`` with their ROADMAP item:
-speculative decode (``speculative_k``, S3), KV handoff (S4), ``warmup``,
-``dispatch_cost`` and ``dispatch_fn_args`` (S5), tensor-parallel
-serving (``mesh``), and the front-end hooks, fault injection
-(``_poison_mask``), trace spans and the flight recorder.
+Instrumentation, as in the JAX engines (both engines share it):
 
+- **Trace context**: ``submit(..., req_id=...)`` sets ``Request.rid``,
+  which every request-scoped span and flight event carries.
+- **Trace spans** (``observability.trace``; one flag check each when
+  tracing is off): ``serve/step``, ``serve/dispatch`` (``kind``
+  ``"chunk"`` here, ``"paged"`` in the paged engine), ``serve/harvest``,
+  ``serve/prefill``, ``serve/queue``, ``serve/admit``,
+  ``serve/request`` and ``serve/decode``, with the JAX attributes.
+- **Flight records** (``observability.flight``): ``admit``,
+  ``prefill-chunk``, and on a terminal failure ``evicted`` followed by
+  a dump.
+- **Fault injection** (``_poison_mask``, site ``engine.poison_logits``
+  of ``testing.faults``): the named slots' logits turn NaN for one
+  dispatch, and the non-finite guard evicts their requests.
+- ``warmup()`` (or ``warmup=True``), ``dispatch_cost()`` and
+  ``dispatch_fn_args()``: see their docstrings for where they differ
+  from the JAX engine's (nothing compiles in eager PyTorch; the cost is
+  counted, not read from a compiler). The JAX engine's retrace counters
+  (``compile/retrace/*``) have no counterpart: nothing is traced.
+
+Not ported, raising ``NotImplementedError`` with their ROADMAP item:
+speculative decode (``speculative_k``, S3), KV handoff (S4),
+tensor-parallel serving (``mesh``), and the front-end hooks.
 """
 
 import collections
@@ -51,17 +69,47 @@ from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes, stats
 from paddle_tpu_torch.models.gpt import (GPTBlock, _sample_token, cache_rows,
                                          final_ln)
+from paddle_tpu_torch.observability import devprof, flight, trace
+from paddle_tpu_torch.ops.decode_attention import decode_attention_cost
+from paddle_tpu_torch.ops.quant_matmul import int8_matmul_cost
 from paddle_tpu_torch.quantization import (_BLOCK_MATMULS, QuantTensor,
                                            quantize_tensor)
+from paddle_tpu_torch.testing import faults
 
 __all__ = ["DecodeEngine", "Request", "ResilientScheduler",
-           "resolve_engine_weights"]
+           "resolve_engine_weights", "block_matmul_cost",
+           "decode_roofline_tokens_per_sec"]
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP "
         f"'Port queue' item {item})")
+
+
+def _nbytes(t) -> int:
+    """Device bytes of a tensor or an int8 ``QuantTensor`` (0 for
+    None)."""
+    if t is None:
+        return 0
+    if isinstance(t, QuantTensor):
+        return _nbytes(t.q) + _nbytes(t.scale)
+    return t.numel() * t.element_size()
+
+
+def block_matmul_cost(w, rows: int, elt: int):
+    """(flops, HBM bytes) of one layer's four block products over
+    ``rows`` rows: K12's cost for an int8 ``QuantTensor`` weight, a
+    dense product's (``devprof.matmul_cost``) otherwise."""
+    flops = nbytes = 0
+    for n in _BLOCK_MATMULS:
+        k, m = w[n].shape
+        f, b = (int8_matmul_cost(rows, k, m, elt)
+                if isinstance(w[n], QuantTensor)
+                else devprof.matmul_cost(rows, k, m, elt))
+        flops += f
+        nbytes += b
+    return flops, nbytes
 
 
 def resolve_engine_weights(model, share_weights_with):
@@ -113,12 +161,15 @@ class Request:
     guard evicts it — check it before trusting ``tokens``.
     ``t_submit``/``t_first``/``t_end`` (perf_counter seconds) give TTFT
     and TPOT, recorded in the ``serve/ttft_s`` and ``serve/tpot_s``
-    histograms."""
+    histograms. ``rid`` is the request's trace context
+    (``submit(req_id=...)``): every request-scoped span and flight event
+    carries it; None for a bare ``submit``."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "tokens", "done",
-                 "deadline", "error", "t_submit", "t_first", "t_end")
+                 "deadline", "error", "t_submit", "t_first", "t_end", "rid")
 
-    def __init__(self, prompt, max_new_tokens, eos_id, deadline=None):
+    def __init__(self, prompt, max_new_tokens, eos_id, deadline=None,
+                 rid=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -129,6 +180,7 @@ class Request:
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
         self.t_end: Optional[float] = None     # left the engine
+        self.rid = rid
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -186,7 +238,61 @@ class ResilientScheduler:
             self._on_evict(slot)
             self._disp_rem[slot] = 0
         stats.add(stat)
+        # terminal failure: dump the request's flight record now, so the
+        # postmortem needs no re-run under tracing
+        flight.record(req.rid, "evicted", reason=reason, stat=stat,
+                      slot=slot, tokens=len(req.tokens))
+        flight.dump(req.rid, reason)
         self._obs_request_end(req)
+
+    def _poison_mask(self):
+        """Injection mask for this dispatch (site
+        ``engine.poison_logits``): an (S,) int32 device tensor, nonzero
+        for a poisoned slot. With no fault plan it is one cached
+        all-zero tensor: no allocation or copy per dispatch, and the
+        plain paths skip it (``_poison``) while K9 reads it as its
+        ``poison`` operand."""
+        if not faults.enabled():
+            mask = getattr(self, "_no_poison", None)
+            if mask is None:
+                mask = self._no_poison = torch.zeros(
+                    (self.S,), dtype=torch.int32, device=self.device)
+            return mask
+        return torch.from_numpy(faults.slot_mask(
+            "engine.poison_logits", self.S).astype(np.int32)).to(
+                self.device)
+
+    def _poison(self, logits, poison):
+        """(S, V) logits with the poisoned slots' rows NaN. The cached
+        all-zero mask is the identity and costs no launch."""
+        if poison is getattr(self, "_no_poison", None):
+            return logits
+        return torch.where(poison[:, None] != 0, float("nan"), logits)
+
+    def _capture(self, name, flops, nbytes, weights, state):
+        """The ``CostCapture`` of one decode dispatch with its footprint:
+        argument bytes (``weights``, then the caches or pools and
+        per-slot vectors in ``state``) and output bytes (the packed
+        record and four per-slot vectors)."""
+        seen, arg = set(), 0
+        for t in (*weights, *state):
+            # a tied head's projection is a view of wte: count it once
+            key = (id(t) if isinstance(t, QuantTensor) or t is None
+                   else (t.data_ptr(), t.numel()))
+            if key not in seen:
+                seen.add(key)
+                arg += _nbytes(t)
+        out = 3 * self.chunk * self.S * 4 + 4 * self.S * 4
+        return devprof.capture(name, flops, nbytes,
+                               {"argument_size_in_bytes": arg,
+                                "output_size_in_bytes": out})
+
+    def _weight_tensors(self, layers):
+        """The head tensors and every tensor of ``layers`` (a list of
+        weight maps, or one map of slabs)."""
+        maps = layers if isinstance(layers, list) else [layers]
+        return [*self._head.values(),
+                *(t for w in maps for t in w.values())]
 
     # -- pipelined dispatch -------------------------------------------------
     def _init_pipeline(self, inflight: int):
@@ -256,8 +362,11 @@ class ResilientScheduler:
         """Copy the OLDEST in-flight dispatch's packed record to the host
         (one transfer) and replay it into its Requests."""
         rec = self._pending.popleft()
-        arr = rec.payload.cpu().numpy()
-        emitted = self._replay(rec, arr)
+        with trace.span("serve/harvest", kind=rec.kind,
+                        inflight=len(self._pending)) as sp:
+            arr = rec.payload.cpu().numpy()
+            emitted = self._replay(rec, arr)
+            sp.attrs["tokens"] = emitted
         stats.set_value("serve/inflight", len(self._pending))
         self.tokens_emitted += emitted
         return emitted
@@ -320,13 +429,21 @@ class ResilientScheduler:
             stats.observe("serve/ttft_s", req.t_first - req.t_submit)
 
     def _obs_request_end(self, req: Request):
-        """The request left the engine (done or evicted): stamp its end
-        and record its TPOT, once."""
+        """The request left the engine (done or evicted): stamp its end,
+        record its TPOT, and close its ``serve/request`` span (submit to
+        end) and, after a first token, its ``serve/decode`` span (first
+        token to end), once."""
         if req.t_end is not None:
             return
         req.t_end = time.perf_counter()
         if req.tpot_s is not None:
             stats.observe("serve/tpot_s", req.tpot_s)
+        trace.complete("serve/request", req.t_submit, req.t_end,
+                       rid=req.rid, prompt=len(req.prompt),
+                       tokens=len(req.tokens), error=req.error)
+        if req.t_first is not None:
+            trace.complete("serve/decode", req.t_first, req.t_end,
+                           rid=req.rid, tokens=len(req.tokens))
 
     def _obs_step(self, t0: float, emitted: int, live: int):
         stats.observe("serve/queue_depth", len(self._waiting))
@@ -383,8 +500,6 @@ class DecodeEngine(ResilientScheduler):
                  prefill_tokens: Optional[int] = None, device=None):
         if speculative_k:
             raise _not_ported("speculative decode (speculative_k)", "S3")
-        if warmup:
-            raise _not_ported("warmup", "S5")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported to "
@@ -447,6 +562,8 @@ class DecodeEngine(ResilientScheduler):
         # least one bucket so an open admission always progresses
         self._prefill_budget = max(int(prefill_tokens or self.buckets[-1]),
                                    self.buckets[0])
+        if warmup:
+            self.warmup()
 
     # -- not ported yet -----------------------------------------------------
 
@@ -461,15 +578,6 @@ class DecodeEngine(ResilientScheduler):
 
     def submit_handoff(self, *args, **kwargs):
         raise _not_ported("KV handoff and migration", "S4")
-
-    def warmup(self):
-        raise _not_ported("warmup", "S5")
-
-    def dispatch_cost(self, *args, **kwargs):
-        raise _not_ported("dispatch_cost", "S5")
-
-    def dispatch_fn_args(self):
-        raise _not_ported("dispatch_fn_args", "S5")
 
     # -- weights ------------------------------------------------------------
 
@@ -497,10 +605,10 @@ class DecodeEngine(ResilientScheduler):
         return _sample_token(logits.float(), self._gen, temperature, top_p,
                              top_k)
 
-    def _one_token(self, lengths, last, active):
+    def _one_token(self, lengths, last, active, poison):
         """Advance every active slot one token. Returns the new lengths,
-        the next tokens and the per-slot non-finite flags (a bad slot
-        emits nothing and does not advance)."""
+        the next tokens and the per-slot non-finite flags (a bad slot,
+        poisoned ones included, emits nothing and does not advance)."""
         head = self._head
         x = head["wte"][last.long()]
         if head["wpe"] is not None:
@@ -514,21 +622,23 @@ class DecodeEngine(ResilientScheduler):
         for i, w in enumerate(self._layers):
             x, _ = self._block.decode_step(x, w, (self.kc[i], self.vc[i]),
                                            rows)
-        logits = self._lm_head(x)[:, 0]
+        logits = self._poison(self._lm_head(x)[:, 0], poison)
         bad = active & ~torch.isfinite(logits).all(dim=-1)
         ok = active & ~bad
         nxt = torch.where(ok, self._sample(logits), last)
         return lengths + ok.to(torch.int32), nxt, bad
 
-    def _multi_impl(self, lengths, last, active, remaining, eos):
+    def _multi_impl(self, lengths, last, active, remaining, eos, poison):
         """``chunk`` decode steps in one dispatch with per-slot early
         stop on the device: a slot stops at its eos id, at the end of
-        its budget, or on non-finite logits. Tokens, emit flags and
+        its budget, or on non-finite logits (``poison``, the dispatch's
+        injection mask, applies to every step). Tokens, emit flags and
         non-finite flags come back packed as one (3, chunk, S) int32
         tensor."""
         toks, flags, bads = [], [], []
         for _ in range(self.chunk):
-            lengths, nxt, bad = self._one_token(lengths, last, active)
+            lengths, nxt, bad = self._one_token(lengths, last, active,
+                                                poison)
             emit = active & ~bad
             remaining = remaining - emit.to(torch.int32)
             hit_eos = (nxt == eos) & (eos >= 0)
@@ -587,14 +697,18 @@ class DecodeEngine(ResilientScheduler):
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_id: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               req_id: Optional[str] = None) -> Request:
         """``deadline_s``: wall-time budget for this request (queue wait
-        included); past it the request is evicted alone."""
+        included); past it the request is evicted alone. ``req_id``: the
+        trace context carried into every request-scoped span and flight
+        event."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         self.check_request(len(prompt), max_new_tokens)
         req = Request(prompt, max_new_tokens, eos_id,
                       deadline=(None if deadline_s is None
-                                else time.monotonic() + deadline_s))
+                                else time.monotonic() + deadline_s),
+                      rid=req_id)
         self._waiting.append(req)
         return req
 
@@ -612,11 +726,16 @@ class DecodeEngine(ResilientScheduler):
         if slot is None or not self._waiting:
             return False
         req = self._waiting.popleft()
+        # the queue-wait phase ends here
+        trace.complete("serve/queue", req.t_submit, rid=req.rid,
+                       slot=slot)
+        flight.record(req.rid, "admit", slot=slot, prompt=len(req.prompt))
         self._slot_req[slot] = req      # reserved; decode skips it until
         self._disp_rem[slot] = 0        # the final chunk flips it live
         self._admitting.append({
             "req": req, "slot": slot, "start": 0,
-            "prompt": np.asarray(req.prompt, np.int64)})
+            "prompt": np.asarray(req.prompt, np.int64),
+            "t0": time.perf_counter()})
         return True
 
     def _dispatch_prefill_chunk(self, job):
@@ -643,12 +762,18 @@ class DecodeEngine(ResilientScheduler):
         eos0 = -1 if req.eos_id is None else int(req.eos_id)
         stats.add("serve/dispatch_launches")
         stats.add("serve/dispatches/prefill")
-        nxt = self._prefill_impl(slot, torch.from_numpy(padded).to(
-            self.device), s0, total, is_final, rem0, eos0)
+        flight.record(req.rid, "prefill-chunk", bucket=bucket,
+                      start=int(s0), final=bool(is_final))
+        with trace.span("serve/prefill", bucket=bucket, slot=slot,
+                        rid=req.rid):
+            nxt = self._prefill_impl(slot, torch.from_numpy(padded).to(
+                self.device), s0, total, is_final, rem0, eos0)
         job["start"] = s0 + n
         if is_final:
             self._disp_rem[slot] = rem0
             self._pending.append(_Inflight("prefill", [(slot, req)], nxt))
+            trace.complete("serve/admit", job["t0"], slot=slot,
+                           prompt=total, rid=req.rid)
         return bucket, is_final
 
     def _advance_admissions(self):
@@ -686,11 +811,14 @@ class DecodeEngine(ResilientScheduler):
         once ``depth`` are queued. Returns tokens applied this call."""
         t0 = time.perf_counter()
         base = self.tokens_emitted
-        self._evict_expired()
-        self._advance_admissions()
-        self._pump(self._dispatch_decode())
-        live = self.num_active
-        n = self.tokens_emitted - base
+        with trace.span("serve/step") as sp:
+            self._evict_expired()
+            self._advance_admissions()
+            self._pump(self._dispatch_decode())
+            live = self.num_active
+            n = self.tokens_emitted - base
+            sp.attrs["active"] = live
+            sp.attrs["tokens"] = n
         if live or n:
             self._obs_step(t0, n, live)
         return n
@@ -703,9 +831,12 @@ class DecodeEngine(ResilientScheduler):
             return False
         self.steps += 1
         self._obs_host_gap()
-        (self.lengths, self.last, self.active, self.remaining,
-         packed) = self._multi_impl(self.lengths, self.last, self.active,
-                                    self.remaining, self.eos_ids)
+        with trace.span("serve/dispatch", kind="chunk", chunk=self.chunk,
+                        inflight=len(self._pending)):
+            (self.lengths, self.last, self.active, self.remaining,
+             packed) = self._multi_impl(self.lengths, self.last,
+                                        self.active, self.remaining,
+                                        self.eos_ids, self._poison_mask())
         self._finish_dispatch("decode", live, packed)
         return True
 
@@ -741,3 +872,107 @@ class DecodeEngine(ResilientScheduler):
     def num_active(self) -> int:
         return sum(r is not None for r in self._slot_req)
 
+    # -- warmup and device-time attribution ---------------------------------
+
+    _STATE = ("kc", "vc", "lengths", "last", "active", "remaining",
+              "eos_ids")
+
+    def warmup(self):
+        """Run one prefill chunk per bucket (the last one samples a first
+        token) and one decode dispatch on throwaway zero state, so the
+        first request loads no kernel library and takes no first-launch
+        cost of its own. JAX compiles here; eager PyTorch has nothing to
+        compile, so warmup is these runs. The engine's caches, per-slot
+        state and sampling generator are as they were; the caches exist
+        twice while it runs. Records ``serve/warmup_s``."""
+        t0 = time.perf_counter()
+        saved = {n: getattr(self, n) for n in self._STATE}
+        gen_state = self._gen.get_state()
+        try:
+            for n, t in saved.items():
+                setattr(self, n, torch.zeros_like(t))
+            for b in self.buckets:
+                self._prefill_impl(0, torch.zeros((1, b), dtype=torch.int64,
+                                                  device=self.device),
+                                   0, 1, b == self.buckets[-1], 0, -1)
+            out = self._multi_impl(self.lengths, self.last, self.active,
+                                   self.remaining, self.eos_ids,
+                                   self._poison_mask())
+            out[-1].cpu()
+        finally:
+            for n, t in saved.items():
+                setattr(self, n, t)
+            self._gen.set_state(gen_state)
+        stats.observe("serve/warmup_s", time.perf_counter() - t0)
+
+    def dispatch_cost(self, name=None):
+        """Flops and HBM bytes of ONE decode dispatch at the current
+        geometry, as a ``devprof.CostCapture`` (recorded as
+        ``prof/flops[/name]``, ``prof/hbm_bytes[/name]`` and the
+        ``mem/compiled_*`` footprint; ``name`` defaults to
+        ``"decode"``).
+
+        Counted, not measured, and nothing runs: the engine's state is
+        left as it was (the slots' lengths and active flags are read from
+        the card). Each of the ``steps_per_call`` steps counts, over all
+        S slots (the dispatch computes every slot), each slot at its
+        length advanced one per earlier step if active: per layer the
+        four block products (K12's cost on an int8 weight, else 2·M·N·K
+        flops with both operands and the output moved once), the
+        attention over the slot's keys (K10's cost; the plain route
+        below a 1024 cache reads the same keys) and the fresh K and V
+        rows written; then the LM-head product. The elementwise work
+        between them (LayerNorms, biases, GELU, residuals, embedding,
+        sampling) is not counted. The JAX engine reads XLA's cost
+        analysis, which counts the dispatch's ``scan`` body once: its
+        capture is one step whatever ``steps_per_call``; the port's is
+        the whole dispatch."""
+        cfg = self.cfg
+        S, hq, hkv, D = self.S, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        elt = torch.empty((), dtype=cfg.dtype).element_size()
+        celt = self.kc.element_size()
+        lengths, active = self.lengths.tolist(), self.active.tolist()
+        flops = nbytes = 0
+        for j in range(self.chunk):
+            keys = [min(n + j * bool(a) + 1, self.T)
+                    for n, a in zip(lengths, active)]
+            for w in self._layers:
+                fm, bm = block_matmul_cost(w, S, elt)
+                fa, ba = decode_attention_cost(keys, hq, hkv, D, celt)
+                flops += fm + fa
+                nbytes += bm + ba + 2 * S * hkv * D * celt
+            fh, bh = devprof.matmul_cost(S, cfg.d_model, cfg.vocab_size,
+                                         elt)
+            flops += fh
+            nbytes += bh
+        return self._capture(
+            name or "decode", flops, nbytes,
+            self._weight_tensors(self._layers),
+            [getattr(self, n) for n in self._STATE])
+
+    def dispatch_fn_args(self):
+        """The decode dispatch (a bound method) and the argument tuple the
+        serving loop calls it with at the current state, for launch
+        accounting (``devprof.count_kernel_launches``). Unlike the JAX
+        engine's, whose callers lower it without running, calling it
+        RUNS a dispatch: it writes the active slots' K/V rows in place
+        (and draws from the sampling generator) as a real dispatch does,
+        and its returned state is dropped. Call it on an engine with no
+        live slot."""
+        return (self._multi_impl,
+                (self.lengths, self.last, self.active, self.remaining,
+                 self.eos_ids, self._poison_mask()))
+
+
+def decode_roofline_tokens_per_sec(cfg, batch: int, context: int,
+                                   hbm_gbps: float,
+                                   weight_bytes: int = 2,
+                                   cache_bytes: int = 2) -> float:
+    """Memory-bandwidth upper bound on decode throughput (a copy of the
+    JAX package's): per decode step the card reads every weight once
+    (batch-amortized) plus each sequence's KV prefix, so steps/s =
+    BW / (W + B * kv_bytes) and tokens/s = B * steps/s."""
+    n = cfg.num_params()
+    kv = 2 * cfg.n_layers * cfg.kv_heads * cfg.head_dim * context
+    step_bytes = n * weight_bytes + batch * kv * cache_bytes
+    return batch * hbm_gbps * 1e9 / step_bytes

@@ -38,12 +38,18 @@ Design, as in the JAX engine:
   (3, chunk, S) int32 record, so a harvest is one device→host copy.
 - **Pipelined dispatch** (``inflight``, default 2): see
   ``decode_engine.ResilientScheduler``.
+- **Instrumentation** (``decode_engine``'s docstring): the same trace
+  spans (``serve/dispatch`` with ``kind="paged"``; ``serve/admit``
+  around each prefill), flight records (``admit``, ``evicted``), fault
+  site ``engine.poison_logits`` (K9's ``poison`` operand on the
+  single-dispatch path), ``warmup``, ``dispatch_cost`` and
+  ``dispatch_fn_args``.
 
 ``speculative_k > 0``, ``prefill_only``, the handoff and migration
-methods, ``warmup``, ``autotune`` and ``dispatch_cost`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The
-JAX engine's read-only-pool fallback (``fused=False``) is a reference
-formulation and has no counterpart here.
+methods and ``autotune`` raise ``NotImplementedError`` naming the
+ROADMAP item that ports them. The JAX engine's read-only-pool fallback
+(``fused=False``) is a reference formulation and has no counterpart
+here.
 """
 
 import collections
@@ -60,15 +66,20 @@ from paddle_tpu_torch.inference.decode_engine import (Request,
                                                       ResilientScheduler,
                                                       _Inflight,
                                                       _not_ported,
+                                                      block_matmul_cost,
                                                       resolve_engine_weights)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models.gpt import GPTBlock
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.observability import devprof, flight, trace
 from paddle_tpu_torch.ops.decode_megakernel import (_WEIGHT_ORDER,
                                                     mega_decode_layers,
-                                                    mega_logits_sample)
+                                                    mega_decode_layers_cost,
+                                                    mega_logits_sample,
+                                                    mega_logits_sample_cost)
 from paddle_tpu_torch.ops.paged_attention import (PageAllocator,
                                                   paged_append_attend,
+                                                  paged_append_attend_cost,
                                                   paged_decode_attention)
 
 __all__ = ["PagedDecodeEngine"]
@@ -94,8 +105,6 @@ class PagedDecodeEngine(ResilientScheduler):
             raise _not_ported("speculative decode", "S3")
         if prefill_only:
             raise _not_ported("prefill-only engines", "S4")
-        if warmup:
-            raise _not_ported("warmup", "S5")
         self.device = device_lib.resolve(device)
         cfg, head, layers, stacked = resolve_engine_weights(
             model, share_weights_with)
@@ -165,14 +174,14 @@ class PagedDecodeEngine(ResilientScheduler):
         self._table_dev = None
         self._table_dirty = True
         self._update_pool_gauges()
+        if warmup:
+            self.warmup()
 
     # -- not ported yet -----------------------------------------------------
 
     def autotune(self, *args, **kwargs):
-        raise _not_ported("paged-kernel autotune", "S5")
-
-    def dispatch_cost(self, *args, **kwargs):
-        raise _not_ported("dispatch_cost", "S5")
+        raise _not_ported(
+            "paged-kernel autotune (launch-time tile templates)", "1")
 
     def detach_handoff(self, *args, **kwargs):
         raise _not_ported("KV handoff and migration", "S4")
@@ -272,11 +281,12 @@ class PagedDecodeEngine(ResilientScheduler):
             x = x + self._head["wpe"][pos]
         return x
 
-    def _one_token(self, tables, table, lengths, last, active):
+    def _one_token(self, tables, table, lengths, last, active, poison):
         """Advance every active slot one token: per layer one fused
         append+attend launch (K2) that also writes the fresh K/V row
         (inactive slots write the scratch page). Returns the new
-        lengths, the next tokens and the per-slot non-finite flags."""
+        lengths, the next tokens and the per-slot non-finite flags
+        (``poison``'s slots included)."""
         x = self._embed(last, lengths)[:, None, :]
         pidx = torch.clamp(lengths // self.page, max=self._mx - 1)
         base = table.gather(1, pidx[:, None].long())[:, 0]
@@ -292,19 +302,20 @@ class PagedDecodeEngine(ResilientScheduler):
                 k[:, 0].to(dt).contiguous(), v[:, 0].to(dt).contiguous(),
                 tables[i], wpids[i], lengths, scale=self.scale)
             x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape), w)
-        logits = self._lm_head(x)[:, 0]
+        logits = self._poison(self._lm_head(x)[:, 0], poison)
         bad = active & ~torch.isfinite(logits).all(dim=-1)
         ok = active & ~bad
         nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
         nxt = torch.where(ok, nxt, last)
         return lengths + ok.to(torch.int32), nxt, bad
 
-    def _mega_rows(self, table, pos, row_slot, row_write, tokens):
+    def _mega_rows(self, table, pos, row_slot, row_write, tokens, poison):
         """One megakernel pass over a flat row batch (the counterpart of
         the JAX engine's ``_mega_rows``): embed ``tokens`` at ``pos``,
         run every layer in one K8 launch over the unfolded ``table``
-        (pools in place), then one K9 launch on the LM projection.
-        Returns the greedy token and the non-finite flag per row."""
+        (pools in place), then one K9 launch on the LM projection, which
+        flags ``poison``'s rows non-finite. Returns the greedy token and
+        the non-finite flag per row."""
         cfg = self.cfg
         x = self._embed(tokens, pos)
         x = mega_decode_layers(
@@ -315,26 +326,27 @@ class PagedDecodeEngine(ResilientScheduler):
             rope_theta=cfg.rope_theta, scale=self.scale)
         head = self._head
         return mega_logits_sample(x, head["lnf_scale"], head["lnf_bias"],
-                                  head["proj"])
+                                  head["proj"], poison)
 
-    def _one_token_mega(self, tables, table, lengths, last, active):
+    def _one_token_mega(self, tables, table, lengths, last, active, poison):
         """Single-dispatch ``_one_token``: the same signature and greedy
         stream in two kernel launches (K8 + K9) plus the embedding and
         the bookkeeping below; ``tables`` (the folded tables of the
         per-layer path) is unused."""
         tok, nf = self._mega_rows(table, lengths, self._rows,
-                                  active.to(torch.int32), last)
+                                  active.to(torch.int32), last, poison)
         bad = active & (nf > 0)
         ok = active & ~bad
         nxt = torch.where(ok, tok, last)
         return lengths + ok.to(torch.int32), nxt, bad
 
-    def _multi(self, table, lengths, last, active, remaining, eos):
+    def _multi(self, table, lengths, last, active, remaining, eos, poison):
         """``chunk`` decode steps in one dispatch, per-slot eos/budget/
         non-finite early stop on the device (pages for the whole chunk
-        are reserved before the dispatch, so ``table`` is fixed). Tokens,
-        emit flags and non-finite flags come back packed as one
-        (3, chunk, S) int32 tensor."""
+        are reserved before the dispatch, so ``table`` is fixed;
+        ``poison``, the dispatch's injection mask, applies to every
+        step). Tokens, emit flags and non-finite flags come back packed
+        as one (3, chunk, S) int32 tensor."""
         if self.mega:
             one_tok, tables = self._one_token_mega, None
         else:
@@ -342,7 +354,7 @@ class PagedDecodeEngine(ResilientScheduler):
         toks, flags, bads = [], [], []
         for _ in range(self.chunk):
             lengths, nxt, bad = one_tok(tables, table, lengths, last,
-                                        active)
+                                        active, poison)
             emit = active & ~bad
             remaining = remaining - emit.to(torch.int32)
             hit_eos = (nxt == eos) & (eos >= 0)
@@ -435,12 +447,15 @@ class PagedDecodeEngine(ResilientScheduler):
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_id: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               req_id: Optional[str] = None) -> Request:
+        """See ``DecodeEngine.submit``."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         self.check_request(len(prompt), max_new_tokens)
         req = Request(prompt, max_new_tokens, eos_id,
                       deadline=(None if deadline_s is None
-                                else time.monotonic() + deadline_s))
+                                else time.monotonic() + deadline_s),
+                      rid=req_id)
         self._waiting.append(req)
         return req
 
@@ -515,17 +530,26 @@ class PagedDecodeEngine(ResilientScheduler):
             if sp:
                 stats.add("serve/prefix_hit_tokens", sp)
         bucket = next(b for b in self.buckets if b >= n - sp)
+        # spans and flight events only once the reservation held (a
+        # MemoryError retry re-runs this whole admission)
+        trace.complete("serve/queue", req.t_submit, rid=req.rid,
+                       slot=slot)
         stats.add("serve/dispatch_launches")
         stats.add("serve/dispatches/prefill")
+        flight.record(req.rid, "admit", slot=slot, prompt=n,
+                      bucket=bucket, cached=sp)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n - sp] = prompt[sp:]
         tokens = torch.from_numpy(padded).to(self.device)
-        if sp:
-            stats.add("serve/dispatches/prefill_suffix")
-            cow_dst = tab[(n - 1) // self.page] if cow_src >= 0 else -1
-            nxt = self._prefill_suffix(tokens, sp, n, cow_src, cow_dst, tab)
-        else:
-            nxt = self._prefill(tokens, n, tab)
+        with trace.span("serve/admit", slot=slot, prompt=n, bucket=bucket,
+                        cached=sp, rid=req.rid):
+            if sp:
+                stats.add("serve/dispatches/prefill_suffix")
+                cow_dst = tab[(n - 1) // self.page] if cow_src >= 0 else -1
+                nxt = self._prefill_suffix(tokens, sp, n, cow_src, cow_dst,
+                                           tab)
+            else:
+                nxt = self._prefill(tokens, n, tab)
         rem0 = req.max_new_tokens - 1
         eos0 = -1 if req.eos_id is None else int(req.eos_id)
         # a budget-of-one request (or one whose first token is eos)
@@ -556,11 +580,14 @@ class PagedDecodeEngine(ResilientScheduler):
     def step(self) -> int:
         t0 = time.perf_counter()
         base = self.tokens_emitted
-        self._evict_expired()
-        self._admit_waiting()
-        self._pump(self._dispatch_decode())
-        n_live = sum(r is not None for r in self._slot_req)
-        n = self.tokens_emitted - base
+        with trace.span("serve/step") as sp:
+            self._evict_expired()
+            self._admit_waiting()
+            self._pump(self._dispatch_decode())
+            n_live = sum(r is not None for r in self._slot_req)
+            n = self.tokens_emitted - base
+            sp.attrs["active"] = n_live
+            sp.attrs["tokens"] = n
         if n_live or n:
             self._obs_step(t0, n, n_live)
         return n
@@ -621,9 +648,12 @@ class PagedDecodeEngine(ResilientScheduler):
             self._reserve_chunk(live)
         self.steps += 1
         self._obs_host_gap()
-        (self.lengths, self.last, self.active, self.remaining,
-         packed) = self._multi(self._table(), self.lengths, self.last,
-                               self.active, self.remaining, self.eos_ids)
+        with trace.span("serve/dispatch", kind="paged", chunk=self.chunk,
+                        inflight=len(self._pending)):
+            (self.lengths, self.last, self.active, self.remaining,
+             packed) = self._multi(self._table(), self.lengths, self.last,
+                                   self.active, self.remaining,
+                                   self.eos_ids, self._poison_mask())
         for s, _ in live:
             self._proj_len[s] += self.chunk
         self._finish_dispatch("decode", live, packed)
@@ -649,3 +679,82 @@ class PagedDecodeEngine(ResilientScheduler):
         while self._waiting or any(r is not None for r in self._slot_req):
             self.step()
         self._drain()
+
+    # -- warmup and device-time attribution ---------------------------------
+
+    _STATE = ("kp", "vp", "lengths", "last", "active", "remaining",
+              "eos_ids")
+
+    def warmup(self):
+        """Run one prefill per bucket (and, with the prefix cache on, one
+        suffix prefill per bucket, the warm-hit admission path) and one
+        decode dispatch on throwaway zero pools and state, so the first
+        request loads no kernel library and takes no first-launch cost
+        of its own. The engine's pools, tables and per-slot state are as
+        they were; the pools exist twice while it runs. Records
+        ``serve/warmup_s``."""
+        t0 = time.perf_counter()
+        saved = {n: getattr(self, n) for n in self._STATE}
+        try:
+            for n, t in saved.items():
+                setattr(self, n, torch.zeros_like(t))
+            for b in self.buckets:
+                tokens = torch.zeros((1, b), dtype=torch.int64,
+                                     device=self.device)
+                self._prefill(tokens, 1, [0])
+                if self._prefix is not None:
+                    self._prefill_suffix(tokens, 0, 1, -1, -1, [0])
+            out = self._multi(self._table(), self.lengths, self.last,
+                              self.active, self.remaining, self.eos_ids,
+                              self._poison_mask())
+            out[-1].cpu()
+        finally:
+            for n, t in saved.items():
+                setattr(self, n, t)
+        stats.observe("serve/warmup_s", time.perf_counter() - t0)
+
+    def dispatch_cost(self, name=None):
+        """Flops and HBM bytes of ONE decode dispatch at the current
+        geometry, as a ``devprof.CostCapture`` (``name`` defaults to
+        ``"paged"``); see ``DecodeEngine.dispatch_cost`` for what is
+        counted and how it differs from the JAX engine's. Per step over
+        all S slots at their advancing lengths: single-dispatch, K8's
+        cost (``mega_decode_layers_cost``) and K9's
+        (``mega_logits_sample_cost``); per layer, each layer's four
+        block products and K2's cost (``paged_append_attend_cost``,
+        which counts the fresh rows' writes), then the LM-head
+        product."""
+        cfg = self.cfg
+        S, hq, hkv, D = self.S, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        elt = torch.empty((), dtype=cfg.dtype).element_size()
+        pelt = self.kp.element_size()
+        lengths, active = self.lengths.tolist(), self.active.tolist()
+        flops = nbytes = 0
+        for j in range(self.chunk):
+            pos = [n + j * bool(a) for n, a in zip(lengths, active)]
+            if self.mega:
+                parts = [mega_decode_layers_cost(
+                    [min(p + 1, self._mx * self.page) for p in pos],
+                    self._stacked, hq, hkv, D, pelt),
+                    mega_logits_sample_cost(S, cfg.d_model, cfg.vocab_size,
+                                            elt)]
+            else:
+                parts = [c for w in self._layers for c in (
+                    block_matmul_cost(w, S, elt),
+                    paged_append_attend_cost(pos, hq, hkv, D, pelt))]
+                parts.append(devprof.matmul_cost(S, cfg.d_model,
+                                                 cfg.vocab_size, elt))
+            flops += sum(f for f, _ in parts)
+            nbytes += sum(b for _, b in parts)
+        weights = self._weight_tensors(self._stacked if self.mega
+                                       else self._layers)
+        return self._capture(name or "paged", flops, nbytes, weights,
+                             [getattr(self, n) for n in self._STATE])
+
+    def dispatch_fn_args(self):
+        """The decode dispatch (a bound method) and its argument tuple at
+        the current state; see ``DecodeEngine.dispatch_fn_args`` (calling
+        it RUNS a dispatch)."""
+        return (self._multi,
+                (self._table(), self.lengths, self.last, self.active,
+                 self.remaining, self.eos_ids, self._poison_mask()))

@@ -24,7 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "build_all", "load", "check", "sources"]
+__all__ = ["NVCC_FLAGS", "build_all", "load", "loaded", "check",
+           "sources"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
@@ -108,6 +109,12 @@ def load(name: str) -> ctypes.CDLL:
             lib.pt_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def loaded():
+    """Names of the kernel libraries this process has loaded so far."""
+    with _LOCK:
+        return sorted(_LIBS)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

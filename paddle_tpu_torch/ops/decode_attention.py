@@ -22,7 +22,7 @@ import torch
 from paddle_tpu_torch.ops import _build
 
 __all__ = ["decode_attention", "decode_attention_reference",
-           "MAX_GROUP", "MAX_HEAD_DIM"]
+           "MAX_GROUP", "MAX_HEAD_DIM", "decode_attention_cost"]
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
@@ -30,6 +30,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_FLOOR = -1e30
 _LANES = 128
 
+
+def decode_attention_cost(lengths, n_heads, kv_heads, head_dim, elt=2,
+                          return_stats=False):
+    """(flops, HBM bytes) of one K10 call: each row's ``lengths[b]`` K
+    and V rows read once, q read and o written once, the lengths, and
+    (m, l) in fp32 when returned; 4 flops per head dim per (query head,
+    key)."""
+    rows = len(lengths)
+    n_keys = sum(lengths)
+    nbytes = (2 * n_keys * kv_heads * head_dim * elt
+              + 2 * rows * n_heads * head_dim * elt + rows * 4)
+    if return_stats:
+        nbytes += 2 * rows * n_heads * 4
+    return 4 * n_keys * n_heads * head_dim, nbytes
 
 def decode_attention_reference(q, k_cache, v_cache, lengths, scale=None,
                                return_stats=False):

@@ -41,7 +41,7 @@ from paddle_tpu_torch.ops.paged_attention import (
 __all__ = ["mega_decode_layers", "mega_decode_layers_reference",
            "mega_logits_sample", "mega_logits_sample_reference",
            "epilogue_logits",
-           "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL"]
+           "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL", "mega_decode_layers_cost", "mega_logits_sample_cost"]
 
 # stacked-weight order of the kernel ABI (the JAX package's
 # decode_megakernel.py:77-79); a bias-free stack has no bias entries
@@ -64,6 +64,37 @@ MAX_D_MODEL = {torch.float32: 4096, torch.bfloat16: 8192}
 # K9's words zeroed again; launches on one stream run in order.
 _SCRATCH: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
+
+def mega_decode_layers_cost(lengths, weights, n_heads, kv_heads,
+                            head_dim, elt=2):
+    """(flops, HBM bytes) of one K8 call over rows attending ``lengths``
+    keys each (the fresh row included) through all L layers of
+    ``weights`` (the (L, ...) slabs): every slab read once, each row's
+    K and V rows read once per layer and its fresh K and V rows written
+    once per layer, x read and written, 4 int32 words per row; 2 flops
+    per multiply-add of the four products and 4 per head dim per
+    (query head, key)."""
+    rows = len(lengths)
+    n_layers = weights["wqkv"].shape[0]
+    d_model = n_heads * head_dim
+    slabs = sum(t.numel() * t.element_size() for t in weights.values())
+    kv = 2 * sum(lengths) * kv_heads * head_dim * elt * n_layers
+    fresh = 2 * rows * kv_heads * head_dim * elt * n_layers
+    nbytes = slabs + kv + fresh + 2 * rows * d_model * elt + 4 * 4 * rows
+    macs = sum(weights[n].numel() for n in ("wqkv", "wo", "wup", "wdown"))
+    flops = (2 * rows * macs
+             + 4 * sum(lengths) * n_heads * head_dim * n_layers)
+    return flops, nbytes
+
+
+def mega_logits_sample_cost(rows, d_model, vocab, elt=2):
+    """(flops, HBM bytes) of one K9 call: the (vocab, d_model) head and
+    the rows read once, the fp32 final-norm scale and bias, and 3 int32
+    words per row (token, flag, poison); 2 flops per multiply-add of the
+    head product."""
+    nbytes = (vocab * d_model * elt + rows * d_model * elt
+              + 2 * d_model * 4 + 3 * rows * 4)
+    return 2 * rows * d_model * vocab, nbytes
 
 def _geometry(x, weights, k_pages, page_table, n_pages, n_heads, kv_heads,
               head_dim):

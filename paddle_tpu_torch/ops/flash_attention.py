@@ -41,7 +41,7 @@ from paddle_tpu_torch.ops import _build, _hash
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
-           "attention_bias", "MAX_HEAD_DIM"]
+           "attention_bias", "MAX_HEAD_DIM", "flash_attention_cost"]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,6 +62,18 @@ def _visible(b, sq, sk, causal, kv_lens, device):
         visible = visible & (col[None, :] <= row[:, None])[None, None]
     return visible
 
+
+def flash_attention_cost(b, sq, sk, n_heads, kv_heads, head_dim,
+                         causal=True, elt=2, lse=True):
+    """(flops, HBM bytes) of one K1 call: q and o once, k and v once,
+    the fp32 LSE when returned; 4 flops per head dim per visible (query,
+    key) pair (the causal mask keeps key j <= query row i)."""
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    nbytes = (2 * b * sq * n_heads + 2 * b * sk * kv_heads) * head_dim * elt
+    if lse:
+        nbytes += b * n_heads * sq * 4
+    return 4 * b * n_heads * head_dim * pairs, nbytes
 
 def _scores(q, k, scale, group, bias=None):
     """(B, Hq, Sq, Sk) fp32 q . k * scale (+ bias), kv heads expanded

@@ -30,13 +30,39 @@ from paddle_tpu_torch.ops import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "paged_append_attend", "paged_append_attend_reference",
-           "PageAllocator", "MAX_GROUP", "MAX_HEAD_DIM"]
+           "PageAllocator", "MAX_GROUP", "MAX_HEAD_DIM", "paged_decode_attention_cost", "paged_append_attend_cost"]
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_FLOOR = -1e30
 
+
+def paged_decode_attention_cost(lengths, n_heads, kv_heads, head_dim,
+                                elt=2, kv_tokens=None):
+    """(flops, HBM bytes) of one K2' call over query rows attending
+    ``lengths`` keys each: q read and o written once, 8 int32 words of
+    table and length per row, the K and V rows of ``kv_tokens`` distinct
+    keys (default sum(lengths); rows over one sequence, as the suffix
+    prefill's, pass its length) read once; 4 flops per head dim per
+    (query head, key)."""
+    rows = len(lengths)
+    kv_tokens = sum(lengths) if kv_tokens is None else kv_tokens
+    nbytes = (2 * rows * n_heads * head_dim * elt
+              + 2 * kv_tokens * kv_heads * head_dim * elt + 8 * rows * 4)
+    return 4 * sum(lengths) * n_heads * head_dim, nbytes
+
+
+def paged_append_attend_cost(lengths, n_heads, kv_heads, head_dim, elt=2):
+    """(flops, HBM bytes) of one K2 call with ``lengths`` cached keys per
+    row: K2' over them, plus each row's fresh K and V rows read and
+    written into their page and attended as one more key."""
+    rows = len(lengths)
+    _, nbytes = paged_decode_attention_cost(lengths, n_heads, kv_heads,
+                                            head_dim, elt)
+    nbytes += 4 * rows * kv_heads * head_dim * elt
+    flops = 4 * (sum(lengths) + rows) * n_heads * head_dim
+    return flops, nbytes
 
 def _attend_f32(q, k_pages, v_pages, page_table, lengths, scale):
     """fp32 (o, m, l) of the masked softmax over each row's first

@@ -19,10 +19,16 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 
-__all__ = ["int8_matmul", "int8_matmul_reference"]
+__all__ = ["int8_matmul", "int8_matmul_reference", "int8_matmul_cost"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+
+def int8_matmul_cost(m, k, n, elt=2):
+    """(flops, HBM bytes) of one K12 call (x (m, k), q (k, n)): the int8
+    weight and the fp32 scales read once, x read and the output written
+    once; 2 flops per multiply-add."""
+    return 2 * m * k * n, k * n + 4 * n + elt * m * k + elt * m * n
 
 def int8_matmul_reference(x, q, scale):
     """Plain PyTorch version of K12: ``x @ q`` in fp32, times ``scale``

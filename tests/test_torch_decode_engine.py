@@ -17,6 +17,7 @@ from paddle_tpu.inference.decode_engine import DecodeEngine as JaxEngine
 from paddle_tpu.models import gpt as jax_gpt
 from paddle_tpu.quantization import quantize_tensor as jax_quantize
 from paddle_tpu_torch import quantization as quant
+from paddle_tpu_torch import stats
 from paddle_tpu_torch.inference.decode_engine import DecodeEngine
 from paddle_tpu_torch.inference.factory import make_engine
 from paddle_tpu_torch.inference.paged_engine import PagedDecodeEngine
@@ -368,6 +369,12 @@ def test_engines_serve_an_int8_untied_model(engine, chunk):
 ])
 def test_unported_and_bad_options_raise(models, kwargs, match):
     _, model = models
+    if match == "warmup":
+        # ported since: warmup=True builds a warmed engine
+        stats.reset("serve/")
+        DecodeEngine(model, device="cpu", **kwargs)
+        assert stats.get("serve/warmup_s") == 1
+        return
     with pytest.raises((NotImplementedError, ValueError), match=match):
         DecodeEngine(model, device="cpu", **kwargs)
 
@@ -375,8 +382,7 @@ def test_unported_and_bad_options_raise(models, kwargs, match):
 def test_unported_methods_raise(models):
     _, model = models
     eng = DecodeEngine(model, device="cpu")
-    for name in ("detach_handoff", "submit_handoff", "warmup",
-                 "dispatch_cost", "dispatch_fn_args", "_verify_impl",
+    for name in ("detach_handoff", "submit_handoff", "_verify_impl",
                  "_spec_multi_impl"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, name)()

@@ -678,3 +678,31 @@ def test_incubate_encoder_block_on_gpu_matches_plain(dev):
     assert launches["flash_attention_bwd_dq"] == L
     for got, want in zip(res[1], res[0]):
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_launch_probe_kernel_copies_bit_for_bit(dev):
+    """K13: the (8, 128) fp32 copy equals its input bit for bit (NaN,
+    inf and -0 included), counts one launch per call, and meters a
+    positive launch tax; any other operand is refused."""
+    from paddle_tpu_torch.observability import devprof
+    from paddle_tpu_torch.ops.launch_probe import (noop_copy,
+                                                   noop_copy_reference)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn((8, 128), generator=g, device=dev)
+    x[0, :4] = torch.tensor([float("inf"), float("-inf"), float("nan"),
+                             -0.0], device=dev)
+    n0 = noop_copy.launches
+    y = noop_copy(x)
+    torch.cuda.synchronize()
+    assert noop_copy.launches == n0 + 1 and y.data_ptr() != x.data_ptr()
+    assert torch.equal(y.view(torch.int32),
+                       noop_copy_reference(x).view(torch.int32))
+    assert torch.equal(noop_copy(x.reshape(-1)).view(torch.int32),
+                       x.reshape(-1).view(torch.int32))
+    for bad in (torch.zeros((8, 64), device=dev),
+                torch.zeros((8, 128), dtype=torch.bfloat16, device=dev),
+                torch.zeros((128, 8), device=dev).t()):
+        with pytest.raises(ValueError):
+            noop_copy(bad)
+    assert devprof.pallas_launch_tax_s(force=True) > 0

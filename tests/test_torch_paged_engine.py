@@ -216,14 +216,20 @@ def test_nonfinite_logits_evict_and_scrub():
     (dict(warmup=True), "warmup"),
 ])
 def test_unported_options_raise(port_model, kwargs, match):
+    if match == "warmup":
+        # ported since: warmup=True builds a warmed engine
+        stats.reset("serve/")
+        PagedDecodeEngine(port_model, n_pages=4, device="cpu", **kwargs)
+        assert stats.get("serve/warmup_s") == 1
+        return
     with pytest.raises(NotImplementedError, match=match):
         PagedDecodeEngine(port_model, n_pages=4, device="cpu", **kwargs)
 
 
 def test_unported_methods_and_engines_raise(port_model):
     eng = make_engine(port_model, n_pages=4, device="cpu")
-    for name in ("autotune", "dispatch_cost", "detach_handoff",
-                 "submit_handoff", "attach_fleet"):
+    for name in ("autotune", "detach_handoff", "submit_handoff",
+                 "attach_fleet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, name)()
     # the contiguous engine is ported now: the factory builds it

@@ -54,6 +54,13 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch.nn.functional.common\n"
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.observability\n"
+            "import paddle_tpu_torch.observability.devprof\n"
+            "import paddle_tpu_torch.ops.launch_probe\n"
+            "import paddle_tpu_torch.testing.faults\n"
+            "import paddle_tpu_torch.tools.profile_decode\n"
+            "import threading\n"
+            "assert threading.active_count() == 1, 'import started a thread'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -94,5 +101,5 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
                                         "decode_megakernel",
                                         "flash_attention_bwd",
                                         "flash_attention_fwd", "fused_ce",
-                                        "layer_norm", "paged_attention",
-                                        "quant_matmul"]
+                                        "launch_probe", "layer_norm",
+                                        "paged_attention", "quant_matmul"]
