@@ -12,13 +12,15 @@ Phases, each fatal on failure:
    flash forward, K2 fused paged append+attend and K2' plain paged
    attention at the serving shapes; K1, K3 (dK/dV) and K4 (dQ) at the
    train shape (B 4, S 2048, 16 heads of 128, causal; and 4 kv heads);
-   K5 (CE forward), K6 (dx) and K7 (dw) at N 8188 rows (4 x 2047), d
-   2048, V 50304 with ignored labels, with the init head's near-uniform
-   softmax and with a peaked one. Each output is held by its relative
-   L2 error per tile or row that one block writes (``REL_L2_TOL``), so
-   small entries count as much as the largest. Each prints its time
-   (K1, K2, K2': the kernel's profiler device time, and its call's by
-   CUDA events; the others by CUDA events), its plain version's time,
+   K5 (CE forward) and the CE backward (``fused_ce_bwd``: per vocab
+   chunk a dl pass, K6 for dx and K7 for dw) at N 8188 rows (4 x 2047),
+   d 2048, V 50304 with ignored labels, with the init head's
+   near-uniform softmax and with a peaked one. Each output is held by
+   its relative L2 error per tile or row that one block writes
+   (``REL_L2_TOL``), so small entries count as much as the largest.
+   Each prints its time (K1, K2, K2', the dl pass, K6, K7: the kernel's
+   profiler device time, and K1, K2, K2' and the whole CE backward also
+   by CUDA events; the others by CUDA events), its plain version's time,
    the library call's time
    where PyTorch has one call for the same function, and its bound: the
    larger of bytes / 3.35 TB/s and FLOPs / 989.4 TFLOP/s;
@@ -35,8 +37,9 @@ Phases, each fatal on failure:
    same weights, through the plain versions and through the kernels:
    losses within 1e-3 relative, every parameter's gradient within 2.5e-2
    relative L2. Then 5 more kernel steps: the loss must fall; step time,
-   tokens/s, MFU, peak memory, launches per step (K1, K3, K4 = L; K5,
-   K6, K7 = 1, counted from zero over the kernel steps) and a
+   tokens/s, MFU, peak memory, launches per step (K1, K3, K4 = L; K5 =
+   1; the dl pass, K6, K7 = the vocab chunks, 13 at V 50304; counted
+   from zero over the kernel steps) and a
    torch.profiler breakdown of one step;
 6. K10 and K12 kernels, at the contiguous engine's shapes: K10
    flash-decode (B 8, 16 query heads over 16 and 4 kv heads of 128, T
@@ -746,18 +749,18 @@ def k34_case(torch, dev, gen, hkv):
 
 
 def _ce_run_check(torch, ce, x, w, labels, g):
-    """K5, K6 and K7 once against their plain versions on the same
-    inputs: per-row loss and lse within 1e-3 (fp32 sums of the same bf16
-    products in another order), an ignored row's loss exactly 0, dx and
-    dw by ``ce_grads_check``. The plain backward takes the inputs in
-    fp32, so it does not round dl to bf16: where one term makes up a row
-    of dw, the kernel's rounding of it (half a bf16 ulp, at most 2^-8)
-    then counts once, not as the one-ulp gap between two roundings.
-    Returns (check record, K5's lse)."""
+    """K5 and the backward (its dl pass, K6 and K7 per vocab chunk) once
+    against their plain versions on the same inputs: per-row loss and lse
+    within 1e-3 (fp32 sums of the same bf16 products in another order),
+    an ignored row's loss exactly 0, dx and dw by ``ce_grads_check``.
+    The plain backward takes the inputs in fp32, so it does not round dl
+    to bf16: where one term makes up a row of dw, the kernel's rounding
+    of it (half a bf16 ulp, at most 2^-8) then counts once, not as the
+    one-ulp gap between two roundings. Returns (check record, K5's
+    lse)."""
     valid = labels >= 0
     loss, lse = ce.fused_ce_fwd(x, w, labels)
-    dx = ce.fused_ce_dx(x, w, labels, lse, g)
-    dw = ce.fused_ce_dw(x, w, labels, lse, g)
+    dx, dw = ce.fused_ce_bwd(x, w, labels, lse, g)
     torch.cuda.synchronize()
     rloss, rlse = ce.fused_ce_reference(x, w, labels)
     rdx, rdw = ce.fused_ce_bwd_reference(x.float(), w.float(), labels,
@@ -766,23 +769,32 @@ def _ce_run_check(torch, ce, x, w, labels, g):
     rec.update({"loss_max_abs_err": (loss - rloss).abs().max().item(),
                 "lse_max_abs_err": (lse - rlse).abs().max().item(),
                 "ignored_loss_zero": bool((loss[~valid] == 0).all().item()),
+                "ignored_dx_zero": bool((dx[~valid] == 0).all().item()),
                 "dx_max_abs_err": (dx.float() - rdx).abs().max().item(),
                 "dw_max_abs_err": (dw.float() - rdw).abs().max().item()})
     del rdx, rdw
     loss_tol = 1e-3
     rec["ok"] = bool(rec["ok"] and rec["ignored_loss_zero"]
+                     and rec["ignored_dx_zero"]
                      and rec["loss_max_abs_err"] <= loss_tol
                      and rec["lse_max_abs_err"] <= loss_tol)
     return rec, lse
 
 
+# the backward's three kernels by the epilogue in their names (the bf16
+# wgmma kernel and the fp32 one share each epilogue)
+CE_BWD_KEYS = {"dl": "DlEpi", "k6": "DxEpi", "k7": "DwEpi"}
+
+
 def ce_case(torch, dev, gen):
-    """K5, K6 and K7 at the train shape: N = 4 x 2047 rows (not a
-    multiple of the 64-row tile), d 2048, V 50304, every 7th label
-    ignored. Checked twice: with the model's init head (w std 0.02: a
-    near-uniform softmax, timed) and with logits of std 3 (w std
+    """K5 and the backward (dl pass, K6, K7) at the train shape: N = 4 x
+    2047 rows (not a multiple of the 128-row tile), d 2048, V 50304, every
+    7th label ignored. Checked twice: with the model's init head (w std
+    0.02: a near-uniform softmax, timed) and with logits of std 3 (w std
     3/sqrt(d): a peaked softmax, where dx's softmax term is not lost
-    under bf16 rounding of the label term)."""
+    under bf16 rounding of the label term). K5 is timed by CUDA events;
+    the dl pass, K6 and K7 each by profiler device time, and the whole
+    backward by CUDA events with its operands cold."""
     from paddle_tpu_torch.ops import fused_ce as ce
     import torch.nn.functional as F
     N, d, V = 4 * 2047, 2048, 50304
@@ -799,12 +811,26 @@ def ce_case(torch, dev, gen):
     w = (0.02 * w_raw).to(bf)
     del w_raw
     init, lse = _ce_run_check(torch, ce, x, w, labels, g)
+    elt = x.element_size()
     fwd_ms = _event_ms(torch, lambda: ce.fused_ce_fwd(x, w, labels),
                        iters=3, warmup=1)
-    dx_ms = _event_ms(torch, lambda: ce.fused_ce_dx(x, w, labels, lse, g),
-                      iters=3, warmup=1)
-    dw_ms = _event_ms(torch, lambda: ce.fused_ce_dw(x, w, labels, lse, g),
-                      iters=3, warmup=1)
+    def bwd():
+        return ce.fused_ce_bwd(x, w, labels, lse, g)
+
+    pass_ms = {k: _device_ms(torch, bwd, keys=(key,), iters=3, warmup=1)
+               for k, key in CE_BWD_KEYS.items()}
+    cold = _cold((x, w), (N * d + V * d) * elt)
+    bwd_ms = _event_ms(torch, lambda: ce.fused_ce_bwd(*cold(), labels, lse,
+                                                      g),
+                       iters=3, warmup=1)
+    # the backward's memory beyond its outputs: dl and the fp32 dx sum
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bwd()
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated(dev) - before
+               - (N * d + V * d) * elt)
     plain_fwd_ms = _event_ms(torch, lambda: ce.fused_ce_reference(
         x, w, labels), iters=3, warmup=1)
     plain_bwd_ms = _event_ms(torch, lambda: ce.fused_ce_bwd_reference(
@@ -821,14 +847,20 @@ def ce_case(torch, dev, gen):
     lib_bwd_ms = _event_ms(torch, lambda: torch.autograd.grad(
         lib_loss, (xg, wg), g, retain_graph=True), iters=3, warmup=1)
     del xg, wg, lib_loss
-    elt = x.element_size()
     io = (N * d + V * d) * elt + N * 4          # x, w, labels
     mac = N * V * d
+    dl_bytes = N * V * elt
     fwd_bound = _bound(io + 2 * N * 4, 2 * mac)
-    # K6 and K7 each recompute the logits and do one more product
-    dx_bound = _bound(io + 2 * N * 4 + N * d * elt, 4 * mac)
-    dw_bound = _bound(io + 2 * N * 4 + V * d * elt, 4 * mac)
+    # one product each: the dl pass reads x, w and the row terms and
+    # writes dl; K6 reads dl and w, writes dx; K7 reads dl and x, writes dw
+    dl_bound = _bound(io + 2 * N * 4 + dl_bytes, 2 * mac)
+    dx_bound = _bound(dl_bytes + V * d * elt + N * d * elt, 2 * mac)
+    dw_bound = _bound(dl_bytes + N * d * elt + V * d * elt, 2 * mac)
+    # the backward as a function: x, w, labels, lse, g in; dx, dw out;
+    # three products given lse
+    bwd_bound = _bound(io + 2 * N * 4 + (N * d + V * d) * elt, 6 * mac)
     rec = {"phase": "k567_fused_ce", "N": N, "d": d, "V": V,
+           "chunk": ce.CHUNK, "chunks": len(ce.plan_chunks(V)),
            "ignored_rows": int((~valid).sum().item()), "dtype": "bfloat16",
            "loss_tol": 1e-3, "tol_rel_l2": REL_L2_TOL,
            "check_init_head": init, "check_peaked": peaked,
@@ -836,13 +868,18 @@ def ce_case(torch, dev, gen):
                                    peaked["loss_max_abs_err"]),
            "lse_max_abs_err": max(init["lse_max_abs_err"],
                                   peaked["lse_max_abs_err"]),
-           "k5_ms": fwd_ms, "k6_ms": dx_ms, "k7_ms": dw_ms,
+           "k5_ms": fwd_ms, "dl_ms": pass_ms["dl"], "k6_ms": pass_ms["k6"],
+           "k7_ms": pass_ms["k7"], "bwd_ms": bwd_ms,
+           "bwd_scratch_bytes": scratch,
            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
            "library_fwd_ms": lib_fwd_ms, "library_bwd_ms": lib_bwd_ms,
            "k5_bound_ms": fwd_bound[0], "k5_bound_by": fwd_bound[1],
+           "dl_bound_ms": dl_bound[0], "dl_bound_by": dl_bound[1],
            "k6_bound_ms": dx_bound[0], "k6_bound_by": dx_bound[1],
            "k7_bound_ms": dw_bound[0], "k7_bound_by": dw_bound[1],
-           "ok": bool(init["ok"] and peaked["ok"])}
+           "bwd_bound_ms": bwd_bound[0], "bwd_bound_by": bwd_bound[1],
+           "ok": bool(init["ok"] and peaked["ok"]
+                      and None not in pass_ms.values())}
     _phase(rec)
     return rec
 
@@ -1181,7 +1218,7 @@ def train_phase(torch, dev, n_steps=6):
     import numpy as np
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
-    from paddle_tpu_torch.ops.fused_ce import fused_ce_plain
+    from paddle_tpu_torch.ops.fused_ce import fused_ce_plain, plan_chunks
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = gpt.gpt3_1p3b()
@@ -1244,10 +1281,13 @@ def train_phase(torch, dev, n_steps=6):
     launches = _read_counters()
     peak = torch.cuda.max_memory_allocated(dev)
     L = cfg.n_layers
+    # the backward launches its three kernels once per vocab chunk
+    chunks = len(plan_chunks(cfg.vocab_size))
     expected = {n: 0 for n in launches}
     expected.update({"flash_attention": L, "flash_attention_bwd_dkdv": L,
                      "flash_attention_bwd_dq": L, "fused_ce_fwd": 1,
-                     "fused_ce_dx": 1, "fused_ce_dw": 1})
+                     "fused_ce_dl": chunks, "fused_ce_dx": chunks,
+                     "fused_ce_dw": chunks})
     per_step = {n: c / n_steps for n, c in launches.items()}
     counts_ok = all(per_step[n] == e for n, e in expected.items())
     loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
@@ -1285,8 +1325,8 @@ def train_phase(torch, dev, n_steps=6):
 
 _FAMILIES = (("flash_fwd", ("flash_fwd_",)),
              ("flash_bwd", ("flash_bwd_",)),
-             ("fused_ce", ("ce_fwd_kernel", "ce_fwd_merge", "ce_dx_kernel",
-                           "ce_dw_kernel", "sum_ranges")),
+             ("fused_ce", ("ce_fwd_kernel", "ce_fwd_merge", "ce_bwd_wgmma",
+                           "ce_bwd_simt")),
              ("paged_attention", ("paged_kernel",)),
              ("decode_attention", ("decode_kernel",)),
              ("int8_matmul", K12_KERNELS),
@@ -2632,15 +2672,26 @@ def main():
                                      ce_r["k5_bound_by"]),
               ce_r["library_fwd_ms"],
               max(ce_r["loss_max_abs_err"], ce_r["lse_max_abs_err"])),
-        entry("fused_ce_dx", "fused_ce.cu", f"{ce_py}:178", ce_r["k6_ms"],
-              ce_r["plain_bwd_ms"], (ce_r["k6_bound_ms"],
-                                     ce_r["k6_bound_by"]),
+        # the backward's three kernels (fused_ce_bwd.cu), each one launch
+        # per vocab chunk: the dl pass computes the dlogits that the TPU's
+        # K6 and K7 each recompute; library: the backward of torch.matmul
+        # + F.cross_entropy (dx and dw together)
+        entry("fused_ce_dl", "fused_ce_bwd.cu", f"{ce_py}:178",
+              ce_r["dl_ms"], ce_r["plain_bwd_ms"],
+              (ce_r["dl_bound_ms"], ce_r["dl_bound_by"]),
+              ce_r["library_bwd_ms"],
+              max(max(c["dx_max_abs_err"], c["dw_max_abs_err"])
+                  for c in (ce_r["check_init_head"],
+                            ce_r["check_peaked"]))),
+        entry("fused_ce_dx", "fused_ce_bwd.cu", f"{ce_py}:178",
+              ce_r["k6_ms"], ce_r["plain_bwd_ms"],
+              (ce_r["k6_bound_ms"], ce_r["k6_bound_by"]),
               ce_r["library_bwd_ms"],
               max(c["dx_max_abs_err"] for c in (ce_r["check_init_head"],
                                                 ce_r["check_peaked"]))),
-        entry("fused_ce_dw", "fused_ce.cu", f"{ce_py}:199", ce_r["k7_ms"],
-              ce_r["plain_bwd_ms"], (ce_r["k7_bound_ms"],
-                                     ce_r["k7_bound_by"]),
+        entry("fused_ce_dw", "fused_ce_bwd.cu", f"{ce_py}:199",
+              ce_r["k7_ms"], ce_r["plain_bwd_ms"],
+              (ce_r["k7_bound_ms"], ce_r["k7_bound_by"]),
               ce_r["library_bwd_ms"],
               max(c["dw_max_abs_err"] for c in (ce_r["check_init_head"],
                                                 ce_r["check_peaked"]))),

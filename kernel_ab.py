@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""A/B readings of the flash kernels K1, K3 and K4 on one GPU.
+"""A/B readings of the flash kernels K1, K3 and K4 and the fused
+cross-entropy kernels K5, K6 and K7 on one GPU.
 
-    python3 kernel_ab.py DIR_A DIR_B [--rounds 1]
+    python3 kernel_ab.py DIR_A DIR_B [--rounds 1] [--ce-chunks 2048,8192]
 
 DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
 round runs A, B, B, A, so that a drift over the run falls on both
 alike. Every run is a process of its own, started in its checkout's
-root: it builds that checkout's flash kernels and times them, without
-a bias or dropout (the GPT paths' calls), at the GPT paths' shapes, in
-bf16: K1 at the serving shapes (B 1, S 128 and 512, 16 heads of 128,
-causal) and at the train shape (B 4, S 2048), K3 and K4 at the train
-shape. Each time is read twice: the kernel's device time from a
-torch.profiler trace (``kernel_ms``) and the call's, wrapper included,
-by CUDA events around back-to-back calls (``call_ms``). Prints each
+root: it builds that checkout's kernels and times them, without a bias
+or dropout (the GPT paths' calls), at the GPT paths' shapes, in bf16:
+K1 at the serving shapes (B 1, S 128 and 512, 16 heads of 128, causal)
+and at the train shape (B 4, S 2048), K3 and K4 at the train shape;
+the cross-entropy at the train shape (N 4 x 2047, d 2048, V 50304,
+every 7th label ignored, w at the init's std 0.02): K5 (the forward)
+and the backward, K6 + K7 together with everything they launch
+(``fused_ce_bwd`` where the checkout has it, else ``fused_ce_dx`` then
+``fused_ce_dw``). Each time is read twice: the kernel's device time
+from a torch.profiler trace (``kernel_ms``; the backward's sums every
+kernel in the window) and the call's, wrapper included, by CUDA events
+around back-to-back calls (``call_ms``). ``--ce-chunks`` also times a
+checkout's ``fused_ce_bwd`` at those vocab chunk widths (its default
+is timed as above). Prints each
 run's readings as one JSON line tagged with its checkout and round,
 then one line with each checkout's medians. Exits non-zero if a run
 fails.
@@ -32,6 +40,7 @@ sys.path.insert(0, ".")
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce as ce
 if not torch.cuda.is_available():
     sys.exit("kernel_ab: no CUDA device")
 
@@ -95,12 +104,38 @@ out["k3_B4_S2048"] = {"kernel_ms": device_ms(k3, "flash_bwd_dkdv", 10),
                       "call_ms": call_ms(k3, 10)}
 out["k4_B4_S2048"] = {"kernel_ms": device_ms(k4, "flash_bwd_dq", 10),
                       "call_ms": call_ms(k4, 10)}
+del q, k, v, do, o, lse, delta
+N, d, V = 4 * 2047, 2048, 50304
+x = torch.randn((N, d), generator=gen, device=dev).to(torch.bfloat16)
+w = (0.02 * torch.randn((V, d), generator=gen, device=dev)).to(
+    torch.bfloat16)
+labels = torch.randint(0, V, (N,), generator=gen, device=dev,
+                       dtype=torch.int32)
+labels[::7] = -1
+g = torch.where(labels >= 0, 1.0, 0.0).float().contiguous()
+k5 = lambda: ce.fused_ce_fwd(x, w, labels)
+_, lse = k5()
+if hasattr(ce, "fused_ce_bwd"):
+    k67 = lambda: ce.fused_ce_bwd(x, w, labels, lse, g)
+else:
+    k67 = lambda: (ce.fused_ce_dx(x, w, labels, lse, g),
+                   ce.fused_ce_dw(x, w, labels, lse, g))
+out["k5_ce_N8188"] = {"kernel_ms": device_ms(k5, "ce_fwd", 5),
+                      "call_ms": call_ms(k5, 5)}
+out["k67_ce_bwd_N8188"] = {"kernel_ms": device_ms(k67, "", 3),
+                           "call_ms": call_ms(k67, 3)}
+for c in [int(c) for c in sys.argv[1].split(",") if c]:
+    if hasattr(ce, "fused_ce_bwd"):
+        fn = lambda: ce.fused_ce_bwd(x, w, labels, lse, g, chunk=c)
+        out[f"k67_ce_bwd_N8188_chunk{c}"] = {
+            "kernel_ms": device_ms(fn, "", 3), "call_ms": call_ms(fn, 3)}
 print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
 
-def run_one(root, timeout):
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root,
+def run_one(root, timeout, ce_chunks):
+    out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks],
+                         cwd=root,
                          capture_output=True, text=True, timeout=timeout)
     recs = [json.loads(line[len("KERNEL_AB "):])
             for line in out.stdout.splitlines()
@@ -118,12 +153,14 @@ def main():
     ap.add_argument("b")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--ce-chunks", default="",
+                    help="comma-separated chunk widths for fused_ce_bwd")
     args = ap.parse_args()
     roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     got = {"a": [], "b": []}
     for rnd in range(args.rounds):
         for tag in ("a", "b", "b", "a"):
-            rec = run_one(roots[tag], args.timeout)
+            rec = run_one(roots[tag], args.timeout, args.ce_chunks)
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)

@@ -1,57 +1,41 @@
-// K5, K6, K7 — fused softmax cross-entropy over a projection, for Hopper
-// (sm_90a).
+// K5 — the fused softmax cross-entropy's forward over a projection, for
+// Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/fused_ce.py:
-// `_fwd_kernel` (:47, launched at :153) — K5, the per-row loss and LSE;
-// `_dx_kernel` (:89, :178) — K6, dx; `_dw_kernel` (:107, :199) — K7, dw.
-// For rows x (N, d), weights w (V, d) in embedding layout and int32
-// labels (negative = ignored), with logits s = x . w^T:
+// Replaces the Pallas TPU kernel `_fwd_kernel` of
+// paddle_tpu/ops/pallas/fused_ce.py (:47, launched at :153). For rows x
+// (N, d), weights w (V, d) in embedding layout and int32 labels (negative
+// = ignored), with logits s = x . w^T:
 //
-//   K5: lse = logsumexp_v s,  loss = lse - s[label]  (0 for ignored rows)
-//   K6: dx = sum_v dl * w[v]    K7: dw[v] = sum_n dl * x[n]
-//       with dl = (exp(s - lse) - onehot(label)) * g
+//   lse = logsumexp_v s,  loss = lse - s[label]  (0 for ignored rows)
 //
-// g is the loss cotangent, zeroed on ignored rows by the caller. The
-// (N, V) logits never reach device memory: every kernel recomputes its
-// 64 x 128 logit tile from x and w (`logits_tile`, the counterpart of
-// `_logits_block`, :40-44, and `_dlogits`, :79-86), so the three kernels
-// together do the 5 N V d multiply-adds of the TPU design.
+// The backward (K6 dx, K7 dw) is fused_ce_bwd.cu. The (N, V) logits never
+// reach device memory: the kernel computes each 64 x 128 logit tile from x
+// and w (`logits_tile`, the counterpart of `_logits_block`, :40-44) and
+// folds it into an online logsumexp.
 //
-// Design. One block of 256 threads owns one output tile and walks the
-// TPU's sequential ("arbitrary") grid axis as a loop; nothing is written
-// twice and no atomics are used. The 64 x 128 logit tile ends in fp32
-// registers, 4 x 8 per thread, where the shared epilogues (online
-// logsumexp, dl) run. How it gets there depends on the dtype:
+// Design. One block of 256 threads owns a 64-row tile and a range of vocab
+// tiles, walking the TPU's sequential ("arbitrary") grid axis as a loop.
+// The 64 x 128 logit tile ends in fp32 registers, 4 x 8 per thread, where
+// the online logsumexp runs. How it gets there depends on the dtype:
 //  - bf16 (the train path): tensor cores. Eight warps each own a 32 x 32
 //    piece as 2 x 2 wmma 16x16x16 fragments (bf16 in, fp32 accumulate,
 //    the MXU's arithmetic); x and w pass through shared memory in
 //    32-deep stages read with 16-byte loads, and the finished tile is
 //    staged through shared memory into the epilogue's thread layout.
-//    dl is rounded to bf16 for the second product, as the TPU kernels
-//    round it before their dots (`dl.astype(w.dtype)`).
 //  - fp32: the FP32 pipes, each thread accumulating its 4 x 8 piece from
 //    16-deep fp32 stages (three 16-byte shared loads per 32 FMAs).
-// Per kernel:
-//  - K5: a block per (64-row tile, range of vocab tiles) keeps each
-//    row's running max, sum and label logit over its columns (online
-//    logsumexp) and writes them for its range; a small second kernel in
-//    the same launch merges the ranges into lse and loss. Splitting the
-//    vocabulary gives enough blocks for the 132 SMs at N = 8188.
-//  - K6: a block per (64-row tile, range of vocab tiles) turns each logit
-//    tile into dl (in shared memory) and adds dl . w_tile into its rows of
-//    an fp32 dx buffer of its own range, 128 columns of d at a time; the
-//    second kernel sums the ranges and rounds to x's dtype.
-//  - K7: a block per (128-column vocab tile, range of row tiles) does the
-//    same with dl^T . x_rows into an fp32 dw buffer, 64 columns of d at a
-//    time; the second kernel sums the ranges and rounds to w's dtype.
+// Each block keeps each row's running max, sum and label logit over its
+// columns and writes them for its range; a small second kernel in the same
+// launch merges the ranges into lse and loss. Splitting the vocabulary
+// gives enough blocks for the 132 SMs at N = 8188.
 //
 // Bound on the H100. At the train shape (N 8188, d 2048, V 50304, bf16)
-// the five products are 4.2 T multiply-adds, 8.4 TFLOP, against about
-// 0.3 GB of inputs and outputs: far above the ridge, so the bound is the
-// tensor cores' 989 TFLOP/s (about 8.5 ms for the three kernels). The
-// wmma path (no TMA, no wgmma, two barriers per 32-deep stage) reaches a
-// fraction of that; wgmma with a TMA ring is the next step (ROADMAP R1).
-// The fp32 path is bound by the FP32 pipes (67 TFLOP/s).
+// the product is 0.84 T multiply-adds, 1.7 TFLOP, against about 0.3 GB of
+// inputs: far above the ridge, so the bound is the tensor cores' 989
+// TFLOP/s (1.71 ms). The wmma path (no TMA, no wgmma, two barriers per
+// 32-deep stage) reaches a fraction of that; fused_ce_bwd.cu's TMA and
+// wgmma mainloop with an online-logsumexp epilogue is the next step
+// (ROADMAP R1). The fp32 path is bound by the FP32 pipes (67 TFLOP/s).
 #include <mma.h>
 
 #include <type_traits>
@@ -73,10 +57,10 @@ constexpr int kThreads = 256;              // 16 x 16, 4 x 8 outputs each
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// Shared memory (dynamic), in bytes. fp32: the two stages, then dl as
-// fp32 ([vocab col][row] for K6, [row][vocab col] for K7). bf16: one
-// region reused for the logit stages, the staged fp32 tile and the
-// second product's operand tile, then dl as bf16 [row][vocab col].
+// Shared memory (dynamic), in bytes. fp32: the two stages. bf16: one
+// region reused for the logit stages and the staged fp32 tile. Each keeps
+// the size it had while this file also held K6 and K7 (their dl tile and
+// second operand), so K5 runs at the occupancy it was measured at.
 constexpr int kF32Stage = (kBK * kBM + kBK * kBN) * 4;
 constexpr int kF32Total = kF32Stage + kBN * kBM * 4;
 constexpr int kTcRegion =
@@ -250,258 +234,6 @@ __device__ __forceinline__ void logits_tile(
   }
 }
 
-// per-row operands of the dlogits: label, lse, cotangent (0 past N)
-__device__ __forceinline__ void row_terms(const int* labels,
-                                          const float* lse, const float* g,
-                                          int row0, int N, int (&lab)[4],
-                                          float (&lz)[4], float (&gr)[4]) {
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    const bool ok = r < N;
-    lab[i] = ok ? labels[r] : -1;
-    lz[i] = ok ? lse[r] : 0.f;
-    gr[i] = ok ? g[r] : 0.f;
-  }
-}
-
-// dl = (exp(s - lse) - onehot) * g of the thread's tile piece, 0 past V
-__device__ __forceinline__ float dlogit(float s, int col, int V, int lab,
-                                        float lz, float g) {
-  if (col >= V) return 0.f;
-  return (__expf(s - lz) - (col == lab ? 1.f : 0.f)) * g;
-}
-
-// dl of tile element (r, c) into shared memory: fp32 [c][r] (K6) or
-// [r][c] (K7) on the fp32 path, bf16 [r][c] on the tensor-core path
-template <typename T, bool kColMajor>
-__device__ __forceinline__ void put_dl(unsigned char* smem, int r, int c,
-                                       float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    float* dl = reinterpret_cast<float*>(smem + kF32Stage);
-    dl[kColMajor ? c * kBM + r : r * kBN + c] = v;
-  } else {
-    bf16* dl = reinterpret_cast<bf16*>(smem + kTcRegion);
-    dl[r * (kBN + kPad) + c] = __float2bfloat16(v);
-  }
-}
-
-// out[rows row0 .. +64, :d] (+)= dl (64 x 128) . w[col0 .. +128, :d];
-// out has row stride ld (a multiple of 128), first = overwrite
-__device__ __forceinline__ void dx_product(unsigned char* smem,
-                                           const float* __restrict__ w,
-                                           int row0, int col0, int N, int V,
-                                           int d, float* out, int ld,
-                                           bool first) {
-  float* sb = reinterpret_cast<float*>(smem) + kBK * kBM;
-  const float* dls = reinterpret_cast<const float*>(smem + kF32Stage);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // w rows of a stage: 16 vocab rows x 128 columns of d, 8 per thread
-  const int kk = tid / 16, dc = (tid % 16) * 8;
-  float acc[4][8];
-  for (int d0 = 0; d0 < d; d0 += kBN) {
-    zero_acc(acc);
-    for (int kk0 = 0; kk0 < kBN; kk0 += kBK) {
-      float rb[8];
-      const int vrow = col0 + kk0 + kk;
-      if (vrow < V && d0 + dc < d) ld8(w + (long)vrow * d + d0 + dc, rb);
-      else zero(rb);
-      __syncthreads();                     // dl written / sb consumed
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sb[kk * kBN + dc + e] = rb[e];
-      __syncthreads();
-      mma_stage(dls + kk0 * kBM, sb, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = d0 + h * 64 + tx * 4;
-        if (col >= d) continue;
-        float4* p = reinterpret_cast<float4*>(out + (long)r * ld + col);
-        float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
-                               acc[i][4 * h + 2], acc[i][4 * h + 3]);
-        if (!first) {
-          const float4 o = *p;
-          v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
-        }
-        *p = v;
-      }
-    }
-  }
-}
-
-// the same on the tensor cores; out has kBM-row-padded rows
-__device__ __forceinline__ void dx_product(unsigned char* smem,
-                                           const bf16* __restrict__ w,
-                                           int row0, int col0, int N, int V,
-                                           int d, float* out, int ld,
-                                           bool first) {
-  constexpr int lw = kBN + kPad;
-  bf16* w2 = reinterpret_cast<bf16*>(smem);    // [vocab row][d col]
-  const bf16* dl = reinterpret_cast<const bf16*>(smem + kTcRegion);
-  const int tid = threadIdx.x;
-  const int wm = tid / 32 / 4, wn = tid / 32 % 4;
-  for (int d0 = 0; d0 < d; d0 += kBN) {
-    __syncthreads();                       // dl written / region free
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int idx = tid + kThreads * e;
-      const int vr = idx / 16, c = (idx % 16) * 8;
-      *reinterpret_cast<uint4*>(w2 + vr * lw + c) =
-          ld16(w + (long)(col0 + vr) * d + d0 + c,
-               col0 + vr < V && d0 + c < d);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float* p = out + (long)(row0 + wm * 32 + i * 16) * ld + d0 +
-                   wn * 32 + j * 16;
-        if (first) wmma::fill_fragment(acc[i][j], 0.f);
-        else wmma::load_matrix_sync(acc[i][j], p, ld, wmma::mem_row_major);
-      }
-#pragma unroll
-    for (int k = 0; k < kBN; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], dl + (wm * 32 + i * 16) * lw + k, lw);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], w2 + k * lw + wn * 32 + j * 16, lw);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(out + (long)(row0 + wm * 32 + i * 16) * ld +
-                                    d0 + wn * 32 + j * 16,
-                                acc[i][j], ld, wmma::mem_row_major);
-  }
-}
-
-// out[vocab rows col0 .. +128, :d] (+)= dl^T (128 x 64) . x[row0 .. +64,
-// :d]; out has row stride ld, first = overwrite
-__device__ __forceinline__ void dw_product(unsigned char* smem,
-                                           const float* __restrict__ x,
-                                           int row0, int col0, int N, int V,
-                                           int d, float* out, int ld,
-                                           bool first) {
-  float* sa = reinterpret_cast<float*>(smem);
-  const float* dlb = reinterpret_cast<const float*>(smem + kF32Stage);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // x rows of a stage: 16 rows x 64 columns of d, 4 per thread
-  const int kk = tid / 16, dr = (tid % 16) * 4;
-  float acc[4][8];
-  // dw^T[d0 .. +64, cols] += x[rows, d0 .. +64)^T (64 x 64) . dl (64 x 128)
-  for (int d0 = 0; d0 < d; d0 += kBM) {
-    zero_acc(acc);
-    for (int kk0 = 0; kk0 < kBM; kk0 += kBK) {
-      float ra[4];
-      const int xr = row0 + kk0 + kk;
-      if (xr < N && d0 + dr < d) ld4(x + (long)xr * d + d0 + dr, ra);
-      else zero(ra);
-      __syncthreads();                     // dl written / sa consumed
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sa[kk * kBM + dr + e] = ra[e];
-      __syncthreads();
-      mma_stage(sa, dlb + kk0 * kBN, acc);
-    }
-    const int dcol = d0 + ty * 4;
-    if (dcol < d) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int v = col0 + col_of(tx, j);
-        if (v >= V) continue;
-        float4* p = reinterpret_cast<float4*>(out + (long)v * ld + dcol);
-        float4 s = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-        if (!first) {
-          const float4 o = *p;
-          s.x += o.x; s.y += o.y; s.z += o.z; s.w += o.w;
-        }
-        *p = s;
-      }
-    }
-  }
-}
-
-// the same on the tensor cores: warp (wm, wn) = (warp / 2, warp % 2)
-// owns vocab rows 32 wm .. +32 and d columns 32 wn .. +32 of the chunk;
-// out has kBN-row-padded vocab rows
-__device__ __forceinline__ void dw_product(unsigned char* smem,
-                                           const bf16* __restrict__ x,
-                                           int row0, int col0, int N, int V,
-                                           int d, float* out, int ld,
-                                           bool first) {
-  constexpr int lx = kBM + kPad, lw = kBN + kPad;
-  bf16* x2 = reinterpret_cast<bf16*>(smem);    // [row][d col]
-  const bf16* dl = reinterpret_cast<const bf16*>(smem + kTcRegion);
-  const int tid = threadIdx.x;
-  const int wm = tid / 32 / 2, wn = tid / 32 % 2;
-  for (int d0 = 0; d0 < d; d0 += kBM) {
-    __syncthreads();                       // dl written / region free
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int idx = tid + kThreads * e;
-      const int r = idx / 8, c = (idx % 8) * 8;
-      *reinterpret_cast<uint4*>(x2 + r * lx + c) =
-          ld16(x + (long)(row0 + r) * d + d0 + c,
-               row0 + r < N && d0 + c < d);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float* p = out + (long)(col0 + wm * 32 + i * 16) * ld + d0 +
-                   wn * 32 + j * 16;
-        if (first) wmma::fill_fragment(acc[i][j], 0.f);
-        else wmma::load_matrix_sync(acc[i][j], p, ld, wmma::mem_row_major);
-      }
-#pragma unroll
-    for (int k = 0; k < kBM; k += 16) {
-      // A (vocab row m, x row k) = dl[k][m]: dl read column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-          a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], dl + k * lw + wm * 32 + i * 16, lw);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], x2 + k * lx + wn * 32 + j * 16, lx);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(out + (long)(col0 + wm * 32 + i * 16) * ld +
-                                    d0 + wn * 32 + j * 16,
-                                acc[i][j], ld, wmma::mem_row_major);
-  }
-}
-
 // ---- K5 -------------------------------------------------------------------
 
 template <typename T>
@@ -592,106 +324,6 @@ __global__ void ce_fwd_merge(const float* __restrict__ part,
   loss[r] = labels[r] >= 0 ? lz - pick : 0.f;
 }
 
-// ---- K6 -------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             const int* __restrict__ labels, const float* __restrict__ lse,
-             const float* __restrict__ g, float* __restrict__ part, int N,
-             int V, int d, int per, int ld, long split_stride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int row0 = blockIdx.x * kBM;
-  const int nvt = (V + kBN - 1) / kBN;
-  const int t0 = blockIdx.y * per;
-  const int t1 = min(nvt, t0 + per);
-  float* out = part + blockIdx.y * split_stride;
-
-  int lab[4];
-  float lz[4], gr[4];
-  row_terms(labels, lse, g, row0, N, lab, lz, gr);
-  float acc[4][8];
-  for (int t = t0; t < t1; ++t) {
-    const int col0 = t * kBN;
-    logits_tile(smem, x, w, row0, col0, N, V, d, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = col_of(tx, j);
-        put_dl<T, true>(smem, ty * 4 + i, c,
-                        dlogit(acc[i][j], col0 + c, V, lab[i], lz[i],
-                               gr[i]));
-      }
-    dx_product(smem, w, row0, col0, N, V, d, out, ld, t == t0);
-  }
-}
-
-// ---- K7 -------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             const int* __restrict__ labels, const float* __restrict__ lse,
-             const float* __restrict__ g, float* __restrict__ part, int N,
-             int V, int d, int per, int ld, long split_stride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int col0 = blockIdx.x * kBN;
-  const int nrt = (N + kBM - 1) / kBM;
-  const int t0 = blockIdx.y * per;
-  const int t1 = min(nrt, t0 + per);
-  float* out = part + blockIdx.y * split_stride;
-
-  float acc[4][8];
-  for (int t = t0; t < t1; ++t) {
-    const int row0 = t * kBM;
-    int lab[4];
-    float lz[4], gr[4];
-    row_terms(labels, lse, g, row0, N, lab, lz, gr);
-    logits_tile(smem, x, w, row0, col0, N, V, d, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = col_of(tx, j);
-        put_dl<T, false>(smem, ty * 4 + i, c,
-                         dlogit(acc[i][j], col0 + c, V, lab[i], lz[i],
-                                gr[i]));
-      }
-    dw_product(smem, x, row0, col0, N, V, d, out, ld, t == t0);
-  }
-}
-
-// out[r][c] = sum over the ranges of part[s][r][c] (row stride ld),
-// rounded to T, for r < rows, c < cols
-template <typename T>
-__global__ void sum_ranges(const float* __restrict__ part, T* __restrict__ out,
-                           long rows, int cols, int ld, long split_stride,
-                           int nsplit) {
-  const long n = rows * cols;
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    const long src = (i / cols) * ld + i % cols;
-    float s = 0.f;
-    for (int k = 0; k < nsplit; ++k) s += part[k * split_stride + src];
-    out[i] = pt::from_float<T>(s);
-  }
-}
-
-template <typename T>
-int sum_launch(const float* part, void* out, long rows, int cols, int ld,
-               long split_stride, int nsplit, cudaStream_t st) {
-  long blocks = (rows * cols + 255) / 256;
-  if (blocks > 4096) blocks = 4096;        // grid-stride beyond this
-  sum_ranges<T><<<(int)blocks, 256, 0, st>>>(
-      part, static_cast<T*>(out), rows, cols, ld, split_stride, nsplit);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // dynamic shared memory above the 48 KB default needs an opt-in
 template <typename K>
 int allow_smem(K kernel, int bytes) {
@@ -718,49 +350,12 @@ int fwd_launch(const void* x, const void* w, const int* labels, float* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dx_launch(const void* x, const void* w, const int* labels,
-              const float* lse, const float* g, float* part, void* dx, int N,
-              int V, int d, int nsplit, int per, int ld, long split_stride,
-              cudaStream_t st) {
-  const dim3 grid((N + kBM - 1) / kBM, nsplit);
-  const int bytes = smem_total<T>();
-  int rc = allow_smem(ce_dx_kernel<T>, bytes);
-  if (rc != 0) return rc;
-  ce_dx_kernel<T><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), labels, lse, g,
-      part, N, V, d, per, ld, split_stride);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return sum_launch<T>(part, dx, N, d, ld, split_stride, nsplit, st);
-}
-
-template <typename T>
-int dw_launch(const void* x, const void* w, const int* labels,
-              const float* lse, const float* g, float* part, void* dw, int N,
-              int V, int d, int nsplit, int per, int ld, long split_stride,
-              cudaStream_t st) {
-  const dim3 grid((V + kBN - 1) / kBN, nsplit);
-  const int bytes = smem_total<T>();
-  int rc = allow_smem(ce_dw_kernel<T>, bytes);
-  if (rc != 0) return rc;
-  ce_dw_kernel<T><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), labels, lse, g,
-      part, N, V, d, per, ld, split_stride);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return sum_launch<T>(part, dw, V, d, ld, split_stride, nsplit, st);
-}
-
 }  // namespace
 
 // x (N, d) and w (V, d) contiguous, 16-byte aligned, of one dtype, with
-// d % 8 == 0; labels (N,) int32; loss, lse, g (N,) fp32. The vocabulary
-// (K5, K6) or row (K7) tiles are cut into `nsplit` ranges of `per`
-// tiles, none empty. `part` is the fp32 scratch of the ranges: (nsplit,
-// 3, N) for K5; for K6 and K7 `nsplit` blocks of `split_stride` floats,
-// rows of `ld` floats (ld a multiple of 128 and >= d), with N rounded up
-// to 64 rows (K6) or V rounded up to 128 rows (K7).
+// d % 8 == 0; labels (N,) int32; loss, lse (N,) fp32. The vocabulary tiles
+// are cut into `nsplit` ranges of `per` tiles, none empty; `part` (nsplit,
+// 3, N) fp32 is the scratch of the ranges.
 extern "C" int pt_fused_ce_fwd(int dtype, const void* x, const void* w,
                                const void* labels, void* part, void* loss,
                                void* lse, int N, int V, int d, int nsplit,
@@ -774,43 +369,5 @@ extern "C" int pt_fused_ce_fwd(int dtype, const void* x, const void* w,
     return fwd_launch<bf16>(x, w, lab, p, lo, lz, N, V, d, nsplit, per, st);
   if (dtype == pt::kFloat32)
     return fwd_launch<float>(x, w, lab, p, lo, lz, N, V, d, nsplit, per, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int pt_fused_ce_dx(int dtype, const void* x, const void* w,
-                              const void* labels, const void* lse,
-                              const void* g, void* part, void* dx, int N,
-                              int V, int d, int nsplit, int per, int ld,
-                              long split_stride, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lab = static_cast<const int*>(labels);
-  const float* lz = static_cast<const float*>(lse);
-  const float* gr = static_cast<const float*>(g);
-  float* p = static_cast<float*>(part);
-  if (dtype == pt::kBFloat16)
-    return dx_launch<bf16>(x, w, lab, lz, gr, p, dx, N, V, d, nsplit, per,
-                           ld, split_stride, st);
-  if (dtype == pt::kFloat32)
-    return dx_launch<float>(x, w, lab, lz, gr, p, dx, N, V, d, nsplit, per,
-                            ld, split_stride, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int pt_fused_ce_dw(int dtype, const void* x, const void* w,
-                              const void* labels, const void* lse,
-                              const void* g, void* part, void* dw, int N,
-                              int V, int d, int nsplit, int per, int ld,
-                              long split_stride, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lab = static_cast<const int*>(labels);
-  const float* lz = static_cast<const float*>(lse);
-  const float* gr = static_cast<const float*>(g);
-  float* p = static_cast<float*>(part);
-  if (dtype == pt::kBFloat16)
-    return dw_launch<bf16>(x, w, lab, lz, gr, p, dw, N, V, d, nsplit, per,
-                           ld, split_stride, st);
-  if (dtype == pt::kFloat32)
-    return dw_launch<float>(x, w, lab, lz, gr, p, dw, N, V, d, nsplit, per,
-                            ld, split_stride, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

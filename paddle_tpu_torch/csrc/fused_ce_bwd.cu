@@ -1,0 +1,664 @@
+// K6, K7 — the backward of the fused softmax cross-entropy over a
+// projection, for Hopper (sm_90a): dx and dw from one dl per vocab chunk.
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/fused_ce.py:
+// `_dx_kernel` (:89, launched at :178) — K6, dx — and `_dw_kernel` (:107,
+// :199) — K7, dw. For rows x (N, d), weights w (V, d) in embedding layout,
+// int32 labels (negative = ignored), the forward's lse (N,) and the loss
+// cotangent g (N,), zeroed on ignored rows by the caller:
+//
+//   dl = round((exp(x . w^T - lse) - onehot(label)) * g)      (N, V)
+//   K6: dx = dl . w        K7: dw = dl^T . x
+//
+// with dl rounded to the inputs' dtype before its products, as the TPU
+// kernels round it (`_dlogits`, :79-86, `.astype` at :99 and :119).
+//
+// Design. The TPU kernels recompute the logit tile inside both K6 and K7
+// and carry their sums in VMEM along the sequential grid axis. On the H100
+// that carry becomes an fp32 read-modify-write of device memory per tile,
+// and the recompute a fourth product. Instead the vocabulary is cut into
+// chunks of Vc columns (ops/fused_ce.py plans them, the last one ragged),
+// and each chunk [v0, v0 + vc) takes three launches on the caller's
+// stream:
+//   dl pass: dl_c = round(dlogits(x . w_c^T)), an (N, vc) product over d
+//            whose epilogue runs on the accumulators and stores dl_c in
+//            x's dtype into a scratch of N x Vc;
+//   K6:      dx32 (+)= dl_c . w_c, (N, d) over vc: the tile's fp32 sum
+//            starts from dx32 (from 0 in the first chunk), stays in
+//            registers across the chunk, and the last chunk writes dx in
+//            x's dtype, so no second summing pass;
+//   K7:      dw[v0 .. v0 + vc) = dl_c^T . x, (vc, d) over N: each vocab
+//            row belongs to one chunk, so its sum finishes in registers
+//            and is written once, in w's dtype.
+// Three products of N V d multiply-adds where the TPU's K6 and K7 do four
+// (each recomputes the logits), and at most one (N, Vc) chunk of dl held:
+// the (N, V) logits never exist whole.
+//
+// bf16 (the train path): one warp-specialised mainloop for the three
+// products. A block of three warpgroups owns a 128 x 256 output tile. One
+// producer thread issues TMA loads (128-byte swizzle, 64-deep stages, a
+// ring of kStages completed on mbarriers); two consumer warpgroups each run
+// wgmma.mma_async m64n256k16 (bf16 in, fp32 accumulate, both operands from
+// shared memory) on their 64 rows, and the epilogue works on the
+// accumulator registers. Operand majors differ by launch: the dl pass
+// reads x and w_c K-major; K6 reads dl_c K-major and w_c MN-major; K7
+// reads dl_c^T and x both MN-major (wgmma's transpose bits, legal for
+// 16-bit types). Ragged edges: TMA fills rows and columns past a map's
+// extent with zeros, each chunk's maps span the chunk alone (K6 and K7
+// never read the columns a wider chunk left in the scratch), and the
+// epilogues mask their stores; the dl epilogue writes nothing past the
+// chunk or past N, where a zero-filled w row would give exp(0 - lse).
+// K6's accumulators start from its dx32 tile, loaded while the first
+// stages arrive; ptxas reports that this serializes K6's wgmmas (C7515),
+// yet on an H100 SXM the whole backward ran faster so (8.08 ms) than with
+// the dx32 tile added in the epilogue, after the mainloop (8.67 ms).
+// fp32: the same three launches through a CUDA-core tile (64 x 128 per
+// block of 256 threads, 16-deep fp32 stages; the FP32 pipes, no TF32).
+//
+// Bound on the H100. At the train shape (N 8188, d 2048, V 50304, bf16)
+// each product is N V d = 8.44e11 multiply-adds, 1.71 ms at 989 TFLOP/s,
+// so 5.12 ms for the three, against about 0.3 GB of inputs and outputs
+// plus the scratch (dl written once and read twice, dx32 read and written
+// once per chunk, about 2.5 GB at Vc 4096): the tensor cores bound it.
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---- bf16: TMA + wgmma -----------------------------------------------------
+
+constexpr int kBM = 128;            // output rows per block (two warpgroups)
+constexpr int kBN = 256;            // output columns per block
+constexpr int kBK = 64;             // stage depth: one 128-byte bf16 row
+constexpr int kStages = 4;
+constexpr int kWgThreads = 384;     // producer warpgroup + two consumers
+constexpr uint32_t kAtom = 64 * 64 * 2;  // a 64 x 64 bf16 box, in bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// the 2D box of `map` at (c0 innermost, c1) into shared memory at dst; its
+// bytes complete on the mbarrier bar
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// a stage's operand tile: kRows (M or N) rows from r0, 64 deep from k0.
+// K-major: one box {64 deep, kRows} -> [kRows][64], 128-byte rows.
+// MN-major: kRows / 64 boxes {64 wide, 64 deep} -> [64 k][64 mn] each.
+template <bool kMn, int kRows>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map,
+                                          uint32_t dst, uint32_t bar, int r0,
+                                          int k0) {
+  if constexpr (kMn) {
+#pragma unroll
+    for (int i = 0; i < kRows / 64; ++i)
+      tma_load(map, dst + i * kAtom, bar, r0 + 64 * i, k0);
+  } else {
+    tma_load(map, dst, bar, k0, r0);
+  }
+}
+
+// wgmma shared-memory descriptor with 128-byte swizzle: start address,
+// leading and stride byte offsets
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// the descriptor of 16-deep slice kk of a tile, from its row 64 * mn64.
+// K-major: 8-row groups 1024 bytes apart, the slice 32 bytes into each
+// swizzled row. MN-major: 64-wide boxes kAtom apart (the leading offset),
+// 8-deep k groups 1024 bytes apart, the slice two groups (2048 bytes) on.
+template <bool kMn>
+__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int mn64,
+                                                 int kk) {
+  if constexpr (kMn)
+    return gmma_desc(tile + mn64 * kAtom + kk * 2048, kAtom, 1024);
+  else
+    return gmma_desc(tile + mn64 * kAtom + kk * 32, 16, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, fp32) += A (64 x 16) . B (16 x 256), bf16 from shared
+// memory; kTA / kTB: A / B MN-major (transposed)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// the ring, its mbarriers, and slack to align the ring to 1024 bytes
+constexpr int kWgSmem =
+    kStages * (kBM + kBN) * kBK * 2 + 2 * kStages * 8 + 1024;
+
+// out tile (128 x 256 at blockIdx.y * 128, blockIdx.x * 256) = A . B over K,
+// A (M x K) from map ta, B (K x N) from map tb, both bf16, through the
+// epilogue `epi`: the accumulators start from epi.init2 (K6: the fp32 sum
+// so far, loaded while the first stages arrive) and end in epi.put2.
+// Thread t of consumer warpgroup cw holds rows r0 = 64 cw + 16 (t / 32) +
+// (t % 32) / 4 and r0 + 8, columns 8 j + 2 (t % 4) + {0, 1}: acc[4 j + 0,
+// 1] on row r0, acc[4 j + 2, 3] on row r0 + 8.
+template <bool kAMn, bool kBMn, class Epi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ce_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb, int K,
+                 const Epi epi) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t kABytes = kBM * kBK * 2;
+  constexpr uint32_t kStageBytes = kABytes + kBN * kBK * 2;
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + kStages * kStageBytes;  // full[s], empty[s]
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int nk = (K + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps kStages stages of loads in flight
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages)
+          mbar_wait(bars + 8 * (kStages + s), (kt / kStages - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t tile = base + s * kStageBytes;
+        mbar_expect_tx(full, kStageBytes);
+        load_tile<kAMn, kBM>(&ta, tile, full, m0, kt * kBK);
+        load_tile<kBMn, kBN>(&tb, tile + kABytes, full, n0, kt * kBK);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int r0 = m0 + cw * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int c0 = n0 + 2 * (t % 4);
+    const typename Epi::Row row0 = epi.row(r0), row1 = epi.row(r0 + 8);
+    float acc[kBN / 2];
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const float2 u = epi.init2(row0, r0, c0 + 8 * j);
+      const float2 v = epi.init2(row1, r0 + 8, c0 + 8 * j);
+      acc[4 * j] = u.x;
+      acc[4 * j + 1] = u.y;
+      acc[4 * j + 2] = v.x;
+      acc[4 * j + 3] = v.y;
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(bars + 8 * s, (kt / kStages) & 1);
+      const uint32_t tile = base + s * kStageBytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_n256<kAMn, kBMn>(acc, operand_desc<kAMn>(tile, cw, kk),
+                               operand_desc<kBMn>(tile + kABytes, 0, kk));
+      wgmma_commit();
+      fence_acc(acc);
+      // the previous stage's products are done: release its buffers
+      wgmma_wait<1>();
+      if (kt > 0 && t == 0)
+        mbar_arrive(bars + 8 * (kStages + (kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      epi.put2(row0, r0, c0 + 8 * j, acc[4 * j], acc[4 * j + 1]);
+      epi.put2(row1, r0 + 8, c0 + 8 * j, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// ---- fp32: the CUDA cores --------------------------------------------------
+
+constexpr int kSM = 64;             // rows per block
+constexpr int kSN = 128;            // columns per block
+constexpr int kSK = 16;             // stage depth
+constexpr int kSThreads = 256;      // 16 x 16, 4 x 8 outputs each
+
+// thread (ty, tx) = (tid / 16, tid % 16) owns rows 4 ty + i (i < 4) and
+// columns col_of(tx, j) (j < 8): two runs of four, 64 apart
+__device__ __forceinline__ int col_of(int tx, int j) {
+  return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
+}
+
+// acc[i][j] += sum_k a[k][4 ty + i] * b[k][col_of(tx, j)] over one stage;
+// a has row stride kSM, b row stride kSN (both 16-byte aligned)
+__device__ __forceinline__ void mma_stage(const float* a, const float* b,
+                                          float (&acc)[4][8]) {
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+#pragma unroll
+  for (int k = 0; k < kSK; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * kSM + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * kSN + tx * 4);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(b + k * kSN + 64 + tx * 4);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += ar[i] * br[j];
+  }
+}
+
+// out tile (64 x 128) = A . B over K through `epi`, with A(m, k) =
+// a[m * sam + k * sak] (M x K) and B(k, n) = b[k * sbk + n * sbn] (K x N);
+// entries past M, N or K read as 0
+template <class Epi>
+__global__ void __launch_bounds__(kSThreads)
+    ce_bwd_simt(const float* __restrict__ a, long sam, long sak,
+                const float* __restrict__ b, long sbk, long sbn, int M,
+                int Nn, int K, const Epi epi) {
+  __shared__ __align__(16) float sa[kSK * kSM];
+  __shared__ __align__(16) float sb[kSK * kSN];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int m0 = blockIdx.y * kSM, n0 = blockIdx.x * kSN;
+  typename Epi::Row rows[4];
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + 4 * ty + i;
+    rows[i] = epi.row(r);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float2 u = epi.init2(rows[i], r, n0 + col_of(tx, 2 * h));
+      acc[i][2 * h] = u.x;
+      acc[i][2 * h + 1] = u.y;
+    }
+  }
+  for (int k0 = 0; k0 < K; k0 += kSK) {
+    __syncthreads();                       // the previous stage consumed
+#pragma unroll
+    for (int e = 0; e < kSK * kSM / kSThreads; ++e) {
+      const int idx = tid + kSThreads * e;
+      const int m = m0 + idx % kSM, k = k0 + idx / kSM;
+      sa[idx] = m < M && k < K ? a[m * sam + k * sak] : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kSK * kSN / kSThreads; ++e) {
+      const int idx = tid + kSThreads * e;
+      const int n = n0 + idx % kSN, k = k0 + idx / kSN;
+      sb[idx] = n < Nn && k < K ? b[k * sbk + n * sbn] : 0.f;
+    }
+    __syncthreads();
+    mma_stage(sa, sb, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      epi.put2(rows[i], m0 + 4 * ty + i, n0 + col_of(tx, 2 * h),
+               acc[i][2 * h], acc[i][2 * h + 1]);
+}
+
+// ---- epilogues -------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <>
+__device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// the pair (c, c + 1) of row r into out[r * ld + c ..] in T, c even; the
+// second only where c + 1 < n
+template <typename T>
+__device__ __forceinline__ void put_pair(T* out, long ld, int r, int c,
+                                         int n, float a, float b) {
+  T* p = out + r * ld + c;
+  if (c + 1 < n)
+    store2(p, a, b);
+  else
+    *p = pt::from_float<T>(a);
+}
+
+// dl pass: the chunk's dlogits (columns [v0, v0 + Nn) of the vocabulary)
+// into dl, row stride ld, in T; nothing past row M or column Nn
+template <typename T>
+struct DlEpi {
+  T* dl;
+  const int* labels;
+  const float* lse;
+  const float* g;
+  int M, Nn, ld, v0;
+
+  struct Row {
+    int lab;  // the label's column within the chunk (negative: none)
+    float lz, g;
+  };
+  __device__ Row row(int r) const {
+    if (r >= M) return {-1, 0.f, 0.f};
+    return {labels[r] < 0 ? -1 : labels[r] - v0, lse[r], g[r]};
+  }
+  __device__ float2 init2(const Row&, int, int) const {
+    return make_float2(0.f, 0.f);
+  }
+  __device__ float dlogit(const Row& w, int c, float s) const {
+    return (__expf(s - w.lz) - (c == w.lab ? 1.f : 0.f)) * w.g;
+  }
+  __device__ void put2(const Row& w, int r, int c, float a, float b) const {
+    if (r >= M || c >= Nn) return;
+    put_pair(dl, ld, r, c, Nn, dlogit(w, c, a), dlogit(w, c + 1, b));
+  }
+};
+
+// K6: the chunk's product added to dx32 (from 0 in the first chunk); the
+// last chunk writes dx in T instead
+template <typename T>
+struct DxEpi {
+  float* dx32;
+  T* dx;
+  int M, Nn, first, last;
+
+  struct Row {};
+  __device__ Row row(int) const { return {}; }
+  __device__ float2 init2(const Row&, int r, int c) const {
+    if (first || r >= M || c >= Nn) return make_float2(0.f, 0.f);
+    const float* p = dx32 + static_cast<long>(r) * Nn + c;
+    return c + 1 < Nn ? *reinterpret_cast<const float2*>(p)
+                      : make_float2(p[0], 0.f);
+  }
+  __device__ void put2(const Row&, int r, int c, float a, float b) const {
+    if (r >= M || c >= Nn) return;
+    if (last)
+      put_pair(dx, Nn, r, c, Nn, a, b);
+    else
+      put_pair(dx32, Nn, r, c, Nn, a, b);
+  }
+};
+
+// K7: the chunk's rows of dw (dw + v0 * d), in T
+template <typename T>
+struct DwEpi {
+  T* dw;
+  int M, Nn;
+
+  struct Row {};
+  __device__ Row row(int) const { return {}; }
+  __device__ float2 init2(const Row&, int, int) const {
+    return make_float2(0.f, 0.f);
+  }
+  __device__ void put2(const Row&, int r, int c, float a, float b) const {
+    if (r >= M || c >= Nn) return;
+    put_pair(dw, Nn, r, c, Nn, a, b);
+  }
+};
+
+// ---- host ------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime
+// (this library does not link libcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a bf16 operand stored as `outer` rows of `inner` elements,
+// `ld` apart, read as a kMn / kRows tile of load_tile (K-major: boxes {64,
+// kRows}; MN-major: {64, 64}); entries past the extents read as zeros
+template <bool kMn, int kRows>
+int operand_map(CUtensorMap* map, const void* base, long inner, long outer,
+                long ld) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, kMn ? 64u : static_cast<cuuint32_t>(kRows)};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+          dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C (M x Nn) = A (M x K) . B (K x Nn) through epi on the tensor cores; A
+// stored as `a_inner` x `a_outer` (ld a_ld), B likewise
+template <bool kAMn, bool kBMn, class Epi>
+int wg_gemm(const void* a, long a_inner, long a_outer, long a_ld,
+            const void* b, long b_inner, long b_outer, long b_ld, int M,
+            int Nn, int K, const Epi& epi, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  int rc = operand_map<kAMn, kBM>(&ta, a, a_inner, a_outer, a_ld);
+  if (rc == 0) rc = operand_map<kBMn, kBN>(&tb, b, b_inner, b_outer, b_ld);
+  if (rc != 0) return rc;
+  const auto kernel = ce_bwd_wgmma<kAMn, kBMn, Epi>;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem));
+  if (rc != 0) return rc;
+  const dim3 grid((Nn + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  kernel<<<grid, kWgThreads, kWgSmem, st>>>(ta, tb, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the same on the CUDA cores, A and B by element strides
+template <class Epi>
+int simt_gemm(const float* a, long sam, long sak, const float* b, long sbk,
+              long sbn, int M, int Nn, int K, const Epi& epi,
+              cudaStream_t st) {
+  const dim3 grid((Nn + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+  ce_bwd_simt<Epi><<<grid, kSThreads, 0, st>>>(a, sam, sak, b, sbk, sbn, M,
+                                               Nn, K, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One vocab chunk [v0, v0 + vc) per call. x (N, d) and w (V, d)
+// contiguous, 16-byte aligned, of one dtype, d % 8 == 0; labels (N,)
+// int32; lse, g (N,) fp32; dl (N, ld) in x's dtype with vc <= ld, ld % 8
+// == 0; dx32 (N, d) fp32 (unused when the call is both first and last).
+
+// the dl pass: dl[:, :vc] = the chunk's dlogits
+extern "C" int pt_ce_bwd_dl(int dtype, const void* x, const void* w,
+                            const void* labels, const void* lse,
+                            const void* g, void* dl, int N, int d, int v0,
+                            int vc, int ld, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lab = static_cast<const int*>(labels);
+  const float* lz = static_cast<const float*>(lse);
+  const float* gr = static_cast<const float*>(g);
+  const long off = static_cast<long>(v0) * d;
+  if (dtype == pt::kBFloat16) {
+    const DlEpi<bf16> epi{static_cast<bf16*>(dl), lab, lz, gr, N, vc, ld, v0};
+    return wg_gemm<false, false>(x, d, N, d,
+                                 static_cast<const bf16*>(w) + off, d, vc,
+                                 d, N, vc, d, epi, st);
+  }
+  if (dtype == pt::kFloat32) {
+    const DlEpi<float> epi{static_cast<float*>(dl), lab, lz, gr, N, vc, ld,
+                           v0};
+    return simt_gemm(static_cast<const float*>(x), d, 1,
+                     static_cast<const float*>(w) + off, 1, d, N, vc, d, epi,
+                     st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K6: dx32 (+)= dl[:, :vc] . w[v0 .. v0 + vc); `first` overwrites, `last`
+// writes dx in x's dtype
+extern "C" int pt_ce_bwd_dx(int dtype, const void* dl, const void* w,
+                            void* dx32, void* dx, int N, int d, int v0,
+                            int vc, int ld, int first, int last,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* acc = static_cast<float*>(dx32);
+  const long off = static_cast<long>(v0) * d;
+  if (dtype == pt::kBFloat16) {
+    const DxEpi<bf16> epi{acc, static_cast<bf16*>(dx), N, d, first, last};
+    return wg_gemm<false, true>(dl, vc, N, ld,
+                                static_cast<const bf16*>(w) + off, d, vc, d,
+                                N, d, vc, epi, st);
+  }
+  if (dtype == pt::kFloat32) {
+    const DxEpi<float> epi{acc, static_cast<float*>(dx), N, d, first, last};
+    return simt_gemm(static_cast<const float*>(dl), ld, 1,
+                     static_cast<const float*>(w) + off, d, 1, N, d, vc, epi,
+                     st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K7: dw[v0 .. v0 + vc) = dl[:, :vc]^T . x
+extern "C" int pt_ce_bwd_dw(int dtype, const void* dl, const void* x,
+                            void* dw, int N, int d, int v0, int vc, int ld,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long off = static_cast<long>(v0) * d;
+  if (dtype == pt::kBFloat16) {
+    const DwEpi<bf16> epi{static_cast<bf16*>(dw) + off, vc, d};
+    return wg_gemm<true, true>(dl, vc, N, ld, x, d, N, d, vc, d, N, epi, st);
+  }
+  if (dtype == pt::kFloat32) {
+    const DwEpi<float> epi{static_cast<float*>(dw) + off, vc, d};
+    return simt_gemm(static_cast<const float*>(dl), 1, ld,
+                     static_cast<const float*>(x), d, 1, vc, d, N, epi, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

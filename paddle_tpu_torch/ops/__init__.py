@@ -10,7 +10,10 @@ __all__ = ["launch_counters"]
 def launch_counters():
     """Every kernel wrapper of the port, by name. Each wrapper's
     ``launches`` attribute counts the CUDA launches it made (a CPU call
-    runs the plain version and counts nothing)."""
+    runs the plain version and counts nothing). ``fused_ce_bwd`` launches
+    three kernels per vocab chunk, each with its own counter:
+    ``fused_ce_dl`` (the dl pass), ``fused_ce_dx`` (K6), ``fused_ce_dw``
+    (K7)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as ce
     from paddle_tpu_torch.ops.decode_attention import decode_attention
@@ -26,8 +29,8 @@ def launch_counters():
             "paged_decode_attention": paged_decode_attention,
             "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_dx": ce.fused_ce_dx,
-            "fused_ce_dw": ce.fused_ce_dw,
+            "fused_ce_fwd": ce.fused_ce_fwd, "fused_ce_dl": ce._dl_pass,
+            "fused_ce_dx": ce._dx_chunk, "fused_ce_dw": ce._dw_chunk,
             "decode_attention": decode_attention,
             "int8_matmul": int8_matmul,
             "mega_decode_layers": mega_decode_layers,

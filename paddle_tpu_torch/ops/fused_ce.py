@@ -2,21 +2,27 @@
 its plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/fused_ce.py``. The CUDA kernels
-in ``csrc/fused_ce.cu`` replace its Pallas TPU kernels ``_fwd_kernel``
-(K5, the ``pl.pallas_call`` at fused_ce.py:153), ``_dx_kernel`` (K6,
-:178) and ``_dw_kernel`` (K7, :199); the source note says what bounds
-them on the H100 and what the design does about that. The kernels never
-write the (N, V) logits to device memory; bf16 inputs run their
-products on the tensor cores, fp32 inputs on the FP32 pipes.
+replace its Pallas TPU kernels ``_fwd_kernel`` (K5, the ``pl.pallas_call``
+at fused_ce.py:153; ``csrc/fused_ce.cu``), ``_dx_kernel`` (K6, :178) and
+``_dw_kernel`` (K7, :199; both ``csrc/fused_ce_bwd.cu``); the source notes
+say what bounds them on the H100 and what the designs do about that. K5
+never writes the (N, V) logits to device memory. The backward
+(``fused_ce_bwd``) cuts the vocabulary into chunks (``plan_chunks``) and
+runs three launches per chunk: a dl pass that writes one (N, chunk) tile
+of dlogits in the inputs' dtype, K6 adding its product into dx and K7
+writing the chunk's rows of dw; so at most one (N, chunk) block of dl
+exists, never the (N, V) logits whole. bf16 inputs run their products on
+the tensor cores, fp32 inputs on the FP32 pipes.
 
 ``fused_softmax_cross_entropy`` is differentiable in x and w (a
 ``torch.autograd.Function``, the counterpart of the JAX ``_fused_ce``
-custom_vjp): CUDA tensors launch K5 forward and K6, K7 backward; CPU
-tensors run ``fused_ce_reference`` and ``fused_ce_bwd_reference``, which
-compute the same function through one full (N, V) fp32 logits tensor.
-``fused_ce_plain`` is the same differentiable function through the plain
-versions on any device. The JAX function pads rows to its row block; the
-kernels mask the ragged last tile instead, so no padded copy is made.
+custom_vjp): CUDA tensors launch K5 forward and ``fused_ce_bwd`` backward;
+CPU tensors run ``fused_ce_reference`` and ``fused_ce_bwd_reference``,
+which compute the same function through one full (N, V) fp32 logits
+tensor. ``fused_ce_plain`` is the same differentiable function through
+the plain versions on any device. The JAX function pads rows to its row
+block; the kernels mask the ragged last tile instead, so no padded copy
+is made.
 """
 
 import ctypes
@@ -28,10 +34,13 @@ from paddle_tpu_torch.ops import _build
 
 __all__ = ["fused_softmax_cross_entropy", "fused_ce_plain",
            "fused_ce_reference", "fused_ce_bwd_reference", "fused_ce_fwd",
-           "fused_ce_dx", "fused_ce_dw"]
+           "fused_ce_bwd", "plan_chunks", "CHUNK"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BM, _BN = 64, 128          # the kernels' row and vocab tiles
+_BM, _BN = 64, 128          # K5's row and vocab tiles
+# the backward's vocab chunk: dl (N, CHUNK) in x's dtype and the fp32 dx
+# sum (N, d) are its scratch
+CHUNK = 4096
 
 
 def _logits(x, w):
@@ -70,19 +79,21 @@ def fused_ce_bwd_reference(x, w, labels, lse, g):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-_VP, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "pt_fused_ce_fwd": [_I] + [_VP] * 6 + [_I] * 5 + [_VP],
-    "pt_fused_ce_dx": [_I] + [_VP] * 7 + [_I] * 6 + [_L, _VP],
-    "pt_fused_ce_dw": [_I] + [_VP] * 7 + [_I] * 6 + [_L, _VP],
+    "pt_fused_ce_fwd": ("fused_ce", [_I] + [_VP] * 6 + [_I] * 5 + [_VP]),
+    "pt_ce_bwd_dl": ("fused_ce_bwd", [_I] + [_VP] * 6 + [_I] * 5 + [_VP]),
+    "pt_ce_bwd_dx": ("fused_ce_bwd", [_I] + [_VP] * 4 + [_I] * 7 + [_VP]),
+    "pt_ce_bwd_dw": ("fused_ce_bwd", [_I] + [_VP] * 3 + [_I] * 5 + [_VP]),
 }
 
 
 def _entry(fn_name):
-    lib = _build.load("fused_ce")
+    lib_name, argtypes = _ARGTYPES[fn_name]
+    lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[fn_name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
 
@@ -128,15 +139,6 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _scratch(nsplit, rows, tile, d, device):
-    """fp32 range buffers of the backward kernels: rows rounded up to
-    the kernels' tile and d to 128 columns (the tensor-core path writes
-    whole 16 x 16 fragments)."""
-    ld = math.ceil(d / _BN) * _BN
-    return torch.empty((nsplit, math.ceil(rows / tile) * tile, ld),
-                       dtype=torch.float32, device=device)
-
-
 def fused_ce_fwd(x, w, labels):
     """K5: ``(loss, lse)``, both (N,) fp32, for CUDA tensors."""
     _check(x, w, labels)
@@ -158,47 +160,97 @@ def fused_ce_fwd(x, w, labels):
     return loss, lse
 
 
-def fused_ce_dx(x, w, labels, lse, g):
-    """K6: dx (N, d) in x's dtype, for CUDA tensors; ``g`` (N,) fp32 is
-    the loss cotangent, already 0 on ignored rows."""
-    _check(x, w, labels, lse, g)
-    n, d = x.shape
-    V = w.shape[0]
-    dx = torch.empty_like(x)
-    if n == 0:
-        return dx
-    nsplit, per = _ranges(math.ceil(V / _BN), math.ceil(n / _BM), x.device)
-    part = _scratch(nsplit, n, _BM, d, x.device)
-    lib, fn = _entry("pt_fused_ce_dx")
-    with torch.cuda.device(x.device):
-        fused_ce_dx.launches += 1
-        rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                part.data_ptr(), dx.data_ptr(), n, V, d, nsplit, per,
-                part.shape[2], part[0].numel(), _stream(x))
-    _build.check(lib, rc, "fused_ce_dx launch")
-    return dx
+def plan_chunks(V: int, width: int = CHUNK):
+    """The backward's vocab chunks: ``[(v0, vc), ...]`` covering [0, V) in
+    order, ``width`` columns each and the last ragged; none empty. The
+    width is a positive multiple of 8 (dl's rows are read by TMA, whose
+    row stride is a multiple of 16 bytes)."""
+    if width <= 0 or width % 8:
+        raise ValueError(f"chunk width must be a positive multiple of 8, "
+                         f"got {width}")
+    return [(v0, min(width, V - v0)) for v0 in range(0, V, width)]
 
 
-def fused_ce_dw(x, w, labels, lse, g):
-    """K7: dw (V, d) in w's dtype, for CUDA tensors (arguments as K6)."""
-    _check(x, w, labels, lse, g)
+def _dl_pass(x, w, labels, lse, g, dl, v0, vc):
+    """The dl pass of chunk [v0, v0 + vc): dl[:, :vc] = the chunk's
+    dlogits in x's dtype."""
+    lib, fn = _entry("pt_ce_bwd_dl")
     n, d = x.shape
-    V = w.shape[0]
+    _dl_pass.launches += 1
+    rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+            labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dl.data_ptr(),
+            n, d, v0, vc, dl.shape[1], _stream(x))
+    _build.check(lib, rc, "fused_ce_bwd dl pass launch")
+
+
+def _dx_chunk(dl, w, dx32, dx, v0, vc, first, last):
+    """K6 on chunk [v0, v0 + vc): dx32 (+)= dl[:, :vc] . w[v0:v0 + vc];
+    ``last`` writes dx in its dtype instead."""
+    lib, fn = _entry("pt_ce_bwd_dx")
+    n, d = dx.shape
+    _dx_chunk.launches += 1
+    rc = fn(_DTYPE_CODES[dx.dtype], dl.data_ptr(), w.data_ptr(),
+            dx32.data_ptr(), dx.data_ptr(), n, d, v0, vc, dl.shape[1],
+            int(first), int(last), _stream(dx))
+    _build.check(lib, rc, "fused_ce_bwd K6 launch")
+
+
+def _dw_chunk(dl, x, dw, v0, vc):
+    """K7 on chunk [v0, v0 + vc): dw[v0:v0 + vc] = dl[:, :vc]^T . x."""
+    lib, fn = _entry("pt_ce_bwd_dw")
+    n, d = x.shape
+    _dw_chunk.launches += 1
+    rc = fn(_DTYPE_CODES[x.dtype], dl.data_ptr(), x.data_ptr(),
+            dw.data_ptr(), n, d, v0, vc, dl.shape[1], _stream(x))
+    _build.check(lib, rc, "fused_ce_bwd K7 launch")
+
+
+def _bwd_plain(x, w, labels, lse, g, chunks):
+    """The three passes chunk by chunk in plain PyTorch: dl rounded to
+    x's dtype, dx summed in fp32 across the chunks, each chunk's rows of
+    dw written once."""
+    dx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     dw = torch.empty_like(w)
-    if n == 0:
-        return dw.zero_()
-    nsplit, per = _ranges(math.ceil(n / _BM), math.ceil(V / _BN), x.device)
-    part = _scratch(nsplit, V, _BN, d, x.device)
-    lib, fn = _entry("pt_fused_ce_dw")
+    lab = labels.long()
+    for v0, vc in chunks:
+        wc = w[v0:v0 + vc].float()
+        cols = torch.arange(v0, v0 + vc, device=x.device)
+        onehot = (cols[None, :] == lab[:, None]).float()
+        dl = ((torch.exp(x.float() @ wc.t() - lse[:, None]) - onehot)
+              * g[:, None]).to(x.dtype).float()
+        dx32 += dl @ wc
+        dw[v0:v0 + vc] = (dl.t() @ x.float()).to(w.dtype)
+    return dx32.to(x.dtype), dw
+
+
+def fused_ce_bwd(x, w, labels, lse, g, *, chunk: int = CHUNK):
+    """K6 and K7: ``(dx, dw)`` in x's and w's dtypes for the per-row loss
+    cotangent ``g`` (N,) fp32, already 0 on ignored rows, and the
+    forward's ``lse``. The vocabulary is cut into chunks of ``chunk``
+    columns (``plan_chunks``); each takes a dl pass, K6 and K7 on CUDA
+    tensors (one launch each), or the same passes in plain PyTorch on
+    CPU tensors."""
+    _check(x, w, labels, lse, g)
+    n, d = x.shape
+    V = w.shape[0]
+    chunks = plan_chunks(V, chunk)
+    if n == 0 or V == 0:
+        return torch.zeros_like(x), torch.zeros_like(w)
+    if x.device.type == "cpu":
+        return _bwd_plain(x, w, labels, lse, g, chunks)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    dl = torch.empty((n, min(chunk, -(-V // 8) * 8)), dtype=x.dtype,
+                     device=x.device)
+    # one chunk writes dx directly and needs no fp32 sum
+    dx32 = (torch.empty((n, d), dtype=torch.float32, device=x.device)
+            if len(chunks) > 1 else dx)
     with torch.cuda.device(x.device):
-        fused_ce_dw.launches += 1
-        rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                part.data_ptr(), dw.data_ptr(), n, V, d, nsplit, per,
-                part.shape[2], part[0].numel(), _stream(x))
-    _build.check(lib, rc, "fused_ce_dw launch")
-    return dw
+        for i, (v0, vc) in enumerate(chunks):
+            _dl_pass(x, w, labels, lse, g, dl, v0, vc)
+            _dx_chunk(dl, w, dx32, dx, v0, vc, i == 0, i == len(chunks) - 1)
+            _dw_chunk(dl, x, dw, v0, vc)
+    return dx, dw
 
 
 class _FusedCE(torch.autograd.Function):
@@ -224,8 +276,7 @@ class _FusedCE(torch.autograd.Function):
         if ctx.plain:
             dx, dw = fused_ce_bwd_reference(x, w, labels, lse, g)
         else:
-            dx = fused_ce_dx(x, w, labels, lse, g)
-            dw = fused_ce_dw(x, w, labels, lse, g)
+            dx, dw = fused_ce_bwd(x, w, labels, lse, g)
         return dx, dw, None, None
 
 
@@ -247,8 +298,9 @@ def fused_softmax_cross_entropy(x, w, labels):
     x (N, d) final hidden rows (post head-LN); w (V, d) in embedding
     layout (the tied wte feeds it directly); labels (N,) int, negative
     ones ignored (0 loss, 0 grad). CUDA tensors launch K5 and, in the
-    backward, K6 and K7 (float32 or bfloat16, d % 8 == 0); CPU tensors
-    run the plain versions.
+    backward, ``fused_ce_bwd``'s dl pass, K6 and K7 per vocab chunk
+    (float32 or bfloat16, d % 8 == 0); CPU tensors run the plain
+    versions.
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
@@ -263,5 +315,6 @@ def fused_ce_plain(x, w, labels):
 
 
 fused_ce_fwd.launches = 0
-fused_ce_dx.launches = 0
-fused_ce_dw.launches = 0
+_dl_pass.launches = 0
+_dx_chunk.launches = 0
+_dw_chunk.launches = 0

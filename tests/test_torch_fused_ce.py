@@ -2,8 +2,10 @@
 versions ``fused_ce_reference`` and ``fused_ce_bwd_reference``, which CPU
 tensors take through the differentiable ``fused_softmax_cross_entropy``,
 against the JAX package's ``fused_softmax_cross_entropy`` (Pallas,
-interpret mode on the CPU) and its ``jax.grad``, in fp32. The CUDA
-kernels are held against the same plain versions on the GPU
+interpret mode on the CPU) and its ``jax.grad``, in fp32; the backward's
+vocab chunk plan (``plan_chunks``) and its three passes composed chunk by
+chunk (``fused_ce_bwd`` on CPU tensors) against both. The CUDA kernels
+are held against the same plain versions on the GPU
 (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import jax
@@ -16,9 +18,10 @@ from paddle_tpu.ops.pallas.fused_ce import _pick_block_v
 from paddle_tpu.ops.pallas.fused_ce import (
     fused_softmax_cross_entropy as jax_fused_ce)
 from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.ops import launch_counters
 from paddle_tpu_torch.ops.fused_ce import (
-    fused_ce_bwd_reference, fused_ce_dw, fused_ce_dx, fused_ce_fwd,
-    fused_ce_plain, fused_ce_reference, fused_softmax_cross_entropy)
+    CHUNK, fused_ce_bwd, fused_ce_bwd_reference, fused_ce_plain,
+    fused_ce_reference, fused_softmax_cross_entropy, plan_chunks)
 
 # fp32 on both sides; the logsumexp runs online over 128-512-wide vocab
 # blocks in JAX and in one pass here, and dx/dw sum over the vocab or
@@ -120,7 +123,9 @@ def test_plain_functions_agree_with_torch_cross_entropy():
 
 def test_cpu_path_is_the_plain_path_and_counts_no_launch():
     x, w, labels, g = _inputs("v256_all_valid")
-    fns = (fused_ce_fwd, fused_ce_dx, fused_ce_dw)
+    fns = [fn for name, fn in launch_counters().items()
+           if name.startswith("fused_ce_")]
+    assert len(fns) == 4            # K5, the dl pass, K6, K7
     before = [f.launches for f in fns]
     out = []
     for fn in (fused_softmax_cross_entropy, fused_ce_plain):
@@ -131,7 +136,97 @@ def test_cpu_path_is_the_plain_path_and_counts_no_launch():
                                                 torch.from_numpy(g)))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+    xt, wt, lt = (torch.from_numpy(a) for a in (x, w, labels))
+    _, lse = fused_ce_reference(xt, wt, lt)
+    fused_ce_bwd(xt, wt, lt, lse, torch.from_numpy(g), chunk=64)
     assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("V", [1, 130, 512, 1152, 50304])
+@pytest.mark.parametrize("width", [8, 64, 256, 2048, CHUNK])
+def test_plan_chunks_covers_the_vocabulary(V, width):
+    """[0, V) exactly, in order, no chunk empty, every chunk but the last
+    ``width`` wide."""
+    chunks = plan_chunks(V, width)
+    assert chunks and chunks[0][0] == 0
+    assert all(vc > 0 for _, vc in chunks)
+    assert all(vc == width for _, vc in chunks[:-1])
+    assert chunks[-1][1] <= width
+    ends = [v0 + vc for v0, vc in chunks]
+    assert [v0 for v0, _ in chunks[1:]] == ends[:-1]
+    assert ends[-1] == V
+    assert len(chunks) == -(-V // width)
+
+
+@pytest.mark.parametrize("width", [0, -8, 12, 100])
+def test_plan_chunks_rejects_bad_widths(width):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        plan_chunks(512, width)
+
+
+# chunk widths that leave a ragged last chunk: 512 = 7 x 72 + 8,
+# 1152 = 5 x 200 + 152, 256 = 2 x 96 + 64
+CHUNKED = {"v512": 72, "v1152_block_v384": 200, "v256_all_valid": 96}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_chunked_backward_matches_reference_and_jax_grad(name):
+    """The three passes composed chunk by chunk (dl rounded to the dtype,
+    dx summed in fp32 across the chunks, dw written per chunk): what
+    ``fused_ce_bwd`` runs on CPU tensors, the kernels' chunk plan, held
+    against ``fused_ce_bwd_reference`` and the JAX gradient."""
+    x, w, labels, g = _inputs(name)
+    g = np.where(labels >= 0, g, 0).astype(np.float32)  # the caller's g
+    chunk = CHUNKED[name]
+    assert plan_chunks(w.shape[0], chunk)[-1][1] < chunk
+
+    def loss(x, w):
+        per = jax_fused_ce(x, w, jnp.asarray(labels), interpret=True)
+        return jnp.sum(per * jnp.asarray(g))
+
+    want_dx, want_dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                                      jnp.asarray(w))
+    xt, wt, lt, gt = (torch.from_numpy(a) for a in (x, w, labels, g))
+    _, lse = fused_ce_reference(xt, wt, lt)
+    dx, dw = fused_ce_bwd(xt, wt, lt, lse, gt, chunk=chunk)
+    ref_dx, ref_dw = fused_ce_bwd_reference(xt, wt, lt, lse, gt)
+    assert dx.dtype == dw.dtype == torch.float32
+    torch.testing.assert_close(dx, ref_dx, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(dw, ref_dw, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), atol=ATOL,
+                               rtol=RTOL)
+    assert np.all(dx.numpy()[labels < 0] == 0)
+
+
+def test_chunked_backward_rounds_dl_to_bf16():
+    """In bf16, each chunk's dl is rounded before its products, as
+    ``fused_ce_bwd_reference`` rounds the whole dl: the same dx and dw
+    up to fp32 summation order, then one bf16 rounding."""
+    x, w, labels, g = _inputs("v1152_block_v384")
+    g = np.where(labels >= 0, g, 0).astype(np.float32)
+    xt, wt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    lt, gt = torch.from_numpy(labels), torch.from_numpy(g)
+    _, lse = fused_ce_reference(xt, wt, lt)
+    dx, dw = fused_ce_bwd(xt, wt, lt, lse, gt, chunk=200)
+    ref_dx, ref_dw = fused_ce_bwd_reference(xt, wt, lt, lse, gt)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    for got, ref in ((dx, ref_dx), (dw, ref_dw)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2.0 ** -7)
+
+
+def test_fused_ce_bwd_checks_its_inputs():
+    x, w = torch.zeros(4, 16), torch.zeros(8, 16)
+    labels = torch.zeros(4, dtype=torch.int32)
+    lse = torch.zeros(4)
+    with pytest.raises(ValueError, match="lse and g"):
+        fused_ce_bwd(x, w, labels, lse, torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_ce_bwd(x, w.double(), labels, lse, lse)
+    dx, dw = fused_ce_bwd(x[:0], w, labels[:0], lse[:0], lse[:0])
+    assert dx.shape == (0, 16) and torch.equal(dw, torch.zeros_like(w))
 
 
 def test_shape_errors_raise():

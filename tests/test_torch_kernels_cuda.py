@@ -27,9 +27,10 @@ from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_reference)
+from paddle_tpu_torch.ops import fused_ce as ce
 from paddle_tpu_torch.ops.fused_ce import (
-    fused_ce_bwd_reference, fused_ce_dw, fused_ce_dx, fused_ce_fwd,
-    fused_ce_reference, fused_softmax_cross_entropy)
+    fused_ce_bwd, fused_ce_bwd_reference, fused_ce_fwd, fused_ce_reference,
+    fused_softmax_cross_entropy, plan_chunks)
 from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
 from paddle_tpu_torch.ops.decode_megakernel import (
@@ -239,14 +240,19 @@ def test_flash_autograd_on_gpu_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n, d, V", [(200, 64, 1000), (64, 32, 256),
-                                     (333, 128, 4096), (1, 8, 130)])
-def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V):
+@pytest.mark.parametrize("n, d, V, chunk", [
+    (200, 64, 1000, None), (64, 32, 256, None), (333, 128, 4096, None),
+    (1, 8, 130, None),
+    # several chunks with a ragged last one; rows no multiple of 128
+    (200, 64, 1000, 256), (333, 128, 4096, 1536), (130, 72, 1000, 8),
+    (517, 256, 2000, 512)])
+def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V, chunk):
     """K5 against fused_ce_reference (loss and lse to 1e-4 of the
-    largest; both sum fp32 products of the same inputs), K6/K7 against
-    fused_ce_bwd_reference (tolerance as for attention). Ragged rows,
-    a vocabulary that is no multiple of the 128-column tile, ignored
-    labels."""
+    largest; both sum fp32 products of the same inputs), the backward's
+    dl pass, K6 and K7 (``fused_ce_bwd``, one launch of each per vocab
+    chunk) against fused_ce_bwd_reference (tolerance as for attention).
+    Ragged rows, a vocabulary that is no multiple of the tiles, ignored
+    labels, and chunk widths that leave a ragged last chunk."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     x = _randn(gen, (n, d), dtype, dev)
@@ -256,13 +262,15 @@ def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V):
     labels[::3] = -1
     g = torch.randn((n,), generator=gen, device=dev)
     g = torch.where(labels >= 0, g, torch.zeros_like(g))
-    before = [f.launches for f in (fused_ce_fwd, fused_ce_dx, fused_ce_dw)]
+    kw = {} if chunk is None else {"chunk": chunk}
+    chunks = len(plan_chunks(V, chunk or ce.CHUNK))
+    fns = (fused_ce_fwd, ce._dl_pass, ce._dx_chunk, ce._dw_chunk)
+    before = [f.launches for f in fns]
     loss, lse = fused_ce_fwd(x, w, labels)
-    dx = fused_ce_dx(x, w, labels, lse, g)
-    dw = fused_ce_dw(x, w, labels, lse, g)
+    dx, dw = fused_ce_bwd(x, w, labels, lse, g, **kw)
     torch.cuda.synchronize()
-    assert [f.launches for f in (fused_ce_fwd, fused_ce_dx,
-                                 fused_ce_dw)] == [c + 1 for c in before]
+    assert [f.launches - c for f, c in zip(fns, before)] == \
+        [1, chunks, chunks, chunks]
     rloss, rlse = fused_ce_reference(x.float(), w.float(), labels)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
@@ -271,6 +279,7 @@ def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V):
     assert dx.dtype == dw.dtype == dtype
     _close(dx, rdx, dtype)
     _close(dw, rdw, dtype)
+    assert torch.all(dx[labels < 0] == 0)
 
 
 def test_fused_ce_autograd_on_gpu_matches_cpu(dev):

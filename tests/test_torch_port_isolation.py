@@ -101,5 +101,6 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
                                         "decode_megakernel",
                                         "flash_attention_bwd",
                                         "flash_attention_fwd", "fused_ce",
-                                        "launch_probe", "layer_norm",
-                                        "paged_attention", "quant_matmul"]
+                                        "fused_ce_bwd", "launch_probe",
+                                        "layer_norm", "paged_attention",
+                                        "quant_matmul"]
