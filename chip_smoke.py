@@ -18,9 +18,10 @@ Phases, each fatal on failure:
    near-uniform softmax and with a peaked one. Each output is held by
    its relative L2 error per tile or row that one block writes
    (``REL_L2_TOL``), so small entries count as much as the largest.
-   Each prints its time (K1, K2, K2', the dl pass, K6, K7: the kernel's
-   profiler device time, and K1, K2, K2' and the whole CE backward also
-   by CUDA events; the others by CUDA events), its plain version's time,
+   Each prints its time (K1, K2, K2', K3, the dl pass, K6, K7: the
+   kernel's profiler device time, and K1, K2, K2', K3 and the whole CE
+   backward also by CUDA events; the others by CUDA events), its plain
+   version's time,
    the library call's time
    where PyTorch has one call for the same function, and its bound: the
    larger of bytes / 3.35 TB/s and FLOPs / 989.4 TFLOP/s;
@@ -711,6 +712,10 @@ def k34_case(torch, dev, gen, hkv):
     del ref
     dkdv_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
         q, k, v, do, lse, delta, True, scale), iters=5, warmup=1)
+    # K3's own device time beside the call's (events)
+    dkdv_kernel_ms = _device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
+        q, k, v, do, lse, delta, True, scale), keys=("flash_bwd_dkdv",),
+        iters=5, warmup=1)
     dq_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, True, scale), iters=5, warmup=1)
     plain_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_reference(
@@ -739,11 +744,13 @@ def k34_case(torch, dev, gen, hkv):
            "max_abs_err": max_abs,
            "tile_rel_l2_max": check["tile_rel_l2_max"],
            "rel_l2": check["rel_l2"], "tol_rel_l2": REL_L2_TOL,
-           "k3_ms": dkdv_ms, "k4_ms": dq_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms,
+           "k3_ms": dkdv_ms, "k3_kernel_ms": dkdv_kernel_ms,
+           "k4_ms": dq_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "timing": "k3_ms, k4_ms: CUDA events around back-to-back "
+                     "calls; k3_kernel_ms: device time (torch.profiler)",
            "k3_bound_ms": dkdv_bound[0], "k3_bound_by": dkdv_bound[1],
            "k4_bound_ms": dq_bound[0], "k4_bound_by": dq_bound[1],
-           "ok": check["ok"]}
+           "ok": bool(check["ok"] and dkdv_kernel_ms is not None)}
     _phase(rec)
     return rec
 
@@ -2624,7 +2631,7 @@ def main():
     paths["slice"] = slice_phase(torch, dev)["launches"]
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms,
-              err, counter=None, only=None):
+              err, counter=None, only=None, design=None):
         by_path = {p: launches[counter or name]
                    for p, launches in paths.items()
                    if only is None or p == only}
@@ -2633,7 +2640,8 @@ def main():
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": library_ms}
+                "bound_by": bound[1], "library_ms": library_ms,
+                **({"design": design} if design else {})}
 
     def paged_entry(name, replaces, main, recs):
         return entry(name, "paged_attention.cu", replaces,
@@ -2645,11 +2653,14 @@ def main():
     fa_py = "paddle_tpu/ops/pallas/flash_attention.py"
     ce_py = "paddle_tpu/ops/pallas/fused_ce.py"
     k34m, ce_r = k34[0], k567
+    # the kernels built on TMA + warp-specialised wgmma (their shared
+    # Hopper pieces in csrc/sm90.cuh)
+    wgmma = "TMA + wgmma, csrc/sm90.cuh"
     print(json.dumps({"kernels": [
         entry("flash_attention", "flash_attention_fwd.cu", f"{fa_py}:213",
               k1[0]["kernel_ms"], k1[0]["plain_ms"],
               (k1[0]["bound_ms"], k1[0]["bound_by"]), k1[0]["library_ms"],
-              max(r["max_abs_err"] for r in k1)),
+              max(r["max_abs_err"] for r in k1), design=wgmma),
         paged_entry("paged_append_attend",
                     "paddle_tpu/ops/pallas/paged_attention.py:306", k2[0],
                     k2),
@@ -2657,11 +2668,11 @@ def main():
                     "paddle_tpu/ops/pallas/paged_attention.py:306",
                     k2p[-1], k2p),
         entry("flash_attention_bwd_dkdv", "flash_attention_bwd.cu",
-              f"{fa_py}:395", k34m["k3_ms"], k34m["plain_ms"],
+              f"{fa_py}:395", k34m["k3_kernel_ms"], k34m["plain_ms"],
               (k34m["k3_bound_ms"], k34m["k3_bound_by"]),
               k34m["library_ms"],
               max(max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"])
-                  for r in k34)),
+                  for r in k34), design=wgmma),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
               f"{fa_py}:433", k34m["k4_ms"], k34m["plain_ms"],
               (k34m["k4_bound_ms"], k34m["k4_bound_by"]),
@@ -2682,19 +2693,21 @@ def main():
               ce_r["library_bwd_ms"],
               max(max(c["dx_max_abs_err"], c["dw_max_abs_err"])
                   for c in (ce_r["check_init_head"],
-                            ce_r["check_peaked"]))),
+                            ce_r["check_peaked"])), design=wgmma),
         entry("fused_ce_dx", "fused_ce_bwd.cu", f"{ce_py}:178",
               ce_r["k6_ms"], ce_r["plain_bwd_ms"],
               (ce_r["k6_bound_ms"], ce_r["k6_bound_by"]),
               ce_r["library_bwd_ms"],
               max(c["dx_max_abs_err"] for c in (ce_r["check_init_head"],
-                                                ce_r["check_peaked"]))),
+                                                ce_r["check_peaked"])),
+              design=wgmma),
         entry("fused_ce_dw", "fused_ce_bwd.cu", f"{ce_py}:199",
               ce_r["k7_ms"], ce_r["plain_bwd_ms"],
               (ce_r["k7_bound_ms"], ce_r["k7_bound_by"]),
               ce_r["library_bwd_ms"],
               max(c["dw_max_abs_err"] for c in (ce_r["check_init_head"],
-                                                ce_r["check_peaked"]))),
+                                                ce_r["check_peaked"])),
+              design=wgmma),
         entry("decode_attention", "decode_attention.cu",
               "paddle_tpu/ops/pallas/decode_attention.py:258",
               k10[0]["kernel_ms"], k10[0]["plain_ms"],
@@ -2732,14 +2745,15 @@ def main():
               (k134[0]["k1_bound_ms"], k134[0]["k1_bound_by"]),
               k134[0]["library_fwd_ms"],
               max(r["max_abs_err"] for r in k134),
-              counter="flash_attention", only="encoder"),
+              counter="flash_attention", only="encoder", design=wgmma),
         entry("flash_attention_bwd_dkdv[bias+dropout]",
               "flash_attention_bwd.cu", f"{fa_py}:395", k134[0]["k3_ms"],
               k134[0]["plain_bwd_ms"],
               (k134[0]["k3_bound_ms"], k134[0]["k3_bound_by"]),
               k134[0]["library_bwd_ms"],
               max(r["max_abs_err"] for r in k134),
-              counter="flash_attention_bwd_dkdv", only="encoder"),
+              counter="flash_attention_bwd_dkdv", only="encoder",
+              design=wgmma),
         entry("flash_attention_bwd_dq[bias+dropout]",
               "flash_attention_bwd.cu", f"{fa_py}:433", k134[0]["k4_ms"],
               k134[0]["plain_bwd_ms"],

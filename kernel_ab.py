@@ -8,23 +8,24 @@ DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
 round runs A, B, B, A, so that a drift over the run falls on both
 alike. Every run is a process of its own, started in its checkout's
-root: it builds that checkout's kernels and times them, without a bias
-or dropout (the GPT paths' calls), at the GPT paths' shapes, in bf16:
-K1 at the serving shapes (B 1, S 128 and 512, 16 heads of 128, causal)
-and at the train shape (B 4, S 2048), K3 and K4 at the train shape;
-the cross-entropy at the train shape (N 4 x 2047, d 2048, V 50304,
-every 7th label ignored, w at the init's std 0.02): K5 (the forward)
-and the backward, K6 + K7 together with everything they launch
-(``fused_ce_bwd`` where the checkout has it, else ``fused_ce_dx`` then
-``fused_ce_dw``). Each time is read twice: the kernel's device time
-from a torch.profiler trace (``kernel_ms``; the backward's sums every
-kernel in the window) and the call's, wrapper included, by CUDA events
-around back-to-back calls (``call_ms``). ``--ce-chunks`` also times a
-checkout's ``fused_ce_bwd`` at those vocab chunk widths (its default
-is timed as above). Prints each
-run's readings as one JSON line tagged with its checkout and round,
-then one line with each checkout's medians. Exits non-zero if a run
-fails.
+root: it builds that checkout's kernels and times them in bf16. At the
+GPT paths' shapes, without a bias or dropout (their calls): K1 at the
+serving shapes (B 1, S 128 and 512, 16 heads of 128, causal) and at the
+train shape (B 4, S 2048), K3 and K4 at the train shape. At the
+incubate encoder's (B 16, S 512, 12 heads of 64, not causal), with its
+padding bias (lengths 128..512) and hash dropout 0.1, as the encoder
+calls them: K1, K3 and K4. The cross-entropy at the train shape (N 4
+x 2047, d 2048, V 50304, every 7th label ignored, w at the init's std
+0.02): K5 (the forward) and the backward, K6 + K7 together with
+everything they launch (``fused_ce_bwd`` where the checkout has it,
+else ``fused_ce_dx`` then ``fused_ce_dw``). Each time is read twice:
+the kernel's device time from a torch.profiler trace (``kernel_ms``;
+the backward's sums every kernel in the window) and the call's, wrapper
+included, by CUDA events around back-to-back calls (``call_ms``).
+``--ce-chunks`` also times a checkout's ``fused_ce_bwd`` at those vocab
+chunk widths (its default is timed as above). Prints each run's
+readings as one JSON line tagged with its checkout and round, then one
+line with each checkout's medians. Exits non-zero if a run fails.
 """
 
 import argparse
@@ -105,6 +106,31 @@ out["k3_B4_S2048"] = {"kernel_ms": device_ms(k3, "flash_bwd_dkdv", 10),
 out["k4_B4_S2048"] = {"kernel_ms": device_ms(k4, "flash_bwd_dq", 10),
                       "call_ms": call_ms(k4, 10)}
 del q, k, v, do, o, lse, delta
+# the incubate encoder's call: B 16, S 512, 12 heads of 64, the padding
+# bias of lengths 128..512 alone, hash dropout 0.1
+B, S, H, D, P, SEED = 16, 512, 12, 64, 0.1, 12345
+q, k, v, do = operands(B, S, H, D)
+lens = torch.linspace(128, S, B, device=dev).round()
+bias = torch.where(torch.arange(S, device=dev)[None, :] < lens[:, None],
+                   0.0, -1e30)[:, None, None, :]
+kw = dict(bias=bias, dropout_p=P, dropout_seed=SEED)
+o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+delta = fa._delta(o, do)
+b4 = fa.attention_bias(bias, B, H, S, S)
+k1 = lambda: fa.flash_attention(q, k, v, **kw)
+k3 = lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, False,
+                                         D ** -0.5, None, b4, P, SEED)
+k4 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False,
+                                       D ** -0.5, None, b4, P, SEED)
+out["k1_enc_B16_S512_D64"] = {"kernel_ms": device_ms(k1, "flash_fwd", 20),
+                              "call_ms": call_ms(k1, 20)}
+out["k3_enc_B16_S512_D64"] = {
+    "kernel_ms": device_ms(k3, "flash_bwd_dkdv", 20),
+    "call_ms": call_ms(k3, 20)}
+out["k4_enc_B16_S512_D64"] = {
+    "kernel_ms": device_ms(k4, "flash_bwd_dq", 20),
+    "call_ms": call_ms(k4, 20)}
+del q, k, v, do, o, lse, delta, bias, b4
 N, d, V = 4 * 2047, 2048, 50304
 x = torch.randn((N, d), generator=gen, device=dev).to(torch.bfloat16)
 w = (0.02 * torch.randn((V, d), generator=gen, device=dev)).to(

@@ -135,6 +135,23 @@ struct AttnExtra : AttnArgs {
     else
       return x;
   }
+  // drop() split in two, so one hash serves several values of a cell:
+  // kept() is the cell's keep bit (true without dropout), scaled(x, k)
+  // the kept value, x times 1 / keep_div (within an fp32 rounding of
+  // drop()'s quotient: a division per cell cost the TMA + wgmma kernels
+  // more than the rest of their dropout), or 0
+  __device__ __forceinline__ bool kept(unsigned bh, int row, int col) const {
+    if constexpr (kDrop)
+      return keep(bh, row, col);
+    else
+      return true;
+  }
+  __device__ __forceinline__ float scaled(float x, bool k) const {
+    if constexpr (kDrop)
+      return k ? x * (1.f / keep_div) : 0.f;
+    else
+      return x;
+  }
 };
 
 // f(AttnExtra<kBias, kDrop>) for the flags `a` sets (a bias pointer, a

@@ -37,12 +37,15 @@
 // its group sum (:412-414); a key tile at or past kv_len writes zeros.
 // As on the TPU, p and ds are rounded to the input dtype before their
 // products. Two paths:
-//  - bf16 with D % 16 == 0 (the train path): tensor cores. Per tile,
-//    S = q . k^T and dP = dO . v^T (64 x 64, wmma 16x16x16, bf16 in, fp32
-//    accumulate) go through shared memory, where the 256 threads form p
-//    and ds; the dq (or dk and dv) accumulators stay in fp32 fragments
-//    for the whole walk, and the tiles of q, k, v and dO are staged in
-//    shared memory with 16-byte loads.
+//  - bf16 with D % 16 == 0 (the train path): tensor cores. K3 is
+//    `flash_bwd_dkdv_sm90` (128-key blocks, a TMA ring of 64-row Q/dO
+//    tiles, warp-specialised wgmma with S^T, dP^T and the dK/dV
+//    accumulators in registers; sm90.cuh holds the Hopper pieces). K4 is
+//    `flash_bwd_dq_tc` (wmma 16x16x16, bf16 in, fp32 accumulate): per
+//    64 x 64 tile, S and dP go through shared memory, where the 256
+//    threads form ds; the dq accumulators stay in fp32 fragments for the
+//    whole walk, and the q, k, v, dO tiles are staged in shared memory
+//    with 16-byte loads.
 //  - otherwise (fp32): the FP32 pipes, four threads per row each holding
 //    32 of the (zero-padded) 128 dims of its row's operands and
 //    accumulators in registers, the other side staged as fp32 in 32-row
@@ -52,13 +55,15 @@
 // causal, bf16) the work is 8 (K3) and 6 (K4) flops per dim of each of
 // the 134 M visible (query, key) pairs, about 137 and 103 GFLOP, against
 // some 200 MB of inputs and outputs: above the ridge, so the bound is the
-// tensor cores' 989 TFLOP/s (about 0.14 and 0.10 ms). The wmma path (one
-// 123 KB block per SM, two barriers per stage, no TMA or wgmma) reaches a
-// fraction of that; a warp-specialised wgmma design is later work
-// (ROADMAP R1). The fp32 path is bound by the FP32 pipes (67 TFLOP/s).
+// tensor cores' 989 TFLOP/s (about 0.14 and 0.10 ms). K3 keeps its four
+// products on wgmma with nothing but the TMA tiles in shared memory; K4's
+// wmma path (one 123 KB block per SM, two barriers per stage, no TMA or
+// wgmma) reaches a fraction of its bound and is next (ROADMAP R1). The
+// fp32 path is bound by the FP32 pipes (67 TFLOP/s).
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -271,15 +276,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// ---- tensor-core path (bf16, D % 16 == 0) ----------------------------------
+// ---- K4 on the tensor cores (bf16, D % 16 == 0) ----------------------------
 //
-// The same two kernels on the tensor cores (wmma 16x16x16, bf16 in, fp32
-// accumulate). A block owns 64 rows (K4: queries, K3: keys) and walks
-// 64-row tiles of the other side. Per tile, S = q . k^T and dP = dO . v^T
+// wmma 16x16x16, bf16 in, fp32 accumulate. A block owns 64 query rows
+// and walks 64-key tiles. Per tile, S = q . k^T and dP = dO . v^T
 // (64 x 64) go through shared memory in fp32, where the 256 threads form
 // p and ds and round them to bf16, as the TPU kernels do before their
-// dots (`p.astype(do.dtype)`, `ds.astype(q.dtype)`); the dq, dk and dv
-// accumulators stay in fp32 fragments for the whole walk.
+// dots (`ds.astype(q.dtype)`); the dq accumulators stay in fp32
+// fragments for the whole walk.
 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -299,8 +303,6 @@ constexpr int kTcSmem = 4 * kTileB + 2 * kScoreB + 2 * kPB + 2 * kT * 4;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
                                 wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                                wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
                                 wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
@@ -478,109 +480,327 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tc(acc, ss, dq, b, q0, Sq, Hq, h, D);
 }
 
-// K3 on the tensor cores: dk and dv for one (b * Hkv + hk, 64-key tile),
-// summed over the query heads of the GQA group
-template <typename Ex>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const int* __restrict__ kv_lens, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
-                  int D, int causal, float scale, Ex ex) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kT * kLd;
-  bf16* ks = dos + kT * kLd;
-  bf16* vs = ks + kT * kLd;
-  float* ss = reinterpret_cast<float*>(vs + kT * kLd);
-  float* dps = ss + kT * kLs;
-  bf16* ps = reinterpret_cast<bf16*>(dps + kT * kLs);   // [q][key]
-  bf16* dss = ps + kT * kLp;                             // [q][key]
-  float* lse_s = reinterpret_cast<float*>(dss + kT * kLp);
-  float* delta_s = lse_s + kT;
-  ex.load_seed();
+// ---- K3 on the tensor cores: TMA + wgmma (bf16, D % 16 == 0) -------------
+//
+// One block of three warpgroups per (b * Hkv + hk, 128-key tile). The K
+// and V tiles stay in shared memory for the whole walk. Warpgroup 0 is
+// the producer: one warp streams (Q, dO) tiles of 64 query rows by TMA
+// through a ring of kStages (4D maps over (D, H, S, B), 64-dim boxes,
+// 128-byte swizzle), with those rows' lse and delta, for every query head
+// of the GQA group and, when causal, from the key tile's diagonal on.
+// Warpgroups 1 and 2 each own 64 keys and keep dK and dV in registers for
+// the whole walk. Per step, transposed so that keys are the rows:
+//   S^T  = K . Q^T                         wgmma m64n64k16, SS
+//   dP^T = V . dO^T                        wgmma m64n64k16, SS
+//   P^T  = exp(S^T scale + bias^T - lse)   masked, in registers
+//   dS^T = P^T (drop(dP^T) - delta) scale  in registers
+//   dV  += drop(P^T) . dO                  wgmma m64nDk16, RS, dO MN-major
+//   dK  += dS^T . Q                        wgmma m64nDk16, RS, Q MN-major
+// with drop(P^T) and dS^T rounded to bf16 and packed in registers as the
+// A operands; nothing but the TMA tiles and the row terms goes through
+// shared memory. The hash and the bias see (row = query, col = key) from
+// the transposed layout. A step whose every query precedes every key of
+// the warpgroup (causal) adds nothing and is skipped. A third ring stage
+// ran faster on an H100 than two; issuing dV before forming dS (to run
+// it beside the elementwise work) ran slower. Registers: the producer
+// warpgroup keeps 40 a thread and the consumers 232 (dK and dV take 128
+// at D 128, S^T and dP^T 64): with 24 / 240 the producer spilled and
+// the kernel ran about 2% slower. At 40 / 232 the instances the GPT and
+// encoder paths run (D 128 without bias or dropout, D 64 with both) do
+// not spill; the D 128 ones with a bias or dropout spill 40-120 bytes.
 
+using namespace sm90;
+
+constexpr int kKeys3 = 128;                // keys per block
+constexpr int kRows3 = 64;                 // query rows per stage
+constexpr int kStages3 = 3;
+constexpr int kWgThreads = 384;            // producer + two consumers
+constexpr uint32_t kKBox = kKeys3 * 128;   // a 64-dim box of 128 keys
+constexpr uint32_t kQBox = kRows3 * 128;   // a 64-dim box of 64 rows
+
+template <int DP>
+struct DkdvSmem {                          // byte offsets from the base
+  static constexpr uint32_t kKV = (DP / 64) * kKBox;    // the K or V tile
+  static constexpr uint32_t kQ = (DP / 64) * kQBox;     // a Q or dO tile
+  // a stage: Q, dO, then the rows' lse and delta; 1024-byte aligned
+  static constexpr uint32_t kStage =
+      (2 * kQ + 2 * kRows3 * 4 + 1023) / 1024 * 1024;
+  static constexpr uint32_t kRing = 2 * kKV;
+  static constexpr uint32_t kBars = kRing + kStages3 * kStage;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages3) * 8 + 1024;
+};
+
+// one step's elementwise work on the transposed registers (keys key0 and
+// key0 + 8, query columns q0 + c + 8 j + {0, 1}, c = 2 (t % 4)): p from
+// the scores st and the rows' lse, ds from the products dpt and delta;
+// pa (the dropped p) and da (ds) in bf16 as the A operands of the dV and
+// dK products (pa[k]: queries 16 k ..)
+template <bool kMasked, typename Ex>
+__device__ __forceinline__ void dkdv_tile(
+    const float (&st)[32], const float (&dpt)[32], uint32_t (&pa)[4][4],
+    uint32_t (&da)[4][4], const float* rows, const Ex& ex, int b, int h,
+    unsigned bh, int key0, int q0, int c, int Sq, int kvlen, int causal,
+    float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int key = key0 + (i & 2) * 4;
+    const int qc = c + 8 * (i / 4);        // the pair's first row in the stage
+    float pv[2], dsv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + qc + e;
+      const bool ok = !kMasked ||
+                      (row < Sq && key < kvlen && (!causal || key <= row));
+      const float p =
+          ok ? __expf(ex.logit(st[i + e], scale, b, h, row, key) -
+                      rows[qc + e])
+             : 0.f;
+      const bool kp = ex.kept(bh, row, key);
+      pv[e] = ex.scaled(p, kp);
+      // ds multiplies the un-dropped p
+      dsv[e] = p * (ex.scaled(dpt[i + e], kp) - rows[kRows3 + qc + e]) *
+               scale;
+    }
+    pa[i / 8][(i % 8) / 2] = pack_bf16(pv[0], pv[1]);
+    da[i / 8][(i % 8) / 2] = pack_bf16(dsv[0], dsv[1]);
+  }
+}
+
+// the (dk or dv) accumulators of keys key0 and key0 + 8 into rows of a
+// (B, Sk, Hkv, D) bf16 tensor at (b, hk), in column pairs
+template <int DP>
+__device__ __forceinline__ void store_keys(const float (&acc)[DP / 2],
+                                           bf16* out, int b, int hk,
+                                           int key0, int c, int Sk, int Hkv,
+                                           int D) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    bf16* row = out + (static_cast<long>(b * Sk + key) * Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + c;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int DP, typename Ex>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ kv_lens, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv,
+                    int D, int causal, float scale, Ex ex) {
+  using L = DkdvSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t kvbar = base + L::kBars;
+  const uint32_t full = kvbar + 8;         // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kStages3;
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
   const int group = Hq / Hkv;
-  const int k0 = blockIdx.y * kT;
-  const int tid = threadIdx.x;
-  const int w = tid / 32;
-  const int m0 = (w / 4) * 32, n0 = (w % 4) * 32;
-
+  const int k0 = blockIdx.y * kKeys3;
   int kvlen = Sk;
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[b], Sk));
+  // causal: query rows before k0 see none of these keys; a key tile at or
+  // past kv_len walks nothing and writes zeros
+  const int qstart = causal ? k0 : 0;
+  const int nq = k0 < kvlen ? (Sq - qstart + kRows3 - 1) / kRows3 : 0;
+  const int total = group * nq;            // steps: (head, query tile)
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages3; ++s) {
+      mbar_init(full + 8 * s, 32);         // the producer warp's lanes
+      mbar_init(empty + 8 * s, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  stage_tc(ks, k, b, k0, Sk, Hkv, hk, D);
-  stage_tc(vs, v, b, k0, Sk, Hkv, hk, D);
-  FragAcc dk_acc[2][2], dv_acc[2][2];
-  zero_frags(dk_acc);
-  zero_frags(dv_acc);
-
-  // causal: query rows before k0 see none of these keys (block-uniform)
-  const int qstart = causal ? (k0 / kT) * kT : 0;
-  const int qend = k0 < kvlen ? Sq : 0;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long bh = (long)b * Hq + h;
-    for (int r0 = qstart; r0 < qend; r0 += kT) {
-      __syncthreads();                     // previous tile consumed
-      stage_tc(qs, q, b, r0, Sq, Hq, h, D);
-      stage_tc(dos, dout, b, r0, Sq, Hq, h, D);
-      if (tid < kT) {
-        const int row = r0 + tid;
-        lse_s[tid] = row < Sq ? lse[bh * Sq + row] : 0.f;
-        delta_s[tid] = row < Sq ? delta[bh * Sq + row] : 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: warp 0 keeps kStages3 (Q, dO, lse, delta) steps in flight
+    regs_dec<40>();
+    const int lane = threadIdx.x;
+    if (lane < 32 && total > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * L::kKV);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_4d(&tk, base + c * kKBox, kvbar, 64 * c, hk, k0, b);
+          tma_load_4d(&tv, base + L::kKV + c * kKBox, kvbar, 64 * c, hk, k0,
+                      b);
+        }
       }
-      __syncthreads();
-      scores_tc(qs, ks, dos, vs, ss, dps, D);
-      __syncthreads();
-      for (int e = tid; e < kT * kT; e += kThreads) {
-        const int rr = e / kT, cc = e % kT;
-        const int row = r0 + rr, key = k0 + cc;
-        const bool ok = row < Sq && key < kvlen && (!causal || key <= row);
-        const float p =
-            ok ? __expf(ex.logit(ss[rr * kLs + cc], scale, b, h, row, key) -
-                        lse_s[rr])
-               : 0.f;
-        const float dp = ex.drop(dps[rr * kLs + cc], bh, row, key);
-        ps[rr * kLp + cc] = __float2bfloat16(ex.drop(p, bh, row, key));
-        dss[rr * kLp + cc] = __float2bfloat16(p * (dp - delta_s[rr]) * scale);
-      }
-      __syncthreads();
-      if (n0 < D) {
-#pragma unroll
-        for (int kk = 0; kk < kT; kk += 16) {
-          // A (key m, query k) = p[k][m]: p and ds read column-major
-          FragACol fp[2], fs[2];
-          FragBRow fdo[2], fq[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            wmma::load_matrix_sync(fp[i], ps + kk * kLp + m0 + i * 16, kLp);
-            wmma::load_matrix_sync(fs[i], dss + kk * kLp + m0 + i * 16,
-                                   kLp);
+      // the stage s, the parity ph of its current use, the step's (h, r0)
+      int s = 0, ph = 0, h = hk * group, r0 = qstart;
+      for (int it = 0; it < total; ++it) {
+        if (it >= kStages3) mbar_wait(empty + 8 * s, ph ^ 1);
+        const long bh = static_cast<long>(b) * Hq + h;
+        float* rows = reinterpret_cast<float*>(gbase + L::kRing +
+                                               s * L::kStage + 2 * L::kQ);
+        for (int e = lane; e < kRows3; e += 32) {
+          const int row = r0 + e;
+          rows[e] = row < Sq ? lse[bh * Sq + row] : 0.f;
+          rows[kRows3 + e] = row < Sq ? delta[bh * Sq + row] : 0.f;
+        }
+        const uint32_t tile = base + L::kRing + s * L::kStage;
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * L::kQ);
+          for (int c = 0; c < DP / 64; ++c) {
+            tma_load_4d(&tq, tile + c * kQBox, full + 8 * s, 64 * c, h, r0,
+                        b);
+            tma_load_4d(&tdo, tile + L::kQ + c * kQBox, full + 8 * s,
+                        64 * c, h, r0, b);
           }
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::load_matrix_sync(fdo[j], dos + kk * kLd + n0 + j * 16,
-                                   kLd);
-            wmma::load_matrix_sync(fq[j], qs + kk * kLd + n0 + j * 16, kLd);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              wmma::mma_sync(dv_acc[i][j], fp[i], fdo[j], dv_acc[i][j]);
-              wmma::mma_sync(dk_acc[i][j], fs[i], fq[j], dk_acc[i][j]);
-            }
+        } else {
+          mbar_arrive(full + 8 * s);
+        }
+        if (++s == kStages3) {
+          s = 0;
+          ph ^= 1;
+        }
+        if ((r0 += kRows3) >= Sq) {
+          r0 = qstart;
+          ++h;
         }
       }
     }
+  } else {
+    regs_inc<232>();
+    ex.load_seed();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int key_first = k0 + 64 * cw;    // the warpgroup's first key
+    const int key0 = key_first + 16 * (t / 32) + (t % 32) / 4;
+    const int c = 2 * (t % 4);
+    float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      dka[i] = 0.f;
+      dva[i] = 0.f;
+    }
+    if (total > 0) {
+      // this warpgroup's 64 rows of the K and V tiles
+      const uint32_t ks = base + cw * 64 * 128;
+      const uint32_t vs = base + L::kKV + cw * 64 * 128;
+      mbar_wait(kvbar, 0);
+      int s = 0, ph = 0, h = hk * group, r0 = qstart;
+      for (int it = 0; it < total; ++it) {
+        mbar_wait(full + 8 * s, ph);
+        // causal: a step whose every query precedes every key adds nothing
+        if (!causal || r0 + kRows3 - 1 >= key_first) {
+          const uint32_t qs = base + L::kRing + s * L::kStage;
+          const uint32_t dos = qs + L::kQ;
+          const float* rows = reinterpret_cast<const float*>(
+              gbase + L::kRing + s * L::kStage + 2 * L::kQ);
+          float st[32], dpt[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32;
+            const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32;
+            wgmma_ss<kRows3, 0, 0>(st, gmma_desc(ks + ko, 16, 1024),
+                                   gmma_desc(qs + qo, 16, 1024), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint32_t ko = (kk / 4) * kKBox + (kk % 4) * 32;
+            const uint32_t qo = (kk / 4) * kQBox + (kk % 4) * 32;
+            wgmma_ss<kRows3, 0, 0>(dpt, gmma_desc(vs + ko, 16, 1024),
+                                   gmma_desc(dos + qo, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(st);
+          fence_acc(dpt);
+          const bool whole = k0 + kKeys3 <= kvlen &&
+                             (!causal || r0 >= key_first + 63) &&
+                             r0 + kRows3 <= Sq;
+          const unsigned bh = b * Hq + h;
+          uint32_t pa[4][4], da[4][4];
+          if (whole)
+            dkdv_tile<false>(st, dpt, pa, da, rows, ex, b, h, bh, key0, r0,
+                             c, Sq, kvlen, causal, scale);
+          else
+            dkdv_tile<true>(st, dpt, pa, da, rows, ex, b, h, bh, key0, r0,
+                            c, Sq, kvlen, causal, scale);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(da[kk]);
+          }
+          fence_acc(dka);
+          fence_acc(dva);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<DP, 1>(dva, pa[kk],
+                            gmma_desc(dos + kk * 2048, kQBox, 1024), 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_rs<DP, 1>(dka, da[kk],
+                            gmma_desc(qs + kk * 2048, kQBox, 1024), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dka);
+          fence_acc(dva);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pa[kk]);
+            fence_regs(da[kk]);
+          }
+        }
+        if (t == 0) mbar_arrive(empty + 8 * s);
+        if (++s == kStages3) {
+          s = 0;
+          ph ^= 1;
+        }
+        if ((r0 += kRows3) >= Sq) {
+          r0 = qstart;
+          ++h;
+        }
+      }
+    }
+    store_keys<DP>(dka, dk, b, hk, key0, c, Sk, Hkv, D);
+    store_keys<DP>(dva, dv, b, hk, key0, c, Sk, Hkv, D);
   }
-  store_tc(dk_acc, ss, dk, b, k0, Sk, Hkv, hk, D);
-  store_tc(dv_acc, ss, dv, b, k0, Sk, Hkv, hk, D);
+}
+
+// K3 on the tensor cores for head dims up to DP
+template <int DP, typename Ex>
+int launch_dkdv_sm90(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const int* lens, void* dk, void* dv, int B, int Sq,
+                     int Sk, int Hq, int Hkv, int D, int causal, float scale,
+                     const Ex& ex, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = bshd_map(&tq, q, B, Sq, Hq, D, kRows3);
+  if (rc == 0) rc = bshd_map(&tdo, dout, B, Sq, Hq, D, kRows3);
+  if (rc == 0) rc = bshd_map(&tk, k, B, Sk, Hkv, D, kKeys3);
+  if (rc == 0) rc = bshd_map(&tv, v, B, Sk, Hkv, D, kKeys3);
+  if (rc != 0) return rc;
+  const auto kernel = flash_bwd_dkdv_sm90<DP, Ex>;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkdvSmem<DP>::kBytes));
+  if (rc != 0) return rc;
+  const dim3 grid(B * Hkv, (Sk + kKeys3 - 1) / kKeys3);
+  kernel<<<grid, kWgThreads, DkdvSmem<DP>::kBytes, st>>>(
+      tq, tk, tv, tdo, lse, delta, lens, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int allow_tc_smem(const void* kernel) {
@@ -613,15 +833,13 @@ extern "C" int pt_flash_attention_bwd_dkdv(
   return pt::with_attn_extra(args, [&](auto ex) -> int {
     using Ex = decltype(ex);
     if (dtype == pt::kBFloat16 && D % 16 == 0) {
-      const int rc = allow_tc_smem(reinterpret_cast<const void*>(
-          flash_bwd_dkdv_tc<Ex>));
-      if (rc != 0) return rc;
-      const dim3 tc_grid(B * Hkv, (Sk + kT - 1) / kT);
-      flash_bwd_dkdv_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          lse_f, delta_f, lens, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+      return D <= 64
+                 ? launch_dkdv_sm90<64>(q, k, v, dout, lse_f, delta_f, lens,
+                                        dk, dv, B, Sq, Sk, Hq, Hkv, D,
+                                        causal, scale, ex, st)
+                 : launch_dkdv_sm90<128>(q, k, v, dout, lse_f, delta_f, lens,
+                                         dk, dv, B, Sq, Sk, Hq, Hkv, D,
+                                         causal, scale, ex, st);
     } else if (dtype == pt::kBFloat16) {
       using T = __nv_bfloat16;
       flash_bwd_dkdv_kernel<T, Ex><<<grid, kThreads, 0, st>>>(

@@ -18,16 +18,17 @@
 // read from the device. The bias and the dropout are template switches:
 // a call with neither runs code built without them.
 //
-// Design. One block per (b * Hq + h, 64-row query tile); a loop inside
-// the block walks the key tiles and carries the running (m, l, acc), which
-// replaces the TPU's sequential `nk` grid axis and its VMEM scratch.
-// Causal tiles above the diagonal and tiles at or past kv_len are never
-// loaded. Scores use the same -1e30 floor on the running max as the TPU
-// kernel, so a fully masked tile contributes exactly 0, and p is rounded
-// to the input dtype for p . v, as there. Two paths:
-//  - bf16 with D % 16 == 0: tensor cores (the `flash_fwd_tc` kernel
-//    below; 64-key tiles, S and p through shared memory, the output
-//    accumulator in shared memory as fp32).
+// Design. A block owns a query tile; a loop inside the block walks the
+// key tiles and carries the running (m, l, acc), which replaces the TPU's
+// sequential `nk` grid axis and its VMEM scratch. Causal tiles above the
+// diagonal and tiles at or past kv_len are never loaded. Scores use the
+// same -1e30 floor on the running max as the TPU kernel, so a fully
+// masked tile contributes exactly 0, and p is rounded to the input dtype
+// for p . v, as there. Two paths:
+//  - bf16 with D % 16 == 0: `flash_fwd_sm90` below, 128-row query tiles,
+//    a TMA ring of 128-key K/V tiles, warp-specialised wgmma with S, the
+//    softmax and the output accumulator in registers (sm90.cuh holds the
+//    Hopper pieces);
 //  - otherwise: the FP32 pipes. 256 threads, four per query row, each
 //    holding 32 of the (zero-padded) 128 dims in registers; 32-key tiles
 //    staged in shared memory as fp32 and read as conflict-free float4.
@@ -36,11 +37,11 @@
 // the function sits below the roofline ridge (about 295 bf16 FLOP per
 // byte), so its floor is the bytes of q, k, v and o; at the train shape
 // (B 4, S 2048) it is above the ridge, bound by the tensor cores' 989
-// TFLOP/s. Both paths read K/V once per 64-row query tile; wgmma and TMA
-// come in a later change.
-#include <mma.h>
-
+// TFLOP/s. The bf16 path reads K/V once per 128-row query tile and keeps
+// both products on the tensor cores, S and P out of shared memory; the
+// softmax of one warpgroup overlaps the other's products.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -177,206 +178,274 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// ---- tensor-core path (bf16, D % 16 == 0) ----------------------------------
+// ---- bf16 on the tensor cores: TMA + wgmma (D % 16 == 0) ------------------
 //
-// The same function on the tensor cores (wmma 16x16x16, bf16 in, fp32
-// accumulate), a block per (b * Hq + h, 64-row query tile) walking
-// 64-key tiles. Per tile, S = q . k^T (64 x 64) goes through shared
-// memory, where four threads per row update the running max and sum and
-// write p in bf16; the output accumulator stays in shared memory as fp32
-// (the rescale by exp(m_old - m_new) needs rows, which wmma fragments do
-// not expose), each warp adding its 32 x 32 piece of p . v per tile.
+// One block of three warpgroups per (b * Hq + h, 128-row query tile),
+// causal tiles longest first. Warpgroup 0 is the producer: one thread
+// loads the Q tile once and keeps a ring of kStages (K tile, V tile)
+// pairs of 128 keys in flight by TMA (4D maps over (D, H, S, B), 64-dim
+// boxes, 128-byte swizzle; rows past S and dims past D arrive as zeros).
+// Warpgroups 1 and 2 each own 64 query rows. Per key tile:
+//   S = Q . K^T      wgmma m64n128k16, both operands K-major in shared
+//                    memory (SS), into 64 fp32 registers a thread;
+//   softmax          on those registers: the scale, the bias, the masks
+//                    (only on a tile the diagonal, kv_len, Sq or a
+//                    ragged K tile cuts), the running max with the -1e30
+//                    floor and each thread's part of the running sum,
+//                    two quad shuffles per row for the max;
+//   O += P . V       p dropped by the hash at its (row, col), rounded to
+//                    bf16 and packed in registers as the A operand of
+//                    wgmma m64nDk16 (RS); V is the MN-major B operand.
+// O stays in registers, rescaled there; S and P never touch shared
+// memory. Within a warpgroup the two products and the softmax run in
+// turn; the other warpgroup's work fills the gaps. (Issuing the next
+// tile's S behind the current P . V made ptxas serialize the wgmmas,
+// C7515, and ran slower on an H100.) A third ring stage bought nothing.
+// Head dims up to 64 run the 64 instance, others up to 128 the 128 one
+// (zero-filled past D, stores masked to D).
 
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
+using namespace sm90;
 
-constexpr int kT = 64;                     // query rows and keys per tile
-constexpr int kLd = kDMax + 8;             // bf16 row stride of q, k, v
-constexpr int kLs = kT + 4;                // fp32 row stride of S
-constexpr int kLp = kT + 8;                // bf16 row stride of p
-constexpr int kLo = kDMax + 4;             // fp32 row stride of o
-constexpr int kTcSmem = 3 * kT * kLd * 2 + kT * kLs * 4 + kT * kLp * 2 +
-                        kT * kLo * 4 + 3 * kT * 4;
+constexpr int kTq = 128;                   // query rows per block
+constexpr int kTk = 128;                   // keys per stage
+constexpr int kStages = 2;
+constexpr int kWgThreads = 384;            // producer + two consumers
+constexpr uint32_t kBox = 128 * 128;       // a 64-dim box of 128 rows
 
-// 64 rows r0.. of a (B, S, H, D) bf16 tensor at (b, h) into a shared
-// [64][kLd] tile, 16 bytes a thread at a time; rows past S are zero
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int b,
-                                         int r0, int S, int H, int h,
-                                         int D) {
-  const int chunks = D / 8;
-  for (int e = threadIdx.x; e < kT * chunks; e += kThreads) {
-    const int rr = e / chunks, c = (e % chunks) * 8;
-    const int row = r0 + rr;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + ((long)(b * S + row) * H + h) * D + c);
-    *reinterpret_cast<uint4*>(dst + rr * kLd + c) = v;
+template <int DP>
+struct FwdSmem {                           // byte offsets from the base
+  static constexpr uint32_t kQ = (DP / 64) * kBox;      // the Q tile
+  static constexpr uint32_t kKV = (DP / 64) * kBox;     // a K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr uint32_t kBars = kQ + kStages * kStage;
+  // the tiles, q / full / empty barriers, slack to align to 1024 bytes
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// S (64 x 128) = the warpgroup's 64 rows of Q (at qs) . the K tile (at
+// ks)^T over DP dims, issued and committed
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&s)[kTk / 2],
+                                             uint32_t qs, uint32_t ks,
+                                             int cw) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss<kTk, 0, 0>(s, gmma_desc(qs + off + cw * 64 * 128, 16, 1024),
+                        gmma_desc(ks + off, 16, 1024), kk > 0);
   }
+  wgmma_commit();
 }
 
-template <typename Ex>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const int* __restrict__ kv_lens,
-             bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-             int Hq, int Hkv, int D, int causal, float scale, Ex ex) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kT * kLd;
-  bf16* vs = ks + kT * kLd;
-  float* ss = reinterpret_cast<float*>(vs + kT * kLd);
-  bf16* ps = reinterpret_cast<bf16*>(ss + kT * kLs);
-  float* os = reinterpret_cast<float*>(ps + kT * kLp);
-  float* m_s = os + kT * kLo;
-  float* l_s = m_s + kT;
-  float* a_s = l_s + kT;
-  ex.load_seed();
+// the online-softmax step of one key tile on the S registers (rows row0
+// and row0 + 8, columns c0 + 8 j + {0, 1}): the running max m and this
+// thread's part of the running sum l of each row, acc rescaled, and the
+// dropped p in bf16 as the A operand of P . V (p[k]: keys 16 k ..)
+template <bool kMasked, int DP, typename Ex>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kTk / 2], float (&acc)[DP / 2], uint32_t (&p)[kTk / 16][4],
+    float (&m)[2], float (&l)[2], const Ex& ex, int b, int h, int row0,
+    int c0, int Sq, int kvlen, int causal, float scale) {
+#pragma unroll
+  for (int i = 0; i < kTk / 2; ++i) {
+    const int row = row0 + (i & 2) * 4;
+    const int col = c0 + 8 * (i / 4) + (i & 1);
+    const bool ok =
+        !kMasked || (row < Sq && col < kvlen && (!causal || col <= row));
+    s[i] = ok ? ex.logit(s[i], scale, b, h, row, col) : -INFINITY;
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 2 * r; i < kTk / 2; i += 4)
+      mx = fmaxf(mx, fmaxf(s[i], s[i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(fmaxf(m[r], mx), pt::kMaxFloor);
+    alpha[r] = __expf(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+  const unsigned bh = blockIdx.x;
+#pragma unroll
+  for (int i = 0; i < kTk / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = row0 + 8 * r;
+    const int col = c0 + 8 * (i / 4);
+    const float p0 = __expf(s[i] - m[r]);
+    const float p1 = __expf(s[i + 1] - m[r]);
+    l[r] += p0 + p1;                       // l sums the un-dropped p
+    p[i / 8][(i % 8) / 2] =
+        pack_bf16(ex.scaled(p0, ex.kept(bh, row, col)),
+                  ex.scaled(p1, ex.kept(bh, row, col + 1)));
+  }
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
 
+template <int DP, typename Ex>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const int* __restrict__ kv_lens, bf16* __restrict__ o,
+               float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+               int D, int causal, float scale, Ex ex) {
+  using L = FwdSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qbar = base + L::kBars;
+  const uint32_t full = qbar + 8;          // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kStages;
   const int bh = blockIdx.x;
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * kT;
-  const int tid = threadIdx.x;
-  const int w = tid / 32;
-
+  // causal query tiles longest first, so the last wave is the shortest
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kTq;
   int kvlen = Sk;
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[b], Sk));
-  int kend = kvlen;
-  if (causal) kend = min(kend, q0 + kT);
-
-  stage_tc(qs, q, b, q0, Sq, Hq, h, D);
-  for (int e = tid; e < kT * kLo; e += kThreads) os[e] = 0.f;
-  if (tid < kT) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  // four threads per row for the softmax update, 16 columns each
-  const int rr = tid / 4, part = tid % 4;
-  const int row = q0 + rr;
-  for (int k0 = 0; k0 < kend; k0 += kT) {
-    __syncthreads();                       // previous tile consumed
-    stage_tc(ks, k, b, k0, Sk, Hkv, hk, D);
-    stage_tc(vs, v, b, k0, Sk, Hkv, hk, D);
-    __syncthreads();
-    {  // S = q . k^T: warp w owns rows 16 (w / 2), columns 32 (w % 2)
-      const int m0 = (w / 2) * 16, n0 = (w % 2) * 32;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2];
-      wmma::fill_fragment(f[0], 0.f);
-      wmma::fill_fragment(f[1], 0.f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-            fa;
-        wmma::load_matrix_sync(fa, qs + m0 * kLd + kk, kLd);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              fb;
-          wmma::load_matrix_sync(fb, ks + (n0 + j * 16) * kLd + kk, kLd);
-          wmma::mma_sync(f[j], fa, fb, f[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(ss + m0 * kLs + n0 + j * 16, f[j], kLs,
-                                wmma::mem_row_major);
+  // key tiles up to kv_len and, when causal, the diagonal (Sq == Sk)
+  const int kend = causal ? min(kvlen, q0 + kTq) : kvlen;
+  const int nt = (kend + kTk - 1) / kTk;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
     }
-    __syncthreads();
-    {  // online softmax of the tile's row
-      float sv[16];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int cc = part * 16 + c;
-        const int col = k0 + cc;
-        const bool ok = row < Sq && col < kvlen && (!causal || col <= row);
-        sv[c] = ok ? ex.logit(ss[rr * kLs + cc], scale, b, h, row, col)
-                   : -INFINITY;
-        tmax = fmaxf(tmax, sv[c]);
-      }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_old = m_s[rr];
-      const float m_new = fmaxf(fmaxf(m_old, tmax), pt::kMaxFloor);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = __expf(sv[c] - m_new);
-        psum += p;                         // l sums the un-dropped p
-        ps[rr * kLp + part * 16 + c] =
-            __float2bfloat16(ex.drop(p, bh, row, k0 + part * 16 + c));
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = __expf(m_old - m_new);
-        a_s[rr] = alpha;
-        l_s[rr] = l_s[rr] * alpha + psum;
-        m_s[rr] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < kT * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      os[r * kLo + c] *= a_s[r];
-    }
-    __syncthreads();
-    {  // o += p . v: warp w owns rows 32 (w / 4), columns 32 (w % 4)
-      const int m0 = (w / 4) * 32, n0 = (w % 4) * 32;
-      if (n0 < D) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(f[i][j],
-                                   os + (m0 + i * 16) * kLo + n0 + j * 16,
-                                   kLo, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kT; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], ps + (m0 + i * 16) * kLp + kk,
-                                   kLp);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(fb[j], vs + kk * kLd + n0 + j * 16, kLd);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(f[i][j], fa[i], fb[j], f[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(os + (m0 + i * 16) * kLo + n0 + j * 16,
-                                    f[i][j], kLo, wmma::mem_row_major);
-      }
-    }
+    mbar_fence_init();
   }
   __syncthreads();
-  // a row with no visible key gives 0 and LSE 0, as on the TPU
-  for (int e = tid; e < kT * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    if (q0 + r < Sq) {
-      const float l = l_s[r];
-      o[((long)(b * Sq + q0 + r) * Hq + h) * D + c] =
-          __float2bfloat16(os[r * kLo + c] / (l == 0.f ? 1.f : l));
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread loads Q, then keeps kStages K/V tiles in flight
+    regs_dec<24>();
+    if (threadIdx.x == 0 && nt > 0) {
+      mbar_expect_tx(qbar, L::kQ);
+      for (int c = 0; c < DP / 64; ++c)
+        tma_load_4d(&tq, base + c * kBox, qbar, 64 * c, h, q0, b);
+      for (int j = 0; j < nt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages)
+          mbar_wait(empty + 8 * s, (j / kStages - 1) & 1);
+        const uint32_t tile = base + L::kQ + s * L::kStage;
+        mbar_expect_tx(full + 8 * s, L::kStage);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_4d(&tk, tile + c * kBox, full + 8 * s, 64 * c, hk,
+                      j * kTk, b);
+          tma_load_4d(&tv, tile + L::kKV + c * kBox, full + 8 * s, 64 * c,
+                      hk, j * kTk, b);
+        }
+      }
+    }
+  } else {
+    regs_inc<240>();
+    ex.load_seed();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int r_first = q0 + 64 * cw;      // the warpgroup's first row
+    const int row0 = r_first + 16 * (t / 32) + (t % 32) / 4;
+    const int cq = 2 * (t % 4);
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    if (nt > 0) {
+      float s[kTk / 2];
+      uint32_t p[kTk / 16][4];
+      mbar_wait(qbar, 0);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % kStages;
+        const uint32_t ks = base + L::kQ + st * L::kStage;
+        mbar_wait(full + 8 * st, (j / kStages) & 1);
+        issue_scores<DP>(s, base, ks, cw);
+        wgmma_wait<0>();
+        fence_acc(s);
+        const int k0 = j * kTk;
+        const bool whole = k0 + kTk <= kvlen &&
+                           (!causal || k0 + kTk - 1 <= r_first) &&
+                           r_first + 64 <= Sq;
+        if (whole)
+          softmax_tile<false, DP>(s, acc, p, m, l, ex, b, h, row0, k0 + cq,
+                                  Sq, kvlen, causal, scale);
+        else
+          softmax_tile<true, DP>(s, acc, p, m, l, ex, b, h, row0, k0 + cq,
+                                 Sq, kvlen, causal, scale);
+        fence_acc(acc);
+#pragma unroll
+        for (int kk = 0; kk < kTk / 16; ++kk) fence_regs(p[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTk / 16; ++kk)
+          wgmma_rs<DP, 1>(acc, p[kk],
+                          gmma_desc(ks + L::kKV + kk * 2048, kBox, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+#pragma unroll
+        for (int kk = 0; kk < kTk / 16; ++kk) fence_regs(p[kk]);
+        // the tile's K and V are read: release the stage
+        if (t == 0) mbar_arrive(empty + 8 * st);
+      }
+    }
+    // a row with no visible key gives 0 and LSE 0, as on the TPU
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      bf16* orow = o + (static_cast<long>(b * Sq + row) * Hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                    acc[4 * j + 2 * r + 1] * inv);
+      }
+      if (cq == 0)
+        lse[static_cast<long>(bh) * Sq + row] =
+            l[r] == 0.f ? 0.f : m[r] + logf(l[r]);
     }
   }
-  if (tid < kT && q0 + tid < Sq) {
-    const float m = m_s[tid], l = l_s[tid];
-    lse[(long)bh * Sq + q0 + tid] =
-        (m == -INFINITY ? 0.f : m) + logf(l == 0.f ? 1.f : l);
-  }
+}
+
+// K1 on the tensor cores for head dims up to DP
+template <int DP, typename Ex>
+int launch_fwd_sm90(const void* q, const void* k, const void* v,
+                    const int* lens, void* o, float* lse, int B, int Sq,
+                    int Sk, int Hq, int Hkv, int D, int causal, float scale,
+                    const Ex& ex, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int rc = bshd_map(&tq, q, B, Sq, Hq, D, kTq);
+  if (rc == 0) rc = bshd_map(&tk, k, B, Sk, Hkv, D, kTk);
+  if (rc == 0) rc = bshd_map(&tv, v, B, Sk, Hkv, D, kTk);
+  if (rc != 0) return rc;
+  const auto kernel = flash_fwd_sm90<DP, Ex>;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FwdSmem<DP>::kBytes));
+  if (rc != 0) return rc;
+  const dim3 grid(B * Hq, (Sq + kTq - 1) / kTq);
+  kernel<<<grid, kWgThreads, FwdSmem<DP>::kBytes, st>>>(
+      tq, tk, tv, lens, static_cast<bf16*>(o), lse, Sq, Sk, Hq, Hkv, D,
+      causal, scale, ex);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -403,15 +472,12 @@ extern "C" int pt_flash_attention_fwd(
   return pt::with_attn_extra(args, [&](auto ex) -> int {
     using Ex = decltype(ex);
     if (dtype == pt::kBFloat16 && D % 16 == 0) {
-      const int rc = static_cast<int>(cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(flash_fwd_tc<Ex>),
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem));
-      if (rc != 0) return rc;
-      const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
-      flash_fwd_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), lse_f,
-          Sq, Sk, Hq, Hkv, D, causal, scale, ex);
+      return D <= 64 ? launch_fwd_sm90<64>(q, k, v, lens, o, lse_f, B, Sq,
+                                            Sk, Hq, Hkv, D, causal, scale,
+                                            ex, st)
+                     : launch_fwd_sm90<128>(q, k, v, lens, o, lse_f, B, Sq,
+                                             Sk, Hq, Hkv, D, causal, scale,
+                                             ex, st);
     } else if (dtype == pt::kBFloat16) {
       using T = __nv_bfloat16;
       flash_fwd_kernel<T, Ex><<<grid, kThreads, 0, st>>>(

@@ -88,11 +88,19 @@ CASES = {
     "no_dropout_bias": (2, 64, 64, 2, 1, 16, False, (2, 2, 64, 64), [0, 40],
                         0.0),
 }
+# the CUDA kernels' D 64 instance at a ragged causal tile, with kv_len,
+# GQA, a per-row bias and dropout
+EDGE_CASES = {
+    "edge_d64": (1, 200, 200, 4, 2, 64, True, (1, 1, 200, 200), [150], 0.2),
+}
+NAMES = sorted(CASES) + sorted(EDGE_CASES)
 
 
 def _inputs(name):
-    b, sq, sk, hq, hkv, d, causal, bshape, lens, rate = CASES[name]
-    rs = np.random.RandomState(sorted(CASES).index(name))
+    b, sq, sk, hq, hkv, d, causal, bshape, lens, rate = {
+        **CASES, **EDGE_CASES}[name]
+    # CASES keep their seeds; EDGE_CASES follow them
+    rs = np.random.RandomState(NAMES.index(name))
     q = rs.randn(b, sq, hq, d).astype(np.float32)
     k = rs.randn(b, sk, hkv, d).astype(np.float32)
     v = rs.randn(b, sk, hkv, d).astype(np.float32)
@@ -104,7 +112,7 @@ def _inputs(name):
     return q, k, v, do, bias, causal, lens, rate
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", NAMES)
 def test_plain_forward_and_grads_match_jax(name):
     q, k, v, do, bias, causal, lens, rate = _inputs(name)
     seed = 1234

@@ -41,12 +41,24 @@ CASES = {
     "ragged_sq": (1, 100, 100, 2, 2, 32, True, None),
     "ragged_noncausal": (2, 70, 190, 2, 2, 16, False, None),
 }
+# the edges of the CUDA kernel's tiles (128 query rows by 128 keys, head
+# dims run on a 64- or 128-wide instance): a ragged causal tile, kv_len
+# inside a key tile, GQA 8:2, D 64 and D 96
+EDGE_CASES = {
+    "edge_ragged_causal_s200": (1, 200, 200, 2, 2, 32, True, None),
+    "edge_kv_lens_130_of_256": (1, 256, 256, 2, 2, 32, False, [130]),
+    "edge_gqa_8_2": (1, 128, 128, 8, 2, 16, True, None),
+    "edge_d64": (1, 128, 128, 2, 2, 64, True, None),
+    "edge_d96": (1, 160, 160, 2, 1, 96, False, [100]),
+}
+NAMES = sorted(CASES) + sorted(EDGE_CASES)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", NAMES)
 def test_reference_matches_jax_flash_kernel(name):
-    b, sq, sk, hq, hkv, d, causal, kv_lens = CASES[name]
-    rs = np.random.RandomState(sorted(CASES).index(name))
+    b, sq, sk, hq, hkv, d, causal, kv_lens = {**CASES, **EDGE_CASES}[name]
+    # CASES keep their seeds; EDGE_CASES follow them
+    rs = np.random.RandomState(NAMES.index(name))
     q, k, v = _inputs(rs, b, sq, sk, hq, hkv, d)
     lens = None if kv_lens is None else np.asarray(kv_lens, np.int32)
     want = np.asarray(jax_flash_attention(

@@ -38,11 +38,23 @@ CASES = {
     "kv_lens_noncausal": (2, 128, 2, 1, 32, False, [0, 77]),
     "kv_lens_causal_s256": (2, 256, 2, 2, 16, True, [200, 256]),
 }
+# the edges of the CUDA K3's tiles (128 keys by 64 query rows, head dims
+# on a 64- or 128-wide instance): a ragged causal tile, kv_len inside a
+# key tile, GQA 8:2, D 64 and D 96
+EDGE_CASES = {
+    "edge_causal_s200": (1, 200, 2, 2, 32, True, None),
+    "edge_kv_lens_130_of_256": (1, 256, 2, 2, 32, False, [130]),
+    "edge_gqa_8_2": (1, 128, 8, 2, 16, True, None),
+    "edge_d64": (1, 128, 2, 2, 64, True, None),
+    "edge_d96": (1, 128, 2, 1, 96, False, [100]),
+}
+NAMES = sorted(CASES) + sorted(EDGE_CASES)
 
 
 def _inputs(name):
-    b, s, hq, hkv, d, causal, lens = CASES[name]
-    rs = np.random.RandomState(sorted(CASES).index(name))
+    b, s, hq, hkv, d, causal, lens = {**CASES, **EDGE_CASES}[name]
+    # CASES keep their seeds; EDGE_CASES follow them
+    rs = np.random.RandomState(NAMES.index(name))
     q = rs.randn(b, s, hq, d).astype(np.float32)
     k = rs.randn(b, s, hkv, d).astype(np.float32)
     v = rs.randn(b, s, hkv, d).astype(np.float32)
@@ -60,7 +72,7 @@ def _port_grads(fn, q, k, v, do, causal, lens):
     return torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", NAMES)
 def test_plain_backward_matches_jax_grad(name):
     q, k, v, do, causal, lens = _inputs(name)
 
@@ -78,7 +90,7 @@ def test_plain_backward_matches_jax_grad(name):
                                    rtol=RTOL, err_msg=what)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", NAMES)
 def test_plain_backward_matches_autograd_of_plain_forward(name):
     q, k, v, do, causal, lens = _inputs(name)
     got = _port_grads(flash_attention_plain, q, k, v, do, causal, lens)

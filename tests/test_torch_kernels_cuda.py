@@ -69,6 +69,12 @@ def _randn(gen, shape, dtype, dev):
     (2, 70, 190, 2, 2, 32, False, [0, 150]),
     (1, 300, 300, 8, 1, 128, True, [257]),
     (1, 90, 90, 4, 2, 40, True, [70]),     # D % 16 != 0: the FP32 pipes
+    # the edges of the 128-row query and key tiles: a ragged tile, kv_len
+    # inside a tile of a long walk, GQA 16:4, the D 64 instance
+    (1, 200, 200, 2, 2, 128, True, None),
+    (1, 2048, 2048, 2, 2, 128, True, [1000]),
+    (1, 256, 256, 16, 4, 128, True, None),
+    (2, 256, 256, 2, 2, 64, False, None),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, hq, hkv, d,
                                     causal, lens):
@@ -190,6 +196,11 @@ def _close(got, ref, dtype):
     (1, 300, 8, 1, 128, True, [257]),
     (2, 77, 4, 2, 96, False, None),
     (1, 90, 4, 2, 40, True, [70]),         # D % 16 != 0: the FP32 pipes
+    # the edges of K3's 128-key and 64-row tiles (as for K1 above)
+    (1, 200, 2, 2, 128, True, None),
+    (1, 2048, 2, 2, 128, True, [1000]),
+    (1, 256, 16, 4, 128, True, None),
+    (2, 256, 2, 2, 64, False, None),
 ])
 def test_flash_backward_kernels_match_plain(dev, dtype, b, s, hq, hkv, d,
                                             causal, lens):
@@ -596,6 +607,7 @@ def test_layer_norm_autograd_on_gpu_matches_cpu(dev):
     (2, 100, 200, 4, 2, 64, False, (1, 4, 100, 200), None),
     (1, 96, 96, 2, 2, 40, True, (1, 1, 96, 96), None),
     (2, 64, 600, 2, 1, 128, False, (2, 2, 64, 600), [600, 333]),
+    (2, 200, 200, 4, 2, 128, True, (2, 1, 200, 200), [200, 130]),
 ])
 def test_flash_bias_dropout_kernels_match_plain(dev, dtype, b, sq, sk, hq,
                                                 hkv, d, causal, bshape,
