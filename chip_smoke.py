@@ -868,6 +868,8 @@ def ce_case(torch, dev, gen):
     bwd_bound = _bound(io + 2 * N * 4 + (N * d + V * d) * elt, 6 * mac)
     rec = {"phase": "k567_fused_ce", "N": N, "d": d, "V": V,
            "chunk": ce.CHUNK, "chunks": len(ce.plan_chunks(V)),
+           "k5_ranges": ce._plan(bf, N, V, torch.cuda.get_device_properties(
+               dev).multi_processor_count),
            "ignored_rows": int((~valid).sum().item()), "dtype": "bfloat16",
            "loss_tol": 1e-3, "tol_rel_l2": REL_L2_TOL,
            "check_init_head": init, "check_peaked": peaked,
@@ -1332,8 +1334,7 @@ def train_phase(torch, dev, n_steps=6):
 
 _FAMILIES = (("flash_fwd", ("flash_fwd_",)),
              ("flash_bwd", ("flash_bwd_",)),
-             ("fused_ce", ("ce_fwd_kernel", "ce_fwd_merge", "ce_bwd_wgmma",
-                           "ce_bwd_simt")),
+             ("fused_ce", ("ce_fwd_", "ce_bwd_wgmma", "ce_bwd_simt")),
              ("paged_attention", ("paged_kernel",)),
              ("decode_attention", ("decode_kernel",)),
              ("int8_matmul", K12_KERNELS),
@@ -2677,12 +2678,13 @@ def main():
               f"{fa_py}:433", k34m["k4_ms"], k34m["plain_ms"],
               (k34m["k4_bound_ms"], k34m["k4_bound_by"]),
               k34m["library_ms"],
-              max(r["max_abs_err"]["dq"] for r in k34)),
+              max(r["max_abs_err"]["dq"] for r in k34), design=wgmma),
         entry("fused_ce_fwd", "fused_ce.cu", f"{ce_py}:153", ce_r["k5_ms"],
               ce_r["plain_fwd_ms"], (ce_r["k5_bound_ms"],
                                      ce_r["k5_bound_by"]),
               ce_r["library_fwd_ms"],
-              max(ce_r["loss_max_abs_err"], ce_r["lse_max_abs_err"])),
+              max(ce_r["loss_max_abs_err"], ce_r["lse_max_abs_err"]),
+              design=wgmma),
         # the backward's three kernels (fused_ce_bwd.cu), each one launch
         # per vocab chunk: the dl pass computes the dlogits that the TPU's
         # K6 and K7 each recompute; library: the backward of torch.matmul
@@ -2760,7 +2762,8 @@ def main():
               (k134[0]["k4_bound_ms"], k134[0]["k4_bound_by"]),
               k134[0]["library_bwd_ms"],
               max(r["max_abs_err"] for r in k134),
-              counter="flash_attention_bwd_dq", only="encoder"),
+              counter="flash_attention_bwd_dq", only="encoder",
+              design=wgmma),
         # one (8, 128) fp32 copy; plain and library: x.clone()
         entry("noop_copy", "launch_probe.cu",
               "paddle_tpu/observability/devprof.py:291", k13["kernel_ms"],

@@ -3,6 +3,7 @@
 cross-entropy kernels K5, K6 and K7 on one GPU.
 
     python3 kernel_ab.py DIR_A DIR_B [--rounds 1] [--ce-chunks 2048,8192]
+        [--ce-plans 2,33]
 
 DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
@@ -23,7 +24,9 @@ the kernel's device time from a torch.profiler trace (``kernel_ms``;
 the backward's sums every kernel in the window) and the call's, wrapper
 included, by CUDA events around back-to-back calls (``call_ms``).
 ``--ce-chunks`` also times a checkout's ``fused_ce_bwd`` at those vocab
-chunk widths (its default is timed as above). Prints each run's
+chunk widths (its default is timed as above), and ``--ce-plans`` K5 with
+its vocab tiles cut into about that many ranges (where the checkout
+plans them with ``fused_ce._plan``). Prints each run's
 readings as one JSON line tagged with its checkout and round, then one
 line with each checkout's medians. Exits non-zero if a run fails.
 """
@@ -36,7 +39,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, sys, torch
+import json, statistics, sys, torch
 sys.path.insert(0, ".")
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -155,12 +158,29 @@ for c in [int(c) for c in sys.argv[1].split(",") if c]:
         fn = lambda: ce.fused_ce_bwd(x, w, labels, lse, g, chunk=c)
         out[f"k67_ce_bwd_N8188_chunk{c}"] = {
             "kernel_ms": device_ms(fn, "", 3), "call_ms": call_ms(fn, 3)}
+plans = [int(c) for c in sys.argv[2].split(",") if c]
+if plans and hasattr(ce, "_plan"):
+    # K5 with its bf16 vocab tiles (256 wide) cut into about ns ranges,
+    # the plans timed in turn three times (forward, back, forward)
+    tiles = -(-V // 256)
+    got = {}
+    default_plan = ce._plan
+    for rep in range(3):
+        for ns in (plans if rep % 2 == 0 else plans[::-1]):
+            per = -(-tiles // ns)
+            ce._plan = lambda *a, per=per: (-(-tiles // per), per)
+            got.setdefault(f"k5_ce_N8188_nsplit{-(-tiles // per)}", []).append(
+                (device_ms(k5, "ce_fwd", 5), call_ms(k5, 5)))
+    ce._plan = default_plan
+    for case, runs in got.items():
+        out[case] = {"kernel_ms": statistics.median(r[0] for r in runs),
+                     "call_ms": statistics.median(r[1] for r in runs)}
 print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
 
-def run_one(root, timeout, ce_chunks):
-    out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks],
+def run_one(root, timeout, ce_chunks, ce_plans):
+    out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks, ce_plans],
                          cwd=root,
                          capture_output=True, text=True, timeout=timeout)
     recs = [json.loads(line[len("KERNEL_AB "):])
@@ -181,19 +201,22 @@ def main():
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--ce-chunks", default="",
                     help="comma-separated chunk widths for fused_ce_bwd")
+    ap.add_argument("--ce-plans", default="",
+                    help="comma-separated range counts for K5 (bf16)")
     args = ap.parse_args()
     roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     got = {"a": [], "b": []}
     for rnd in range(args.rounds):
         for tag in ("a", "b", "b", "a"):
-            rec = run_one(roots[tag], args.timeout, args.ce_chunks)
+            rec = run_one(roots[tag], args.timeout, args.ce_chunks,
+                          args.ce_plans)
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)
     print(json.dumps({"kernel_ab_medians": {
         tag: {case: {key: statistics.median(r[case][key] for r in recs)
                      for key in ("kernel_ms", "call_ms")}
-              for case in recs[0]}
+              for case in recs[0] if all(case in r for r in recs)}
         for tag, recs in got.items()}}), flush=True)
     return 0
 

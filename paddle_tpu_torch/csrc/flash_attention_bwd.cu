@@ -28,24 +28,24 @@
 // Design. Hopper blocks run in no order, so the TPU's sequential
 // ("arbitrary") grid axis and its VMEM accumulator become a loop inside
 // one block that owns its output tile; nothing is reduced across blocks
-// and nothing is written twice. K4: a block per (b * Hq + h, 64-row
-// query tile) walks the key tiles that the causal mask and kv_len leave
-// visible, as K1 does. K3: a block per (b * Hkv + kv head, 64-key tile)
-// walks every query head of the GQA group and, for each, the query tiles
-// from the first one the causal mask lets see the key tile; summing the
-// group inside the block replaces the JAX code's per-query-head dk/dv and
-// its group sum (:412-414); a key tile at or past kv_len writes zeros.
-// As on the TPU, p and ds are rounded to the input dtype before their
-// products. Two paths:
-//  - bf16 with D % 16 == 0 (the train path): tensor cores. K3 is
-//    `flash_bwd_dkdv_sm90` (128-key blocks, a TMA ring of 64-row Q/dO
-//    tiles, warp-specialised wgmma with S^T, dP^T and the dK/dV
-//    accumulators in registers; sm90.cuh holds the Hopper pieces). K4 is
-//    `flash_bwd_dq_tc` (wmma 16x16x16, bf16 in, fp32 accumulate): per
-//    64 x 64 tile, S and dP go through shared memory, where the 256
-//    threads form ds; the dq accumulators stay in fp32 fragments for the
-//    whole walk, and the q, k, v, dO tiles are staged in shared memory
-//    with 16-byte loads.
+// and nothing is written twice. K4: a block per (b * Hq + h, query tile)
+// walks the key tiles that the causal mask and kv_len leave visible, as
+// K1 does. K3: a block per (b * Hkv + kv head, key tile) walks every
+// query head of the GQA group and, for each, the query tiles from the
+// first one the causal mask lets see the key tile; summing the group
+// inside the block replaces the JAX code's per-query-head dk/dv and its
+// group sum (:412-414); a key tile at or past kv_len writes zeros. As on
+// the TPU, p and ds are rounded to the input dtype before their products.
+// Two paths:
+//  - bf16 with D % 16 == 0 (the train path): tensor cores, TMA rings and
+//    warp-specialised wgmma with every score, probability and gradient
+//    tile in registers (sm90.cuh holds the Hopper pieces). K3 is
+//    `flash_bwd_dkdv_sm90` (128-key blocks, a ring of 64-row Q/dO tiles,
+//    S^T, dP^T and the dK/dV accumulators in registers); K4 is
+//    `flash_bwd_dq_sm90` (128-row blocks with Q and dO resident, a ring
+//    of 64-key K/V tiles, S, dP and the dQ accumulators in registers).
+//    Dropout multiplies a kept value by 1 / (1 - rate) (within an fp32
+//    rounding of the JAX kernels' quotient; the masks are the same bits).
 //  - otherwise (fp32): the FP32 pipes, four threads per row each holding
 //    32 of the (zero-padded) 128 dims of its row's operands and
 //    accumulators in registers, the other side staged as fp32 in 32-row
@@ -55,13 +55,11 @@
 // causal, bf16) the work is 8 (K3) and 6 (K4) flops per dim of each of
 // the 134 M visible (query, key) pairs, about 137 and 103 GFLOP, against
 // some 200 MB of inputs and outputs: above the ridge, so the bound is the
-// tensor cores' 989 TFLOP/s (about 0.14 and 0.10 ms). K3 keeps its four
-// products on wgmma with nothing but the TMA tiles in shared memory; K4's
-// wmma path (one 123 KB block per SM, two barriers per stage, no TMA or
-// wgmma) reaches a fraction of its bound and is next (ROADMAP R1). The
-// fp32 path is bound by the FP32 pipes (67 TFLOP/s).
-#include <mma.h>
-
+// tensor cores' 989 TFLOP/s (about 0.14 and 0.10 ms). Both keep their
+// products on wgmma with nothing but the TMA tiles in shared memory; the
+// elementwise work between the products of a warpgroup does not overlap
+// them, only the other warpgroup's. The fp32 path is bound by the FP32
+// pipes (67 TFLOP/s).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -276,209 +274,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// ---- K4 on the tensor cores (bf16, D % 16 == 0) ----------------------------
-//
-// wmma 16x16x16, bf16 in, fp32 accumulate. A block owns 64 query rows
-// and walks 64-key tiles. Per tile, S = q . k^T and dP = dO . v^T
-// (64 x 64) go through shared memory in fp32, where the 256 threads form
-// p and ds and round them to bf16, as the TPU kernels do before their
-// dots (`ds.astype(q.dtype)`); the dq accumulators stay in fp32
-// fragments for the whole walk.
-
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
-
-constexpr int kT = 64;                     // rows per block and per tile
-constexpr int kLd = kDMax + 8;             // bf16 row stride of q/k/v/dO
-constexpr int kLs = kT + 4;                // fp32 row stride of S and dP
-constexpr int kLp = kT + 8;                // bf16 row stride of p and ds
-constexpr int kLo = kDMax + 4;             // fp32 row stride, output
-constexpr int kTileB = kT * kLd * 2;       // one staged q/k/v/dO tile
-constexpr int kScoreB = kT * kLs * 4;      // S or dP
-constexpr int kPB = kT * kLp * 2;          // p or ds
-static_assert(2 * kScoreB >= kT * kLo * 4, "output staging fits S + dP");
-// [a][b][c][d] tiles, S, dP, p, ds, then 2 x 64 floats of row terms
-constexpr int kTcSmem = 4 * kTileB + 2 * kScoreB + 2 * kPB + 2 * kT * 4;
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-
-// 64 rows r0.. of a (B, S, H, D) bf16 tensor at (b, h) into a shared
-// [64][kLd] tile, 16 bytes a thread at a time; rows past S are zero
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int b,
-                                         int r0, int S, int H, int h,
-                                         int D) {
-  const int chunks = D / 8;
-  for (int e = threadIdx.x; e < kT * chunks; e += kThreads) {
-    const int rr = e / chunks, c = (e % chunks) * 8;
-    const int row = r0 + rr;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < S)
-      v = *reinterpret_cast<const uint4*>(
-          src + ((long)(b * S + row) * H + h) * D + c);
-    *reinterpret_cast<uint4*>(dst + rr * kLd + c) = v;
-  }
-}
-
-// S = a . b^T and dP = c . d^T over D, both 64 x 64 fp32 into shared
-// memory; warp w owns rows 16 (w / 2) and columns 32 (w % 2) .. +32
-__device__ __forceinline__ void scores_tc(const bf16* a, const bf16* b,
-                                          const bf16* c, const bf16* d,
-                                          float* s, float* dp, int D) {
-  const int w = threadIdx.x / 32;
-  const int m0 = (w / 2) * 16, n0 = (w % 2) * 32;
-  FragAcc fs[2], fd[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::fill_fragment(fs[j], 0.f);
-    wmma::fill_fragment(fd[j], 0.f);
-  }
-  for (int k = 0; k < D; k += 16) {
-    FragARow fa, fc;
-    wmma::load_matrix_sync(fa, a + m0 * kLd + k, kLd);
-    wmma::load_matrix_sync(fc, c + m0 * kLd + k, kLd);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragBCol fb, fdd;
-      wmma::load_matrix_sync(fb, b + (n0 + j * 16) * kLd + k, kLd);
-      wmma::load_matrix_sync(fdd, d + (n0 + j * 16) * kLd + k, kLd);
-      wmma::mma_sync(fs[j], fa, fb, fs[j]);
-      wmma::mma_sync(fd[j], fc, fdd, fd[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(s + m0 * kLs + n0 + j * 16, fs[j], kLs,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(dp + m0 * kLs + n0 + j * 16, fd[j], kLs,
-                            wmma::mem_row_major);
-  }
-}
-
-// write a 64 x D fp32 block of fragments (warp (w / 4, w % 4) owning
-// rows 32 (w / 4) .. +32, columns 32 (w % 4) .. +32) to rows r0.. of a
-// (B, S, H, D) bf16 tensor at (b, h), through shared memory
-__device__ __forceinline__ void store_tc(FragAcc (&acc)[2][2], float* buf,
-                                         bf16* dst, int b, int r0, int S,
-                                         int H, int h, int D) {
-  const int w = threadIdx.x / 32;
-  const int m0 = (w / 4) * 32, n0 = (w % 4) * 32;
-  __syncthreads();                         // buf (S, dP) is free
-  if (n0 < D) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(buf + (m0 + i * 16) * kLo + n0 + j * 16,
-                                acc[i][j], kLo, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kT * D; e += kThreads) {
-    const int rr = e / D, c = e % D;
-    const int row = r0 + rr;
-    if (row < S)
-      dst[((long)(b * S + row) * H + h) * D + c] =
-          __float2bfloat16(buf[rr * kLo + c]);
-  }
-}
-
-__device__ __forceinline__ void zero_frags(FragAcc (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// K4 on the tensor cores: dq for one (b * Hq + h, 64-row query tile)
-template <typename Ex>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                const int* __restrict__ kv_lens, bf16* __restrict__ dq,
-                int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                float scale, Ex ex) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kT * kLd;
-  bf16* ks = dos + kT * kLd;
-  bf16* vs = ks + kT * kLd;
-  float* ss = reinterpret_cast<float*>(vs + kT * kLd);
-  float* dps = ss + kT * kLs;
-  bf16* dss = reinterpret_cast<bf16*>(dps + kT * kLs);
-  float* lse_s = reinterpret_cast<float*>(dss + 2 * kT * kLp);
-  float* delta_s = lse_s + kT;
-  ex.load_seed();
-
-  const int bh = blockIdx.x;
-  const int b = bh / Hq;
-  const int h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * kT;
-  const int tid = threadIdx.x;
-  const int w = tid / 32;
-  const int m0 = (w / 4) * 32, n0 = (w % 4) * 32;
-
-  int kvlen = Sk;
-  if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[b], Sk));
-  int kend = kvlen;
-  if (causal) kend = min(kend, q0 + kT);
-
-  stage_tc(qs, q, b, q0, Sq, Hq, h, D);
-  stage_tc(dos, dout, b, q0, Sq, Hq, h, D);
-  if (tid < kT) {
-    const int row = q0 + tid;
-    lse_s[tid] = row < Sq ? lse[(long)bh * Sq + row] : 0.f;
-    delta_s[tid] = row < Sq ? delta[(long)bh * Sq + row] : 0.f;
-  }
-  FragAcc acc[2][2];
-  zero_frags(acc);
-  for (int k0 = 0; k0 < kend; k0 += kT) {
-    __syncthreads();                       // previous tile consumed
-    stage_tc(ks, k, b, k0, Sk, Hkv, hk, D);
-    stage_tc(vs, v, b, k0, Sk, Hkv, hk, D);
-    __syncthreads();
-    scores_tc(qs, ks, dos, vs, ss, dps, D);
-    __syncthreads();
-    for (int e = tid; e < kT * kT; e += kThreads) {
-      const int rr = e / kT, cc = e % kT;
-      const int row = q0 + rr, col = k0 + cc;
-      const bool ok = row < Sq && col < kvlen && (!causal || col <= row);
-      const float p =
-          ok ? __expf(ex.logit(ss[rr * kLs + cc], scale, b, h, row, col) -
-                      lse_s[rr])
-             : 0.f;
-      const float dp = ex.drop(dps[rr * kLs + cc], bh, row, col);
-      dss[rr * kLp + cc] = __float2bfloat16(p * (dp - delta_s[rr]) * scale);
-    }
-    __syncthreads();
-    if (n0 < D) {
-#pragma unroll
-      for (int kk = 0; kk < kT; kk += 16) {
-        FragARow fa[2];
-        FragBRow fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], dss + (m0 + i * 16) * kLp + kk, kLp);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], ks + kk * kLd + n0 + j * 16, kLd);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-  }
-  store_tc(acc, ss, dq, b, q0, Sq, Hq, h, D);
-}
 
 // ---- K3 on the tensor cores: TMA + wgmma (bf16, D % 16 == 0) -------------
 //
@@ -803,9 +599,266 @@ int launch_dkdv_sm90(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-int allow_tc_smem(const void* kernel) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem));
+// ---- K4 on the tensor cores: TMA + wgmma (bf16, D % 16 == 0) -------------
+//
+// K1's pipeline turned to dQ. One block of three warpgroups per (b * Hq +
+// h, 128-row query tile), causal tiles longest first. Warpgroup 0 is the
+// producer: one thread loads the block's Q and dO tiles once and streams
+// (K, V) tiles of 64 keys through a ring of kStages4 by TMA (4D maps over
+// (D, H, S, B), 64-dim boxes, 128-byte swizzle), only the tiles that
+// kv_len and, when causal, the block's last row leave visible, from kv
+// head h / (Hq / Hkv). Warpgroups 1 and 2 each own 64 query rows, with
+// their rows' lse and delta in registers. Per key tile:
+//   S  = Q . K^T                   wgmma m64n64k16, SS, both K-major
+//   dP = dO . V^T                  wgmma m64n64k16, SS
+//   P  = exp(S scale + bias - lse) masked, in registers
+//   dS = P (drop(dP) - delta) scale, rounded to bf16 and packed in
+//                                  registers as an A operand
+//   dQ += dS . K                   wgmma m64nDk16, RS, the same K tile
+//                                  read MN-major (the transpose bit)
+// dQ stays in fp32 registers for the whole walk (64 a thread at D 128)
+// and is written once, in bf16. Masks, the bias and the hash apply only
+// on the tiles that need them, at (row = query, col = key); a tile whose
+// every key follows every row of the warpgroup (causal) is skipped. As
+// in K1, each product is waited for before the next is issued (ptxas's
+// C7515 otherwise), and the two consumer warpgroups overlap each other.
+// Registers: the producer warpgroup keeps 40 a thread and the consumers
+// 232, K3's split; no instance spills. On an H100, 128-key tiles (two
+// stages; S and dP at 64 registers a thread each) were no clear gain:
+// faster at the GPT shape, slower at the encoder's, where their dropout
+// instances spill. Two stages of 64 keys ran as fast as three.
+
+constexpr int kRows4 = 128;                // query rows per block
+constexpr int kKeys4 = 64;                 // keys per stage
+constexpr int kStages4 = 3;
+constexpr uint32_t kQBox4 = kRows4 * 128;  // a 64-dim box of 128 rows
+constexpr uint32_t kKBox4 = kKeys4 * 128;  // a 64-dim box of 64 keys
+
+template <int DP>
+struct DqSmem {                            // byte offsets from the base
+  static constexpr uint32_t kQ = (DP / 64) * kQBox4;    // the Q or dO tile
+  static constexpr uint32_t kKV = (DP / 64) * kKBox4;   // a K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr uint32_t kRing = 2 * kQ;
+  static constexpr uint32_t kBars = kRing + kStages4 * kStage;
+  // the tiles, q / full / empty barriers, slack to align to 1024 bytes
+  static constexpr int kBytes = kBars + (1 + 2 * kStages4) * 8 + 1024;
+};
+
+// one key tile's elementwise work on the S and dP registers (rows row0
+// and row0 + 8, keys c0 + 8 j + {0, 1}): p from the scores and the rows'
+// lse lz, ds from dP and their delta dl, in bf16 as the A operand of
+// dS . K (da[k]: keys 16 k ..)
+template <bool kMasked, typename Ex>
+__device__ __forceinline__ void dq_tile(
+    const float (&s)[kKeys4 / 2], const float (&dp)[kKeys4 / 2],
+    uint32_t (&da)[kKeys4 / 16][4], const float (&lz)[2],
+    const float (&dl)[2], const Ex& ex, int b, int h, unsigned bh,
+    int row0, int c0, int Sq, int kvlen, int causal, float scale) {
+#pragma unroll
+  for (int i = 0; i < kKeys4 / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = row0 + 8 * r;
+    const int col = c0 + 8 * (i / 4);
+    float dsv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = !kMasked || (row < Sq && col + e < kvlen &&
+                                   (!causal || col + e <= row));
+      const float p =
+          ok ? __expf(ex.logit(s[i + e], scale, b, h, row, col + e) - lz[r])
+             : 0.f;
+      dsv[e] = p * (ex.scaled(dp[i + e], ex.kept(bh, row, col + e)) - dl[r]) *
+               scale;
+    }
+    da[i / 8][(i % 8) / 2] = pack_bf16(dsv[0], dsv[1]);
+  }
+}
+
+template <int DP, typename Ex>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const int* __restrict__ kv_lens, bf16* __restrict__ dq,
+                  int Sq, int Sk, int Hq, int Hkv, int D, int causal,
+                  float scale, Ex ex) {
+  using L = DqSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qbar = base + L::kBars;
+  const uint32_t full = qbar + 8;          // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * kStages4;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int h = bh % Hq;
+  const int hk = h / (Hq / Hkv);
+  // causal query tiles longest first, so the last wave is the shortest
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kRows4;
+  int kvlen = Sk;
+  if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[b], Sk));
+  // key tiles up to kv_len and, when causal, the block's last row
+  const int kend = causal ? min(kvlen, q0 + kRows4) : kvlen;
+  const int nt = (kend + kKeys4 - 1) / kKeys4;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages4; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread loads Q and dO, then keeps kStages4 (K, V)
+    // tiles in flight
+    regs_dec<40>();
+    if (threadIdx.x == 0 && nt > 0) {
+      mbar_expect_tx(qbar, 2 * L::kQ);
+      for (int c = 0; c < DP / 64; ++c) {
+        tma_load_4d(&tq, base + c * kQBox4, qbar, 64 * c, h, q0, b);
+        tma_load_4d(&tdo, base + L::kQ + c * kQBox4, qbar, 64 * c, h, q0, b);
+      }
+      for (int j = 0; j < nt; ++j) {
+        const int s = j % kStages4;
+        if (j >= kStages4) mbar_wait(empty + 8 * s, (j / kStages4 - 1) & 1);
+        const uint32_t tile = base + L::kRing + s * L::kStage;
+        mbar_expect_tx(full + 8 * s, L::kStage);
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_4d(&tk, tile + c * kKBox4, full + 8 * s, 64 * c, hk,
+                      j * kKeys4, b);
+          tma_load_4d(&tv, tile + L::kKV + c * kKBox4, full + 8 * s, 64 * c,
+                      hk, j * kKeys4, b);
+        }
+      }
+    }
+  } else {
+    regs_inc<232>();
+    ex.load_seed();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int r_first = q0 + 64 * cw;      // the warpgroup's first row
+    const int row0 = r_first + 16 * (t / 32) + (t % 32) / 4;
+    const int c = 2 * (t % 4);
+    float dqa[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+    float lz[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lz[r] = row < Sq ? lse[static_cast<long>(bh) * Sq + row] : 0.f;
+      dl[r] = row < Sq ? delta[static_cast<long>(bh) * Sq + row] : 0.f;
+    }
+    if (nt > 0) {
+      // this warpgroup's 64 rows of the Q and dO tiles
+      const uint32_t qs = base + cw * 64 * 128;
+      const uint32_t dos = base + L::kQ + cw * 64 * 128;
+      mbar_wait(qbar, 0);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % kStages4;
+        mbar_wait(full + 8 * st, (j / kStages4) & 1);
+        const int k0 = j * kKeys4;
+        // rows past Sq, or (causal) a tile whose every key follows every
+        // row, add nothing
+        if (r_first < Sq && (!causal || k0 <= r_first + 63)) {
+          const uint32_t ks = base + L::kRing + st * L::kStage;
+          const uint32_t vs = ks + L::kKV;
+          float sc[kKeys4 / 2], dp[kKeys4 / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint32_t qo = (kk / 4) * kQBox4 + (kk % 4) * 32;
+            const uint32_t ko = (kk / 4) * kKBox4 + (kk % 4) * 32;
+            wgmma_ss<kKeys4, 0, 0>(sc, gmma_desc(qs + qo, 16, 1024),
+                                   gmma_desc(ks + ko, 16, 1024), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint32_t qo = (kk / 4) * kQBox4 + (kk % 4) * 32;
+            const uint32_t ko = (kk / 4) * kKBox4 + (kk % 4) * 32;
+            wgmma_ss<kKeys4, 0, 0>(dp, gmma_desc(dos + qo, 16, 1024),
+                                   gmma_desc(vs + ko, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(sc);
+          fence_acc(dp);
+          const bool whole = k0 + kKeys4 <= kvlen &&
+                             (!causal || k0 + kKeys4 - 1 <= r_first) &&
+                             r_first + 64 <= Sq;
+          uint32_t da[kKeys4 / 16][4];
+          if (whole)
+            dq_tile<false>(sc, dp, da, lz, dl, ex, b, h, bh, row0, k0 + c,
+                           Sq, kvlen, causal, scale);
+          else
+            dq_tile<true>(sc, dp, da, lz, dl, ex, b, h, bh, row0, k0 + c,
+                          Sq, kvlen, causal, scale);
+#pragma unroll
+          for (int kk = 0; kk < kKeys4 / 16; ++kk) fence_regs(da[kk]);
+          fence_acc(dqa);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kKeys4 / 16; ++kk)
+            wgmma_rs<DP, 1>(dqa, da[kk],
+                            gmma_desc(ks + kk * 2048, kKBox4, 1024), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dqa);
+#pragma unroll
+          for (int kk = 0; kk < kKeys4 / 16; ++kk) fence_regs(da[kk]);
+        }
+        // the tile's K and V are read: release the stage
+        if (t == 0) mbar_arrive(empty + 8 * st);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      bf16* out = dq + (static_cast<long>(b * Sq + row) * Hq + h) * D;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + c;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// K4 on the tensor cores for head dims up to DP
+template <int DP, typename Ex>
+int launch_dq_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const int* lens, void* dq, int B, int Sq, int Sk, int Hq,
+                   int Hkv, int D, int causal, float scale, const Ex& ex,
+                   cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = bshd_map(&tq, q, B, Sq, Hq, D, kRows4);
+  if (rc == 0) rc = bshd_map(&tdo, dout, B, Sq, Hq, D, kRows4);
+  if (rc == 0) rc = bshd_map(&tk, k, B, Sk, Hkv, D, kKeys4);
+  if (rc == 0) rc = bshd_map(&tv, v, B, Sk, Hkv, D, kKeys4);
+  if (rc != 0) return rc;
+  const auto kernel = flash_bwd_dq_sm90<DP, Ex>;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DqSmem<DP>::kBytes));
+  if (rc != 0) return rc;
+  const dim3 grid(B * Hq, (Sq + kRows4 - 1) / kRows4);
+  kernel<<<grid, kWgThreads, DqSmem<DP>::kBytes, st>>>(
+      tq, tk, tv, tdo, lse, delta, lens, static_cast<bf16*>(dq), Sq, Sk, Hq,
+      Hkv, D, causal, scale, ex);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -879,15 +932,12 @@ extern "C" int pt_flash_attention_bwd_dq(
   return pt::with_attn_extra(args, [&](auto ex) -> int {
     using Ex = decltype(ex);
     if (dtype == pt::kBFloat16 && D % 16 == 0) {
-      const int rc = allow_tc_smem(reinterpret_cast<const void*>(
-          flash_bwd_dq_tc<Ex>));
-      if (rc != 0) return rc;
-      const dim3 tc_grid(B * Hq, (Sq + kT - 1) / kT);
-      flash_bwd_dq_tc<Ex><<<tc_grid, kThreads, kTcSmem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-          lse_f, delta_f, lens, static_cast<bf16*>(dq), Sq, Sk, Hq, Hkv, D,
-          causal, scale, ex);
+      return D <= 64 ? launch_dq_sm90<64>(q, k, v, dout, lse_f, delta_f, lens,
+                                          dq, B, Sq, Sk, Hq, Hkv, D, causal,
+                                          scale, ex, st)
+                     : launch_dq_sm90<128>(q, k, v, dout, lse_f, delta_f,
+                                           lens, dq, B, Sq, Sk, Hq, Hkv, D,
+                                           causal, scale, ex, st);
     } else if (dtype == pt::kBFloat16) {
       using T = __nv_bfloat16;
       flash_bwd_dq_kernel<T, Ex><<<grid, kThreads, 0, st>>>(

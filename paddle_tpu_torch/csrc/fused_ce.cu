@@ -9,69 +9,62 @@
 //   lse = logsumexp_v s,  loss = lse - s[label]  (0 for ignored rows)
 //
 // The backward (K6 dx, K7 dw) is fused_ce_bwd.cu. The (N, V) logits never
-// reach device memory: the kernel computes each 64 x 128 logit tile from x
-// and w (`logits_tile`, the counterpart of `_logits_block`, :40-44) and
-// folds it into an online logsumexp.
+// reach device memory: each logit tile is computed from x and w (the
+// counterpart of `_logits_block`, :40-44) and folded into an online
+// logsumexp while it is still in registers.
 //
-// Design. One block of 256 threads owns a 64-row tile and a range of vocab
-// tiles, walking the TPU's sequential ("arbitrary") grid axis as a loop.
-// The 64 x 128 logit tile ends in fp32 registers, 4 x 8 per thread, where
-// the online logsumexp runs. How it gets there depends on the dtype:
-//  - bf16 (the train path): tensor cores. Eight warps each own a 32 x 32
-//    piece as 2 x 2 wmma 16x16x16 fragments (bf16 in, fp32 accumulate,
-//    the MXU's arithmetic); x and w pass through shared memory in
-//    32-deep stages read with 16-byte loads, and the finished tile is
-//    staged through shared memory into the epilogue's thread layout.
-//  - fp32: the FP32 pipes, each thread accumulating its 4 x 8 piece from
-//    16-deep fp32 stages (three 16-byte shared loads per 32 FMAs).
-// Each block keeps each row's running max, sum and label logit over its
-// columns and writes them for its range; a small second kernel in the same
-// launch merges the ranges into lse and loss. Splitting the vocabulary
-// gives enough blocks for the 132 SMs at N = 8188.
+// Design. Hopper blocks run in no order, so the TPU's sequential
+// ("arbitrary") vocab axis becomes a loop inside a block over a range of
+// `per` consecutive vocab tiles; each block writes its rows' running max,
+// sum and label logit for its range into the scratch `part` (nsplit, 3,
+// N), and a small second kernel in the same launch merges the ranges into
+// lse and loss. ops/fused_ce.py plans the ranges (`_ranges`) so that the
+// grid of row tiles x ranges fills whole waves of the SMs.
+//  - bf16 (the train path): `ce_fwd_sm90`, the mainloop of the CE
+//    backward's dl pass (ce_gemm.cuh) with a log-sum-exp epilogue. A
+//    block of three warpgroups owns 128 rows; one producer thread streams
+//    64-deep stages of x and w by TMA (128-byte swizzle, a ring of four)
+//    across all the tiles of its range without a break, and two consumer
+//    warpgroups each run wgmma m64n256k16 on 64 rows into 128 fp32
+//    registers a thread. The epilogue runs on those registers: per row, a
+//    thread's max over its 64 columns, two quad shuffles for the tile's
+//    max, then its own part of the running sum (exp2 of one FMA a cell)
+//    and, on the one tile that holds it, the label's logit; the quad sums
+//    them once, after the range. While it runs, the producer is already
+//    loading the next tile's first stages. Columns at or past V are
+//    zero-filled w rows (logit 0): the last tile leaves them out of the
+//    max and the sum; rows past N are zero-filled x rows and write
+//    nothing.
+//  - fp32: the FP32 pipes, one block of 256 threads per 64-row tile and
+//    range of 128-column tiles, each thread accumulating a 4 x 8 piece
+//    from 16-deep fp32 stages (three 16-byte shared loads per 32 FMAs).
 //
 // Bound on the H100. At the train shape (N 8188, d 2048, V 50304, bf16)
 // the product is 0.84 T multiply-adds, 1.7 TFLOP, against about 0.3 GB of
 // inputs: far above the ridge, so the bound is the tensor cores' 989
-// TFLOP/s (1.71 ms). The wmma path (no TMA, no wgmma, two barriers per
-// 32-deep stage) reaches a fraction of that; fused_ce_bwd.cu's TMA and
-// wgmma mainloop with an online-logsumexp epilogue is the next step
-// (ROADMAP R1). The fp32 path is bound by the FP32 pipes (67 TFLOP/s).
-#include <mma.h>
-
-#include <type_traits>
-
+// TFLOP/s (1.71 ms). The epilogue's 128 exponentials per thread and tile
+// do not overlap that tile's products (one accumulator set per
+// warpgroup). The fp32 path is bound by the FP32 pipes (67 TFLOP/s).
+#include "ce_gemm.cuh"
 #include "common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+using namespace sm90;
+
+// ---- fp32: the FP32 pipes ---------------------------------------------------
 
 constexpr int kBM = 64;                    // rows of x per tile
 constexpr int kBN = 128;                   // vocab columns per tile
-constexpr int kBK = 16;                    // fp32 path: stage depth
-constexpr int kTK = 32;                    // bf16 path: stage depth
-constexpr int kPad = 8;                    // bf16 row padding (16 bytes)
-constexpr int kCS = kBN + 4;               // fp32 row stride, staged tile
+constexpr int kBK = 16;                    // stage depth
 constexpr int kThreads = 256;              // 16 x 16, 4 x 8 outputs each
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// Shared memory (dynamic), in bytes. fp32: the two stages. bf16: one
-// region reused for the logit stages and the staged fp32 tile. Each keeps
-// the size it had while this file also held K6 and K7 (their dl tile and
-// second operand), so K5 runs at the occupancy it was measured at.
+// Shared memory (dynamic), in bytes: the two stages, plus the room the
+// fp32 tile had while this file also held K6 and K7 (their dl tile), so
+// the fp32 path keeps the occupancy it was measured at.
 constexpr int kF32Stage = (kBK * kBM + kBK * kBN) * 4;
 constexpr int kF32Total = kF32Stage + kBN * kBM * 4;
-constexpr int kTcRegion =
-    cmax(cmax((kBM + kBN) * (kTK + kPad) * 2, kBM * kCS * 4),
-         cmax(kBN * (kBN + kPad) * 2, kBM * (kBM + kPad) * 2));
-constexpr int kTcTotal = kTcRegion + kBM * (kBN + kPad) * 2;
-
-template <typename T>
-constexpr int smem_total() {
-  return std::is_same<T, float>::value ? kF32Total : kTcTotal;
-}
 
 // thread (ty, tx) = (tid / 16, tid % 16) owns tile rows 4 ty + i (i < 4)
 // and columns col_of(tx, j) (j < 8): two runs of four, 64 apart
@@ -126,7 +119,7 @@ __device__ __forceinline__ void mma_stage(const float* a, const float* b,
 }
 
 // acc = x[row0 .. +64) . w[col0 .. +128)^T in fp32, in the 4 x 8 thread
-// layout; rows past N and columns past V read as 0. fp32: FP32 pipes.
+// layout; rows past N and columns past V read as 0
 __device__ __forceinline__ void logits_tile(
     unsigned char* smem, const float* __restrict__ x,
     const float* __restrict__ w, int row0, int col0, int N, int V, int d,
@@ -157,88 +150,8 @@ __device__ __forceinline__ void logits_tile(
   }
 }
 
-__device__ __forceinline__ uint4 ld16(const bf16* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
-}
-
-// the same for bf16, on the tensor cores: warp (wm, wn) = (warp / 4,
-// warp % 4) owns rows 32 wm .. +32 and columns 32 wn .. +32
-__device__ __forceinline__ void logits_tile(
-    unsigned char* smem, const bf16* __restrict__ x,
-    const bf16* __restrict__ w, int row0, int col0, int N, int V, int d,
-    float (&acc)[4][8]) {
-  constexpr int ld = kTK + kPad;
-  bf16* xs = reinterpret_cast<bf16*>(smem);    // [kBM][ld]
-  bf16* ws = xs + kBM * ld;                    // [kBN][ld]
-  float* cs = reinterpret_cast<float*>(smem);  // [kBM][kCS], after
-  const int tid = threadIdx.x;
-  const int wm = tid / 32 / 4, wn = tid / 32 % 4;
-  // 16-byte chunks: x 64 rows x 4, w 128 rows x 4 (two per thread)
-  const int xr = tid / 4, xc = (tid % 4) * 8;
-  const bool x_ok = row0 + xr < N;
-  const bf16* xg = x + (long)(row0 + xr) * d + xc;
-  const int wr0 = tid / 4, wr1 = wr0 + 64;
-  const bool w_ok0 = col0 + wr0 < V, w_ok1 = col0 + wr1 < V;
-  const bf16* wg0 = w + (long)(col0 + wr0) * d + xc;
-  const bf16* wg1 = w + (long)(col0 + wr1) * d + xc;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  for (int k0 = 0; k0 < d; k0 += kTK) {
-    const bool k_ok = k0 + xc < d;
-    const uint4 rx = ld16(xg + k0, x_ok && k_ok);
-    const uint4 rw0 = ld16(wg0 + k0, w_ok0 && k_ok);
-    const uint4 rw1 = ld16(wg1 + k0, w_ok1 && k_ok);
-    __syncthreads();                       // previous stage consumed
-    *reinterpret_cast<uint4*>(xs + xr * ld + xc) = rx;
-    *reinterpret_cast<uint4*>(ws + wr0 * ld + xc) = rw0;
-    *reinterpret_cast<uint4*>(ws + wr1 * ld + xc) = rw1;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-          b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * ld + kk, ld);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], ws + (wn * 32 + j * 16) * ld + kk, ld);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __syncthreads();                         // cs overwrites the stages
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kCS + wn * 32 + j * 16,
-                              c[i][j], kCS, wmma::mem_row_major);
-  __syncthreads();
-  const int ty = tid / 16, tx = tid % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float* row = cs + (ty * 4 + i) * kCS + tx * 4;
-    const float4 lo = *reinterpret_cast<const float4*>(row);
-    const float4 hi = *reinterpret_cast<const float4*>(row + 64);
-    acc[i][0] = lo.x; acc[i][1] = lo.y; acc[i][2] = lo.z; acc[i][3] = lo.w;
-    acc[i][4] = hi.x; acc[i][5] = hi.y; acc[i][6] = hi.z; acc[i][7] = hi.w;
-  }
-}
-
-// ---- K5 -------------------------------------------------------------------
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ce_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const int* __restrict__ labels, float* __restrict__ part,
               int N, int V, int d, int per) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -305,6 +218,135 @@ ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- bf16: TMA + wgmma (ce_gemm.cuh's mainloop) -----------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (the MUFU's approximation, as __expf uses; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one 128 x 256 logit tile folded into the running max m, this thread's
+// part of the running sum l, and its part of the label logit pick, for
+// the thread's two rows (acc[4 j + 2 r + e] is row r's column c0 + 8 j +
+// e). m is the row's, shared by the quad (lanes t ^ 1, t ^ 2) that holds
+// its 256 columns. kMasked: the tile reaches past V, whose columns (logit
+// 0 from TMA's zero fill) stay out of the max and the sum.
+template <bool kMasked>
+__device__ __forceinline__ void lse_tile(const float (&acc)[ce::kBN / 2],
+                                         float (&m)[2], float (&l)[2],
+                                         float (&pick)[2],
+                                         const int (&lab)[2], int c0,
+                                         int V) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < ce::kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (!kMasked || c0 + 8 * j + e < V)
+          mx = fmaxf(mx, acc[4 * j + 2 * r + e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // finite: the tile's first column, < V, is in every row's quad
+    const float m_new = fmaxf(m[r], mx);
+    const float mb = m_new * kLog2e;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < ce::kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (!kMasked || c0 + 8 * j + e < V)
+          s += exp2_approx(fmaf(acc[4 * j + 2 * r + e], kLog2e, -mb));
+    // the first tile: m = -inf, so the old sum (0) scales by 0
+    l[r] = l[r] * exp2_approx((m[r] - m_new) * kLog2e) + s;
+    m[r] = m_new;
+    const int rel = lab[r] - c0;
+    if (rel >= 0 && rel < ce::kBN) {
+#pragma unroll
+      for (int j = 0; j < ce::kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e == rel) pick[r] += acc[4 * j + 2 * r + e];
+    }
+  }
+}
+
+// K5 on the tensor cores: rows blockIdx.x * 128 .., the vocab tiles
+// [blockIdx.y * per, + per) (fewer in the last range), 256 columns each
+__global__ void __launch_bounds__(ce::kWgThreads, 1)
+ce_fwd_sm90(const __grid_constant__ CUtensorMap tx,
+            const __grid_constant__ CUtensorMap tw,
+            const int* __restrict__ labels, float* __restrict__ part, int N,
+            int V, int d, int per) {
+  extern __shared__ unsigned char smem_raw[];
+  const ce::Ring ring = ce::Ring::at(smem_raw);
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * ce::kBM;
+  const int nvt = (V + ce::kBN - 1) / ce::kBN;
+  const int t0 = blockIdx.y * per;
+  const int nt = min(nvt, t0 + per) - t0;
+  const int nk = (d + ce::kBK - 1) / ce::kBK;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread streams the range's stages without a break
+    regs_dec<40>();
+    if (threadIdx.x == 0)
+      ce::produce<false, false>(ring, &tx, &tw, m0, t0 * ce::kBN, nt, nk);
+  } else {
+    regs_inc<232>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int r0 = m0 + cw * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int c = 2 * (t % 4);
+    int lab[2];
+    float m[2], l[2], pick[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      lab[r] = row < N ? labels[row] : -1;
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+      pick[r] = 0.f;
+    }
+    float acc[ce::kBN / 2];
+    int it = 0;
+    for (int i = 0; i < nt; ++i) {
+#pragma unroll
+      for (int j = 0; j < ce::kBN / 2; ++j) acc[j] = 0.f;
+      ce::consume<false, false>(ring, acc, cw, t, nk, it);
+      const int col0 = (t0 + i) * ce::kBN;
+      if (col0 + ce::kBN <= V)
+        lse_tile<false>(acc, m, l, pick, lab, col0 + c, V);
+      else
+        lse_tile<true>(acc, m, l, pick, lab, col0 + c, V);
+    }
+    // the quad's parts of each row's sum and label logit
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      pick[r] += __shfl_xor_sync(0xffffffffu, pick[r], 1);
+      pick[r] += __shfl_xor_sync(0xffffffffu, pick[r], 2);
+      const int row = r0 + 8 * r;
+      if (c == 0 && row < N) {
+        float* p = part + static_cast<long>(blockIdx.y) * 3 * N;
+        p[row] = m[r];
+        p[N + row] = l[r];
+        p[2 * N + row] = pick[r];
+      }
+    }
+  }
+}
+
+// ---- the merge --------------------------------------------------------------
+
 __global__ void ce_fwd_merge(const float* __restrict__ part,
                              const int* __restrict__ labels,
                              float* __restrict__ loss,
@@ -324,38 +366,49 @@ __global__ void ce_fwd_merge(const float* __restrict__ part,
   loss[r] = labels[r] >= 0 ? lz - pick : 0.f;
 }
 
-// dynamic shared memory above the 48 KB default needs an opt-in
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-template <typename T>
-int fwd_launch(const void* x, const void* w, const int* labels, float* part,
-               float* loss, float* lse, int N, int V, int d, int nsplit,
-               int per, cudaStream_t st) {
-  const dim3 grid((N + kBM - 1) / kBM, nsplit);
-  const int bytes = smem_total<T>();
-  int rc = allow_smem(ce_fwd_kernel<T>, bytes);
-  if (rc != 0) return rc;
-  ce_fwd_kernel<T><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), labels, part, N,
-      V, d, per);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
+int merge(const float* part, const int* labels, float* loss, float* lse,
+          int N, int nsplit, cudaStream_t st) {
   ce_fwd_merge<<<(N + 255) / 256, 256, 0, st>>>(part, labels, loss, lse, N,
                                                nsplit);
   return static_cast<int>(cudaGetLastError());
+}
+
+int fwd_f32(const float* x, const float* w, const int* labels, float* part,
+            float* loss, float* lse, int N, int V, int d, int nsplit,
+            int per, cudaStream_t st) {
+  static_assert(kF32Total <= 48 * 1024, "no opt-in above 48 KB needed");
+  const dim3 grid((N + kBM - 1) / kBM, nsplit);
+  ce_fwd_kernel<<<grid, kThreads, kF32Total, st>>>(x, w, labels, part, N, V,
+                                                   d, per);
+  const int rc = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : merge(part, labels, loss, lse, N, nsplit, st);
+}
+
+int fwd_sm90(const void* x, const void* w, const int* labels, float* part,
+             float* loss, float* lse, int N, int V, int d, int nsplit,
+             int per, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  int rc = ce::operand_map<false, ce::kBM>(&tx, x, d, N, d);
+  if (rc == 0) rc = ce::operand_map<false, ce::kBN>(&tw, w, d, V, d);
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      ce_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ce::kWgSmem));
+  if (rc != 0) return rc;
+  const dim3 grid((N + ce::kBM - 1) / ce::kBM, nsplit);
+  ce_fwd_sm90<<<grid, ce::kWgThreads, ce::kWgSmem, st>>>(tx, tw, labels,
+                                                         part, N, V, d, per);
+  rc = static_cast<int>(cudaGetLastError());
+  return rc != 0 ? rc : merge(part, labels, loss, lse, N, nsplit, st);
 }
 
 }  // namespace
 
 // x (N, d) and w (V, d) contiguous, 16-byte aligned, of one dtype, with
 // d % 8 == 0; labels (N,) int32; loss, lse (N,) fp32. The vocabulary tiles
-// are cut into `nsplit` ranges of `per` tiles, none empty; `part` (nsplit,
-// 3, N) fp32 is the scratch of the ranges.
+// (256 columns in bf16, 128 in fp32) are cut into `nsplit` ranges of `per`
+// tiles, none empty, for row tiles of 128 (bf16) or 64 (fp32) rows;
+// `part` (nsplit, 3, N) fp32 is the scratch of the ranges.
 extern "C" int pt_fused_ce_fwd(int dtype, const void* x, const void* w,
                                const void* labels, void* part, void* loss,
                                void* lse, int N, int V, int d, int nsplit,
@@ -366,8 +419,9 @@ extern "C" int pt_fused_ce_fwd(int dtype, const void* x, const void* w,
   float* lo = static_cast<float*>(loss);
   float* lz = static_cast<float*>(lse);
   if (dtype == pt::kBFloat16)
-    return fwd_launch<bf16>(x, w, lab, p, lo, lz, N, V, d, nsplit, per, st);
+    return fwd_sm90(x, w, lab, p, lo, lz, N, V, d, nsplit, per, st);
   if (dtype == pt::kFloat32)
-    return fwd_launch<float>(x, w, lab, p, lo, lz, N, V, d, nsplit, per, st);
+    return fwd_f32(static_cast<const float*>(x), static_cast<const float*>(w),
+                   lab, p, lo, lz, N, V, d, nsplit, per, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

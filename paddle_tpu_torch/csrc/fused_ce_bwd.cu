@@ -35,9 +35,10 @@
 // the (N, V) logits never exist whole.
 //
 // bf16 (the train path): one warp-specialised mainloop for the three
-// products. A block of three warpgroups owns a 128 x 256 output tile. One
-// producer thread issues TMA loads (128-byte swizzle, 64-deep stages, a
-// ring of kStages completed on mbarriers); two consumer warpgroups each run
+// products (ce_gemm.cuh, which K5's forward shares). A block of three
+// warpgroups owns a 128 x 256 output tile. One producer thread issues
+// TMA loads (128-byte swizzle, 64-deep stages, a ring of kStages
+// completed on mbarriers); two consumer warpgroups each run
 // wgmma.mma_async m64n256k16 (bf16 in, fp32 accumulate, both operands from
 // shared memory) on their 64 rows, and the epilogue works on the
 // accumulator registers. Operand majors differ by launch: the dl pass
@@ -60,40 +61,15 @@
 // so 5.12 ms for the three, against about 0.3 GB of inputs and outputs
 // plus the scratch (dl written once and read twice, dx32 read and written
 // once per chunk, about 2.5 GB at Vc 4096): the tensor cores bound it.
+#include "ce_gemm.cuh"
 #include "common.cuh"
-#include "sm90.cuh"
 
 namespace {
 
-using namespace sm90;
+using namespace ce;
 using bf16 = __nv_bfloat16;
 
-// ---- bf16: TMA + wgmma -----------------------------------------------------
-
-constexpr int kBM = 128;            // output rows per block (two warpgroups)
-constexpr int kBN = 256;            // output columns per block
-constexpr int kBK = 64;             // stage depth: one 128-byte bf16 row
-constexpr int kStages = 4;
-constexpr int kWgThreads = 384;     // producer warpgroup + two consumers
-
-// a stage's operand tile: kRows (M or N) rows from r0, 64 deep from k0.
-// K-major: one box {64 deep, kRows} -> [kRows][64], 128-byte rows.
-// MN-major: kRows / 64 boxes {64 wide, 64 deep} -> [64 k][64 mn] each.
-template <bool kMn, int kRows>
-__device__ __forceinline__ void load_tile(const CUtensorMap* map,
-                                          uint32_t dst, uint32_t bar, int r0,
-                                          int k0) {
-  if constexpr (kMn) {
-#pragma unroll
-    for (int i = 0; i < kRows / 64; ++i)
-      tma_load(map, dst + i * kAtom, bar, r0 + 64 * i, k0);
-  } else {
-    tma_load(map, dst, bar, k0, r0);
-  }
-}
-// the ring, its mbarriers, and slack to align the ring to 1024 bytes
-constexpr int kWgSmem =
-    kStages * (kBM + kBN) * kBK * 2 + 2 * kStages * 8 + 1024;
+// ---- bf16: TMA + wgmma (ce_gemm.cuh's mainloop) ---------------------------
 
 // out tile (128 x 256 at blockIdx.y * 128, blockIdx.x * 256) = A . B over K,
 // A (M x K) from map ta, B (K x N) from map tb, both bf16, through the
@@ -108,40 +84,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                  const __grid_constant__ CUtensorMap tb, int K,
                  const Epi epi) {
   extern __shared__ unsigned char smem_raw[];
-  constexpr uint32_t kABytes = kBM * kBK * 2;
-  constexpr uint32_t kStageBytes = kABytes + kBN * kBK * 2;
-  // the swizzled tiles need 1024-byte alignment
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t bars = base + kStages * kStageBytes;  // full[s], empty[s]
+  const Ring ring = Ring::at(smem_raw);
   const int wg = threadIdx.x / 128;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int nk = (K + kBK - 1) / kBK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(bars + 8 * s, 1);
-      mbar_init(bars + 8 * (kStages + s), 2);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread keeps kStages stages of loads in flight
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages)
-          mbar_wait(bars + 8 * (kStages + s), (kt / kStages - 1) & 1);
-        const uint32_t full = bars + 8 * s;
-        const uint32_t tile = base + s * kStageBytes;
-        mbar_expect_tx(full, kStageBytes);
-        load_tile<kAMn, kBM>(&ta, tile, full, m0, kt * kBK);
-        load_tile<kBMn, kBN>(&tb, tile + kABytes, full, n0, kt * kBK);
-      }
-    }
+    regs_dec<40>();
+    if (threadIdx.x == 0) produce<kAMn, kBMn>(ring, &ta, &tb, m0, n0, 1, nk);
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    regs_inc<232>();
     const int cw = wg - 1;
     const int t = threadIdx.x % 128;
     const int r0 = m0 + cw * 64 + (t / 32) * 16 + (t % 32) / 4;
@@ -157,25 +112,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       acc[4 * j + 2] = v.x;
       acc[4 * j + 3] = v.y;
     }
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % kStages;
-      mbar_wait(bars + 8 * s, (kt / kStages) & 1);
-      const uint32_t tile = base + s * kStageBytes;
-      fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_n256<kAMn, kBMn>(acc, operand_desc<kAMn>(tile, cw, kk),
-                               operand_desc<kBMn>(tile + kABytes, 0, kk));
-      wgmma_commit();
-      fence_acc(acc);
-      // the previous stage's products are done: release its buffers
-      wgmma_wait<1>();
-      if (kt > 0 && t == 0)
-        mbar_arrive(bars + 8 * (kStages + (kt - 1) % kStages));
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
+    int it = 0;
+    consume<kAMn, kBMn>(ring, acc, cw, t, nk, it);
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       epi.put2(row0, r0, c0 + 8 * j, acc[4 * j], acc[4 * j + 1]);
@@ -368,27 +306,6 @@ struct DwEpi {
 };
 
 // ---- host ------------------------------------------------------------------
-
-// the map of a bf16 operand stored as `outer` rows of `inner` elements,
-// `ld` apart, read as a kMn / kRows tile of load_tile (K-major: boxes {64,
-// kRows}; MN-major: {64, 64}); entries past the extents read as zeros
-template <bool kMn, int kRows>
-int operand_map(CUtensorMap* map, const void* base, long inner, long outer,
-                long ld) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, kMn ? 64u : static_cast<cuuint32_t>(kRows)};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-          dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
 
 // C (M x Nn) = A (M x K) . B (K x Nn) through epi on the tensor cores; A
 // stored as `a_inner` x `a_outer` (ld a_ld), B likewise

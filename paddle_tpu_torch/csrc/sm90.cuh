@@ -2,8 +2,8 @@
 // kernels: mbarriers, TMA loads, wgmma shared-memory descriptors, the
 // wgmma products (bf16 in, fp32 accumulate; A from shared memory or from
 // registers), register rebalancing, and the host's tensor-map encoder.
-// Used by fused_ce_bwd.cu (the CE backward, K6 and K7) and the flash
-// attention sources (K1, K3).
+// Used by ce_gemm.cuh (the fused CE's mainloop: K5, and the backward's
+// dl pass, K6 and K7) and the flash attention sources (K1, K3, K4).
 //
 // Conventions (from the PTX ISA's wgmma and cp.async.bulk.tensor
 // sections): a TMA box whose innermost extent is 64 bf16 (128 bytes),

@@ -26,7 +26,7 @@ is made.
 """
 
 import ctypes
-import math
+import functools
 
 import torch
 
@@ -37,7 +37,12 @@ __all__ = ["fused_softmax_cross_entropy", "fused_ce_plain",
            "fused_ce_bwd", "plan_chunks", "CHUNK"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BM, _BN = 64, 128          # K5's row and vocab tiles
+# K5's (row, vocab) tiles: bf16 runs ``ce_fwd_sm90`` (128 x 256, one block
+# an SM), fp32 the FP32-pipe kernel (64 x 128, three blocks an SM)
+_TILES = {torch.bfloat16: (128, 256), torch.float32: (64, 128)}
+_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 3}
+# a block's start-up (barriers, the ring's first stages), in tile steps
+_START_TILES = 0.1
 # the backward's vocab chunk: dl (N, CHUNK) in x's dtype and the fp32 dx
 # sum (N, d) are its scratch
 CHUNK = 4096
@@ -126,13 +131,36 @@ def _check(x, w, labels, *rows):
                              "tensors on x's device")
 
 
-def _ranges(tiles: int, other_tiles: int, device) -> tuple:
-    """(nsplit, per): cut ``tiles`` into ranges of ``per`` so that
-    other_tiles * nsplit blocks give about three per SM; none empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(tiles, math.ceil(3 * sms / max(1, other_tiles))))
-    per = math.ceil(tiles / want)
-    return math.ceil(tiles / per), per
+@functools.lru_cache(maxsize=64)
+def _ranges(tiles: int, row_tiles: int, slots: int) -> tuple:
+    """(nsplit, per): ``tiles`` vocab tiles cut into ``nsplit`` ranges of
+    ``per`` consecutive tiles (the last one shorter, none empty) for a
+    grid of ``row_tiles`` x nsplit blocks, ``slots`` of which run at once.
+    Among the cuts into whole waves (at most one wave, or a multiple of
+    ``slots`` blocks) it takes the one with the least time, counted in
+    tile steps of the longest range per wave plus a start-up cost per
+    block; a pure function of its arguments."""
+    best = None
+    for per in range(1, tiles + 1):
+        nsplit = -(-tiles // per)
+        if -(-tiles // nsplit) != per:
+            continue                     # the same cut as a smaller per
+        blocks = row_tiles * nsplit
+        if blocks > slots and blocks % slots:
+            continue                     # a partial last wave
+        cost = -(-blocks // slots) * (per + _START_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, nsplit, per)
+    if best is None:                     # no whole-wave cut: one range
+        return 1, tiles
+    return best[1], best[2]
+
+
+def _plan(dtype, n: int, V: int, sms: int) -> tuple:
+    """K5's ``(nsplit, per)`` for an (n, d) x (V, d) call in ``dtype`` on
+    a card of ``sms`` SMs, with that dtype's tiles."""
+    bm, bn = _TILES[dtype]
+    return _ranges(-(-V // bn), -(-n // bm), sms * _BLOCKS_PER_SM[dtype])
 
 
 def _stream(t):
@@ -148,7 +176,8 @@ def fused_ce_fwd(x, w, labels):
     lse = torch.empty_like(loss)
     if n == 0:
         return loss, lse
-    nsplit, per = _ranges(math.ceil(V / _BN), math.ceil(n / _BM), x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit, per = _plan(x.dtype, n, V, sms)
     part = torch.empty((nsplit, 3, n), dtype=torch.float32, device=x.device)
     lib, fn = _entry("pt_fused_ce_fwd")
     with torch.cuda.device(x.device):

@@ -18,6 +18,7 @@ from paddle_tpu.ops.pallas.fused_ce import _pick_block_v
 from paddle_tpu.ops.pallas.fused_ce import (
     fused_softmax_cross_entropy as jax_fused_ce)
 from paddle_tpu_torch.models import gpt
+from paddle_tpu_torch.ops import fused_ce as ce
 from paddle_tpu_torch.ops import launch_counters
 from paddle_tpu_torch.ops.fused_ce import (
     CHUNK, fused_ce_bwd, fused_ce_bwd_reference, fused_ce_plain,
@@ -162,6 +163,64 @@ def test_plan_chunks_covers_the_vocabulary(V, width):
 def test_plan_chunks_rejects_bad_widths(width):
     with pytest.raises(ValueError, match="multiple of 8"):
         plan_chunks(512, width)
+
+
+# K5's range planner (pure): (tiles, row tiles, blocks at once)
+RANGE_CASES = [(197, 64, 132), (197, 2, 132), (393, 128, 396), (1, 1, 132),
+               (4, 2, 132), (197, 133, 132), (1000, 7, 132), (50, 300, 132)]
+
+
+def _range_bounds(tiles, nsplit, per):
+    return [(i * per, min(tiles, (i + 1) * per)) for i in range(nsplit)]
+
+
+@pytest.mark.parametrize("tiles, row_tiles, slots", RANGE_CASES)
+def test_ce_ranges_cover_every_vocab_tile_once(tiles, row_tiles, slots):
+    """Every vocab tile in exactly one range, in order, none empty, all
+    but the last ``per`` tiles long; the same answer on every call."""
+    nsplit, per = ce._ranges(tiles, row_tiles, slots)
+    bounds = _range_bounds(tiles, nsplit, per)
+    assert all(t1 > t0 for t0, t1 in bounds)
+    assert all(t1 - t0 == per for t0, t1 in bounds[:-1])
+    covered = [t for t0, t1 in bounds for t in range(t0, t1)]
+    assert covered == list(range(tiles))
+    assert ce._ranges.__wrapped__(tiles, row_tiles, slots) == (nsplit, per)
+
+
+@pytest.mark.parametrize("tiles, row_tiles, slots", RANGE_CASES)
+def test_ce_ranges_fill_whole_waves(tiles, row_tiles, slots):
+    """The grid is at most one wave or a whole number of waves when such
+    a cut exists (one range is the fallback when none does)."""
+    nsplit, per = ce._ranges(tiles, row_tiles, slots)
+    blocks = row_tiles * nsplit
+    cuts = {-(-tiles // p) for p in range(1, tiles + 1)}
+    whole = [n for n in cuts
+             if row_tiles * n <= slots or row_tiles * n % slots == 0]
+    if whole:
+        assert blocks <= slots or blocks % slots == 0
+    else:
+        assert (nsplit, per) == (1, tiles)
+
+
+def test_ce_plan_at_the_train_shape_is_whole_waves_of_the_h100():
+    """N 8188, V 50,304 in bf16 on 132 SMs: 64 row tiles of 128 and 197
+    vocab tiles of 256, cut into ranges whose grid fills whole waves."""
+    nsplit, per = ce._plan(torch.bfloat16, 8188, 50304, 132)
+    assert (nsplit, per) == ce._ranges(197, 64, 132)
+    assert -(-197 // per) == nsplit and (nsplit - 1) * per < 197
+    blocks = 64 * nsplit
+    assert blocks <= 132 or blocks % 132 == 0
+
+
+@pytest.mark.parametrize("n, V", [(8188, 50304), (129, 50304), (1, 130),
+                                  (200, 1000)])
+def test_ce_plan_takes_each_dtypes_tiles(n, V):
+    """bf16 plans 128-row x 256-column tiles at one block an SM; fp32
+    keeps the FP32-pipe kernel's 64 x 128 tiles at three an SM."""
+    assert ce._plan(torch.bfloat16, n, V, 132) == ce._ranges(
+        -(-V // 256), -(-n // 128), 132)
+    assert ce._plan(torch.float32, n, V, 132) == ce._ranges(
+        -(-V // 128), -(-n // 64), 396)
 
 
 # chunk widths that leave a ragged last chunk: 512 = 7 x 72 + 8,

@@ -201,6 +201,14 @@ def _close(got, ref, dtype):
     (1, 2048, 2, 2, 128, True, [1000]),
     (1, 256, 16, 4, 128, True, None),
     (2, 256, 2, 2, 64, False, None),
+    # the edges of K4's 128-row blocks and 64-key tiles: rows past a
+    # block, kv_len inside a key tile, D 32 / 96 on the 64 / 128
+    # instances, GQA 16 -> 4, not causal
+    (1, 129, 4, 4, 128, True, None),
+    (2, 129, 4, 2, 64, False, [100, 33]),
+    (1, 200, 16, 4, 96, True, [161]),
+    (2, 200, 4, 4, 32, False, [200, 96]),
+    (1, 130, 2, 1, 128, False, [70]),
 ])
 def test_flash_backward_kernels_match_plain(dev, dtype, b, s, hq, hkv, d,
                                             causal, lens):
@@ -256,7 +264,12 @@ def test_flash_autograd_on_gpu_matches_cpu(dev):
     (1, 8, 130, None),
     # several chunks with a ragged last one; rows no multiple of 128
     (200, 64, 1000, 256), (333, 128, 4096, 1536), (130, 72, 1000, 8),
-    (517, 256, 2000, 512)])
+    (517, 256, 2000, 512),
+    # K5's edges: rows past a 128-row tile, a last 256-wide vocab tile
+    # mostly past V (257, 130, 50,304), d 8 and 72 (one stage, zero-filled
+    # past d), the train shape; at N 129 the plan's last range is short
+    (129, 72, 257, None), (130, 8, 130, None), (129, 2048, 50304, None),
+    (8188, 2048, 50304, None)])
 def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V, chunk):
     """K5 against fused_ce_reference (loss and lse to 1e-4 of the
     largest; both sum fp32 products of the same inputs), the backward's
@@ -271,6 +284,8 @@ def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V, chunk):
     labels = torch.randint(0, V, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
     labels[::3] = -1
+    if n > 1:
+        labels[1] = V - 1                  # in the ragged last vocab tile
     g = torch.randn((n,), generator=gen, device=dev)
     g = torch.where(labels >= 0, g, torch.zeros_like(g))
     kw = {} if chunk is None else {"chunk": chunk}
@@ -291,6 +306,33 @@ def test_fused_ce_kernels_match_plain(dev, dtype, n, d, V, chunk):
     _close(dx, rdx, dtype)
     _close(dw, rdw, dtype)
     assert torch.all(dx[labels < 0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, V, per", [(129, 50304, 5), (300, 1000, 3),
+                                       (8188, 50304, 6)])
+def test_fused_ce_forward_with_a_short_last_range(dev, monkeypatch, dtype,
+                                                  n, V, per):
+    """K5 with the vocab tiles cut into ranges of ``per`` whose last one
+    is shorter (at 50,304 columns in bf16: 197 tiles, 5 x 39 + 2 and
+    6 x 32 + 5), against fused_ce_reference as above."""
+    bn = 256 if dtype == torch.bfloat16 else 128
+    tiles = -(-V // bn)
+    assert tiles % per
+    monkeypatch.setattr(ce, "_plan", lambda *a: (-(-tiles // per), per))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = _randn(gen, (n, 128), dtype, dev)
+    w = (0.5 * _randn(gen, (V, 128), torch.float32, dev)).to(dtype)
+    labels = torch.randint(0, V, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    labels[::5] = -1
+    labels[1] = V - 1
+    loss, lse = fused_ce_fwd(x, w, labels)
+    torch.cuda.synchronize()
+    rloss, rlse = fused_ce_reference(x.float(), w.float(), labels)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
 
 
 def test_fused_ce_autograd_on_gpu_matches_cpu(dev):
@@ -608,6 +650,11 @@ def test_layer_norm_autograd_on_gpu_matches_cpu(dev):
     (1, 96, 96, 2, 2, 40, True, (1, 1, 96, 96), None),
     (2, 64, 600, 2, 1, 128, False, (2, 2, 64, 600), [600, 333]),
     (2, 200, 200, 4, 2, 128, True, (2, 1, 200, 200), [200, 130]),
+    # K4's edges with a bias and dropout: Sq 129 and 200, kv_len inside
+    # a 64-key tile, D 32 and 96, GQA 16 -> 4
+    (2, 129, 129, 16, 4, 128, True, (2, 1, 1, 129), [129, 90]),
+    (1, 200, 200, 4, 4, 32, False, (1, 4, 200, 200), [100]),
+    (2, 200, 96, 2, 2, 96, False, (2, 1, 1, 96), [96, 40]),
 ])
 def test_flash_bias_dropout_kernels_match_plain(dev, dtype, b, sq, sk, hq,
                                                 hkv, d, causal, bshape,
