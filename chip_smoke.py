@@ -45,8 +45,11 @@ Phases, each fatal on failure:
 6. K10 and K12 kernels, at the contiguous engine's shapes: K10
    flash-decode (B 8, 16 query heads over 16 and 4 kv heads of 128, T
    2048, lengths 0..2047 including an empty row), with and without
-   (m, l); K12 int8 matmul, the four gpt3_1p3b block products at M 8
-   (decode) and M 128 (a prefill bucket). Checks: ``decode_attention_
+   (m, l), and with the fresh rows written inside (a row not written,
+   a row clamped to T - 1: ``fresh_rows_check``, the caches bit for
+   bit); K12 int8 matmul, the four gpt3_1p3b block products at M 8
+   (decode, the tensor-core route) and M 128 (a prefill bucket, the
+   wmma tiles), each case naming its route. Checks: ``decode_attention_
    check`` and ``quant_matmul_check``;
 7. contiguous serving — the same gpt3_1p3b through
    ``make_engine(engine="contiguous")`` (cache 2048, so decode takes
@@ -894,15 +897,51 @@ def ce_case(torch, dev, gen):
 
 
 K10_LENGTHS = [0, 1, 127, 128, 517, 1023, 1024, 2047]
+# the fused write's rows: the same lengths with the last clamped (a
+# position past the cache writes and attends row T - 1) and row 2 not
+# written (an idle slot: it attends to its cache entry); the empty row
+# writes nothing
+K10_FUSED_LENGTHS = K10_LENGTHS[:-1] + [2048]
+K10_FUSED_WRITE = [True, True, False, True, True, True, True, True]
+K10_KERNELS = ("flash_decode_sm90",)
 # the four gpt3_1p3b block products (K, N): wqkv, wo, wup, wdown
 K12_PRODUCTS = (("wqkv", 2048, 6144), ("wo", 2048, 2048),
                 ("wup", 2048, 8192), ("wdown", 8192, 2048))
 
 
+def fresh_rows_check(k, v, ref_k, ref_v, k0, v0, lengths, write):
+    """K10's fused write against the plain version's: both caches equal
+    bit for bit, and each cache changed from ``k0``/``v0`` (the caches
+    before the call) in exactly the rows the call writes, row
+    lengths[b] - 1 where write[b] holds and the row is not empty."""
+    want = _fresh_row_mask(k, lengths, write)
+    changed = ((k != k0).any(dim=-1).any(dim=1)
+               | (v != v0).any(dim=-1).any(dim=1))
+    rec = {"caches_equal": bool(k.equal(ref_k) and v.equal(ref_v)),
+           "rows_written": int(changed.sum().item()),
+           "rows_expected": int(want.sum().item()),
+           "only_those_rows": bool((changed == want).all().item())}
+    rec["ok"] = bool(rec["caches_equal"] and rec["only_those_rows"])
+    return rec
+
+
+def _fresh_row_mask(k, lengths, write):
+    """(B, T) bool: the cache rows a fused-write call stores into."""
+    B, _, T, _ = k.shape
+    rows = k.new_zeros((B, T), dtype=bool)
+    for b in range(B):
+        n = int(lengths[b])
+        if n > 0 and write[b]:
+            rows[b, n - 1] = True
+    return rows
+
+
 def k10_case(torch, dev, gen, hkv):
     """K10 at the contiguous engine's decode shape: B 8, 16 query heads,
     T 2048, D 128, bf16, mixed lengths with an empty row; with and
-    without (m, l), each held by ``decode_attention_check``."""
+    without (m, l), each held by ``decode_attention_check``; and with
+    the fused write of the fresh rows (``K10_FUSED_LENGTHS``,
+    ``K10_FUSED_WRITE``), the caches held by ``fresh_rows_check``."""
     from paddle_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_cost, decode_attention_reference)
     import torch.nn.functional as F
@@ -922,6 +961,23 @@ def k10_case(torch, dev, gen, hkv):
                                      lens)
     live = lens > 0
     err = (o.float() - ro.float())[live].abs().max().item()
+    # the fused write, on copies of the caches
+    k_new = torch.randn((B, hkv, D), generator=gen, device=dev).to(bf)
+    v_new = torch.randn((B, hkv, D), generator=gen, device=dev).to(bf)
+    flens = torch.tensor(K10_FUSED_LENGTHS, dtype=torch.int32, device=dev)
+    wr = torch.tensor(K10_FUSED_WRITE, device=dev)
+    kw, vw, rk, rv = k.clone(), v.clone(), k.clone(), v.clone()
+    fo, fm, fl = decode_attention(q, kw, vw, flens, return_stats=True,
+                                  k_new=k_new, v_new=v_new, write=wr)
+    torch.cuda.synchronize()
+    rfo, rfm, rfl = decode_attention_reference(
+        q, rk, rv, flens, return_stats=True, k_new=k_new, v_new=v_new,
+        write=wr)
+    fused = decode_attention_check(fo, fm, fl, rfo, rfm, rfl, flens)
+    rows = fresh_rows_check(kw, vw, rk, rv, k, v, K10_FUSED_LENGTHS,
+                            K10_FUSED_WRITE)
+    err = max(err, (fo.float() - rfo.float())[flens > 0].abs().max().item())
+    del kw, vw, rk, rv
     elt = q.element_size()
     n_keys = sum(K10_LENGTHS)
     flops, nbytes = decode_attention_cost(K10_LENGTHS, Hq, hkv, D, elt,
@@ -931,10 +987,13 @@ def k10_case(torch, dev, gen, hkv):
     # host time too
     kv = _cold((k, v), nbytes)
     call = (lambda: decode_attention(q, *kv(), lens, return_stats=True))
-    ms = _device_ms(torch, call, ("decode_kernel",))
+    ms = _device_ms(torch, call, K10_KERNELS)
     call_ms = _event_ms(torch, call)
     ms_no_stats = _device_ms(torch, lambda: decode_attention(q, *kv(), lens),
-                             ("decode_kernel",))
+                             K10_KERNELS)
+    # the decode step's call: the fresh rows written inside, no stats
+    ms_fused = _device_ms(torch, lambda: decode_attention(
+        q, *kv(), flens, k_new=k_new, v_new=v_new, write=wr), K10_KERNELS)
     plain_ms = _device_ms(torch, lambda: decode_attention_reference(
         q, *kv(), lens, return_stats=True), iters=5, warmup=1)
     del kv
@@ -949,26 +1008,34 @@ def k10_case(torch, dev, gen, hkv):
         q[:, :, None], *kvt(), attn_mask=mask))
     del kvt
     bound_ms, bound_by = _bound(nbytes, flops)
+    fused_flops, fused_bytes = decode_attention_cost(
+        K10_FUSED_LENGTHS, Hq, hkv, D, elt, fresh_rows=True)
+    fused_bound = _bound(fused_bytes, fused_flops)
     rec = {"phase": f"k10_decode_attention_hkv{hkv}", "B": B, "Hq": Hq,
            "Hkv": hkv, "T": T, "D": D, "lengths": K10_LENGTHS,
            "dtype": "bfloat16", "check_stats": with_stats,
-           "check_no_stats": without, "tol_rel_l2": REL_L2_TOL,
+           "check_no_stats": without, "fused_lengths": K10_FUSED_LENGTHS,
+           "fused_write": K10_FUSED_WRITE, "check_fused": fused,
+           "check_fused_rows": rows, "tol_rel_l2": REL_L2_TOL,
            "stats_tol_rel": STATS_REL_TOL, "max_abs_err": err,
            "kernel_ms": ms, "kernel_ms_no_stats": ms_no_stats,
+           "kernel_ms_fused": ms_fused, "fused_bound_ms": fused_bound[0],
            "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "timing": "device time (torch.profiler), caches cold; "
                      "call_ms: CUDA events around back-to-back calls",
            "library": "F.scaled_dot_product_attention over the cache, "
                       "length mask",
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "ok": bool(with_stats["ok"] and without["ok"]
-                      and None not in (ms, ms_no_stats, plain_ms,
+           "ok": bool(with_stats["ok"] and without["ok"] and fused["ok"]
+                      and rows["ok"]
+                      and None not in (ms, ms_no_stats, ms_fused, plain_ms,
                                        lib_ms))}
     _phase(rec)
     return rec
 
 
-K12_KERNELS = ("rows_kernel", "tiles_kernel", "finalize_kernel")
+K12_KERNELS = ("int8_rows_sm90", "tiles_kernel", "rows_kernel",
+               "finalize_kernel")
 
 
 def _sum_or_none(values):
@@ -978,14 +1045,16 @@ def _sum_or_none(values):
 
 def k12_case(torch, dev, gen):
     """K12 on the four gpt3_1p3b block products at M 8 (decode: the
-    weight stream) and M 128 (a prefill bucket: the wmma tiles), bf16,
-    weights drawn at std 0.02 and quantized per output column; each
-    output held by ``quant_matmul_check``. The library yardstick is
+    tensor-core weight stream) and M 128 (a prefill bucket: the wmma
+    tiles), bf16, weights drawn at std 0.02 and quantized per output
+    column; each output held by ``quant_matmul_check``, each case
+    recording the kernel its route launches. The library yardstick is
     ``torch.matmul`` on the weight dequantized to bf16 beforehand, which
     reads twice the weight bytes."""
     from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                    int8_matmul_cost,
-                                                   int8_matmul_reference)
+                                                   int8_matmul_reference,
+                                                   int8_matmul_route)
     from paddle_tpu_torch.quantization import quantize_tensor
     bf = torch.bfloat16
     cases, ok, err = [], True, 0.0
@@ -1013,6 +1082,7 @@ def k12_case(torch, dev, gen):
             del wq, wd
             bound_ms, bound_by = _bound(nbytes, flops)
             cases.append({"product": name, "M": M, "K": K, "N": N,
+                          "route": int8_matmul_route(bf, M),
                           "check": check, "kernel_ms": ms,
                           "call_ms": call_ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -1336,7 +1406,7 @@ _FAMILIES = (("flash_fwd", ("flash_fwd_",)),
              ("flash_bwd", ("flash_bwd_",)),
              ("fused_ce", ("ce_fwd_", "ce_bwd_wgmma", "ce_bwd_simt")),
              ("paged_attention", ("paged_kernel",)),
-             ("decode_attention", ("decode_kernel",)),
+             ("decode_attention", K10_KERNELS),
              ("int8_matmul", K12_KERNELS),
              ("layer_norm", ("fused_ln_fwd",)))
 

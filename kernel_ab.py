@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""A/B readings of the flash kernels K1, K3 and K4 and the fused
-cross-entropy kernels K5, K6 and K7 on one GPU.
+"""A/B readings of the flash kernels K1, K3 and K4, the fused
+cross-entropy kernels K5, K6 and K7, and the contiguous engine's decode
+kernels K10 and K12 on one GPU.
 
     python3 kernel_ab.py DIR_A DIR_B [--rounds 1] [--ce-chunks 2048,8192]
-        [--ce-plans 2,33]
+        [--ce-plans 2,33] [--only decode]
 
 DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
@@ -19,16 +20,25 @@ calls them: K1, K3 and K4. The cross-entropy at the train shape (N 4
 x 2047, d 2048, V 50304, every 7th label ignored, w at the init's std
 0.02): K5 (the forward) and the backward, K6 + K7 together with
 everything they launch (``fused_ce_bwd`` where the checkout has it,
-else ``fused_ce_dx`` then ``fused_ce_dw``). Each time is read twice:
-the kernel's device time from a torch.profiler trace (``kernel_ms``;
-the backward's sums every kernel in the window) and the call's, wrapper
-included, by CUDA events around back-to-back calls (``call_ms``).
+else ``fused_ce_dx`` then ``fused_ce_dw``). At the contiguous engine's
+decode shape (``chip_smoke.py``'s K10 and K12 cases): K10 over B 8 rows
+of lengths 0..2047, 16 query heads over 16 and over 4 kv heads of 128,
+T 2048, caches cold, without and with the step's fresh rows (``_write``:
+written inside K10 where the checkout's wrapper takes them, else by the
+index ops ``GPTBlock._write_kv_rows`` wrote them with before K10, all
+launches counted); K12 on gpt3_1p3b's four block products at M 8 and
+128, weights cold, and one decode layer's four at M 8 summed
+(``k12_layer_M8``). Each time is read twice: the call's device time
+from a torch.profiler trace (``kernel_ms``; the CE backward, K10 and
+K12 sum every kernel in the window) and the call's, wrapper included,
+by CUDA events around back-to-back calls (``call_ms``).
 ``--ce-chunks`` also times a checkout's ``fused_ce_bwd`` at those vocab
 chunk widths (its default is timed as above), and ``--ce-plans`` K5 with
 its vocab tiles cut into about that many ranges (where the checkout
-plans them with ``fused_ce._plan``). Prints each run's
-readings as one JSON line tagged with its checkout and round, then one
-line with each checkout's medians. Exits non-zero if a run fails.
+plans them with ``fused_ce._plan``). ``--only decode`` times K10 and
+K12 alone. Prints each run's readings as one JSON line tagged with its
+checkout and round, then one line with each checkout's medians. Exits
+non-zero if a run fails.
 """
 
 import argparse
@@ -39,7 +49,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, statistics, sys, torch
+import inspect, itertools, json, statistics, sys, torch
 sys.path.insert(0, ".")
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -82,6 +92,76 @@ dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev)
 gen.manual_seed(0)
 out = {}
+ONLY = sys.argv[3]
+
+
+def cold(ops, nbytes):
+    # enough copies of ops that a loop over them reads twice the 50 MB L2
+    n = max(1, -(-100_000_000 // nbytes))
+    copies = [ops] + [tuple(t.clone() for t in ops) for _ in range(n - 1)]
+    return itertools.cycle(copies).__next__
+
+
+def decode_cases():
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import quant_matmul as qm
+    from paddle_tpu_torch.quantization import quantize_tensor
+    bf = torch.bfloat16
+    lengths = [0, 1, 127, 128, 517, 1023, 1024, 2047]
+    B, Hq, T, D = len(lengths), 16, 2048, 128
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    # the step's rows: the last clamped to T - 1, row 2 not written
+    flens = torch.tensor(lengths[:-1] + [T], dtype=torch.int32, device=dev)
+    wr = torch.tensor([True, True, False] + [True] * (B - 3), device=dev)
+    fused = "k_new" in inspect.signature(da.decode_attention).parameters
+    for hkv in (16, 4):
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(bf)
+        k, v = (torch.randn((B, hkv, T, D), generator=gen, device=dev)
+                .to(bf) for _ in range(2))
+        k_new, v_new = (torch.randn((B, hkv, D), generator=gen, device=dev)
+                        .to(bf) for _ in range(2))
+        kv = cold((k, v), 4 * sum(lengths) * hkv * D)
+        fn = lambda: da.decode_attention(q, *kv(), lens)
+        if fused:
+            fw = lambda: da.decode_attention(q, *kv(), flens, k_new=k_new,
+                                             v_new=v_new, write=wr)
+        else:
+            def fw():
+                kc, vc = kv()
+                bi = torch.arange(B, device=dev)[:, None]
+                t = (flens.long() - 1).clamp(min=0)[:, None]
+                for cache, new in ((kc, k_new), (vc, v_new)):
+                    new = torch.where(wr[:, None, None, None],
+                                      new[:, None], cache[bi, :, t, :])
+                    cache[bi, :, t, :] = new
+                return da.decode_attention(q, kc, vc, flens)
+        for name, f in ((f"k10_hkv{hkv}", fn), (f"k10_hkv{hkv}_write", fw)):
+            out[name] = {"kernel_ms": device_ms(f, "", 50),
+                         "call_ms": call_ms(f, 50)}
+        del kv, k, v
+    layer = {"kernel_ms": 0.0, "call_ms": 0.0}
+    for name, K, N in (("wqkv", 2048, 6144), ("wo", 2048, 2048),
+                       ("wup", 2048, 8192), ("wdown", 8192, 2048)):
+        qt = quantize_tensor((0.02 * torch.randn(
+            (K, N), generator=gen, device=dev)).to(bf))
+        wq = cold((qt.q,), K * N)
+        for M in (8, 128):
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            fn = lambda: qm.int8_matmul(x, *wq(), qt.scale)
+            rec = {"kernel_ms": device_ms(fn, "", 50),
+                   "call_ms": call_ms(fn, 50)}
+            out[f"k12_{name}_M{M}"] = rec
+            if M == 8:
+                for key in layer:
+                    layer[key] += rec[key]
+        del wq
+    out["k12_layer_M8"] = layer
+
+
+if ONLY == "decode":
+    decode_cases()
+    print("KERNEL_AB " + json.dumps(out), flush=True)
+    sys.exit(0)
 
 
 def operands(B, S, H=16, D=128):
@@ -175,12 +255,15 @@ if plans and hasattr(ce, "_plan"):
     for case, runs in got.items():
         out[case] = {"kernel_ms": statistics.median(r[0] for r in runs),
                      "call_ms": statistics.median(r[1] for r in runs)}
+del x, w, labels, g, lse
+decode_cases()
 print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
 
-def run_one(root, timeout, ce_chunks, ce_plans):
-    out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks, ce_plans],
+def run_one(root, timeout, ce_chunks, ce_plans, only):
+    out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks, ce_plans,
+                          only],
                          cwd=root,
                          capture_output=True, text=True, timeout=timeout)
     recs = [json.loads(line[len("KERNEL_AB "):])
@@ -203,13 +286,15 @@ def main():
                     help="comma-separated chunk widths for fused_ce_bwd")
     ap.add_argument("--ce-plans", default="",
                     help="comma-separated range counts for K5 (bf16)")
+    ap.add_argument("--only", default="all", choices=("all", "decode"),
+                    help="'decode': time K10 and K12 alone")
     args = ap.parse_args()
     roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     got = {"a": [], "b": []}
     for rnd in range(args.rounds):
         for tag in ("a", "b", "b", "a"):
             rec = run_one(roots[tag], args.timeout, args.ce_chunks,
-                          args.ce_plans)
+                          args.ce_plans, args.only)
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)

@@ -1,50 +1,89 @@
 // K10 — flash-decode attention over a head-major contiguous KV cache, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): `flash_decode_sm90`.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/pallas/decode_attention.py
 // `_kernel` (launched by `decode_attention`, the pl.pallas_call at :258):
 // one query row per sequence attends over the first lengths[b] entries of
 // its cache, GQA query head h reading kv head h / (Hq / Hkv), with the
 // online softmax's running max m and denominator l returned on request
-// (`online_softmax_write_stats`, :81-89).
+// (`online_softmax_write_stats`, :81-89). On request the kernel also
+// writes the step's fresh K/V row: the job the JAX package splits between
+// the cache write (`GPTBlock._write_kv_rows`) and `fold_fresh_row` (:91).
 //
 // Layouts: q (B, Hq, D); k/v caches (B, Hkv, T, D); lengths (B,) int32;
-// o (B, Hq, D) in the cache dtype; m/l (B, Hq) fp32. A row of length 0
-// gives o = 0, m = -inf and l = 0.
-//
-// Design. One block of 8 warps per (b, kv head); the block holds all
-// G = Hq / Hkv query rows of that head, so each K/V row read serves the
-// whole group (the GQA point of the TPU kernel, :20-23). The block walks
-// only the row's valid keys, [0, lengths[b]): the GPU form of the TPU's
-// clamped index map (:226-231), which re-presented the last valid block
-// to skip the DMA of the rest. A row of a cache is one contiguous run of
-// D elements; a lane loads 16 bytes of it (8 bf16 or 4 fp32), so 16
-// (bf16) or 32 (fp32) lanes cover a row of 128 and a warp loads two or
-// one rows per instruction. Each warp owns every 8th group of rows and
-// keeps its own online softmax in fp32: the scores of its rows reduce
-// across the lanes of a row with shuffles, the running max is the same
-// on every lane of the warp, and each lane accumulates p . v for its 16
-// bytes of D. p is rounded to the cache dtype before that product, as
-// `online_softmax_step` rounds it (:63-64), and the running max has the
-// TPU kernel's -1e30 floor. Several rows' loads are issued before their
-// use (kUnroll) to keep bytes in flight. At the end the 8 warps' (m, l,
-// acc) merge through shared memory.
+// o (B, Hq, D) in the cache dtype; m/l (B, Hq) fp32; k_new/v_new
+// (B, Hkv, D) and write (B,) bool, optional. A row of length 0 gives
+// o = 0, m = -inf and l = 0.
 //
 // Bound on the H100: bytes. A decode step does 4 FLOP per cached K/V
-// element it reads, far below the ridge (about 295 FLOP per byte), so
-// the floor is reading each row's valid K/V once (3.35 TB/s). The design
-// reads exactly the valid rows, each once, 16 bytes a lane with
-// neighbouring lanes on neighbouring bytes. What it does not do: split a
-// long row over several blocks (flash-decoding). At the serving shape
-// (8 rows x 16 kv heads = 128 blocks on 132 SMs) the block with the
-// longest row sets the time; a split-K pass is later work.
+// element it reads, far below the ridge (about 295 FLOP per byte), so the
+// floor is reading each row's valid K/V once at 3.35 TB/s. At the
+// contiguous engine's shape (B 8 x 16 kv heads, T 2048, lengths up to
+// 2047) that is 40 MB, 12 us; the longest row alone is 1 MB of K + V.
+//
+// Design.
+// - Split each row over a thread-block cluster. The grid is (S, Hkv, B)
+//   with cluster dims (S, 1, 1), S in {1, 2, 4, 8} chosen by the caller
+//   from T. Block s of a cluster walks an equal share of its row's valid
+//   keys [0, lengths[b]) in tiles of kTile rows; a block whose share is
+//   empty still joins the cluster's barriers. One block per (b, kv head),
+//   as the first port had, left the longest row to one block on one SM,
+//   and that block set the time.
+// - Keep bytes in flight with bulk copies. The K (and V) rows of one
+//   (b, kv head) are contiguous, so a tile is one run of kTile * D
+//   elements: one thread issues the 1D bulk copy
+//   (cp.async.bulk ... mbarrier::complete_tx) of the K and the V tile into
+//   a ring of kStages slots, each slot completing on its mbarrier, and
+//   requests up to kStages tiles of its share before it computes
+//   anything. A tile is copied whole (T is a multiple of 128, so a tile
+//   that starts inside the cache ends inside it); rows past the length are
+//   masked. The copy needs 16-byte aligned addresses and sizes: where the
+//   pointers or a row's bytes break that (a head dim of 36 in bf16), the
+//   same kernel stages each tile by threads instead. The ring (24 KB in
+//   bf16 at D 128) lets about 8 blocks share an SM, so the 1,024 blocks
+//   of the serving shape are resident in about one wave.
+// - Compute from shared memory with the first port's lane layout: a lane
+//   holds 16 bytes of a row along D (16 lanes a row in bf16, 32 in fp32),
+//   the scores reduce across a row's lanes with shuffles, and all G =
+//   Hq / Hkv query rows of the kv head share each K/V row read. Each warp
+//   keeps its own online softmax in fp32; p is rounded to the cache dtype
+//   before the value product, as `online_softmax_step` rounds it (:63-64),
+//   and the running max has the TPU kernel's -1e30 floor.
+// - Combine through distributed shared memory. The block's warps merge
+//   into the block's (m, l, acc[G][D]) in its own shared memory; after
+//   the cluster barrier, block s merges entries s, s + S, ... (in units of
+//   the block's threads) of the S blocks' partials, read through
+//   map_shared_rank, and writes o and, on request, (m, l). A block that
+//   saw no key weighs nothing. No workspace, no second launch: K10 stays
+//   one launch per layer.
+// - The fresh row inside. With k_new/v_new, row lengths[b] - 1 (the
+//   clamped position `cache_rows` gives) is taken from k_new/v_new rather
+//   than the cache, where write[b] holds (all rows without a mask), and
+//   stored into the cache by the one block whose share holds it: its tile
+//   is patched in shared memory after it lands, so no other block reads
+//   the row and there is no race. A row whose write is false attends to
+//   its cache entry.
+// - What is left: the longest row's blocks (256 keys, 128 KB of K + V
+//   each at T 2048) keep 3 tiles (24 KB) in flight, so their walk is a
+//   chain of round trips to device memory, and the cluster's merge and
+//   barriers come on top (PERF.md §6).
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 #include "common.cuh"
+#include "sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kDMax = 128;             // largest head_dim
+constexpr int kTile = 16;              // cache rows of a ring slot
+constexpr int kStages = 3;             // ring slots
+constexpr int kMaxSplit = 8;           // blocks of a cluster, at most
 
 // 16 bytes of T as fp32 lanes
 template <typename T>
@@ -68,40 +107,94 @@ __device__ __forceinline__ void load_row(const T* p, int e0, int D,
   }
 }
 
+// dynamic shared memory: the ring (reused after the walk for the warps'
+// partials), then the block's partial (m[G], l[G], acc[G][D], fp32)
+__host__ __device__ inline int ring_bytes(int D, int elt) {
+  return kStages * 2 * kTile * D * elt;
+}
+__host__ __device__ inline int partial_floats(int G, int D) {
+  return G * (D + 2);
+}
+__host__ __device__ inline int part_offset(int G, int D, int elt) {
+  const int ring = ring_bytes(D, elt);
+  const int warps = kWarps * partial_floats(G, D) * 4;
+  return ((ring > warps ? ring : warps) + 15) / 16 * 16;
+}
+__host__ __device__ inline int smem_bytes(int G, int D, int elt) {
+  return part_offset(G, D, elt) + partial_floats(G, D) * 4;
+}
+
 // G: the group size the registers are sized for (1, 2, 4 or 8); the
 // runtime group is at most G, and the rows past it carry zero queries
-// whose outputs are never written
+// whose outputs are never written. aligned: D * sizeof(T) is a multiple
+// of 16 and every pointer 16-byte aligned (bulk copies, 16-byte loads).
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ o, float* __restrict__ m_out,
-              float* __restrict__ l_out, int Hq, int Hkv, int T_len, int D,
-              float scale, bool vec_ok) {
+flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
+                  T* __restrict__ vc, const int* __restrict__ lengths,
+                  const T* __restrict__ k_new, const T* __restrict__ v_new,
+                  const uint8_t* __restrict__ write, T* __restrict__ o,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  int Hq, int Hkv, int T_len, int D, float scale,
+                  bool aligned) {
   constexpr int V = Vec<T>::kN;          // elements per lane
   constexpr int kLpr = kDMax / V;        // lanes per row: 16 or 32
   constexpr int kRpw = 32 / kLpr;        // rows per warp load: 2 or 1
-  constexpr int kUnroll = G >= 8 ? 1 : (G >= 4 ? 2 : 4);
-  constexpr int kStep = kWarps * kRpw * kUnroll;   // keys per block step
+  constexpr int kU = kTile / (kWarps * kRpw);   // a lane group's rows a tile
 
-  __shared__ float sm_m[kWarps][G];
-  __shared__ float sm_l[kWarps][G];
-  __shared__ float sm_acc[kWarps][G][kDMax];
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStages];
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int hk = blockIdx.y;
+  const int b = blockIdx.z;
   const int group = Hq / Hkv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rg = lane / kLpr;            // row within the warp's load
   const int e0 = (lane % kLpr) * V;      // this lane's first element
   const int len = max(0, min(lengths[b], T_len));
+  const int fresh = k_new != nullptr && len > 0 &&
+                            (write == nullptr || write[b] != 0)
+                        ? len - 1
+                        : -1;
+  const int n_tiles = (len + kTile - 1) / kTile;
+  const int per = (n_tiles + S - 1) / S;
+  const int tile0 = min(n_tiles, rank * per);
+  const int mine = min(n_tiles, tile0 + per) - tile0;
+  const long row0 = ((long)b * Hkv + hk) * T_len;   // (b, hk)'s first row
+  const int tile_elems = kTile * D;
+  T* ring = reinterpret_cast<T*>(smem);
+
+  if (aligned && threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s)
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  // tile tile0 + j of the share into slot j % kStages (one thread)
+  auto issue = [&](int j) {
+    const int s = j % kStages;
+    const long off = (row0 + (long)(tile0 + j) * kTile) * D;
+    const uint32_t bytes = static_cast<uint32_t>(tile_elems * sizeof(T));
+    const uint32_t bar = sm90::smem_u32(&full[s]);
+    sm90::mbar_expect_tx(bar, 2 * bytes);
+    sm90::bulk_load(sm90::smem_u32(ring + 2 * s * tile_elems), kc + off,
+                    bytes, bar);
+    sm90::bulk_load(sm90::smem_u32(ring + (2 * s + 1) * tile_elems),
+                    vc + off, bytes, bar);
+  };
+  if (aligned && threadIdx.x == 0) {
+    for (int j = 0; j < min(mine, kStages); ++j) issue(j);
+  }
 
   float qf[G][V];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (g < group) {
-      load_row(q + ((long)b * Hq + hk * group + g) * D, e0, D, vec_ok,
+      load_row(q + ((long)b * Hq + hk * group + g) * D, e0, D, aligned,
                qf[g]);
     } else {
 #pragma unroll
@@ -118,28 +211,57 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
   }
 
-  const long row0 = ((long)b * Hkv + hk) * T_len;
-  for (int t0 = 0; t0 < len; t0 += kStep) {
-    float kf[kUnroll][V], vf[kUnroll][V];
-    int tk[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      tk[u] = t0 + (u * kWarps + warp) * kRpw + rg;
-      if (tk[u] < len) {
-        const long off = (row0 + tk[u]) * D;
-        load_row(kc + off, e0, D, vec_ok, kf[u]);
-        load_row(vc + off, e0, D, vec_ok, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) kf[u][e] = vf[u][e] = 0.f;
+  for (int j = 0; j < mine; ++j) {
+    const int s = j % kStages;
+    const int r0 = (tile0 + j) * kTile;
+    T* ks = ring + 2 * s * tile_elems;
+    T* vs = ks + tile_elems;
+    if (aligned) {
+      sm90::mbar_wait(sm90::smem_u32(&full[s]), (j / kStages) & 1);
+    } else {
+      // staged by threads; the slot is free (the last tile ended in a
+      // barrier)
+      const long off = (row0 + r0) * D;
+      for (int i = threadIdx.x; i < tile_elems; i += kThreads) {
+        ks[i] = kc[off + i];
+        vs[i] = vc[off + i];
       }
+      __syncthreads();
+    }
+    if (fresh >= r0 && fresh < r0 + kTile) {
+      // the fresh row: used from k_new / v_new and stored into the cache
+      const long src = ((long)b * Hkv + hk) * D;
+      const long dst = (row0 + fresh) * D;
+      T* kr = ks + (fresh - r0) * D;
+      T* vr = vs + (fresh - r0) * D;
+      for (int i = threadIdx.x; i < D; i += kThreads) {
+        const T kv = k_new[src + i];
+        const T vv = v_new[src + i];
+        kr[i] = kv;
+        vr[i] = vv;
+        kc[dst + i] = kv;
+        vc[dst + i] = vv;
+      }
+      // the slot is refilled by a bulk copy later
+      sm90::fence_proxy_async();
+      __syncthreads();
+    }
+
+    float kf[kU][V], vf[kU][V];
+    int tk[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int r = (u * kWarps + warp) * kRpw + rg;
+      tk[u] = r0 + r;
+      load_row(ks + r * D, e0, D, aligned, kf[u]);
+      load_row(vs + r * D, e0, D, aligned, vf[u]);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[kUnroll];
+      float sc[kU];
       float mx = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < V; ++e) d += qf[g][e] * kf[u][e];
@@ -147,8 +269,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
         for (int off = kLpr / 2; off >= 1; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
-        s[u] = tk[u] < len ? d * scale : -INFINITY;
-        mx = fmaxf(mx, s[u]);
+        sc[u] = tk[u] < len ? d * scale : -INFINITY;
+        mx = fmaxf(mx, sc[u]);
       }
       if (kRpw > 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, kLpr));
       // the same max on every lane of the warp
@@ -158,8 +280,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[g][e] *= alpha;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float p = __expf(s[u] - m_new);
+      for (int u = 0; u < kU; ++u) {
+        const float p = __expf(sc[u] - m_new);
         psum += p;
         const float pr = pt::round_to<T>(p);
 #pragma unroll
@@ -168,8 +290,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       l[g] = l[g] * alpha + psum;
       m[g] = m_new;
     }
+    __syncthreads();                     // every warp is done with slot s
+    if (aligned && threadIdx.x == 0 && j + kStages < mine) issue(j + kStages);
   }
 
+  // every copy issued has been waited for: the ring holds the warps'
+  // partials now ([kWarps][G] m, [kWarps][G] l, [kWarps][G][D] acc)
+  const int pf = partial_floats(G, D);
+  float* wpart = reinterpret_cast<float*>(smem);
+  float* bpart =
+      reinterpret_cast<float*>(smem + part_offset(G, D, sizeof(T)));
   // the rows of a warp's load share its max: their sums add
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -179,32 +309,68 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       for (int e = 0; e < V; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], kLpr);
     }
+    float* wp = wpart + warp * pf;
     if (rg == 0) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) sm_acc[warp][g][e0 + e] = acc[g][e];
+      for (int e = 0; e < V; ++e)
+        if (e0 + e < D) wp[2 * G + g * D + e0 + e] = acc[g][e];
     }
     if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      wp[g] = m[g];
+      wp[G + g] = l[g];
     }
   }
   __syncthreads();
-
+  // the block's partial: the warps merged against the block's max
   for (int i = threadIdx.x; i < group * D; i += kThreads) {
     const int g = i / D;
     const int d = i % D;
     float mm = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w][g]);
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wpart[w * pf + g]);
     float ll = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       // a warp that saw no key (m = -inf) weighs nothing; on an empty
-      // row every warp is such, and exp(-inf - -inf) would be NaN
-      const float wt =
-          sm_m[w][g] == -INFINITY ? 0.f : __expf(sm_m[w][g] - mm);
-      ll += sm_l[w][g] * wt;
-      a += sm_acc[w][g][d] * wt;
+      // share every warp is such, and exp(-inf - -inf) would be NaN
+      const float mw = wpart[w * pf + g];
+      const float wt = mw == -INFINITY ? 0.f : __expf(mw - mm);
+      ll += wpart[w * pf + G + g] * wt;
+      a += wpart[w * pf + 2 * G + g * D + d] * wt;
+    }
+    bpart[2 * G + g * D + d] = a;
+    if (d == 0) {
+      bpart[g] = mm;
+      bpart[G + g] = ll;
+    }
+  }
+  cluster.sync();
+  // the cluster's merge: block `rank` finishes entries rank * kThreads +
+  // tid, stepping S * kThreads
+  for (int i = rank * kThreads + threadIdx.x; i < group * D;
+       i += S * kThreads) {
+    const int g = i / D;
+    const int d = i % D;
+    float pm[kMaxSplit], pl[kMaxSplit], pa[kMaxSplit];
+    float mm = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      pm[r] = -INFINITY;
+      pl[r] = pa[r] = 0.f;
+      if (r < S) {
+        const float* p = cluster.map_shared_rank(bpart, r);
+        pm[r] = p[g];
+        pl[r] = p[G + g];
+        pa[r] = p[2 * G + g * D + d];
+      }
+      mm = fmaxf(mm, pm[r]);
+    }
+    float ll = 0.f, a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplit; ++r) {
+      const float wt = pm[r] == -INFINITY ? 0.f : __expf(pm[r] - mm);
+      ll += pl[r] * wt;
+      a += pa[r] * wt;
     }
     const long qi = (long)b * Hq + hk * group + g;
     o[qi * D + d] = pt::from_float<T>(a / (ll == 0.f ? 1.f : ll));
@@ -213,58 +379,95 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       l_out[qi] = ll;
     }
   }
+  // no block leaves while another reads its partial
+  cluster.sync();
+}
+
+template <typename T, int G>
+int launch_g(const T* q, T* kc, T* vc, const int* lens, const T* k_new,
+             const T* v_new, const uint8_t* write, T* o, float* m_out,
+             float* l_out, int B, int Hq, int Hkv, int T_len, int D,
+             float scale, bool aligned, int splits, cudaStream_t st) {
+  auto kern = flash_decode_sm90<T, G>;
+  // above 48 KB (fp32 at D 128) only after the attribute: set it once
+  // for the largest head dim
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(G, kDMax, sizeof(T)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes(G, D, sizeof(T));
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kern, q, kc, vc, lens, k_new, v_new, write, o,
+                         m_out, l_out, Hq, Hkv, T_len, D, scale, aligned);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const int* lens,
+int launch(const void* q, void* kc, void* vc, const int* lens,
+           const void* k_new, const void* v_new, const uint8_t* write,
            void* o, float* m_out, float* l_out, int B, int Hq, int Hkv,
-           int T_len, int D, float scale, bool vec_ok, cudaStream_t st) {
-  const dim3 grid(B, Hkv);
+           int T_len, int D, float scale, bool aligned, int splits,
+           cudaStream_t st) {
   const int group = Hq / Hkv;
   const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(kc);
-  const T* vp = static_cast<const T*>(vc);
+  T* kp = static_cast<T*>(kc);
+  T* vp = static_cast<T*>(vc);
+  const T* kn = static_cast<const T*>(k_new);
+  const T* vn = static_cast<const T*>(v_new);
   T* op = static_cast<T*>(o);
-#define PT_DECODE_LAUNCH(G)                                                \
-  decode_kernel<T, G><<<grid, kThreads, 0, st>>>(qp, kp, vp, lens, op,     \
-                                                 m_out, l_out, Hq, Hkv,    \
-                                                 T_len, D, scale, vec_ok)
-  if (group <= 1) {
-    PT_DECODE_LAUNCH(1);
-  } else if (group <= 2) {
-    PT_DECODE_LAUNCH(2);
-  } else if (group <= 4) {
-    PT_DECODE_LAUNCH(4);
-  } else if (group <= 8) {
-    PT_DECODE_LAUNCH(8);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define PT_DECODE_LAUNCH(G)                                               \
+  return launch_g<T, G>(qp, kp, vp, lens, kn, vn, write, op, m_out,       \
+                        l_out, B, Hq, Hkv, T_len, D, scale, aligned,      \
+                        splits, st)
+  if (group <= 1) PT_DECODE_LAUNCH(1);
+  if (group <= 2) PT_DECODE_LAUNCH(2);
+  if (group <= 4) PT_DECODE_LAUNCH(4);
+  if (group <= 8) PT_DECODE_LAUNCH(8);
 #undef PT_DECODE_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Stats when m_out is non-null (then l_out too). vec_ok: D is a multiple
-// of the 16-byte vector and every pointer is 16-byte aligned. The caller
-// guarantees D <= 128, Hq % Hkv == 0, Hq / Hkv <= 8 and B, Hkv > 0.
-extern "C" int pt_decode_attention(int dtype, const void* q, const void* kc,
-                                   const void* vc, const void* lengths,
-                                   void* o, void* m_out, void* l_out, int B,
-                                   int Hq, int Hkv, int T_len, int D,
-                                   float scale, int vec_ok, void* stream) {
+// Stats when m_out is non-null (then l_out too). k_new / v_new: the fresh
+// rows (null: no write); write: (B,) bool as bytes, or null (every row).
+// aligned: D * elt is a multiple of 16 and every pointer 16-byte aligned.
+// splits: the blocks of a row's cluster, 1, 2, 4 or 8. The caller
+// guarantees D <= 128, Hq % Hkv == 0, Hq / Hkv <= 8, T % 128 == 0 and
+// B, Hkv > 0.
+extern "C" int pt_decode_attention(int dtype, const void* q, void* kc,
+                                   void* vc, const void* lengths,
+                                   const void* k_new, const void* v_new,
+                                   const void* write, void* o, void* m_out,
+                                   void* l_out, int B, int Hq, int Hkv,
+                                   int T_len, int D, float scale,
+                                   int aligned, int splits, void* stream) {
+  if (splits != 1 && splits != 2 && splits != 4 && splits != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
+  const uint8_t* wr = static_cast<const uint8_t*>(write);
   float* m_f = static_cast<float*>(m_out);
   float* l_f = static_cast<float*>(l_out);
   if (dtype == pt::kBFloat16) {
-    return launch<__nv_bfloat16>(q, kc, vc, lens, o, m_f, l_f, B, Hq, Hkv,
-                                 T_len, D, scale, vec_ok != 0, st);
+    return launch<__nv_bfloat16>(q, kc, vc, lens, k_new, v_new, wr, o, m_f,
+                                 l_f, B, Hq, Hkv, T_len, D, scale,
+                                 aligned != 0, splits, st);
   }
   if (dtype == pt::kFloat32) {
-    return launch<float>(q, kc, vc, lens, o, m_f, l_f, B, Hq, Hkv, T_len, D,
-                         scale, vec_ok != 0, st);
+    return launch<float>(q, kc, vc, lens, k_new, v_new, wr, o, m_f, l_f, B,
+                         Hq, Hkv, T_len, D, scale, aligned != 0, splits, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,53 +5,92 @@
 // `_kernel` (launched by `int8_matmul`, the pl.pallas_call at :91): x
 // (M, K) in bf16 or fp32, q (K, N) int8 row-major, scale (N,) fp32, out
 // (M, N) in x's dtype. As on the TPU (:35-52), the int8 weight is widened
-// to x's dtype (exact: |q| <= 127), the products accumulate in fp32, the
+// to x's dtype (exact: |q| <= 128), the products accumulate in fp32, the
 // per-column scale multiplies the finished fp32 sum once, and the result
 // is rounded to x's dtype once. Ragged M, K and N are handled by bounds
 // on every load and store; nothing is padded or copied.
 //
-// Two regimes in one entry:
+// Three routes in one entry, chosen by x's dtype and M alone:
 //
-// - Decode rows (M <= 16, and fp32 at any M): `rows_kernel`. The product
-//   is a weight stream. A block owns a strip of 32 output columns and
-//   up to 16 rows of x; it walks K in chunks of 256 weight rows, each
-//   staged through shared memory with 16-byte loads along N (two per
-//   weight row: one 32-byte sector), the next chunk's loads issued
-//   before the current chunk's arithmetic. Its 8 warps split the chunk's
-//   rows (split-K inside the block): each thread owns one column and all
-//   rows of x, widening each int8 weight to fp32 in registers, and the
-//   8 partial sums reduce through shared memory. Where 32-column strips
-//   give too few blocks for 132 SMs (N = 2048), the K range also splits
-//   over blocks (grid y); the partial sums then go to an fp32 workspace
-//   and `finalize_kernel` adds them, scales and rounds. The split is
-//   worked out here (`rows_geometry`) from the card's SM count; the
-//   caller asks `pt_int8_matmul_workspace` for the workspace's size.
-// - Prefill rows (bf16, M > 16): `tiles_kernel`. A block owns a 64 x 128
+// - bf16 decode rows (M <= 16): `int8_rows_sm90`, the serving path (96
+//   calls a decode step on gpt3_1p3b). Bound: bytes, the K N int8 weight
+//   read once (2 M FLOP per weight byte, far below the ridge of about
+//   295). The first port's CUDA-core loop could not reach that bound
+//   however many bytes it had in flight: each weight took an I2F
+//   conversion (16 a clock per SM on compute capability 9.0, about
+//   3.7e12 a second on 132 SMs against the 3.35e12 weight bytes a second
+//   of the bound) and M fp32 FMAs. So this route runs on the tensor
+//   cores:
+//   * A block of 8 warps owns a strip of 128 output columns and a range
+//     of K; each warp streams every 8th 16-deep slab of the range (2 KB
+//     of int8, with the slab's rows of x) into its own ring of
+//     kMmaStages shared-memory slots by cp.async, 16-byte chunks
+//     XOR-swizzled so that the fragment reads below hit no bank twice:
+//     up to 160 KB in flight per SM.
+//   * Widening without I2F: a lane reads 4 slab rows x 16 bytes; each
+//     byte, its sign bit flipped, is permuted (prmt) straight from its
+//     row's word into the mantissa of 2^23, and 2^23 + 128 is subtracted
+//     in fp32; the high halves of two such floats are a bf16 pair
+//     (exact: an int8 needs 8 significant bits, bf16 holds 8). Six
+//     permutes and four subtractions per four weights, on pipes that run
+//     64-128 a clock per SM.
+//   * The product: mma.sync m16n8k16 bf16 with fp32 accumulate, x's
+//     <= 16 rows as the A fragment (rows past M never loaded, their sums
+//     never stored), the widened weights as B fragments, the depth order
+//     permuted alike in both (lane t of a quad holds depths 4t .. 4t + 3)
+//     and the columns so that a lane's 16 loaded bytes feed 16 column
+//     tiles. wgmma would need 64 rows, 4-16x the decode batch; mma.sync
+//     takes 16.
+//   * K splits over a cluster of up to 8 blocks where the strips give too
+//     few blocks (N 2048: 16 strips), as many as stay resident in one
+//     wave (`mma_splits` asks the occupancy API: a cluster's blocks share
+//     a GPC). The block's warps reduce through shared memory (padded so
+//     the stores hit distinct banks); each block then pushes the sums of
+//     every block's slice of the strip's columns into that block's inbox
+//     in distributed shared memory, and after one cluster barrier each
+//     block adds its inbox up: stores to other blocks do not wait as
+//     reads do, and no second barrier holds a block until the others
+//     have read it. The scale, read into shared memory while the weights
+//     stream, multiplies the fp32 sum once, and the result is rounded
+//     once. One launch, no workspace.
+//   * What is left: each call's fixed part (the launch, the reductions,
+//     the cluster barrier, the stores) is a large share of a call that
+//     streams 4-17 MB, and the streaming itself runs below the card's
+//     rate (PERF.md §6).
+// - bf16 prefill rows (M > 16): `tiles_kernel`. A block owns a 64 x 128
 //   output tile; each 32-deep step stages x's 64 x 32 tile and q's
 //   32 x 128 int8 tile through shared memory, the int8 tile widened to
 //   bf16 there, and 8 warps each run 2 x 2 wmma 16x16x16 bf16 fragments
 //   (fp32 accumulate) over their 32 x 32 piece; the fp32 tile is then
-//   staged through shared memory for the scale-and-round epilogue.
-//
-// Bound on the H100. Decode rows: bytes, the int8 weight read once
-// (2 M FLOP per weight byte, far below the ridge of about 295): K N bytes
-// at 3.35 TB/s, half of the bf16 weight's. Prefill rows at M 512: 2 M
-// FLOP per weight byte passes the ridge, so the bf16 tensor cores
-// (989 TFLOP/s) bound it. The rows kernel reaches neither bound: it
-// keeps about 8 KB in flight per block, and the wmma path has no TMA or
-// wgmma (ROADMAP R1).
+//   staged through shared memory for the scale-and-round epilogue. At
+//   M 512, 2 M FLOP per weight byte passes the ridge, so the bf16 tensor
+//   cores (989 TFLOP/s) bound it; this route has no TMA or wgmma
+//   (ROADMAP R1).
+// - fp32 x at any M: `rows_kernel`, on the fp32 pipes (the tiny fp32
+//   models of the tests). A block owns a strip of 32 output columns and
+//   up to 16 rows of x; it walks K in chunks of 256 weight rows staged
+//   through shared memory, each thread owning one column and all rows of
+//   x, and its 8 warps split each chunk's rows. Where 32-column strips
+//   give too few blocks for the card, the K range also splits over
+//   blocks (grid y); the partial sums then go to an fp32 workspace and
+//   `finalize_kernel` adds them, scales and rounds. The split is worked
+//   out here (`rows_geometry`) from the card's SM count; the caller asks
+//   `pt_int8_matmul_workspace` for the workspace's size.
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include <cstdint>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-// -- decode rows ------------------------------------------------------------
+// -- fp32 rows ---------------------------------------------------------------
 constexpr int kRowThreads = 256;
 constexpr int kStrip = 32;                       // output columns per block
 constexpr int kSlices = kRowThreads / kStrip;    // split-K inside a block
@@ -73,10 +112,10 @@ __device__ __forceinline__ uint4 load_q16(const int8_t* q, int k, int k_end,
 
 // MT: rows of x per block (1, 2, 4, 8 or 16). grid: (strips of N,
 // splits of K, tiles of M). ws == nullptr: one split, out written here.
-template <typename T, int MT>
+template <int MT>
 __global__ void __launch_bounds__(kRowThreads)
-rows_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-            const float* __restrict__ scale, T* __restrict__ out,
+rows_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+            const float* __restrict__ scale, float* __restrict__ out,
             float* __restrict__ ws, int M, int N, int K,
             int chunks_per_split, bool vec_q) {
   __shared__ __align__(16) int8_t qs[kChunk][kStrip];
@@ -113,11 +152,10 @@ rows_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     }
     for (int i = tid; i < kChunk * MT; i += kRowThreads) {
       const int m = i / kChunk;
-      const int r = i % kChunk;          // neighbouring threads, neighbouring k
+      const int r = i % kChunk;    // neighbouring threads, neighbouring k
       const int k = k0 + r;
       const int mm = m0 + m;
-      xs[r * MT + m] =
-          (k < k_end && mm < M) ? pt::to_float(x[(long)mm * K + k]) : 0.f;
+      xs[r * MT + m] = (k < k_end && mm < M) ? x[(long)mm * K + k] : 0.f;
     }
     __syncthreads();
     // the next chunk's weights are in flight during this chunk's sums
@@ -153,7 +191,7 @@ rows_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     const int n = n0 + c;
     if (mm < M && n < N) {
       if (ws == nullptr) {
-        out[(long)mm * N + n] = pt::from_float<T>(s * scale[n]);
+        out[(long)mm * N + n] = s * scale[n];
       } else {
         ws[((long)split * M + mm) * N + n] = s;
       }
@@ -161,18 +199,288 @@ rows_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// the K splits' partial sums added in fp32, scaled once, rounded once
-template <typename T>
+// the K splits' partial sums added in fp32, scaled once
 __global__ void finalize_kernel(const float* __restrict__ ws,
                                 const float* __restrict__ scale,
-                                T* __restrict__ out, int M, int N,
+                                float* __restrict__ out, int M, int N,
                                 int splits) {
   const long total = (long)M * N;
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
        i += (long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int sp = 0; sp < splits; ++sp) s += ws[sp * total + i];
-    out[i] = pt::from_float<T>(s * scale[i % N]);
+    out[i] = s * scale[i % N];
+  }
+}
+
+// -- bf16 decode rows on the tensor cores ----------------------------------
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaBlocksPerSm = 2;               // resident at kMmaSmem
+constexpr int kMmaRows = 16;                     // rows of x a call takes
+constexpr int kStripN = 128;                     // output columns a block
+constexpr int kSlabK = 16;                       // weight rows a slab
+constexpr int kMmaStages = 4;                    // ring slots per warp
+constexpr int kSlabQBytes = kSlabK * kStripN;    // 2 KB of int8
+constexpr int kSlabXBytes = kMmaRows * kSlabK * 2;
+constexpr int kSlotBytes = kSlabQBytes + kSlabXBytes;
+constexpr int kMaxKSplit = 8;                    // the portable cluster
+constexpr int kMmaSmem = kMmaWarps * kMmaStages * kSlotBytes;   // 80 KB
+// past the ring: the inbox of the cluster's sums of this block's slice
+// (other blocks store there while this one may still stream)
+constexpr int kInboxBytes = kMmaRows * kStripN * 4;
+// after the walk: the warps' sums [warp][row][column], added into warp
+// 0's, each 32 columns padded by 4 floats so that the lanes of a store
+// phase (rows g, columns 32 t ..) hit distinct banks
+constexpr int kRedLd = kStripN + kStripN / 8;    // floats a row
+static_assert(kMmaWarps * kMmaRows * kRedLd * 4 <= kMmaSmem,
+              "the reduction fits in the ring");
+
+__device__ __forceinline__ int red_col(int c) { return c + (c >> 5) * 4; }
+
+// cp.async of 16 bytes into shared memory, the bytes past src_bytes zero
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned word(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b,
+                                         unsigned sel) {
+  unsigned d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// the 16-byte chunk c of slab row r sits at chunk c ^ swz(r): the lanes of
+// one fragment read (rows 4 t + i, t = 0..3, chunks g) land on 8 distinct
+// chunk positions, so no two share a bank
+__device__ __forceinline__ int swz(int r) { return ((r >> 2) & 3) << 1; }
+
+// byte j of the weight word u (its sign bit flipped) as an exact fp32:
+// the byte goes into the mantissa of 2^23, and 2^23 + 128 comes off
+__device__ __forceinline__ float widen(unsigned u, unsigned j) {
+  return __uint_as_float(prmt(u, 0x4B000000u, 0x7650u + j)) - 8388736.f;
+}
+
+// two floats holding small integers as a bf16 pair (their high halves,
+// exact), the first in the low half
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return prmt(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint2 xa, uint2 xb,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(xa.x), "r"(xb.x), "r"(xa.y), "r"(xb.y), "r"(b0), "r"(b1));
+}
+
+// out (M <= 16, N) = round((x @ q) * scale), bf16 x. grid: (cluster's K
+// splits, strips of 128 columns), cluster (splits, 1, 1); k_per_split a
+// multiple of 16. Warp w takes every 8th slab of the block's K range
+// from slab w. kVec: N % 16 == 0, K % 8 == 0 and x, q 16-byte aligned
+// (cp.async chunks, each whole or past the edge); else the slots are
+// filled by threads, byte by byte. Rows of x past M are never loaded:
+// their sums are never stored.
+//
+// Fragments (PTX m16n8k16): lane = 4 g + t. The A fragment holds x rows g
+// and g + 8 at fragment depths 2t, 2t + 1, 2t + 8, 2t + 9, which here are
+// slab depths 4t .. 4t + 3 (the same permutation in B, so the sum is
+// unchanged): 8 contiguous bytes of each row. The B fragment holds one
+// column g of an 8-column tile at those depths. Lane (g, t) loads slab
+// rows 4t + i (i = 0..3), bytes 16 g .. 16 g + 15 of its columns; byte
+// 4 c + j of row 4t + i widens into the B fragment of tile 4 c + j, whose
+// fragment column g is column 16 g + 4 c + j. So the accumulators of tile
+// T, at fragment columns 2t and 2t + 1, are columns 32 t + T and
+// 32 t + 16 + T: lane (g, t) ends holding columns 32 t .. 32 t + 31 of
+// rows g and g + 8.
+template <bool kVec>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSm)
+int8_rows_sm90(const bf16* __restrict__ x, const int8_t* __restrict__ q,
+               const float* __restrict__ scale, bf16* __restrict__ out,
+               int M, int N, int K, int k_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float sscale[kStripN];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int strip0 = blockIdx.y * kStripN;
+  // the strip's scales, read while the weights stream
+  for (int c = threadIdx.x; c < kStripN; c += kMmaThreads)
+    sscale[c] = strip0 + c < N ? scale[strip0 + c] : 0.f;
+  // a block stores into the others' shared memory only once they have all
+  // started: arrive now, wait before the first such store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int kb = rank * k_per_split;
+  const int ke = min(K, kb + k_per_split);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  unsigned char* slots = smem + warp * kMmaStages * kSlotBytes;
+
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  const int nslab = ke > kb ? (ke - kb + kSlabK - 1) / kSlabK : 0;
+  const int mine =
+      warp < nslab ? (nslab - warp + kMmaWarps - 1) / kMmaWarps : 0;
+  // slab j of this warp (depths kb + (warp + 8 j) * 16 ..) into its slot
+  auto fill = [&](int j) {
+    const int k0 = kb + (warp + j * kMmaWarps) * kSlabK;
+    unsigned char* dst = slots + (j % kMmaStages) * kSlotBytes;
+#pragma unroll
+    for (int p = 0; p < kSlabQBytes / 16 / 32; ++p) {
+      const int piece = lane + 32 * p;   // 16 rows x 8 chunks
+      const int r = piece >> 3;
+      const int c = piece & 7;
+      const int k = k0 + r;
+      const int n = strip0 + c * 16;
+      unsigned char* d = dst + r * kStripN + ((c ^ swz(r)) << 4);
+      if constexpr (kVec) {
+        const bool ok = k < ke && n < N;
+        cp_async16(d, ok ? q + (long)k * N + n : q, ok ? 16 : 0);
+      } else {
+        alignas(16) unsigned char v[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          v[e] = (k < ke && n + e < N)
+                     ? static_cast<unsigned char>(q[(long)k * N + n + e])
+                     : 0;
+        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    // x: its M rows, 2 chunks of 8 bf16 each
+    const int r = lane >> 1;
+    if (r < M) {
+      const int k = k0 + (lane & 1) * 8;
+      unsigned char* d = dst + kSlabQBytes + r * (kSlabK * 2) +
+                         (lane & 1) * 16;
+      if constexpr (kVec) {
+        const bool ok = k < ke;
+        cp_async16(d, ok ? x + (long)r * K + k : x, ok ? 16 : 0);
+      } else {
+        alignas(16) bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = k + e < ke ? x[(long)r * K + k + e] : __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < kMmaStages - 1; ++j) {
+    if (j < mine) fill(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < mine; ++j) {
+    if (j + kMmaStages - 1 < mine) fill(j + kMmaStages - 1);
+    cp_async_commit();
+    cp_async_wait<kMmaStages - 1>();
+    __syncwarp();                        // every lane's chunks have landed
+    const unsigned char* slot = slots + (j % kMmaStages) * kSlotBytes;
+    const unsigned char* xs = slot + kSlabQBytes;
+    // A: rows g and g + 8, slab depths 4t .. 4t + 3
+    const uint2 xa =
+        *reinterpret_cast<const uint2*>(xs + g * (kSlabK * 2) + t * 8);
+    const uint2 xb =
+        *reinterpret_cast<const uint2*>(xs + (g + 8) * (kSlabK * 2) + t * 8);
+    uint4 w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = *reinterpret_cast<const uint4*>(
+          slot + (4 * t + i) * kStripN + ((g ^ swz(4 * t + i)) << 4));
+      w[i].x ^= 0x80808080u;
+      w[i].y ^= 0x80808080u;
+      w[i].z ^= 0x80808080u;
+      w[i].w ^= 0x80808080u;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // column 16 g + 4 c + j at depths 4t .. 4t + 3
+        const unsigned b0 = bf16_pair(widen(word(w[0], c), j),
+                                      widen(word(w[1], c), j));
+        const unsigned b1 = bf16_pair(widen(word(w[2], c), j),
+                                      widen(word(w[3], c), j));
+        mma_bf16(acc[4 * c + j], xa, xb, b0, b1);
+      }
+    }
+    __syncwarp();                        // the slot is read before refill
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // every ring drained: reduce here
+
+  // [warp][row][column]; lane (g, t): row g from acc[.][0, 1], row g + 8
+  // from acc[.][2, 3]; columns 32 t + T and 32 t + 16 + T of tile T
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = g + 8 * h;
+    if (row < M) {
+      float* dst = red + (warp * kMmaRows + row) * kRedLd + red_col(32 * t);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        *reinterpret_cast<float4*>(dst + 4 * v) =
+            make_float4(acc[4 * v][2 * h], acc[4 * v + 1][2 * h],
+                        acc[4 * v + 2][2 * h], acc[4 * v + 3][2 * h]);
+        *reinterpret_cast<float4*>(dst + 16 + 4 * v) = make_float4(
+            acc[4 * v][2 * h + 1], acc[4 * v + 1][2 * h + 1],
+            acc[4 * v + 2][2 * h + 1], acc[4 * v + 3][2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's sums, each pushed into the inbox of the block that
+  // finishes its column: [sender][row][column of the slice]
+  const int width = kStripN / splits;
+  float* inbox = reinterpret_cast<float*>(smem + kMmaSmem);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (int i = threadIdx.x; i < M * kStripN; i += kMmaThreads) {
+    const int m = i / kStripN;
+    const int c = i % kStripN;
+    const int at = m * kRedLd + red_col(c);
+    float s = red[at];
+#pragma unroll
+    for (int w8 = 1; w8 < kMmaWarps; ++w8)
+      s += red[w8 * kMmaRows * kRedLd + at];
+    cluster.map_shared_rank(inbox, c / width)[(rank * M + m) * width +
+                                             c % width] = s;
+  }
+  cluster.sync();
+  for (int i = threadIdx.x; i < M * width; i += kMmaThreads) {
+    const int m = i / width;
+    const int c = i % width;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxKSplit; ++r)
+      if (r < splits) s += inbox[(r * M + m) * width + c];
+    const int n = strip0 + rank * width + c;
+    if (n < N)
+      out[(long)m * N + n] = __float2bfloat16(s * sscale[rank * width + c]);
   }
 }
 
@@ -281,16 +589,23 @@ tiles_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <typename T>
-int launch_rows(const T* x, const int8_t* q, const float* scale, T* out,
-                float* ws, int M, int N, int K, int mt, int splits,
-                int chunks_per_split, bool vec_q, cudaStream_t st) {
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+int launch_rows(const float* x, const int8_t* q, const float* scale,
+                float* out, float* ws, int M, int N, int K, int mt,
+                int splits, int chunks_per_split, bool vec_q,
+                cudaStream_t st) {
   const dim3 grid((N + kStrip - 1) / kStrip, splits, (M + mt - 1) / mt);
   float* part = splits > 1 ? ws : nullptr;
-#define PT_ROWS_LAUNCH(MT)                                                  \
-  rows_kernel<T, MT><<<grid, kRowThreads, 0, st>>>(x, q, scale, out, part, \
-                                                   M, N, K,                \
-                                                   chunks_per_split, vec_q)
+#define PT_ROWS_LAUNCH(MT)                                                 \
+  rows_kernel<MT><<<grid, kRowThreads, 0, st>>>(x, q, scale, out, part, M, \
+                                                N, K, chunks_per_split,    \
+                                                vec_q)
   switch (mt) {
     case 1: PT_ROWS_LAUNCH(1); break;
     case 2: PT_ROWS_LAUNCH(2); break;
@@ -305,12 +620,9 @@ int launch_rows(const T* x, const int8_t* q, const float* scale, T* out,
   const long total = (long)M * N;
   const int blocks = static_cast<int>(
       (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024);
-  finalize_kernel<T><<<blocks, 256, 0, st>>>(ws, scale, out, M, N, splits);
+  finalize_kernel<<<blocks, 256, 0, st>>>(ws, scale, out, M, N, splits);
   return static_cast<int>(cudaGetLastError());
 }
-
-// bf16 with M > 16 takes the wmma tiles; every other case the rows kernel
-bool uses_rows(int dtype, int M) { return dtype != pt::kBFloat16 || M <= 16; }
 
 struct RowsGeometry {
   int mt;                // rows of x per block
@@ -322,26 +634,104 @@ struct RowsGeometry {
 // fewer than two blocks per SM of the current device; every split
 // non-empty
 RowsGeometry rows_geometry(int M, int N, int K) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
   int mt = 1;
   while (mt < M && mt < 16) mt *= 2;
   const long blocks =
       (long)((N + kStrip - 1) / kStrip) * ((M + mt - 1) / mt);
   const int chunks = K > 0 ? (K + kChunk - 1) / kChunk : 1;
-  const long want = (2L * (sms > 0 ? sms : 1) + blocks - 1) / blocks;
+  const long want = (2L * sms + blocks - 1) / blocks;
   const int splits = static_cast<int>(want < chunks ? want : chunks);
   const int per = (chunks + splits - 1) / splits;
   return {mt, (chunks + per - 1) / per, per};
 }
 
+// The cluster's K splits: doubled while the strips' clusters stay
+// resident in one wave (cudaOccupancyMaxActiveClusters: a cluster's
+// blocks share a GPC, so fewer fit than SMs x kMmaBlocksPerSm) and every
+// warp of a block keeps a slab, up to the portable cluster of 8; a
+// failed query returns minus its error
+template <bool kVec>
+int mma_splits(int N, int K) {
+  static int fits[kMaxKSplit + 1] = {};          // clusters resident, by size
+  const long strips = (N + kStripN - 1) / kStripN;
+  const int slabs = (K + kSlabK - 1) / kSlabK;
+  int splits = 1;
+  while (splits < kMaxKSplit && slabs >= 2 * splits * kMmaWarps) {
+    const int next = 2 * splits;
+    if (fits[next] == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(next, 1);
+      cfg.blockDim = dim3(kMmaThreads);
+      cfg.dynamicSmemBytes = kMmaSmem + kInboxBytes;
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = next;
+      at[0].val.clusterDim.y = 1;
+      at[0].val.clusterDim.z = 1;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      int n = 0;
+      const cudaError_t err =
+          cudaOccupancyMaxActiveClusters(&n, int8_rows_sm90<kVec>, &cfg);
+      if (err != cudaSuccess) return -static_cast<int>(err);
+      fits[next] = n;
+    }
+    if (strips > fits[next]) break;
+    splits = next;
+  }
+  return splits;
+}
+
+template <bool kVec>
+int launch_mma(const bf16* x, const int8_t* q, const float* scale,
+               bf16* out, int M, int N, int K, cudaStream_t st) {
+  auto kern = int8_rows_sm90<kVec>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMmaSmem + kInboxBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int splits = mma_splits<kVec>(N, K);
+  if (splits < 0) return -splits;
+  const int slabs = (K + kSlabK - 1) / kSlabK;
+  const int k_per_split = (slabs + splits - 1) / splits * kSlabK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (N + kStripN - 1) / kStripN);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = kMmaSmem + kInboxBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, x, q, scale, out,
+                                             M, N, K, k_per_split);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// the route of a call: 0 the tensor-core decode rows, 1 the wmma tiles,
+// 2 the fp32 rows
+int route(int dtype, int M) {
+  if (dtype != pt::kBFloat16) return 2;
+  return M <= kMmaRows ? 0 : 1;
+}
+
 }  // namespace
 
+// the kernel a call of these operands launches: 0 `int8_rows_sm90`, 1
+// `tiles_kernel`, 2 `rows_kernel` (then `finalize_kernel` where K splits)
+extern "C" int pt_int8_matmul_route(int dtype, int M) {
+  return route(dtype, M);
+}
+
 // fp32 elements of the workspace pt_int8_matmul needs for these
-// operands (the K splits' partial sums), 0 when it needs none
+// operands (the fp32 route's K splits' partial sums), 0 when it needs
+// none
 extern "C" long pt_int8_matmul_workspace(int dtype, int M, int N, int K) {
-  if (!uses_rows(dtype, M)) return 0;
+  if (route(dtype, M) != 2) return 0;
   const RowsGeometry g = rows_geometry(M, N, K);
   return g.splits > 1 ? (long)g.splits * M * N : 0;
 }
@@ -354,26 +744,28 @@ extern "C" int pt_int8_matmul(int dtype, const void* x, const void* q,
                               int N, int K, int vec_x, int vec_q,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowsGeometry g = rows_geometry(M, N, K);
   const int8_t* qp = static_cast<const int8_t*>(q);
   const float* sp = static_cast<const float*>(scale);
-  float* wsp = static_cast<float*>(ws);
+  const int r = route(dtype, M);
   if (dtype == pt::kBFloat16) {
     const bf16* xp = static_cast<const bf16*>(x);
     bf16* op = static_cast<bf16*>(out);
-    if (!uses_rows(dtype, M)) {
-      const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-      tiles_kernel<<<grid, kTileThreads, 0, st>>>(xp, qp, sp, op, M, N, K,
-                                                  vec_x != 0, vec_q != 0);
-      return static_cast<int>(cudaGetLastError());
+    if (r == 0) {
+      return vec_x && vec_q
+                 ? launch_mma<true>(xp, qp, sp, op, M, N, K, st)
+                 : launch_mma<false>(xp, qp, sp, op, M, N, K, st);
     }
-    return launch_rows<bf16>(xp, qp, sp, op, wsp, M, N, K, g.mt, g.splits,
-                             g.chunks_per_split, vec_q != 0, st);
+    const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
+    tiles_kernel<<<grid, kTileThreads, 0, st>>>(xp, qp, sp, op, M, N, K,
+                                                vec_x != 0, vec_q != 0);
+    return static_cast<int>(cudaGetLastError());
   }
   if (dtype == pt::kFloat32) {
-    return launch_rows<float>(static_cast<const float*>(x), qp, sp,
-                              static_cast<float*>(out), wsp, M, N, K, g.mt,
-                              g.splits, g.chunks_per_split, vec_q != 0, st);
+    const RowsGeometry g = rows_geometry(M, N, K);
+    return launch_rows(static_cast<const float*>(x), qp, sp,
+                       static_cast<float*>(out), static_cast<float*>(ws), M,
+                       N, K, g.mt, g.splits, g.chunks_per_split, vec_q != 0,
+                       st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

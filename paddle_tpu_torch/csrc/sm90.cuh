@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
-// kernels: mbarriers, TMA loads, wgmma shared-memory descriptors, the
-// wgmma products (bf16 in, fp32 accumulate; A from shared memory or from
-// registers), register rebalancing, and the host's tensor-map encoder.
-// Used by ce_gemm.cuh (the fused CE's mainloop: K5, and the backward's
-// dl pass, K6 and K7) and the flash attention sources (K1, K3, K4).
+// kernels: mbarriers, TMA loads (and the 1D bulk copy), wgmma
+// shared-memory descriptors, the wgmma products (bf16 in, fp32
+// accumulate; A from shared memory or from registers), register
+// rebalancing, and the host's tensor-map encoder. Used by ce_gemm.cuh
+// (the fused CE's mainloop: K5, and the backward's dl pass, K6 and K7),
+// the flash attention sources (K1, K3, K4) and the flash-decode kernel
+// (K10: mbarriers and bulk copies).
 //
 // Conventions (from the PTX ISA's wgmma and cp.async.bulk.tensor
 // sections): a TMA box whose innermost extent is 64 bf16 (128 bytes),
@@ -93,6 +95,24 @@ __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at src into shared memory at
+// dst, completing on the mbarrier bar (the 1D bulk copy: no tensor map;
+// dst, src and bytes 16-byte aligned)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes of shared memory before later
+// async-proxy (bulk copy, TMA) accesses of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor with 128-byte swizzle: start address,

@@ -17,8 +17,9 @@ dispatch only, while younger ones keep the card busy.
   slots; admission assigns a request a free slot, retirement frees it.
 - **Ragged decode**: every active slot advances one token per step at
   its own cache position. Each layer's ``GPTBlock.decode_step`` writes
-  the slot's new row, then attends over it and the prefix (K10 at
-  T >= 1024); an inactive slot keeps the row it has.
+  the slot's new row and attends over it and the prefix (at T >= 1024
+  in one K10 launch, which writes the row itself); an inactive slot
+  keeps the row it has.
 - **Bucketed chunked prefill**, interleaved with decode dispatches
   under a per-step prompt-token budget (``prefill_tokens``, default the
   largest bucket); a tail chunk that would overrun the cache slides

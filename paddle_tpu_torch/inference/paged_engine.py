@@ -181,7 +181,7 @@ class PagedDecodeEngine(ResilientScheduler):
 
     def autotune(self, *args, **kwargs):
         raise _not_ported(
-            "paged-kernel autotune (launch-time tile templates)", "1")
+            "paged-kernel autotune (launch-time tile templates)", "A1")
 
     def detach_handoff(self, *args, **kwargs):
         raise _not_ported("KV handoff and migration", "S4")

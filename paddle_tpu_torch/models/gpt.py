@@ -22,10 +22,11 @@ backward runs K3/K4 on the card.
 The cached-decode half (``GPTBlock.decode_rows`` / ``verify_step`` /
 ``decode_step`` over a step's ``cache_rows``, ``GPT.init_cache`` /
 ``embed_at`` / ``forward_cached``, ``generate``) keeps head-major
-(B, Hkv, T, D) caches, written in place. One-token decode writes the
-fresh row, then runs the flash-decode kernel (K10) over the prefix and
-that row when the cache is long enough (``_use_decode_kernel``);
-everything else takes the dense grouped einsum. A weight map entry may
+(B, Hkv, T, D) caches, written in place. One-token decode hands the
+fresh row to the flash-decode kernel (K10), which writes it and attends
+over the prefix and that row in one launch, when the cache is long
+enough (``_use_decode_kernel``); everything else writes the rows and
+takes the dense grouped einsum. A weight map entry may
 be an int8 ``QuantTensor`` (``quantization.quantize_for_inference``),
 whose ``x @ w`` runs K12. MoE and dropout > 0 raise (dropout masks come
 from ``jax.random`` and cannot be reproduced). ``dtype`` takes a
@@ -378,17 +379,21 @@ class GPTBlock(nn.Module):
         return y, self._write_kv_rows(kv, k_rows, v_rows, rows)
 
     def decode_step(self, x, w, kv, rows: CacheRows):
-        """One-token ragged decode: write the row, then K10 over
-        [0, positions + 1) when ``_use_decode_kernel``, else
+        """One-token ragged decode: when ``_use_decode_kernel``, K10
+        writes the fresh row at ``rows.lengths - 1`` (where ``rows.write``
+        holds) and attends over [0, positions + 1) in one launch; else
         ``verify_step``."""
         if not _use_decode_kernel(kv[0].shape[2]):
             return self.verify_step(x, w, kv, rows)
         b, _, d = x.shape
+        k_cache, v_cache = kv
         q, k, v = self._qkv(x, rows.positions, w)
-        k_cache, v_cache = self._write_kv_rows(kv, k, v, rows)
+        dt = k_cache.dtype
         attn = decode_attention(
-            q[:, 0].to(k_cache.dtype).contiguous(), k_cache, v_cache,
-            rows.lengths, scale=1.0 / math.sqrt(self.head_dim))
+            q[:, 0].to(dt).contiguous(), k_cache, v_cache, rows.lengths,
+            scale=1.0 / math.sqrt(self.head_dim),
+            k_new=k[:, 0].to(dt).contiguous(),
+            v_new=v[:, 0].to(dt).contiguous(), write=rows.write)
         attn = attn.to(x.dtype).reshape(b, 1, d)
         return self._block_tail(x, attn, w), (k_cache, v_cache)
 

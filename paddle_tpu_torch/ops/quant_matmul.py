@@ -1,16 +1,16 @@
 """Weight-only int8 matmul (kernel K12) and its plain PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py``: the CUDA
-kernel in ``csrc/quant_matmul.cu`` replaces the TPU kernel ``_kernel``
+kernels in ``csrc/quant_matmul.cu`` replace the TPU kernel ``_kernel``
 (the ``pl.pallas_call`` at quant_matmul.py:91); its source note says
-what bounds it on the H100 and what the design does about that.
+what bounds each route on the H100 and what the design does about that.
 
 ``int8_matmul(x, q, scale)`` computes ``x @ q`` with q widened to x's
 dtype, accumulated in fp32, times the per-column ``scale`` in fp32, then
 rounded to x's dtype once — the order of the TPU kernel. CUDA tensors
 launch the kernel; CPU tensors run the plain version. The TPU kernel's
 (block_m, block_n, block_k) and its padding have no counterpart: the
-kernel bounds every ragged edge itself.
+kernels bound every ragged edge themselves.
 """
 
 import ctypes
@@ -19,9 +19,11 @@ import torch
 
 from paddle_tpu_torch.ops import _build
 
-__all__ = ["int8_matmul", "int8_matmul_reference", "int8_matmul_cost"]
+__all__ = ["int8_matmul", "int8_matmul_reference", "int8_matmul_cost",
+           "int8_matmul_route"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = ("int8_rows_sm90", "tiles_kernel", "rows_kernel")
 
 
 def int8_matmul_cost(m, k, n, elt=2):
@@ -49,7 +51,18 @@ def _lib():
         ws = lib.pt_int8_matmul_workspace
         ws.argtypes = [i, i, i, i]
         ws.restype = ctypes.c_long
+        route = lib.pt_int8_matmul_route
+        route.argtypes = [i, i]
+        route.restype = i
     return lib
+
+
+def int8_matmul_route(dtype, m):
+    """The kernel a CUDA call with x of ``dtype`` and ``m`` rows
+    launches, as ``csrc/quant_matmul.cu`` chooses it (builds the kernel
+    library on first use): ``int8_rows_sm90``, ``tiles_kernel`` or
+    ``rows_kernel``."""
+    return _ROUTES[_lib().pt_int8_matmul_route(_DTYPE_CODES[dtype], m)]
 
 
 def _check_operands(x, q, scale):
@@ -77,8 +90,8 @@ def _launch(x2, q, scale, out):
     vec_x = int(k % 8 == 0 and x2.data_ptr() % 16 == 0)
     vec_q = int(n % 16 == 0 and q.data_ptr() % 16 == 0)
     with torch.cuda.device(x2.device):
-        # the kernel's K split (csrc/quant_matmul.cu rows_geometry)
-        # sizes its fp32 workspace
+        # the fp32 route's K split (csrc/quant_matmul.cu rows_geometry)
+        # sizes its fp32 workspace; the bf16 routes take none
         ws_len = lib.pt_int8_matmul_workspace(code, m, n, k)
         ws = (torch.empty((ws_len,), dtype=torch.float32, device=x2.device)
               if ws_len else None)
@@ -94,7 +107,14 @@ def _launch(x2, q, scale, out):
 def int8_matmul(x, q, scale):
     """``(x @ q) * scale`` with q (K, N) int8 and scale (N,) or (1, N)
     fp32 per output column (K12). x (..., K) in bf16 or fp32; returns
-    (..., N) in x's dtype."""
+    (..., N) in x's dtype.
+
+    Routes on CUDA, by x's dtype and its M = x.numel() / K rows alone
+    (``int8_matmul_route``): bf16 with M <= 16 (decode) runs
+    ``int8_rows_sm90`` on the tensor cores, one launch with no
+    workspace; bf16 with M > 16 (prefill) the wmma ``tiles_kernel``;
+    fp32 at any M ``rows_kernel`` on the fp32 pipes, followed by
+    ``finalize_kernel`` where it splits K over blocks."""
     _check_operands(x, q, scale)
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale)

@@ -1,5 +1,5 @@
-"""The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K8, K9, K10 and
-K12 kernels to, rehearsed on the CPU at small shapes: a stand-in for a
+"""The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K8, K9, K10 (and
+its fused write of the fresh rows) and K12 kernels to, rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
 products, bf16 outputs, as the kernels do), held against the plain
@@ -191,6 +191,57 @@ def test_decode_check_fails_planted_faults(hkv):
     m_nan[0] = float("nan")
     rec = check(o, m_nan, l, *ref, lens)
     assert not rec["ok"] and not rec["empty_stats_exact"]
+
+
+def _fresh(hkv=2):
+    """K10's fused write at a narrow width: the caches before the call,
+    the plain version's caches after it (the stand-in for the kernel's),
+    and the fresh rows."""
+    q, k, v, *_ = _decode(hkv)
+    rs = np.random.RandomState(4)
+    B, D = k.shape[0], k.shape[-1]
+    k_new, v_new = (torch.from_numpy(rs.randn(B, hkv, D).astype(
+        np.float32)).bfloat16() for _ in range(2))
+    lens = torch.tensor(chip_smoke.K10_FUSED_LENGTHS, dtype=torch.int32)
+    wr = torch.tensor(chip_smoke.K10_FUSED_WRITE)
+    kw, vw = k.clone(), v.clone()
+    decode_attention_reference(q, kw, vw, lens, k_new=k_new, v_new=v_new,
+                               write=wr)
+    return k, v, kw, vw, k_new, v_new
+
+
+def test_fresh_rows_check_passes_the_plain_write():
+    k0, v0, kw, vw, *_ = _fresh()
+    rec = chip_smoke.fresh_rows_check(kw, vw, kw.clone(), vw.clone(), k0,
+                                      v0, chip_smoke.K10_FUSED_LENGTHS,
+                                      chip_smoke.K10_FUSED_WRITE)
+    assert rec["ok"], rec
+    # the empty row and the row not written store nothing
+    assert rec["rows_written"] == rec["rows_expected"] == 6
+
+
+@pytest.mark.parametrize("fault", ["unclamped", "unmasked", "missing",
+                                   "stray"])
+def test_fresh_rows_check_fails_planted_faults(fault):
+    k0, v0, kw, vw, k_new, v_new = _fresh()
+    lens, wr = chip_smoke.K10_FUSED_LENGTHS, chip_smoke.K10_FUSED_WRITE
+    bad_k, bad_v = kw.clone(), vw.clone()
+    if fault == "unclamped":       # the clamped row written one too early
+        b = lens.index(2048)
+        bad_k[b, :, 2047] = k0[b, :, 2047]
+        bad_k[b, :, 2046] = k_new[b]
+    elif fault == "unmasked":      # the row marked False written anyway
+        b = wr.index(False)
+        bad_k[b, :, lens[b] - 1] = k_new[b]
+    elif fault == "missing":       # V's row left as it was
+        b = 1
+        bad_v[b, :, lens[b] - 1] = v0[b, :, lens[b] - 1]
+    else:                          # a stray store to the empty row
+        bad_k[0, :, 0] = k_new[0]
+    rec = chip_smoke.fresh_rows_check(bad_k, bad_v, kw, vw, k0, v0, lens,
+                                      wr)
+    assert not rec["ok"] and not rec["caches_equal"]
+    assert not rec["only_those_rows"] or fault == "missing"
 
 
 def _int8(M=8, K=256, N=2048):

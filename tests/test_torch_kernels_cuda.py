@@ -32,7 +32,7 @@ from paddle_tpu_torch.ops.fused_ce import (
     fused_ce_bwd, fused_ce_bwd_reference, fused_ce_fwd, fused_ce_reference,
     fused_softmax_cross_entropy, plan_chunks)
 from paddle_tpu_torch.ops.decode_attention import (
-    decode_attention, decode_attention_reference)
+    cluster_size, decode_attention, decode_attention_reference)
 from paddle_tpu_torch.ops.decode_megakernel import (
     epilogue_logits, mega_decode_layers, mega_decode_layers_reference,
     mega_logits_sample, mega_logits_sample_reference)
@@ -40,7 +40,8 @@ from paddle_tpu_torch.ops.paged_attention import (
     paged_append_attend, paged_append_attend_reference,
     paged_decode_attention, paged_decode_attention_reference)
 from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
-                                               int8_matmul_reference)
+                                               int8_matmul_reference,
+                                               int8_matmul_route)
 
 pytestmark = pytest.mark.cuda
 
@@ -400,34 +401,11 @@ def _gpu_copy(cpu_model, dev):
         for n, p in cpu_model.named_parameters()})
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq, hkv, d, T, lengths", [
-    (4, 4, 128, 256, [0, 1, 100, 256]),
-    (8, 2, 64, 384, [383, 0, 129]),
-    (16, 4, 128, 2048, [0, 1, 127, 128, 517, 1023, 1024, 2047]),
-    (8, 1, 32, 128, [77, 128]),
-    (6, 3, 36, 256, [5, 250]),   # bf16 rows of 72 bytes: scalar loads
-])
-def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, T,
-                                               lengths):
-    """K10 against its plain version: outputs per (row, head) within
-    2^-7 relative L2 (bf16) or 1e-4 (fp32), (m, l) within 1e-4
-    relative, an empty row exactly o = 0, m = -inf, l = 0."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    b = len(lengths)
-    q = _randn(gen, (b, hq, d), dtype, dev)
-    k = _randn(gen, (b, hkv, T, d), dtype, dev)
-    v = _randn(gen, (b, hkv, T, d), dtype, dev)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    before = decode_attention.launches
-    o, m, l = decode_attention(q, k, v, lens, return_stats=True)
-    o2 = decode_attention(q, k, v, lens)
-    torch.cuda.synchronize()
-    assert decode_attention.launches == before + 2
-    ro, rm, rl = decode_attention_reference(q, k, v, lens,
-                                            return_stats=True)
-    assert o.dtype == dtype and torch.equal(o, o2)
+def _k10_check(o, m, l, ro, rm, rl, lens, dtype):
+    """K10's outputs against the plain version's: per (row, head) within
+    2^-7 relative L2 (bf16) or 1e-4 (fp32), (m, l) within 1e-4 relative,
+    an empty row exactly o = 0, m = -inf, l = 0."""
+    assert o.dtype == dtype
     live = lens > 0
     err = ((o.float() - ro.float()).norm(dim=-1)
            / ro.float().norm(dim=-1).clamp_min(1e-30))[live]
@@ -439,21 +417,138 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, T,
     torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
 
 
+def _k10_operands(dev, dtype, hq, hkv, d, T, b, seed=5):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = _randn(gen, (b, hq, d), dtype, dev)
+    k = _randn(gen, (b, hkv, T, d), dtype, dev)
+    v = _randn(gen, (b, hkv, T, d), dtype, dev)
+    return gen, q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq, hkv, d, T, lengths", [
+    (4, 4, 128, 256, [0, 1, 100, 256]),
+    (8, 2, 64, 384, [383, 0, 129]),
+    (16, 4, 128, 2048, [0, 1, 127, 128, 517, 1023, 1024, 2047]),
+    (8, 1, 32, 128, [77, 128]),
+    (6, 3, 36, 256, [5, 250]),   # bf16 rows of 72 bytes: staged by threads
+])
+def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, T,
+                                               lengths):
+    """K10 against its plain version (``_k10_check``), with and without
+    (m, l), one launch a call."""
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    _, q, k, v = _k10_operands(dev, dtype, hq, hkv, d, T, len(lengths))
+    before = decode_attention.launches
+    o, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    o2 = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    ro, rm, rl = decode_attention_reference(q, k, v, lens,
+                                            return_stats=True)
+    assert torch.equal(o, o2)
+    _k10_check(o, m, l, ro, rm, rl, lens, dtype)
+
+
+def _split_edges(T):
+    """Lengths at, just below and just past the edges of the blocks'
+    shares of a cache of T (each of ``cluster_size(T)`` blocks walks
+    16-row tiles): 16 S k for k = 1, 2 and T / (16 S), and 0, 1."""
+    s = cluster_size(T)
+    edges = sorted({16 * s, 32 * s, T})
+    got = {0, 1}
+    for e in edges:
+        got.update(x for x in (e - 1, e, e + 1) if 0 <= x <= T)
+    return sorted(got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [128, 256, 384, 512, 1024, 2048])
+def test_decode_attention_kernel_at_split_edges(dev, dtype, T):
+    """K10 where a row's keys split over the cluster's blocks (1 block
+    up to T 384, 2 at 512, 4 at 1024, 8 at 2048): lengths at, just below
+    and just past each edge of the shares and of their 16-row tiles,
+    GQA 8:2 at D 128."""
+    lengths = _split_edges(T)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    _, q, k, v = _k10_operands(dev, dtype, 8, 2, 128, T, len(lengths))
+    o, m, l = decode_attention(q, k, v, lens, return_stats=True)
+    torch.cuda.synchronize()
+    ro, rm, rl = decode_attention_reference(q, k, v, lens,
+                                            return_stats=True)
+    _k10_check(o, m, l, ro, rm, rl, lens, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq, hkv, d, T", [
+    (16, 4, 128, 2048), (16, 16, 128, 2048), (8, 2, 64, 384),
+    (8, 8, 128, 1024),
+    (6, 3, 36, 256),             # bf16 rows of 72 bytes: staged by threads
+])
+def test_decode_attention_kernel_writes_the_fresh_row(dev, dtype, hq, hkv,
+                                                      d, T):
+    """K10 with the fresh rows: row lengths[b] - 1 of each cache takes
+    k_new / v_new where write[b] holds, inside the one launch, and is
+    attended. Rows: position 0 (length 1), one marked False (keeps and
+    attends to its cache entry), one past the cache (clamped: length T,
+    row T - 1 written), an empty row (writes nothing), and rows at the
+    shares' edges. Every cache entry equals the plain version's bit for
+    bit; o, m, l as ``_k10_check``."""
+    lengths = [1, 300 % T, T, 0, 129, T - 1, 17, 16 * cluster_size(T)]
+    write = [True, False, True, True, True, True, True, True]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    wr = torch.tensor(write, device=dev)
+    gen, q, k, v = _k10_operands(dev, dtype, hq, hkv, d, T, len(lengths))
+    k_new = _randn(gen, (len(lengths), hkv, d), dtype, dev)
+    v_new = _randn(gen, (len(lengths), hkv, d), dtype, dev)
+    rk, rv = k.clone(), v.clone()
+    before = decode_attention.launches
+    o, m, l = decode_attention(q, k, v, lens, return_stats=True,
+                               k_new=k_new, v_new=v_new, write=wr)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ro, rm, rl = decode_attention_reference(q, rk, rv, lens,
+                                            return_stats=True, k_new=k_new,
+                                            v_new=v_new, write=wr)
+    assert torch.equal(k, rk) and torch.equal(v, rv)
+    for b, (n, w) in enumerate(zip(lengths, write)):
+        if n > 0 and w:
+            assert torch.equal(k[b, :, n - 1], k_new[b])
+            assert torch.equal(v[b, :, n - 1], v_new[b])
+    _k10_check(o, m, l, ro, rm, rl, lens, dtype)
+    # without a mask every non-empty row is written
+    o2 = decode_attention(q, k, v, lens, k_new=v_new, v_new=k_new)
+    torch.cuda.synchronize()
+    ro2 = decode_attention_reference(q, rk, rv, lens, k_new=v_new,
+                                     v_new=k_new)
+    assert torch.equal(k, rk) and torch.equal(v, rv)
+    live = lens > 0
+    err = ((o2.float() - ro2.float()).norm(dim=-1)
+           / ro2.float().norm(dim=-1).clamp_min(1e-30))[live]
+    assert err.max().item() <= (1e-4 if dtype == torch.float32
+                                else 2.0 ** -7)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m, k, n", [
     (1, 64, 48), (3, 200, 130), (8, 2048, 2048), (16, 300, 520),
     (17, 128, 256), (64, 520, 136), (130, 2048, 6144), (5, 8192, 64)])
 def test_int8_matmul_kernel_matches_plain(dev, dtype, m, k, n):
-    """K12 against its plain version on both regimes (the weight stream
-    for M <= 16 and every fp32 M, the wmma tiles for bf16 M > 16), with
-    ragged M, K and N and split K: per row within 2^-7 relative L2
-    (bf16: one rounding of fp32 sums in another order) or 1e-5 (fp32)."""
+    """K12 against its plain version on every route (bf16 M <= 16: the
+    tensor-core decode rows; bf16 M > 16: the wmma tiles; fp32: the rows
+    kernel), with ragged M, K and N and split K: per row within 2^-7
+    relative L2 (bf16: one rounding of fp32 sums in another order) or
+    1e-5 (fp32); one launch a call."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     x = _randn(gen, (m, k), dtype, dev)
     q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                       dtype=torch.int32).to(torch.int8)
     scale = torch.rand((1, n), generator=gen, device=dev) * 0.02 + 1e-3
+    want = ("rows_kernel" if dtype == torch.float32
+            else "int8_rows_sm90" if m <= 16 else "tiles_kernel")
+    assert int8_matmul_route(dtype, m) == want
     before = int8_matmul.launches
     out = int8_matmul(x, q, scale)
     torch.cuda.synchronize()
@@ -464,6 +559,56 @@ def test_int8_matmul_kernel_matches_plain(dev, dtype, m, k, n):
            / ref.norm(dim=-1).clamp_min(1e-30))
     assert err.max().item() <= (1e-5 if dtype == torch.float32
                                 else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k, n", [(2048, 2048), (300, 520)])
+def test_int8_matmul_decode_route_every_m(dev, m, k, n):
+    """The tensor-core route at every decode M from 1 to 16, at the
+    N 2048 split (K over a cluster) and ragged (slots filled by
+    threads): per row within 2^-7 relative L2, one launch, no workspace
+    (the call allocates only its output)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(60 + m)
+    x = _randn(gen, (m, k), torch.bfloat16, dev)
+    q = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
+    assert int8_matmul_route(torch.bfloat16, m) == "int8_rows_sm90"
+    int8_matmul(x, q, scale)               # the library is built
+    torch.cuda.synchronize()
+    before = int8_matmul.launches
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    out = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert (torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            - allocs) == 1
+    ref = int8_matmul_reference(x.float(), q, scale)
+    err = ((out.float() - ref).norm(dim=-1)
+           / ref.norm(dim=-1).clamp_min(1e-30))
+    assert err.max().item() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("k, n", [(256, 256), (272, 136)])
+def test_int8_matmul_widens_every_int8_exactly(dev, k, n):
+    """The decode route's widening: x of one-hot rows and scale 1 give
+    q's rows back as bf16, bit for bit, with each picked row of q
+    holding all 256 int8 values (N 136: the ragged fill by threads)."""
+    m = 16
+    cols = torch.arange(n, device=dev)
+    rows = torch.arange(k, device=dev)[:, None]
+    q = ((rows * 37 + cols) % 256 - 128).to(torch.int8)
+    picks = torch.arange(m, device=dev) * (k // m) + 3
+    x = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
+    x[torch.arange(m, device=dev), picks] = 1.0
+    out = int8_matmul(x, q, torch.ones((n,), device=dev))
+    torch.cuda.synchronize()
+    want = q[picks].to(torch.bfloat16)
+    assert torch.equal(out, want)
+    if n >= 256:
+        for r in range(m):
+            assert torch.unique(q[picks[r]]).numel() == 256
 
 
 def test_contiguous_engines_on_gpu_match_cpu(dev):
