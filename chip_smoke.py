@@ -48,9 +48,11 @@ Phases, each fatal on failure:
    (m, l), and with the fresh rows written inside (a row not written,
    a row clamped to T - 1: ``fresh_rows_check``, the caches bit for
    bit); K12 int8 matmul, the four gpt3_1p3b block products at M 8
-   (decode, the tensor-core route) and M 128 (a prefill bucket, the
-   wmma tiles), each case naming its route. Checks: ``decode_attention_
-   check`` and ``quant_matmul_check``;
+   (decode, the tensor-core route) and M 32, 128 and 512 (the int8
+   engine's prefill buckets, the TMA + wgmma tiles), each case naming
+   its route, with a decode layer's sum at M 8 and a prefill layer's at
+   M 128. Checks: ``decode_attention_check`` and
+   ``quant_matmul_check``;
 7. contiguous serving — the same gpt3_1p3b through
    ``make_engine(engine="contiguous")`` (cache 2048, so decode takes
    K10): 8 prompts of 128 tokens and one of 1,200 (chunked prefill over
@@ -78,7 +80,10 @@ Phases, each fatal on failure:
    THROUGH_DEPTH_TOL; K9 on the 24-layer output and the tied head (V
    50,304) with a planted tie, an overflowing row and a poisoned row
    (``mega_logits_check``). Device times of K8, its plain version and
-   the per-layer path at the same shapes, and of K9;
+   the per-layer path at the same shapes, and of K9; K8's phase-time
+   record (``k8_phase_record``: block 0 stamps %globaltimer at each
+   grid barrier) on one gpt3_1p3b layer, at d_model 128 and through the
+   24 layers, with the grid barriers a layer takes;
 12. single-dispatch serving — the same model and prompts as 4 through
    ``make_engine(model)``, whose default runs one K8 and one K9 launch
    per decode step: K8 = K9 = decode steps, K2 = 0, K1 = L x cold
@@ -149,6 +154,11 @@ for training), 13, 14 and 17 before them, 15, 16 and 18 after 5. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
 
+Every kernel time is read from a profiler window whose count of the
+timed kernels is what the calls launched (``_device_ms``,
+``decode_device_phase``: a window short of launches is profiled again,
+up to PROFILE_WINDOWS, and the phase fails after that many).
+
 Then one ``{"kernels": [...]}`` line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Imports neither jax nor paddle_tpu.
 """
@@ -211,31 +221,76 @@ def _event_ms(torch, fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-def _device_ms(torch, fn, keys=None, iters=20, warmup=3):
+PROFILE_WINDOWS = 3
+# torch.profiler keeps only the device activities that lie inside its
+# capture window, which it opens and closes on the host's clock, and an
+# H100's kernel start times were seen up to 4 ms before the host's call
+# that launched them: a kernel launched near a window's edge was
+# dropped, in the same place window after window. So every window opens
+# and closes with this much idle time (seconds), the device synchronised
+# on both sides.
+PROFILE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def _profiled(torch):
+    """A torch.profiler window (host and CUDA activities) padded on both
+    sides with PROFILE_PAD_S of idle device time; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def _profile_events(torch, fn, iters):
+    """(name, device microseconds) of every CUDA activity a
+    torch.profiler window recorded around ``iters`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    with _profiled(torch) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_ms(torch, fn, keys=None, launches=None, iters=20, warmup=3):
     """Mean device milliseconds per call of ``fn`` spent in CUDA kernels
     (those whose name holds one of ``keys``, or all), summed from a
     torch.profiler trace: the kernels' own time, without the host's
     gaps between launches, which CUDA events around back-to-back calls
-    also count when a call's Python is slower than its kernels. A window
-    in which the profiler recorded none of the kernels is profiled again
-    (up to three windows); None when none recorded them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    also count when a call's Python is slower than its kernels.
+
+    A window counts only when it holds every launch it should:
+    ``iters`` x ``launches`` matching kernels, ``launches`` being the
+    kernels one call launches (the caller's count; None: the median of
+    what PROFILE_WINDOWS one-call windows recorded, for plain versions
+    and library calls, whose launches the port does not fix, so that one
+    window short of a launch or holding an extra one does not set it). A
+    window
+    with another count is profiled again, up to PROFILE_WINDOWS windows;
+    None after that many bad windows (the caller's phase then fails)."""
+    def matching(events):
+        return [us for name, us in events
+                if keys is None or any(k in name for k in keys)]
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.time_range.end - e.time_range.start
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and (keys is None or any(k in e.name for k in keys)))
-        if total:
-            return total / 1e3 / iters
+    if launches is None:
+        launches = sorted(len(matching(_profile_events(torch, fn, 1)))
+                          for _ in range(PROFILE_WINDOWS))[
+                              PROFILE_WINDOWS // 2]
+    if launches < 1:
+        return None
+    for _ in range(PROFILE_WINDOWS):
+        got = matching(_profile_events(torch, fn, iters))
+        if len(got) == iters * launches:
+            return sum(got) / 1e3 / iters
     return None
 
 
@@ -546,7 +601,7 @@ def k1_case(torch, dev, S, hkv, gen, B=1):
     lse_tol = 1e-3
     # the kernel's device time; the call's (wrapper included) by events
     ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=True),
-                    keys=("flash_fwd_",))
+                    keys=("flash_fwd_",), launches=1)
     call_ms = _event_ms(torch, lambda: flash_attention(q, k, v,
                                                        causal=True))
     plain_ms = _event_ms(torch, lambda: flash_attention_reference(
@@ -617,7 +672,7 @@ def k2_fused_case(torch, dev, gen, hkv):
                    and torch.equal(kp1, kp2) and torch.equal(vp1, vp2))
     call = (lambda: paged_append_attend(q, kp1, vp1, k_row, v_row, table,
                                         wp, lens))
-    ms = _device_ms(torch, call, ("paged_kernel",))
+    ms = _device_ms(torch, call, ("paged_kernel",), launches=1)
     call_ms = _event_ms(torch, call)
     plain_ms = _device_ms(torch, lambda: paged_append_attend_reference(
         q, kp2, vp2, k_row, v_row, table, wp, lens), iters=5, warmup=1)
@@ -663,7 +718,7 @@ def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
                                        atol=1e-4)
                     and torch.allclose(l, rl, rtol=1e-4, atol=1e-5))
     call = (lambda: paged_decode_attention(q, kp, vp, table, lens))
-    ms = _device_ms(torch, call, ("paged_kernel",))
+    ms = _device_ms(torch, call, ("paged_kernel",), launches=1)
     call_ms = _event_ms(torch, call)
     plain_ms = _device_ms(torch, lambda: paged_decode_attention_reference(
         q, kp, vp, table, lens), iters=5, warmup=1)
@@ -718,7 +773,7 @@ def k34_case(torch, dev, gen, hkv):
     # K3's own device time beside the call's (events)
     dkdv_kernel_ms = _device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
         q, k, v, do, lse, delta, True, scale), keys=("flash_bwd_dkdv",),
-        iters=5, warmup=1)
+        launches=1, iters=5, warmup=1)
     dq_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, True, scale), iters=5, warmup=1)
     plain_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_reference(
@@ -827,7 +882,10 @@ def ce_case(torch, dev, gen):
     def bwd():
         return ce.fused_ce_bwd(x, w, labels, lse, g)
 
-    pass_ms = {k: _device_ms(torch, bwd, keys=(key,), iters=3, warmup=1)
+    # each pass launches once per vocab chunk
+    chunks = len(ce.plan_chunks(V))
+    pass_ms = {k: _device_ms(torch, bwd, keys=(key,), launches=chunks,
+                             iters=3, warmup=1)
                for k, key in CE_BWD_KEYS.items()}
     cold = _cold((x, w), (N * d + V * d) * elt)
     bwd_ms = _event_ms(torch, lambda: ce.fused_ce_bwd(*cold(), labels, lse,
@@ -987,13 +1045,14 @@ def k10_case(torch, dev, gen, hkv):
     # host time too
     kv = _cold((k, v), nbytes)
     call = (lambda: decode_attention(q, *kv(), lens, return_stats=True))
-    ms = _device_ms(torch, call, K10_KERNELS)
+    ms = _device_ms(torch, call, K10_KERNELS, launches=1)
     call_ms = _event_ms(torch, call)
     ms_no_stats = _device_ms(torch, lambda: decode_attention(q, *kv(), lens),
-                             K10_KERNELS)
+                             K10_KERNELS, launches=1)
     # the decode step's call: the fresh rows written inside, no stats
     ms_fused = _device_ms(torch, lambda: decode_attention(
-        q, *kv(), flens, k_new=k_new, v_new=v_new, write=wr), K10_KERNELS)
+        q, *kv(), flens, k_new=k_new, v_new=v_new, write=wr), K10_KERNELS,
+        launches=1)
     plain_ms = _device_ms(torch, lambda: decode_attention_reference(
         q, *kv(), lens, return_stats=True), iters=5, warmup=1)
     del kv
@@ -1034,8 +1093,12 @@ def k10_case(torch, dev, gen, hkv):
     return rec
 
 
-K12_KERNELS = ("int8_rows_sm90", "tiles_kernel", "rows_kernel",
+K12_KERNELS = ("int8_rows_sm90", "int8_tiles_sm90", "rows_kernel",
                "finalize_kernel")
+# K12's rows: a decode step's (M 8, the tensor-core weight stream) and
+# the int8 engine's prefill buckets (decode_engine.py: 16-512 tokens a
+# chunk; M 32, 128 and 512, the TMA + wgmma tiles)
+K12_MS = (8, 32, 128, 512)
 
 
 def _sum_or_none(values):
@@ -1044,13 +1107,15 @@ def _sum_or_none(values):
 
 
 def k12_case(torch, dev, gen):
-    """K12 on the four gpt3_1p3b block products at M 8 (decode: the
-    tensor-core weight stream) and M 128 (a prefill bucket: the wmma
-    tiles), bf16, weights drawn at std 0.02 and quantized per output
-    column; each output held by ``quant_matmul_check``, each case
-    recording the kernel its route launches. The library yardstick is
-    ``torch.matmul`` on the weight dequantized to bf16 beforehand, which
-    reads twice the weight bytes."""
+    """K12 on the four gpt3_1p3b block products at each of ``K12_MS``
+    (M 8: decode, the tensor-core weight stream; M 32, 128, 512: prefill
+    buckets, the TMA + wgmma tiles), bf16, weights drawn at std 0.02 and
+    quantized per output column; each output held by
+    ``quant_matmul_check``, each case recording the kernel its route
+    launches. The library yardstick is ``torch.matmul`` on the weight
+    dequantized to bf16 beforehand, which reads twice the weight bytes.
+    One layer's four products are summed at M 8 (``decode_layer_*``)
+    and at M 128 (``prefill_layer_*``)."""
     from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                    int8_matmul_cost,
                                                    int8_matmul_reference,
@@ -1062,7 +1127,7 @@ def k12_case(torch, dev, gen):
         qt = quantize_tensor((0.02 * torch.randn(
             (K, N), generator=gen, device=dev)).to(bf))
         w_deq = qt.dequantize()
-        for M in (8, 128):
+        for M in K12_MS:
             x = torch.randn((M, K), generator=gen, device=dev).to(bf)
             out = int8_matmul(x, qt.q, qt.scale)
             torch.cuda.synchronize()
@@ -1073,7 +1138,7 @@ def k12_case(torch, dev, gen):
             # every layer reads its own weights: time them cold
             wq = _cold((qt.q,), K * N)
             call = (lambda: int8_matmul(x, *wq(), qt.scale))
-            ms = _device_ms(torch, call, K12_KERNELS)
+            ms = _device_ms(torch, call, K12_KERNELS, launches=1)
             call_ms = _event_ms(torch, call)
             plain_ms = _device_ms(torch, lambda: int8_matmul_reference(
                 x, *wq(), qt.scale), iters=5, warmup=1)
@@ -1090,6 +1155,7 @@ def k12_case(torch, dev, gen):
             ok = (ok and check["ok"]
                   and None not in (ms, plain_ms, lib_ms))
     decode = [c for c in cases if c["M"] == 8]
+    prefill = [c for c in cases if c["M"] == 128]
     rec = {"phase": "k12_int8_matmul", "dtype": "bfloat16",
            "tol_rel_l2": REL_L2_TOL, "cases": cases, "max_abs_err": err,
            "timing": "device time (torch.profiler), weights cold; "
@@ -1104,6 +1170,14 @@ def k12_case(torch, dev, gen):
            "decode_layer_library_ms": _sum_or_none(c["library_ms"]
                                                    for c in decode),
            "decode_layer_bound_ms": sum(c["bound_ms"] for c in decode),
+           # the same at M 128, a prefill chunk's layer
+           "prefill_layer_ms": _sum_or_none(c["kernel_ms"]
+                                            for c in prefill),
+           "prefill_layer_plain_ms": _sum_or_none(c["plain_ms"]
+                                                  for c in prefill),
+           "prefill_layer_library_ms": _sum_or_none(c["library_ms"]
+                                                    for c in prefill),
+           "prefill_layer_bound_ms": sum(c["bound_ms"] for c in prefill),
            "ok": bool(ok)}
     _phase(rec)
     return rec
@@ -1125,10 +1199,43 @@ def _k8_bound(inp):
     return _bound(nbytes, flops)
 
 
-def _mega_call(mk, inp, kp, vp, plain=False):
+def _mega_call(mk, inp, kp, vp, plain=False, **kw):
     fn = mk.mega_decode_layers_reference if plain else mk.mega_decode_layers
     return fn(inp["x"], inp["w"], kp, vp, inp["table"], inp["pos"],
-              inp["slot"], inp["write"], **inp["geo"])
+              inp["slot"], inp["write"], **inp["geo"], **kw)
+
+
+def k8_phase_record(torch, mk, inp, kp, vp, reps=5):
+    """K8's phase-time record (``mega_decode_layers(stamps=)``: block 0
+    stamps %globaltimer at each grid barrier) over ``reps`` calls: per
+    phase the median over calls of its ms summed over the layers, and
+    per layer; the grid barriers a layer takes; the record's span."""
+    import statistics
+    L = inp["w"]["wqkv"].shape[0]
+    buf = torch.zeros((2 * (16 * L + 2),), dtype=torch.int64,
+                      device=kp.device)
+    runs = []
+    for _ in range(reps):
+        buf.zero_()
+        _mega_call(mk, inp, kp, vp, stamps=buf)
+        torch.cuda.synchronize()
+        runs.append(mk.phase_times(buf))
+    sums = {}
+    for run in runs:
+        tot = {}
+        for _, phase, ms in run:
+            tot[phase] = tot.get(phase, 0.0) + ms
+        for phase, ms in tot.items():
+            sums.setdefault(phase, []).append(ms)
+    order = [p for p in mk.PHASES if p in sums]
+    ms = {p: statistics.median(sums[p]) for p in order}
+    return {"ms": ms, "per_layer_ms": {p: v / L for p, v in ms.items()},
+            # each phase ends at a grid barrier; the last layer's closing
+            # barrier is taken only while recording
+            "barriers_per_layer": len(runs[0]) / L,
+            "span_ms": statistics.median(sum(m for _, _, m in run)
+                                         for run in runs),
+            "calls": reps}
 
 
 def _per_layer_call(torch, inp, kp, vp):
@@ -1186,20 +1293,19 @@ def k8_case(torch, name, inp, tol, timed=False, context=False):
     if timed:
         rec["kernel_ms"] = _device_ms(
             torch, lambda: _mega_call(mk, inp, kp, vp), ("mega_kernel",),
-            iters=10, warmup=2)
+            launches=1, iters=10, warmup=2)
         rec["plain_ms"] = _device_ms(
             torch, lambda: _mega_call(mk, inp, kp, vp, plain=True), iters=2,
             warmup=1)
         rec["library_ms"] = None
+        rec["phases"] = k8_phase_record(torch, mk, inp, kp, vp)
         ok = ok and None not in (rec["kernel_ms"], rec["plain_ms"])
     if context:
         rec["per_layer_path_ms"] = _device_ms(
             torch, lambda: _per_layer_call(torch, inp, kp, vp), iters=5,
             warmup=1)
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
             _per_layer_call(torch, inp, kp, vp)
             torch.cuda.synchronize()
         rec["per_layer_path_launches"] = sum(
@@ -1258,7 +1364,7 @@ def k89_phase(torch, dev, gen, model):
     del logits
     ms = _device_ms(torch, lambda: mk.mega_logits_sample(x, s, b, w.t(),
                                                          poison),
-                    ("logits_kernel",))
+                    ("logits_kernel",), launches=1)
     plain_ms = _device_ms(torch, lambda: mk.mega_logits_sample_reference(
         x, s, b, w.t(), poison), iters=5, warmup=1)
     B, V = x.shape[0], w.shape[0]
@@ -1454,10 +1560,8 @@ def _device_breakdown(prof, wall_us):
 
 def train_breakdown(torch, step, params, state, tokens):
     """One more kernel step under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         _, _, loss = step(params, state, tokens)
         torch.cuda.synchronize()
@@ -1690,38 +1794,51 @@ def int8_phase(torch, dev, model, donor, bf16_reqs):
 
 
 def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
-                        n_dispatches=2):
+                        expect, n_dispatches=2):
     """Device time per decode step of ``eng``: 8 fresh 128-token prompts
     are admitted first, then ``n_dispatches`` decode dispatches
     (``steps_per_call`` steps each) run under torch.profiler; the
     device's busy time over their decode steps, beside the weight-read
-    floor (every block weight and the LM head read once per step)."""
+    floor (every block weight and the LM head read once per step). The
+    window counts only when it holds ``expect`` (kernel name -> launches
+    per decode step) times its decode steps; else the batch runs again
+    under a new window, up to PROFILE_WINDOWS, and the phase fails when
+    none held them."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
     cfg = eng.cfg
     rs = np.random.RandomState(SEED + 2)
-    reqs = [eng.submit(rs.randint(0, cfg.vocab_size, size=128).tolist(),
-                       max_new_tokens=64) for _ in range(eng.S)]
-    while eng._waiting or getattr(eng, "_admitting", ()):
-        eng.step()
-    eng.drain()
-    torch.cuda.synchronize()
-    steps0 = eng.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_dispatches):
+    for window in range(1, PROFILE_WINDOWS + 1):
+        reqs = [eng.submit(rs.randint(0, cfg.vocab_size, size=128).tolist(),
+                           max_new_tokens=64) for _ in range(eng.S)]
+        while eng._waiting or getattr(eng, "_admitting", ()):
             eng.step()
         eng.drain()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    decode_steps = (eng.steps - steps0) * eng.chunk
-    eng.run()
+        steps0 = eng.steps
+        with _profiled(torch) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_dispatches):
+                eng.step()
+            eng.drain()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        decode_steps = (eng.steps - steps0) * eng.chunk
+        eng.run()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        counted = {k: sum(k in n for n in names) for k in expect}
+        full = all(counted[k] == per * decode_steps
+                   for k, per in expect.items())
+        if full:
+            break
     floor_ms = (weight_bytes + head_bytes) / H100_BYTES_PER_S * 1e3
     rec = {"phase": f"decode_device_{name}", "slots": eng.S,
            "decode_steps": decode_steps, "wall_ms": wall_us / 1e3,
            "block_weight_bytes": weight_bytes, "lm_head_bytes": head_bytes,
-           "weight_read_floor_ms": floor_ms}
+           "weight_read_floor_ms": floor_ms,
+           "launch_check": {"per_decode_step": expect, "counted": counted,
+                            "windows": window, "ok": full}}
     bd = _device_breakdown(prof, wall_us)
     rec["measured"] = bd is not None
     if bd is not None:
@@ -1732,7 +1849,7 @@ def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
                                                              decode_steps)
         rec["launches_per_decode_step"] = (bd["kernel_launches"]
                                            / max(1, decode_steps))
-    rec["ok"] = bool(decode_steps > 0
+    rec["ok"] = bool(decode_steps > 0 and full
                      and all(r.done and not r.failed for r in reqs))
     _phase(rec)
     return rec
@@ -1803,15 +1920,20 @@ def serving_paths(torch, dev, gen=None):
     blocks = sum(w[n].numel() for w in eng._layers
                  for n in ("wqkv", "wo", "wup", "wdown"))
     head = cfg.vocab_size * cfg.d_model * 2
-    decode_device_phase(torch, eng, "bf16", 2 * blocks, head)
-    decode_device_phase(torch, q8, "int8", blocks, head)
+    L = cfg.n_layers
+    decode_device_phase(torch, eng, "bf16", 2 * blocks, head,
+                        {K10_KERNELS[0]: L})
+    decode_device_phase(torch, q8, "int8", blocks, head,
+                        {K10_KERNELS[0]: L, "int8_rows_sm90": 4 * L})
     del eng, q8, reqs
     torch.cuda.empty_cache()
     for on in (True, False):
         paged = make_engine(model, n_pages=64, max_slots=8,
                             steps_per_call=16, mega=on)
         decode_device_phase(torch, paged, "paged_mega" if on else "paged",
-                            2 * blocks, head)
+                            2 * blocks, head,
+                            {"mega_kernel": 1, "logits_kernel": 1} if on
+                            else {"paged_kernel": L})
         del paged
         torch.cuda.empty_cache()
     generated = generate_phase(torch, dev, model)
@@ -1826,13 +1948,11 @@ def breakdown_phase(torch, eng, prompts, n_new, name="serving_breakdown"):
     summed by family, and the device's busy share of the wall time.
     Reports ``measured: false`` when the profiler records no device
     activity (the measurement is then missing, not zero)."""
-    from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
     steps0 = eng.steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -1925,7 +2045,7 @@ def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
               for a, b in zip(got[:2], ref[:2]))
     del probe, ref_keep, ones
     ms = _device_ms(torch, lambda: ln.fused_layer_norm_fwd(*args),
-                    keys=("fused_ln_fwd",))
+                    keys=("fused_ln_fwd",), launches=1)
     plain_ms = _event_ms(torch, lambda: ln.fused_layer_norm_reference(
         *args), iters=5, warmup=1)
     pre = ref[1]
@@ -2041,13 +2161,13 @@ def attention_case(torch, dev, gen, name, Sk=ENC_S, bias_kind="padding",
     scale = D ** -0.5
     drop = (p, seed)
     k1_ms = _device_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
-                       keys=("flash_fwd_",))
+                       keys=("flash_fwd_",), launches=1)
     k3_ms = _device_ms(torch, lambda: fa.flash_attention_bwd_dkdv(
         q, k, v, do, lse, delta, False, scale, kv_lens, b4, *drop),
-        keys=("flash_bwd_dkdv",))
+        keys=("flash_bwd_dkdv",), launches=1)
     k4_ms = _device_ms(torch, lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, False, scale, kv_lens, b4, *drop),
-        keys=("flash_bwd_dq",))
+        keys=("flash_bwd_dq",), launches=1)
     plain_fwd_ms = _event_ms(torch, lambda: fa.flash_attention_reference(
         q, k, v, False, scale, kv_lens, b4, *drop), iters=3, warmup=1)
     plain_bwd_ms = _event_ms(torch, lambda: fa.flash_attention_bwd_reference(
@@ -2187,7 +2307,6 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
     """The slice's main path: the BERT-base-width incubate encoder
     trained with dropout; see the module docstring (phase 15)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.optimizer import AdamW
 
     B, S, d = ENC_B, ENC_S, ENC_D
@@ -2268,8 +2387,7 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
     flops_tok = 6 * n_params + 12 * n_layers * d * S
     # one more step under the profiler: where the time goes
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         loss, state = step(opt, state)
         torch.cuda.synchronize()
@@ -2406,7 +2524,8 @@ def k13_phase(torch, dev, gen):
     torch.cuda.synchronize()
     exact = all(torch.equal(y, x) for y in ys)
     counted = noop_copy.launches - n0
-    ms = _device_ms(torch, lambda: noop_copy(x), ("noop_copy",))
+    ms = _device_ms(torch, lambda: noop_copy(x), ("noop_copy",),
+                    launches=1)
     clone_ms = _device_ms(torch, lambda: noop_copy_reference(x))
     probe_us = devprof.pallas_launch_tax_s(force=True) * 1e6
     add_us = devprof.launch_tax_s(force=True, device=dev) * 1e6
@@ -2791,11 +2910,21 @@ def main():
               k12["decode_layer_ms"], k12["decode_layer_plain_ms"],
               (k12["decode_layer_bound_ms"], "bytes"),
               k12["decode_layer_library_ms"], k12["max_abs_err"]),
+        # the prefill tiles (M > 16): one layer's four products at M 128,
+        # a prefill chunk of the int8 engine (launches: the int8 path's,
+        # decode rows included; one counter serves both routes)
+        entry("int8_matmul[prefill]", "quant_matmul.cu",
+              "paddle_tpu/ops/pallas/quant_matmul.py:91",
+              k12["prefill_layer_ms"], k12["prefill_layer_plain_ms"],
+              (k12["prefill_layer_bound_ms"], "bytes"),
+              k12["prefill_layer_library_ms"], k12["max_abs_err"],
+              counter="int8_matmul", only="int8", design=wgmma),
         # all 24 layers of one decode step at B 8
         entry("mega_decode_layers", "decode_megakernel.cu",
               "paddle_tpu/ops/pallas/decode_megakernel.py:366",
               k8["kernel_ms"], k8["plain_ms"],
-              (k8["bound_ms"], k8["bound_by"]), None, k8["max_abs_err"]),
+              (k8["bound_ms"], k8["bound_by"]), None, k8["max_abs_err"],
+              design=wgmma),
         # max_abs_err: the worst gap between the picked token's plain
         # logit and the row's plain maximum
         entry("mega_logits_sample", "decode_megakernel.cu",

@@ -26,12 +26,22 @@ of lengths 0..2047, 16 query heads over 16 and over 4 kv heads of 128,
 T 2048, caches cold, without and with the step's fresh rows (``_write``:
 written inside K10 where the checkout's wrapper takes them, else by the
 index ops ``GPTBlock._write_kv_rows`` wrote them with before K10, all
-launches counted); K12 on gpt3_1p3b's four block products at M 8 and
-128, weights cold, and one decode layer's four at M 8 summed
-(``k12_layer_M8``). Each time is read twice: the call's device time
-from a torch.profiler trace (``kernel_ms``; the CE backward, K10 and
-K12 sum every kernel in the window) and the call's, wrapper included,
-by CUDA events around back-to-back calls (``call_ms``).
+launches counted); K12 on gpt3_1p3b's four block products at M 8 (the
+decode rows) and M 32, 128 and 512 (the int8 engine's prefill buckets),
+weights cold, each beside ``torch.matmul`` on the dequantized weight
+(``library_ms``) and its bound (``bound_ms``: the int8 weight, the
+scales, x and the output once at 3.35 TB/s, or the flops at 989.4
+TFLOP/s), and one layer's four summed at M 8 and at M 128
+(``k12_layer_M8``, ``k12_layer_M128``). Each time is read twice: the
+call's device time from a torch.profiler trace (``kernel_ms``; the CE
+backward and K10 sum every kernel in the window) and the call's,
+wrapper included, by CUDA events around back-to-back calls
+(``call_ms``). Every device time goes through this checkout's
+``chip_smoke._device_ms`` (loaded by path, so a parent checkout is
+timed the same way): a profiler window counts only when it holds the
+launches the calls made (the caller's count, or for a sum of every
+kernel the median of three one-call windows' counts), a short window
+is profiled again, and after three short windows the case reads None.
 ``--ce-chunks`` also times a checkout's ``fused_ce_bwd`` at those vocab
 chunk widths (its default is timed as above), and ``--ce-plans`` K5 with
 its vocab tiles cut into about that many ranges (where the checkout
@@ -49,29 +59,25 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import inspect, itertools, json, statistics, sys, torch
+import importlib.util, inspect, itertools, json, statistics, sys, torch
 sys.path.insert(0, ".")
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_ce as ce
 if not torch.cuda.is_available():
     sys.exit("kernel_ab: no CUDA device")
 
 
-def device_ms(fn, key, iters):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.end - e.time_range.start
-                for e in prof.events()
-                if e.device_type == DeviceType.CUDA and key in e.name)
-    return total / 1e3 / iters
+# the launch-checked profiler windows of this script's own chip_smoke.py
+# (loaded by path: the run's checkout may be one without them)
+_spec = importlib.util.spec_from_file_location("_ab_timing", sys.argv[4])
+_timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_timing)
+
+
+def device_ms(fn, keys, iters, launches=None):
+    # keys None: every kernel; launches None: one call's count, measured
+    return _timing._device_ms(torch, fn, keys=keys, launches=launches,
+                              iters=iters)
 
 
 def call_ms(fn, iters):
@@ -93,6 +99,11 @@ gen = torch.Generator(device=dev)
 gen.manual_seed(0)
 out = {}
 ONLY = sys.argv[3]
+
+
+# K12's kernels in either checkout (the parent's prefill route was
+# ``tiles_kernel``); one of them a bf16 call
+K12_KERNELS = ("int8_rows_sm90", "int8_tiles_sm90", "tiles_kernel")
 
 
 def cold(ops, nbytes):
@@ -136,26 +147,35 @@ def decode_cases():
                     cache[bi, :, t, :] = new
                 return da.decode_attention(q, kc, vc, flens)
         for name, f in ((f"k10_hkv{hkv}", fn), (f"k10_hkv{hkv}_write", fw)):
-            out[name] = {"kernel_ms": device_ms(f, "", 50),
+            out[name] = {"kernel_ms": device_ms(f, None, 50),
                          "call_ms": call_ms(f, 50)}
         del kv, k, v
-    layer = {"kernel_ms": 0.0, "call_ms": 0.0}
+    layers = {M: {"kernel_ms": 0.0, "call_ms": 0.0} for M in (8, 128)}
     for name, K, N in (("wqkv", 2048, 6144), ("wo", 2048, 2048),
                        ("wup", 2048, 8192), ("wdown", 8192, 2048)):
         qt = quantize_tensor((0.02 * torch.randn(
             (K, N), generator=gen, device=dev)).to(bf))
         wq = cold((qt.q,), K * N)
-        for M in (8, 128):
+        wd = cold((qt.dequantize(),), 2 * K * N)
+        for M in (8, 32, 128, 512):
             x = torch.randn((M, K), generator=gen, device=dev).to(bf)
             fn = lambda: qm.int8_matmul(x, *wq(), qt.scale)
-            rec = {"kernel_ms": device_ms(fn, "", 50),
-                   "call_ms": call_ms(fn, 50)}
+            rec = {"kernel_ms": device_ms(fn, K12_KERNELS, 50, launches=1),
+                   "call_ms": call_ms(fn, 50),
+                   # torch.matmul on the dequantized weight; the bound:
+                   # the weight, scales, x and out once, or the flops
+                   "library_ms": device_ms(lambda: torch.matmul(x, *wd()),
+                                           None, 50),
+                   "bound_ms": max(
+                       (K * N + 4 * N + 2 * M * (K + N)) / 3.35e12,
+                       2 * M * K * N / 989.4e12) * 1e3}
             out[f"k12_{name}_M{M}"] = rec
-            if M == 8:
-                for key in layer:
-                    layer[key] += rec[key]
-        del wq
-    out["k12_layer_M8"] = layer
+            if M in layers:
+                for key in layers[M]:
+                    layers[M][key] += rec[key]
+        del wq, wd
+    out["k12_layer_M8"] = layers[8]
+    out["k12_layer_M128"] = layers[128]
 
 
 if ONLY == "decode":
@@ -174,7 +194,7 @@ for name, B, S, iters in (("k1_B1_S128", 1, 128, 50),
                           ("k1_B4_S2048", 4, 2048, 10)):
     q, k, v, _ = operands(B, S)
     fn = lambda: fa.flash_attention(q, k, v, causal=True)
-    out[name] = {"kernel_ms": device_ms(fn, "flash_fwd", iters),
+    out[name] = {"kernel_ms": device_ms(fn, ("flash_fwd",), iters, 1),
                  "call_ms": call_ms(fn, iters)}
 q, k, v, do = operands(4, 2048)
 scale = 128 ** -0.5
@@ -184,9 +204,9 @@ k3 = lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, True,
                                          scale)
 k4 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
                                        scale)
-out["k3_B4_S2048"] = {"kernel_ms": device_ms(k3, "flash_bwd_dkdv", 10),
+out["k3_B4_S2048"] = {"kernel_ms": device_ms(k3, ("flash_bwd_dkdv",), 10, 1),
                       "call_ms": call_ms(k3, 10)}
-out["k4_B4_S2048"] = {"kernel_ms": device_ms(k4, "flash_bwd_dq", 10),
+out["k4_B4_S2048"] = {"kernel_ms": device_ms(k4, ("flash_bwd_dq",), 10, 1),
                       "call_ms": call_ms(k4, 10)}
 del q, k, v, do, o, lse, delta
 # the incubate encoder's call: B 16, S 512, 12 heads of 64, the padding
@@ -205,13 +225,14 @@ k3 = lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, False,
                                          D ** -0.5, None, b4, P, SEED)
 k4 = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False,
                                        D ** -0.5, None, b4, P, SEED)
-out["k1_enc_B16_S512_D64"] = {"kernel_ms": device_ms(k1, "flash_fwd", 20),
+out["k1_enc_B16_S512_D64"] = {"kernel_ms": device_ms(k1, ("flash_fwd",), 20,
+                                                     1),
                               "call_ms": call_ms(k1, 20)}
 out["k3_enc_B16_S512_D64"] = {
-    "kernel_ms": device_ms(k3, "flash_bwd_dkdv", 20),
+    "kernel_ms": device_ms(k3, ("flash_bwd_dkdv",), 20, 1),
     "call_ms": call_ms(k3, 20)}
 out["k4_enc_B16_S512_D64"] = {
-    "kernel_ms": device_ms(k4, "flash_bwd_dq", 20),
+    "kernel_ms": device_ms(k4, ("flash_bwd_dq",), 20, 1),
     "call_ms": call_ms(k4, 20)}
 del q, k, v, do, o, lse, delta, bias, b4
 N, d, V = 4 * 2047, 2048, 50304
@@ -229,15 +250,15 @@ if hasattr(ce, "fused_ce_bwd"):
 else:
     k67 = lambda: (ce.fused_ce_dx(x, w, labels, lse, g),
                    ce.fused_ce_dw(x, w, labels, lse, g))
-out["k5_ce_N8188"] = {"kernel_ms": device_ms(k5, "ce_fwd", 5),
+out["k5_ce_N8188"] = {"kernel_ms": device_ms(k5, ("ce_fwd",), 5, 1),
                       "call_ms": call_ms(k5, 5)}
-out["k67_ce_bwd_N8188"] = {"kernel_ms": device_ms(k67, "", 3),
+out["k67_ce_bwd_N8188"] = {"kernel_ms": device_ms(k67, None, 3),
                            "call_ms": call_ms(k67, 3)}
 for c in [int(c) for c in sys.argv[1].split(",") if c]:
     if hasattr(ce, "fused_ce_bwd"):
         fn = lambda: ce.fused_ce_bwd(x, w, labels, lse, g, chunk=c)
         out[f"k67_ce_bwd_N8188_chunk{c}"] = {
-            "kernel_ms": device_ms(fn, "", 3), "call_ms": call_ms(fn, 3)}
+            "kernel_ms": device_ms(fn, None, 3), "call_ms": call_ms(fn, 3)}
 plans = [int(c) for c in sys.argv[2].split(",") if c]
 if plans and hasattr(ce, "_plan"):
     # K5 with its bf16 vocab tiles (256 wide) cut into about ns ranges,
@@ -250,7 +271,7 @@ if plans and hasattr(ce, "_plan"):
             per = -(-tiles // ns)
             ce._plan = lambda *a, per=per: (-(-tiles // per), per)
             got.setdefault(f"k5_ce_N8188_nsplit{-(-tiles // per)}", []).append(
-                (device_ms(k5, "ce_fwd", 5), call_ms(k5, 5)))
+                (device_ms(k5, ("ce_fwd",), 5, 1), call_ms(k5, 5)))
     ce._plan = default_plan
     for case, runs in got.items():
         out[case] = {"kernel_ms": statistics.median(r[0] for r in runs),
@@ -261,9 +282,14 @@ print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
 
+# this checkout's chip_smoke.py, whose ``_device_ms`` every run uses
+_TIMING = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chip_smoke.py")
+
+
 def run_one(root, timeout, ce_chunks, ce_plans, only):
     out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks, ce_plans,
-                          only],
+                          only, _TIMING],
                          cwd=root,
                          capture_output=True, text=True, timeout=timeout)
     recs = [json.loads(line[len("KERNEL_AB "):])
@@ -298,9 +324,14 @@ def main():
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)
+    def median(vals):
+        # a case whose windows never held all its launches reads None
+        vals = list(vals)
+        return None if None in vals else statistics.median(vals)
+
     print(json.dumps({"kernel_ab_medians": {
-        tag: {case: {key: statistics.median(r[case][key] for r in recs)
-                     for key in ("kernel_ms", "call_ms")}
+        tag: {case: {key: median(r[case][key] for r in recs)
+                     for key in recs[0][case]}
               for case in recs[0] if all(case in r for r in recs)}
         for tag, recs in got.items()}}), flush=True)
     return 0

@@ -25,58 +25,66 @@
 // before p.v, as `online_softmax_step` rounds it.
 //
 // K8 design. A persistent cooperative kernel: the grid is every block
-// that can be resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
-// SM count, worked out in `mega_grid`), launched with
-// cudaLaunchCooperativeKernel, and the phases of a layer are separated
-// by cooperative_groups grid barriers, which are sound only under that
-// launch. Per layer:
+// that can be resident (one a SM, worked out in `mega_grid`), launched
+// with cudaLaunchCooperativeKernel, so the grid barriers between phases
+// (`grid_sync`, cooperative groups' algorithm on a workspace word) are
+// sound. A block is three warpgroups: two consumers (threads 0-255) run
+// every phase; the third streams weights (one thread issues TMA loads)
+// and gives its registers to the consumers (setmaxnreg). Per layer, five
+// phases, each ending at a grid barrier (the parent design took up to 10:
+// a separate rope-and-write phase, and a barrier and pass for every
+// split product's partial sums):
 //
-//   1. LN1 + QKV. The four products share one scheme (`gemm_phase`):
-//      units of (256 output columns, a depth range, 8 rows). The rows
-//      of a block's tile stay resident in shared memory for the phase
-//      (depth-major, so one 16-byte load gives a depth's 8 rows), read
-//      from L2 in 16-byte loads and, for LN1 and LN2, normalised in
-//      place (statistics per block; rounded to x's dtype). In bf16 a
-//      unit is 64 columns on the tensor cores (`mma_tile_sums`: each
-//      warp streams 16-deep slabs of 128 contiguous bytes a row through
-//      its own cp.async ring and multiplies them with mma.sync; the
-//      8 rows of x fill half of the 16-row A operand); in fp32 it is
-//      256 columns on the CUDA cores (`tile_sums`: each thread streams
-//      16-byte pieces through a private cp.async ring). Either way the
-//      depth splits over warps or threads and reduces through shared
-//      memory. Where the column tiles are
-//      fewer than the resident blocks, the depth also splits over
-//      blocks (`split_count`); the partial sums go to an fp32 workspace
-//      and, after one more grid barrier, every thread adds its outputs'
-//      partials in a fixed order and applies the epilogue. Output:
-//      q|k|v rows (+ bias) in a global scratch.
-//   2. Rope on k, and the fresh K/V rows written into the pools. Rope
-//      couples column c with c +- d/2 of another tile, so it runs after
-//      the barrier. Merging this into phase 3 would let a row attend
-//      before another row of its slot has written.
-//   3. Attention, one block per (row, kv head) at a time, over the
-//      row's valid keys only, gathered page by page through the table:
-//      K10's design (8 warps, each with its own online softmax over
-//      every 8th group of keys, merged through shared memory), q read
-//      from the scratch with rope applied on load. Output o in a scratch.
-//   4. Out-projection + bias + residual into x_out. Each output is
-//      finished by one thread, which reads x at that entry only, so the
-//      in-place update is race-free.
-//   5. LN2 + up-projection + bias + GELU into the (B, F) scratch.
-//   6. Down-projection + bias + residual into x_out (as in 4).
+//   1. LN1 + QKV, then rope on k and every row's fresh K/V row written
+//      into the pools, in the product's epilogue: the QKV product's
+//      column tiles hold whole heads (128 columns where D divides 128,
+//      else one head), so rope's partner column is in the tile. q|k|v
+//      (+ bias) also go to a scratch, which attention reads q from.
+//   2. Attention, one block per (row, kv head) at a time, over the row's
+//      valid keys only, gathered page by page through the table: 8
+//      warps, each with its own online softmax over every 8th group of
+//      keys, merged through shared memory; a lane keeps up to 8 key rows'
+//      raw words in flight a step; q read from the scratch with rope
+//      applied on load. Output o in a scratch.
+//   3. Out-projection + bias + residual into x_out.
+//   4. LN2 + up-projection + bias + GELU into the (B, F) scratch.
+//   5. Down-projection + bias + residual into x_out.
 //
-// Phase 1 of layer l+1 reads every column of x_out, which phase 6 of
-// layer l wrote in all blocks: hence the barrier after 6. Reads of data
-// written inside the launch (x_out, the scratches, the workspace, the
-// pools) go through L2 (`__ldcg`, cp.async.cg), never the non-coherent
-// read-only path; weights go through `__ldg` or cp.async.
+// The products (`product_phase`) share one scheme: units of (128 output
+// columns, a depth range, 8 rows). Where the column tiles are fewer than
+// the blocks, the depth splits over blocks (`make_plan`); each split's
+// sums go to an fp32 workspace, and the last split of a tile to finish
+// (a counter per tile) adds them in split order and applies the
+// epilogue, so no split product takes a barrier of its own. A unit's 8
+// rows of the operand are staged into shared memory from L2 (LN1 and
+// LN2 normalised on the way in, statistics per block). In bf16 with
+// aligned rows the weight is streamed by TMA: the streaming thread walks
+// every unit this block takes, phase after phase and layer after layer,
+// in the consumers' order, and keeps a ring of kRingStages 64-deep x
+// 128-column tiles (two 64 x 64 boxes, 128-byte swizzle) in flight, so
+// the next phase's first tiles land while the consumers attend or wait
+// at a barrier; the consumers multiply each tile by the staged rows on
+// the tensor cores, the swapped product: wgmma m64n8k16 with the weight
+// tile as the MN-major A operand (64 output columns a warpgroup) and the
+// 8 rows as the K-major B operand, each weight read once per 8 rows. In
+// fp32 (and bf16 rows that are not 16-byte aligned) the same units run
+// on the CUDA cores (`unit_sums_cc`: a cp.async ring per thread).
+//
+// Each output is finished by one thread, which reads x at that entry
+// only, so x_out's in-place updates are race-free. Phase 1 of layer l+1
+// reads every column of x_out, which phase 5 of layer l wrote in all
+// blocks: hence the barrier after 5. Reads of data written inside the
+// launch (x_out, the scratches, the workspace, the pools) go through L2
+// (`__ldcg`), never the non-coherent read-only path; weights through
+// TMA, `__ldg` or cp.async. The phase-time record (`stamps`): block 0
+// stamps %globaltimer at each barrier, when the caller passes a buffer.
 //
 // K9 design. A regular launch, one block per SM; each block keeps its
-// 8 rows resident after the final LN (as K8's phase 1), and takes units
+// 8 rows resident whole after the final LN (`ensure_a`), and takes units
 // of vocabulary columns x 8 rows: for the tied head, whose (V, dm) rows
 // are contiguous along dm, 32 columns, one warp per 4 reading along dm;
-// for a (dm, V) row-major head, K8's 256-column tiles over the whole
-// depth. Their logits, rounded to x's dtype, NaN where the row
+// for a (dm, V) row-major head, 256-column tiles over the whole depth
+// (`tile_sums`). Their logits, rounded to x's dtype, NaN where the row
 // is poisoned. Per row it keeps the non-finite flag over the true vocab
 // and the largest key = (order-preserving float bits << 32 | ~index):
 // the largest value wins, and among equal values the lowest index
@@ -90,23 +98,18 @@
 // reads, far below the ridge (about 295 FLOP per byte), so its floor is
 // reading every layer's weights once, plus the valid K/V rows each row
 // attends to, plus the fresh rows written, at 3.35 TB/s; K9's the head
-// (V x dm) once. Why K8 does not reach it today (chip_smoke.py on an
-// H100 80GB HBM3 at 700 W): one gpt3_1p3b layer takes about 0.2 ms, of
-// which about 0.06 ms is the phases' fixed cost, measured at d_model 128
-// (up to 10 grid barriers a layer, each product's staging, reduction
-// and split round trip); the weight stream moves at about a fifth of
-// the card's rate with the products on the CUDA cores and on the tensor
-// cores alike, so arithmetic is not what bounds it: each unit reads
-// short row segments (128 bytes in bf16) spread over the matrix and
-// stalls at its end. Fewer phases and a TMA pipeline over wide tiles
-// are later work (ROADMAP R1).
-#include <cooperative_groups.h>
-
+// (V x dm) once. What keeps K8 above it (its phase-time record on an
+// H100 80GB HBM3 at 700 W, PERF.md §6): not the weight stream, whose
+// mainloops take a fifth to a third of each product phase, but each
+// phase's latency-bound fixed part: the LayerNorm statistics and the
+// staging of the rows, a split's fixup and the epilogue, and
+// attention's per-row chain of dependent loads, with one block per
+// (row, kv head) (a 256-key row's unit sets the phase's length).
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "sm90.cuh"
 
 namespace {
 
@@ -119,30 +122,20 @@ constexpr int kMaxRows = 64;
 constexpr int kDMax = 128;              // largest head_dim
 constexpr int kGMax = 8;                // largest GQA group
 constexpr int kLogitsStrip = 32;        // K9, tied head: vocab columns a unit
-constexpr int kNW = 256;                // row-major products: columns a tile
-// the activation operand resident in shared memory: kMT rows x up to
-// kACapBytes / (kMT sizeof(T)) depth (8192 bf16: every gpt3_1p3b
-// product's whole depth; fp32 operands deeper than 4096 go in chunks)
+constexpr int kNW = 256;                // K9, row-major head: columns a tile
+// K9's operand resident in shared memory: kMT rows x up to kACapBytes /
+// (kMT sizeof(T)) depth (8192 bf16, 4096 fp32: a LayerNorm'd row whole)
 constexpr int kACapBytes = 128 * 1024;
-// the weight stream's rings: kStages 16-byte pieces a thread (fp32
-// products), or kMmaStages 16 x 64 bf16 slabs a warp (bf16 products)
+// the CUDA-core weight streams' rings: kStages 16-byte pieces a thread
 constexpr int kStages = 8;
-constexpr int kMmaNW = 64;              // bf16 products: columns a tile
-constexpr int kMmaStages = 4;
-constexpr int kSlabBytes = 16 * kMmaNW * 2;
-constexpr int kRingBytes = kMmaStages * kWarps * kSlabBytes;
-static_assert(kStages * kThreads * 16 <= kRingBytes, "fp32 ring");
-// a tile's cross-thread reduction, half its 8 rows at a time (bf16: 8
-// depth lanes x 4 rows x kNW columns)
+constexpr int kK9Ring = kStages * kThreads * 16;
+// K9's cross-thread reduction, half its 8 rows at a time (bf16: 8 depth
+// lanes x 4 rows x kNW columns)
 constexpr int kRedFloats = 8 * 4 * kNW;
-// the least depth a split of a row-major product walks
-constexpr int kMinSplitDepth = 64;
 constexpr int kAttnFloats = kWarps * kGMax * kDMax + 2 * kWarps * kGMax;
-constexpr int kSmemBytes = kACapBytes + kRingBytes + kRedFloats * 4;
+constexpr int kSmemBytes = kACapBytes + kK9Ring + kRedFloats * 4;
 
-static_assert(kMT == kWarps, "K9's row reduction gives one warp per row");
-static_assert(kAttnFloats * 4 <= kACapBytes,
-              "the attention phase reuses the operand's shared memory");
+static_assert(kMT == kWarps, "a warp per row (LayerNorm, K9's reduction)");
 
 // -- loads ------------------------------------------------------------------
 
@@ -161,23 +154,20 @@ __device__ __forceinline__ float ldcg_f<bf16>(const bf16* p) {
       __ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
 
-// V = 16 / sizeof(T) elements at p, written inside the launch, as fp32
-// through L2, zero where n + e >= n_end; one 16-byte load when vec (p
-// 16-byte aligned and n + V <= n_end)
+// V = 16 / sizeof(T) elements at p, written inside the launch, as a raw
+// 16-byte word in T through L2, zero where n + e >= n_end; one 16-byte
+// load when vec (p 16-byte aligned and n + V <= n_end)
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, int n, int n_end,
-                                         bool vec, float* out) {
+__device__ __forceinline__ uint4 load_word(const T* p, int n, int n_end,
+                                           bool vec) {
   constexpr int V = 16 / sizeof(T);
-  if (vec && n + V <= n_end) {
-    const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(p));
-    const T* el = reinterpret_cast<const T*>(&raw);
+  if (vec && n + V <= n_end) return __ldcg(reinterpret_cast<const uint4*>(p));
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  T* el = reinterpret_cast<T*>(&raw);
 #pragma unroll
-    for (int e = 0; e < V; ++e) out[e] = pt::to_float(el[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      out[e] = n + e < n_end ? ldcg_f(p + e) : 0.f;
-  }
+  for (int e = 0; e < V; ++e)
+    if (n + e < n_end) el[e] = pt::from_float<T>(ldcg_f(p + e));
+  return raw;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -526,233 +516,73 @@ __device__ void strip_kmajor(const ASrc<T>& A, int m0, int B, int K,
   __syncthreads();
 }
 
-// -- bf16 products on the tensor cores ----------------------------------------
-
-__device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<unsigned>(__bfloat16_as_ushort(lo)) |
-         (static_cast<unsigned>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// The sums of one tile of a row-major (K, N) bf16 weight, as tile_sums
-// computes them, on the tensor cores: out(row, n, sum) for rows m0 ..
-// m0 + 8 and columns c0 .. c0 + 64, over depths [kb, ke). Warp w takes
-// the 16-deep slabs w, w + 8, ... of the range; each slab (16 rows x 128
-// contiguous bytes) streams into the warp's ring of kMmaStages slots
-// (cp.async, 16-byte chunks XOR-swizzled by row, so that ldmatrix reads
-// 8 rows without bank conflicts), then ldmatrix.trans gives the B
-// fragments of 8 column tiles and mma.sync m16n8k16 multiplies them by
-// the operand's 8 rows (the A fragment's rows 8-15 are zero), summing
-// in fp32. The warps' sums reduce through shared memory. Needs N % 8 == 0
-// and a 16-byte aligned weight.
-template <class Out>
-__device__ void mma_tile_sums(const ASrc<bf16>& A, int m0, int B, int K,
-                              const bf16* __restrict__ W, int N, int c0,
-                              int kb, int ke, bf16* As, unsigned char* ring,
-                              float* red, int* staged, Out out) {
-  constexpr int cap = a_cap<bf16>();
-  constexpr int kNT = kMmaNW / 8;        // column tiles of 8
-  constexpr int kChunks = kMmaNW / 8;    // 16-byte chunks a slab row
-  constexpr int kRowBytes = kMmaNW * 2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned char* slots = ring + warp * kMmaStages * kSlabBytes;
-  const unsigned slots_s =
-      static_cast<unsigned>(__cvta_generic_to_shared(slots));
-  float acc[kNT][4];
-#pragma unroll
-  for (int t = 0; t < kNT; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
-
-  for (int k0 = kb / cap * cap; k0 < ke; k0 += cap) {
-    const int kc = min(cap, K - k0);
-    ensure_a(A, m0, B, K, k0, kc, As, staged);
-    const int lo = max(kb, k0);
-    const int hi = min(ke, k0 + kc);
-    const int nslab = (hi - lo + 15) / 16;
-    const int mine = warp < nslab ? (nslab - warp + kWarps - 1) / kWarps : 0;
-    // slab j of this warp: depths lo + (warp + j * 8) * 16 ..
-    auto fill = [&](int j) {
-      const int d0 = lo + (warp + j * kWarps) * 16;
-      unsigned char* dst = slots + (j % kMmaStages) * kSlabBytes;
-#pragma unroll
-      for (int q = 0; q < 16 * kChunks / 32; ++q) {
-        const int piece = lane + 32 * q;       // 16 rows x kChunks chunks
-        const int r = piece / kChunks;
-        const int ch = piece % kChunks;
-        const int col = c0 + ch * 8;
-        const int k = d0 + r;
-        const bool ok = k < hi && col < N;
-        const bf16* src = ok ? W + (long)k * N + col : W;
-        cp_async16(dst + r * kRowBytes + ((ch ^ (r & 7)) << 4), src,
-                   ok ? (col + 8 <= N ? 16 : (N - col) * 2) : 0);
-      }
-    };
-#pragma unroll
-    for (int j = 0; j < kMmaStages - 1; ++j) {
-      if (j < mine) fill(j);
-      cp_async_commit();
-    }
-    for (int j = 0; j < mine; ++j) {
-      if (j + kMmaStages - 1 < mine) fill(j + kMmaStages - 1);
-      cp_async_commit();
-      cp_async_wait<kMmaStages - 1>();
-      __syncwarp();                      // every lane's chunks have landed
-      const int d0 = lo + (warp + j * kWarps) * 16;
-      // A: row lane / 4, depths d0 + (lane % 4) * 2 (+1) and + 8 (+9);
-      // zero past hi
-      const int r = lane >> 2;
-      const int kq = (lane & 3) * 2;
-      unsigned a0 = 0u, a2 = 0u;
-      {
-        const int k = d0 + kq;
-        const bf16 z = __float2bfloat16(0.f);
-        const bf16* col = As + r;
-        a0 = pack_bf16(k < hi ? col[(k - k0) * kMT] : z,
-                       k + 1 < hi ? col[(k + 1 - k0) * kMT] : z);
-        a2 = pack_bf16(k + 8 < hi ? col[(k + 8 - k0) * kMT] : z,
-                       k + 9 < hi ? col[(k + 9 - k0) * kMT] : z);
-      }
-      const unsigned base = slots_s + (j % kMmaStages) * kSlabBytes;
-#pragma unroll
-      for (int q = 0; q < kNT / 2; ++q) {
-        // matrices: (depth 0-7, tile 2q), (8-15, 2q), (0-7, 2q+1),
-        // (8-15, 2q+1); lane gives row (lane % 8) of matrix lane / 8
-        const int mi = lane >> 3;
-        const int row = (mi & 1) * 8 + (lane & 7);
-        const int ch = 2 * q + (mi >> 1);
-        const unsigned addr =
-            base + row * kRowBytes + ((ch ^ (row & 7)) << 4);
-        unsigned b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-            "[%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(acc[2 * q][0]), "+f"(acc[2 * q][1]),
-              "+f"(acc[2 * q][2]), "+f"(acc[2 * q][3])
-            : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+f"(acc[2 * q + 1][0]), "+f"(acc[2 * q + 1][1]),
-              "+f"(acc[2 * q + 1][2]), "+f"(acc[2 * q + 1][3])
-            : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b2), "r"(b3));
-      }
-      __syncwarp();                      // the slot is read before refill
-    }
-    cp_async_wait<0>();
-  }
-  // red[(warp * 8 + row) * 64 + col]: rows lane / 4, columns
-  // t * 8 + (lane % 4) * 2 (+1) of each column tile t (acc 0, 1)
-  __syncthreads();                       // red is free
-#pragma unroll
-  for (int t = 0; t < kNT; ++t) {
-    const int row = lane >> 2;
-    const int col = t * 8 + (lane & 3) * 2;
-    red[(warp * kMT + row) * kMmaNW + col] = acc[t][0];
-    red[(warp * kMT + row) * kMmaNW + col + 1] = acc[t][1];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kMT * kMmaNW; i += kThreads) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w * kMT * kMmaNW + i];
-    const int row = m0 + i / kMmaNW;
-    const int n = c0 + i % kMmaNW;
-    if (row < B && n < N) out(row, n, sum);
-  }
-  __syncthreads();
-}
-
-// Depth splits of a row-major product over tiles_n column tiles and
-// tiles_m row tiles: enough (tile, split) units for every resident
-// block, each split at least kMinSplitDepth deep
-__device__ __host__ inline int split_count(int K, int tiles, int grid) {
-  int sp = tiles >= grid ? 1 : grid / tiles;
-  const int most = K / kMinSplitDepth > 1 ? K / kMinSplitDepth : 1;
-  return sp < most ? sp : most;
-}
-
-// out = A @ W over the grid; epi(row, n, sum) once for each output. With
-// one split, each tile's block applies epi; with more, the splits'
-// partial sums go to ws (splits x B x N fp32), and after a grid barrier
-// every thread of the grid adds them in a fixed order for its outputs.
-template <typename T, class Epi>
-__device__ void gemm_phase(cg::grid_group& grid, const ASrc<T>& A, int B,
-                           int K, const T* __restrict__ W, int N, bool vec,
-                           T* As, uint4* ring, float* red, float* ws,
-                           Epi epi) {
-  // bf16 with 16-byte aligned rows: the tensor cores; else CUDA cores
-  const bool mma = sizeof(T) == 2 && vec && N % 8 == 0;
-  const int nw = mma ? kMmaNW : kNW;
-  const int tiles_n = (N + nw - 1) / nw;
-  const int tiles = tiles_n * ((B + kMT - 1) / kMT);
-  const int splits = split_count(K, tiles, gridDim.x);
-  const int depth = (K + splits - 1) / splits;
-  int staged = -1;
-  for (int u = blockIdx.x; u < tiles * splits; u += gridDim.x) {
-    const int c0 = (u % tiles_n) * nw;
-    const int sp = (u / tiles_n) % splits;
-    const int m0 = u / (tiles_n * splits) * kMT;
-    const int kb = sp * depth;
-    const int ke = min(K, kb + depth);
-    auto to_ws = [&](int row, int n, float s) {
-      ws[((long)sp * B + row) * N + n] = s;
-    };
-    if constexpr (sizeof(T) == 2) {
-      if (mma) {
-        if (splits == 1) {
-          mma_tile_sums(A, m0, B, K, W, N, c0, kb, ke, As,
-                        reinterpret_cast<unsigned char*>(ring), red,
-                        &staged, epi);
-        } else {
-          mma_tile_sums(A, m0, B, K, W, N, c0, kb, ke, As,
-                        reinterpret_cast<unsigned char*>(ring), red,
-                        &staged, to_ws);
-        }
-        continue;
-      }
-    }
-    if (splits == 1) {
-      tile_sums(A, m0, B, K, W, N, c0, kb, ke, vec, As, ring, red, &staged,
-                epi);
-    } else {
-      tile_sums(A, m0, B, K, W, N, c0, kb, ke, vec, As, ring, red, &staged,
-                to_ws);
-    }
-  }
-  if (splits == 1) return;
-  grid.sync();
-  const long total = (long)B * N;
-  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += __ldcg(ws + sp * total + i);
-    epi(static_cast<int>(i / N), static_cast<int>(i % N), s);
-  }
-}
-
-// fp32 elements of the split partial sums the four products of one
-// layer need at most (counted at kNW-wide tiles: the tensor cores' narrower
-// tiles are more, so they split no deeper)
-__host__ inline long mega_ws_floats(int B, int dm, int nq, int no, int F,
-                                    int grid) {
-  const int tm = (B + kMT - 1) / kMT;
-  const int prods[4][2] = {{dm, nq}, {no, dm}, {dm, F}, {F, dm}};
-  long most = 0;
-  for (const auto& kn : prods) {
-    const int tiles = (kn[1] + kNW - 1) / kNW * tm;
-    const long sp = split_count(kn[0], tiles, grid);
-    if (sp > 1 && sp * B * kn[1] > most) most = sp * B * kn[1];
-  }
-  return most;
-}
-
 // -- K8 -----------------------------------------------------------------------
+
+constexpr int kCThreads = kThreads;      // consumers: 8 warps, 2 warpgroups
+// + the weight stream's warpgroup, last, so that the consumers keep
+// threads 0 .. 255: one of its threads issues the TMA loads, and it
+// gives its registers to the consumers (setmaxnreg: 40 a thread, the
+// consumers 232), which otherwise spill at the 168 a thread that ptxas
+// budgets for 384 threads
+constexpr int kMegaThreads = kCThreads + 128;
+constexpr int kUnitN = 128;              // output columns a unit
+constexpr int kUnitK = 64;               // a weight stage's depth
+constexpr int kRingStages = 10;
+constexpr uint32_t kWStage = kUnitK * kUnitN * 2;   // two 64 x 64 bf16 boxes
+// the unit's rows of the operand (8 rows x 2048 bf16 or 1024 fp32), then
+// the unit's sums [kMT][kUnitN] fp32, then the weight ring
+constexpr int kActBytes = 32 * 1024;
+constexpr int kTileOff = kActBytes;
+constexpr int kRingOff = kTileOff + kMT * kUnitN * 4;
+constexpr int kMegaSmem =
+    kRingOff + kRingStages * kWStage + 2 * kRingStages * 8 + 1024;
+// the CUDA-core units' reduction: RS depth lanes x 4 rows x kUnitN
+constexpr int kUnitRedFloats = 16 * 4 * kUnitN;
+static_assert(kRingOff % 1024 == 0, "the ring is 1024-byte aligned");
+static_assert(kAttnFloats * 4 <= kRingOff,
+              "attention runs below the ring, which streams on meanwhile");
+static_assert(kStages * kCThreads * 16 + kUnitRedFloats * 4 <=
+                  kRingStages * kWStage,
+              "the CUDA-core units' ring and reduction fit the TMA ring");
+
+// the four products of a layer, in the order a layer runs them
+enum { kQkv = 0, kWo = 1, kUp = 2, kDown = 3 };
+// phase codes of the phase-time record: a code names the phase that
+// ended at the barrier it stamps (ops/decode_megakernel.py PHASES)
+enum { kPhQkv = 0, kPhAttn = 1, kPhWo = 2, kPhUp = 3, kPhDown = 4 };
+
+// A product's units: column tiles x depth splits x row tiles of kMT rows.
+// Splits: enough units for every block, each split's depth a multiple of
+// kUnitK and at most `cap` (the operand rows a unit stages)
+struct Plan {
+  int tiles, rt, splits, depth;
+};
+
+__host__ __device__ inline Plan make_plan(int K, int tiles, int B, int grid,
+                                          int cap) {
+  Plan q;
+  q.tiles = tiles;
+  q.rt = (B + kMT - 1) / kMT;
+  const int stages = (K + kUnitK - 1) / kUnitK;
+  int s = grid / (tiles * q.rt);
+  const int least = (K + cap - 1) / cap;
+  if (s < least) s = least;
+  if (s > stages) s = stages;
+  if (s < 1) s = 1;
+  q.depth = (stages + s - 1) / s * kUnitK;
+  q.splits = (K + q.depth - 1) / q.depth;
+  return q;
+}
+
+// the depth a unit stages at most: kActBytes over kMT rows
+template <typename T>
+__host__ __device__ constexpr int unit_cap() {
+  return kActBytes / (kMT * static_cast<int>(sizeof(T)));
+}
+
+struct MegaMaps {
+  CUtensorMap w[4];     // wqkv, wo, wup, wdown as 3D (N, K, L), bf16
+};
 
 struct MegaParams {
   // (L, ...) slabs in _WEIGHT_ORDER; the LayerNorm vectors fp32, the
@@ -780,10 +610,15 @@ struct MegaParams {
   void* qkv;            // scratch (B, (Hq + 2 Hkv) D)
   void* o;              // scratch (B, Hq D)
   void* u;              // scratch (B, F)
-  float* ws;            // split partial sums: mega_ws_floats(...) fp32
+  unsigned* sync;       // the grid barrier's word, then the split counters
+  float* ws;            // split partial sums
+  long long* stamps;    // (time, phase code) pairs, or null
+  int stamp_cap;        // long longs the stamps buffer holds
   int B, dm, L, hq, hkv, D, F, page, P, mx, rope;
   float theta, scale;
   int vec;              // every row of every operand starts 16-byte aligned
+  int tma;              // bf16 weights streamed by TMA (maps valid)
+  int grid;             // blocks of the launch
 };
 
 // rope of element e of one head (D values at t, rotate-half) at pos, fp32
@@ -808,41 +643,76 @@ __device__ __forceinline__ float head_elem(const MegaParams& p, const T* t,
   return ldcg_f(t + e);
 }
 
-// phase 2: rope on k, then every row's fresh K/V row into its page
-template <typename T>
-__device__ void write_phase(const MegaParams& p, int l) {
-  const int D = p.D;
-  const int nq = (p.hq + 2 * p.hkv) * D;
-  const T* qkv = static_cast<const T*>(p.qkv);
-  T* kp = static_cast<T*>(p.kp);
-  T* vp = static_cast<T*>(p.vp);
-  const long total = (long)p.B * p.hkv * D;
-  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < total;
-       i += (long)gridDim.x * kThreads) {
-    const int r = static_cast<int>(i / (p.hkv * D));
-    const int rem = static_cast<int>(i % (p.hkv * D));
-    const int h = rem / D;
-    const int e = rem % D;
-    const int pos = p.pos[r];
-    const int pid =
-        p.table[(long)p.slot[r] * p.mx + min(pos / p.page, p.mx - 1)];
-    const long g = p.write[r] == 1 ? (long)l * p.P + pid : (long)p.L * p.P;
-    const long dst = ((g * p.hkv + h) * p.page + pos % p.page) * D + e;
-    const T* row = qkv + (long)r * nq;
-    kp[dst] = pt::from_float<T>(head_elem(p, row + (p.hq + h) * D, e, pos));
-    vp[dst] = pt::from_float<T>(ldcg_f(row + (p.hq + p.hkv + h) * D + e));
-  }
+// the consumers' block barrier (the weight stream's warp never joins)
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kCThreads) : "memory");
 }
 
-// phase 3 for one (row, kv head): K10's in-block online softmax over the
-// row's valid keys, gathered through its slot's pages of layer l
+// The consumers' grid barrier (cooperative groups' algorithm): thread 0
+// of each block adds 1 (block 0: 2^31 - (blocks - 1)) to the word, whose
+// top bit flips once every block has arrived. Sound only when every
+// block is resident: the cooperative launch guarantees it.
+__device__ void grid_sync(unsigned* word, int blocks) {
+  csync();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - static_cast<unsigned>(blocks - 1)
+                        : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(word, add);
+    unsigned now;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                   : "=r"(now)
+                   : "l"(word)
+                   : "memory");
+    } while (((old ^ now) & 0x80000000u) == 0u);
+    __threadfence();
+  }
+  csync();
+}
+
+// The phase-time record: block 0's thread 0 writes (%globaltimer ns,
+// code) after each grid barrier, code = 16 layer + kPh*, -1 at the
+// kernel's start; nothing when the buffer is null
+struct Stamps {
+  long long* buf;
+  int cap, n;
+  __device__ void mark(int code) {
+    if (buf != nullptr && blockIdx.x == 0 && threadIdx.x == 0 &&
+        2 * n + 1 < cap) {
+      long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      buf[2 * n] = t;
+      buf[2 * n + 1] = code;
+    }
+    ++n;
+  }
+};
+
+// A block's first attention unit's row, the same in every layer: its
+// position, key count and slot's page ids, read once at the kernel's
+// start, so a layer's attention waits on no load before q and K/V
+constexpr int kRowPages = 64;            // page ids held
+struct AttnRow {
+  int pos, len, held;                    // held: the slot's pages fit
+  int pages[kRowPages];
+};
+
+// phase 2 for one (row, kv head): K10's in-block online softmax over the
+// row's valid keys, gathered through its slot's pages of layer l; `row`
+// the row's data read at the start (null: read here)
 template <typename T, int G>
 __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
-                            float* smem) {
+                            float* smem, const AttnRow* row) {
   constexpr int V = 16 / sizeof(T);      // elements per lane
   constexpr int kLpr = kDMax / V;        // lanes per key row: 16 or 32
   constexpr int kRpw = 32 / kLpr;        // key rows per warp load
-  constexpr int kU = G >= 8 ? 1 : (G >= 4 ? 2 : 4);
+  // key rows a lane loads per step, held as raw 16-byte words until
+  // used: all of a step's loads are in flight at once, and a row of 256
+  // keys takes one or two steps (each step's loads wait a full memory
+  // round trip while the weight stream keeps HBM busy)
+  constexpr int kU = G >= 8 ? 2 : (G >= 4 ? 4 : 8);
   constexpr int kStep = kWarps * kRpw * kU;
   float* sm_m = smem;                          // [kWarps][G]
   float* sm_l = smem + kWarps * G;             // [kWarps][G]
@@ -854,9 +724,9 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
   const int warp = threadIdx.x >> 5;
   const int rg = lane / kLpr;
   const int e0 = (lane % kLpr) * V;
-  const int pos = p.pos[r];
-  const int slot = p.slot[r];
-  const int len = max(0, min(pos + 1, p.mx * p.page));
+  const int pos = row != nullptr ? row->pos : p.pos[r];
+  const int len = row != nullptr ? row->len
+                                 : max(0, min(pos + 1, p.mx * p.page));
   const T* kp = static_cast<const T*>(p.kp);
   const T* vp = static_cast<const T*>(p.vp);
   const T* qrow = static_cast<const T*>(p.qkv) +
@@ -880,23 +750,30 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
     for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
   }
 
-  const int* trow = p.table + (long)slot * p.mx;
+  const int* trow = row != nullptr && row->held
+                        ? row->pages
+                        : p.table + (long)p.slot[r] * p.mx;
   for (int t0 = 0; t0 < len; t0 += kStep) {
-    float kf[kU][V], vf[kU][V];
+    uint4 kr[kU], vr[kU];
     int tk[kU];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       tk[u] = t0 + (u * kWarps + warp) * kRpw + rg;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       if (tk[u] < len) {
         const long g = (long)l * p.P + trow[tk[u] / p.page];
         const long off = ((g * p.hkv + hk) * p.page + tk[u] % p.page) * D;
-        load_vec(kp + off + e0, e0, D, p.vec, kf[u]);
-        load_vec(vp + off + e0, e0, D, p.vec, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) kf[u][e] = vf[u][e] = 0.f;
+        kr[u] = load_word(kp + off + e0, e0, D, p.vec);
+        vr[u] = load_word(vp + off + e0, e0, D, p.vec);
       }
     }
+    // element e of key row u, widened where it is used
+    auto kf = [&](int u, int e) {
+      return pt::to_float(reinterpret_cast<const T*>(&kr[u])[e]);
+    };
+    auto vf = [&](int u, int e) {
+      return pt::to_float(reinterpret_cast<const T*>(&vr[u])[e]);
+    };
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float s[kU];
@@ -905,7 +782,7 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
       for (int u = 0; u < kU; ++u) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < V; ++e) d += qf[g][e] * kf[u][e];
+        for (int e = 0; e < V; ++e) d += qf[g][e] * kf(u, e);
 #pragma unroll
         for (int off = kLpr / 2; off >= 1; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -924,14 +801,14 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
         psum += pr;
         const float prr = pt::round_to<T>(pr);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[g][e] += prr * vf[u][e];
+        for (int e = 0; e < V; ++e) acc[g][e] += prr * vf(u, e);
       }
       lsum[g] = lsum[g] * alpha + psum;
       m[g] = m_new;
     }
   }
 
-  __syncthreads();                       // the previous unit's merge is read
+  csync();                               // the previous unit's merge is read
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (kRpw > 1) {
@@ -950,10 +827,10 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
       sm_l[warp * G + g] = lsum[g];
     }
   }
-  __syncthreads();
+  csync();
 
   T* o = static_cast<T*>(p.o);
-  for (int i = threadIdx.x; i < group * D; i += kThreads) {
+  for (int i = threadIdx.x; i < group * D; i += kCThreads) {
     const int g = i / D;
     const int d = i % D;
     float mm = -INFINITY;
@@ -972,20 +849,41 @@ __device__ void attend_unit(const MegaParams& p, int l, int r, int hk,
   }
 }
 
+// the block's first unit's row data (see AttnRow)
+__device__ void attn_row_init(const MegaParams& p, AttnRow* row) {
+  if (blockIdx.x < p.B * p.hkv) {
+    const int r = blockIdx.x / p.hkv;
+    const int held = p.mx <= kRowPages;
+    if (threadIdx.x == 0) {
+      row->pos = p.pos[r];
+      row->len = max(0, min(row->pos + 1, p.mx * p.page));
+      row->held = held;
+    }
+    if (held) {
+      const int* trow = p.table + (long)p.slot[r] * p.mx;
+      for (int i = threadIdx.x; i < p.mx; i += kCThreads)
+        row->pages[i] = trow[i];
+    }
+  }
+  csync();
+}
+
 template <typename T>
-__device__ void attention_phase(const MegaParams& p, int l, float* smem) {
+__device__ void attention_phase(const MegaParams& p, int l, float* smem,
+                                const AttnRow* first) {
   const int group = p.hq / p.hkv;
   for (int u = blockIdx.x; u < p.B * p.hkv; u += gridDim.x) {
     const int r = u / p.hkv;
     const int hk = u % p.hkv;
+    const AttnRow* row = u == blockIdx.x ? first : nullptr;
     if (group <= 1) {
-      attend_unit<T, 1>(p, l, r, hk, smem);
+      attend_unit<T, 1>(p, l, r, hk, smem, row);
     } else if (group <= 2) {
-      attend_unit<T, 2>(p, l, r, hk, smem);
+      attend_unit<T, 2>(p, l, r, hk, smem, row);
     } else if (group <= 4) {
-      attend_unit<T, 4>(p, l, r, hk, smem);
+      attend_unit<T, 4>(p, l, r, hk, smem, row);
     } else {
-      attend_unit<T, 8>(p, l, r, hk, smem);
+      attend_unit<T, 8>(p, l, r, hk, smem, row);
     }
   }
 }
@@ -996,86 +894,612 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(kBeta * (x + kKappa * x * x * x)));
 }
 
-// the product's output rounded to T, then its bias added and rounded
+// one product of layer l as the kernel sees it
 template <typename T>
-__device__ __forceinline__ float with_bias(float s, const T* bias, int n) {
-  float v = pt::round_to<T>(s);
-  if (bias != nullptr) v = pt::round_to<T>(v + pt::to_float(bias[n]));
-  return v;
+struct Prod {
+  const T* a;            // the operand (B, K)
+  const float* ln_s;     // its LayerNorm (K,) fp32, or null
+  const float* ln_b;
+  const T* w;            // layer l's (K, N) weight
+  const T* bias;         // (N,) or null
+  int K, N;
+  Plan plan;
+};
+
+// the column tile t of product `pr`: its first column and width. The
+// QKV product's tiles hold whole heads (rope and the K/V write run in
+// its epilogue): 128-column tiles where D divides 128, else one head a
+// tile
+__device__ __host__ inline void tile_cols(int pr, int t, int N, int D,
+                                          int* c0, int* width) {
+  if (pr == kQkv && kUnitN % D != 0) {
+    *c0 = t * D;
+    *width = D;
+  } else {
+    *c0 = t * kUnitN;
+    *width = N - *c0 < kUnitN ? N - *c0 : kUnitN;
+  }
+}
+
+__host__ __device__ inline int tiles_of(int pr, int N, int D) {
+  return pr == kQkv && kUnitN % D != 0 ? N / D
+                                       : (N + kUnitN - 1) / kUnitN;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mega_kernel(MegaParams p) {
-  extern __shared__ __align__(16) unsigned char dsm[];
-  T* As = reinterpret_cast<T*>(dsm);
-  uint4* ring = reinterpret_cast<uint4*>(dsm + kACapBytes);
-  float* red = reinterpret_cast<float*>(dsm + kACapBytes + kRingBytes);
-  float* smem = reinterpret_cast<float*>(dsm);      // attention, as As
-  float* ws = p.ws;
-  cg::grid_group grid = cg::this_grid();
-
-  const int B = p.B, dm = p.dm, D = p.D, F = p.F;
+__device__ Prod<T> prod_of(const MegaParams& p, int pr, int l, int cap) {
+  const int dm = p.dm, D = p.D, F = p.F;
   const int nq = (p.hq + 2 * p.hkv) * D;
   const int no = p.hq * D;
-  const bool vec = p.vec != 0;
   T* xo = static_cast<T*>(p.xo);
-  T* qkv = static_cast<T*>(p.qkv);
-  T* ob = static_cast<T*>(p.o);
-  T* ub = static_cast<T*>(p.u);
+  Prod<T> q;
+  if (pr == kQkv) {
+    q.a = l == 0 ? static_cast<const T*>(p.x) : xo;
+    q.ln_s = p.ln1_s + (long)l * dm;
+    q.ln_b = p.ln1_b + (long)l * dm;
+    q.w = static_cast<const T*>(p.wqkv) + (long)l * dm * nq;
+    q.bias = p.bqkv ? static_cast<const T*>(p.bqkv) + (long)l * nq : nullptr;
+    q.K = dm;
+    q.N = nq;
+  } else if (pr == kWo) {
+    q.a = static_cast<const T*>(p.o);
+    q.ln_s = q.ln_b = nullptr;
+    q.w = static_cast<const T*>(p.wo) + (long)l * no * dm;
+    q.bias = p.bo ? static_cast<const T*>(p.bo) + (long)l * dm : nullptr;
+    q.K = no;
+    q.N = dm;
+  } else if (pr == kUp) {
+    q.a = xo;
+    q.ln_s = p.ln2_s + (long)l * dm;
+    q.ln_b = p.ln2_b + (long)l * dm;
+    q.w = static_cast<const T*>(p.wup) + (long)l * dm * F;
+    q.bias = p.bup ? static_cast<const T*>(p.bup) + (long)l * F : nullptr;
+    q.K = dm;
+    q.N = F;
+  } else {
+    q.a = static_cast<const T*>(p.u);
+    q.ln_s = q.ln_b = nullptr;
+    q.w = static_cast<const T*>(p.wdown) + (long)l * F * dm;
+    q.bias = p.bdown ? static_cast<const T*>(p.bdown) + (long)l * dm
+                     : nullptr;
+    q.K = F;
+    q.N = dm;
+  }
+  q.plan = make_plan(q.K, tiles_of(pr, q.N, D), p.B, p.grid, cap);
+  return q;
+}
 
+// LayerNorm statistics of rows m0 .. m0 + kMT of a (B, K), as the block
+// computes them (fp32: the mean, then the mean squared deviation), read
+// through L2: warp m takes row m. A row of up to kSpan elements is read
+// once, 16 bytes a lane and all in flight, and held in registers for
+// both sums; longer rows (or rows not 16-byte aligned: !vec) are read
+// twice.
+template <typename T>
+__device__ void row_stats(const T* a, int m0, int B, int K, bool vec,
+                          float* mu, float* rstd) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kChunk = 8;
+  constexpr int kSpan = 32 * V * kChunk;
+  const int lane = threadIdx.x & 31;
+  const int m = threadIdx.x >> 5;        // kMT == kWarps
+  if (m0 + m < B) {
+    const T* row = a + (long)(m0 + m) * K;
+    float mean, var;
+    if (vec && K <= kSpan) {
+      uint4 raw[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int k = (lane + 32 * j) * V;
+        raw[j] = k < K ? __ldcg(reinterpret_cast<const uint4*>(row + k))
+                       : make_uint4(0u, 0u, 0u, 0u);
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          s += pt::to_float(reinterpret_cast<const T*>(&raw[j])[e]);
+      mean = warp_sum(s) / K;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if ((lane + 32 * j) * V >= K) continue;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float t =
+              pt::to_float(reinterpret_cast<const T*>(&raw[j])[e]) - mean;
+          q += t * t;
+        }
+      }
+      var = warp_sum(q) / K;
+    } else {
+      float s = 0.f;
+      for (int k = lane; k < K; k += 32) s += ldcg_f(row + k);
+      mean = warp_sum(s) / K;
+      float q = 0.f;
+      for (int k = lane; k < K; k += 32) {
+        const float t = ldcg_f(row + k) - mean;
+        q += t * t;
+      }
+      var = warp_sum(q) / K;
+    }
+    if (lane == 0) {
+      mu[m] = mean;
+      rstd[m] = 1.0f / sqrtf(var + 1e-5f);
+    }
+  }
+  csync();
+}
+
+// element k of row r of the operand, normalised and rounded to T where
+// the product has a LayerNorm
+template <typename T>
+__device__ __forceinline__ T normed(const Prod<T>& q, float v, int r, int k,
+                                    const float* mu, const float* rstd) {
+  if (q.ln_s == nullptr) return pt::from_float<T>(v);
+  return pt::from_float<T>((v - mu[r]) * rstd[r] * q.ln_s[k] + q.ln_b[k]);
+}
+
+// rows m0 .. m0 + kMT, depths [kb, kb + 64 nst) of the bf16 operand into
+// As as wgmma's K-major B tile of N 8: 64-deep boxes of 8 rows x 128
+// bytes (1 KB each), the 16-byte chunk c of row r at chunk c ^ r; zero
+// past B and past ke
+__device__ void stage_sw(const Prod<bf16>& q, int m0, int B, int kb, int ke,
+                         int nst, bool vec, const float* mu,
+                         const float* rstd, unsigned char* As) {
+  const int nch = nst * 8;
+  for (int i = threadIdx.x; i < kMT * nch; i += kCThreads) {
+    const int r = i / nch;
+    const int ch = i % nch;
+    const int k = kb + ch * 8;
+    alignas(16) bf16 v[8];
+    if (m0 + r < B && k < ke) {
+      const bf16* src = q.a + (long)(m0 + r) * q.K + k;
+      if (vec && k + 8 <= ke) {
+        *reinterpret_cast<uint4*>(v) =
+            __ldcg(reinterpret_cast<const uint4*>(src));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = k + e < ke ? pt::from_float<bf16>(ldcg_f(src + e))
+                            : __float2bfloat16(0.f);
+      }
+      if (q.ln_s != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (k + e < ke)
+            v[e] = normed(q, __bfloat162float(v[e]), r, k + e, mu, rstd);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(As + (ch / 8) * 1024 + r * 128 +
+                              (((ch % 8) ^ r) << 4)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// rows m0 .. m0 + kMT, depths [kb, ke) of the operand into As
+// depth-major (As[(k - kb) kMT + m]), normalised where the product has a
+// LayerNorm (rows past B hold zeros or their normalisation: their sums
+// are never stored)
+template <typename T>
+__device__ void stage_dm(const Prod<T>& q, int m0, int B, int kb, int ke,
+                         const float* mu, const float* rstd, T* As) {
+  stage_raw(q.a, m0, B, q.K, kb, ke - kb, As);
+  if (q.ln_s == nullptr) return;
+  csync();
+  for (int i = threadIdx.x; i < kMT * (ke - kb); i += kCThreads) {
+    const int r = i % kMT;
+    As[i] = normed(q, pt::to_float(As[i]), r, kb + i / kMT, mu, rstd);
+  }
+}
+
+// The sums of one unit on the CUDA cores (fp32 products, or bf16 ones
+// whose rows are not 16-byte aligned): columns c0 .. c0 + kUnitN over
+// depths [kb, ke) of the staged operand into tile[m * kUnitN + c]. Thread
+// t owns the columns (t % CG) V .. + V and every RS-th depth; its 16-byte
+// pieces stream through a private ring of kStages slots (cp.async); the
+// depth lanes' sums reduce through shared memory, four rows at a time.
+template <typename T>
+__device__ void unit_sums_cc(const Prod<T>& q, int c0, int kb, int ke,
+                             bool vec, const T* As, uint4* ring, float* red,
+                             float* tile) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int CG = kUnitN / V;         // threads a weight row: 16 or 32
+  constexpr int RS = kCThreads / CG;     // depth lanes: 16 or 8
+  static_assert(RS * 4 * kUnitN <= kUnitRedFloats, "reduction buffer");
+  const int tid = threadIdx.x;
+  const int cgi = tid % CG;
+  const int kr = tid / CG;
+  const int n = c0 + cgi * V;
+  const int N = q.N;
+  uint4* mine = ring + tid;              // slot s at mine[s * kCThreads]
+  float acc[kMT][V];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[m][e] = 0.f;
+  const int iters = kb + kr < ke ? (ke - kb - kr + RS - 1) / RS : 0;
+  const T* wb = q.w + (long)(kb + kr) * N + n;
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < iters)
+      fill_slot(mine + it * kCThreads, wb + (long)it * RS * N, n, N, vec);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    const int nx = it + kStages - 1;
+    if (nx < iters)
+      fill_slot(mine + (nx % kStages) * kCThreads, wb + (long)nx * RS * N,
+                n, N, vec);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();        // piece `it` has landed
+    const uint4 raw = mine[(it % kStages) * kCThreads];
+    float a[kMT];
+    a_rows(As, kr + it * RS, a);
+    const T* w = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float we = pt::to_float(w[e]);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) acc[m][e] += a[m] * we;
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    csync();                             // red is free
+#pragma unroll
+    for (int mm = 0; mm < 4; ++mm)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        red[(kr * 4 + mm) * kUnitN + cgi * V + e] = acc[h * 4 + mm][e];
+    csync();
+    for (int i = tid; i < 4 * kUnitN; i += kCThreads) {
+      const int mm = i / kUnitN;
+      const int c = i % kUnitN;
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < RS; ++r) sum += red[(r * 4 + mm) * kUnitN + c];
+      tile[(h * 4 + mm) * kUnitN + c] = sum;
+    }
+  }
+}
+
+// The sums of one unit on the tensor cores (bf16, TMA): the unit's weight
+// stages arrive in the ring (the weight stream's warp issued them in the
+// same order); warpgroup cw multiplies the stage's box cw, the 64 x 64
+// MN-major A operand (W transposed: 64 output columns x depth), by the
+// staged rows, the N 8 K-major B operand, with wgmma m64n8k16, and
+// releases each slot once its products retire. Sums into tile[m][c].
+__device__ void unit_sums_tc(int nst, uint32_t ring, uint32_t bars,
+                             uint32_t As, float* tile, int& it) {
+  using namespace sm90;
+  const int cw = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int st = 0; st < nst; ++st, ++it) {
+    const int s = it % kRingStages;
+    mbar_wait(bars + 8 * s, (it / kRingStages) & 1);
+    const uint32_t box = ring + s * kWStage;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kUnitK / 16; ++kk)
+      wgmma_ss_n8<1, 0>(acc, operand_desc<true>(box, cw, kk),
+                        gmma_desc(As + st * 1024 + kk * 32, 16, 1024));
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    if (st > 0 && t == 0)
+      mbar_arrive(bars + 8 * (kRingStages + (it - 1) % kRingStages));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (nst > 0 && t == 0)
+    mbar_arrive(bars + 8 * (kRingStages + (it - 1) % kRingStages));
+  // d[0, 1]: output column 16 w + g, rows 2 (lane % 4) + {0, 1}; d[2, 3]:
+  // the column 8 on
+  const int lane = t & 31;
+  const int c = cw * 64 + 16 * (t / 32) + lane / 4;
+  const int m = 2 * (lane % 4);
+  tile[m * kUnitN + c] = acc[0];
+  tile[(m + 1) * kUnitN + c] = acc[1];
+  tile[m * kUnitN + c + 8] = acc[2];
+  tile[(m + 1) * kUnitN + c + 8] = acc[3];
+}
+
+// The epilogue of a unit's finished sums tile[m][c] (rows m0 + m < B,
+// columns c0 + c, c < width), as the JAX block rounds them:
+//   QKV: q|k|v (+ bias) into the scratch; then rope on k and the fresh
+//     K/V rows into the pools (page table[slot, min(pos / page, mx - 1)]
+//     of layer l, or the scratch page L P when the write flag is 0): the
+//     tile holds whole heads, so rope's partner column is in it;
+//   out-projection: x_out = x + (o W + b);
+//   up-projection: u = GELU(LN2(x) W + b);
+//   down-projection: x_out += u W + b.
+// Each output is finished by one thread, which reads x at that entry
+// only, so the in-place updates are race-free.
+template <typename T>
+__device__ void epilogue(const MegaParams& p, const Prod<T>& q, int pr,
+                         int l, int m0, int c0, int width, float* tile) {
+  constexpr int kPer = kMT * kUnitN / kCThreads;  // outputs a thread
+  __shared__ long rbase[kMT];            // a row's fresh K/V offset, head 0
+  __shared__ int rpos[kMT];
+  const int B = p.B, N = q.N, D = p.D;
+  T* xo = static_cast<T*>(p.xo);
+  const T* res = pr == kWo ? (l == 0 ? static_cast<const T*>(p.x) : xo)
+                           : pr == kDown ? xo : nullptr;
+  const int total = kMT * width;
+  if (pr == kQkv && threadIdx.x < kMT && m0 + (int)threadIdx.x < B) {
+    const int row = m0 + threadIdx.x;
+    const int pos = p.pos[row];
+    const int pid =
+        p.table[(long)p.slot[row] * p.mx + min(pos / p.page, p.mx - 1)];
+    const long g = p.write[row] == 1 ? (long)l * p.P + pid : (long)p.L * p.P;
+    rbase[threadIdx.x] = (g * p.hkv * p.page + pos % p.page) * D;
+    rpos[threadIdx.x] = pos;
+  }
+  // every input of the thread's outputs first, all loads in flight
+  float bias[kPer], x[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kCThreads;
+    const int m = i / width;
+    const int n = c0 + i % width;
+    bias[j] = x[j] = 0.f;
+    if (i < total && m0 + m < B) {
+      if (q.bias != nullptr) bias[j] = pt::to_float(q.bias[n]);
+      if (res != nullptr) x[j] = ldcg_f(res + (long)(m0 + m) * N + n);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kCThreads;
+    const int m = i / width;
+    const int c = i % width;
+    const int row = m0 + m;
+    if (i >= total || row >= B) continue;
+    float v = pt::round_to<T>(tile[m * kUnitN + c]);
+    if (q.bias != nullptr) v = pt::round_to<T>(v + bias[j]);
+    const long at = (long)row * N + c0 + c;
+    if (pr == kQkv) {
+      tile[m * kUnitN + c] = v;
+      static_cast<T*>(p.qkv)[at] = pt::from_float<T>(v);
+    } else if (pr == kUp) {
+      static_cast<T*>(p.u)[at] = pt::from_float<T>(gelu_tanh(v));
+    } else {
+      xo[at] = pt::from_float<T>(x[j] + v);
+    }
+  }
+  if (pr != kQkv) return;
+  csync();
+  const int half = D / 2, kseg = p.hq * D;
+  T* kpool = static_cast<T*>(p.kp);
+  T* vpool = static_cast<T*>(p.vp);
+  for (int i = threadIdx.x; i < total; i += kCThreads) {
+    const int m = i / width;
+    const int c = i % width;
+    const int n = c0 + c;
+    if (m0 + m >= B || n < kseg) continue;
+    const bool is_k = n < kseg + p.hkv * D;
+    const int h = (n - kseg) / D % p.hkv;
+    const int e = (n - kseg) % D;
+    float v = tile[m * kUnitN + c];
+    if (is_k && p.rope) {
+      const int i2 = e < half ? e : e - half;
+      const float freq = powf(p.theta, -static_cast<float>(i2) / half);
+      const float ang = static_cast<float>(rpos[m]) * freq;
+      const float cs = cosf(ang);
+      const float sn = sinf(ang);
+      v = e < half ? v * cs - tile[m * kUnitN + c + half] * sn
+                   : tile[m * kUnitN + c - half] * sn + v * cs;
+      v = pt::round_to<T>(v);
+    }
+    (is_k ? kpool : vpool)[rbase[m] + (long)h * p.page * D + e] =
+        pt::from_float<T>(v);
+  }
+}
+
+// one product over the grid (the consumers' side): every unit of this
+// block in turn; a unit's sums go through its split's partials when the
+// depth splits, the last split to finish (a counter per tile) adding
+// them in split order and applying the epilogue; nothing waits on
+// another block within the phase
+template <typename T>
+__device__ void product_phase(const MegaParams& p, int pr, int l,
+                              unsigned char* dsm, uint32_t ring_s,
+                              uint32_t bars, int& it) {
+  __shared__ float mu[kMT], rstd[kMT];
+  __shared__ int last;
+  const bool tc = sizeof(T) == 2 && p.tma != 0;
+  const Prod<T> q = prod_of<T>(p, pr, l, unit_cap<T>());
+  const Plan& pl = q.plan;
+  T* As = reinterpret_cast<T*>(dsm);
+  float* tile = reinterpret_cast<float*>(dsm + kTileOff);
+  uint4* ring = reinterpret_cast<uint4*>(dsm + kRingOff);
+  float* red = reinterpret_cast<float*>(dsm + kRingOff +
+                                        kStages * kCThreads * 16);
+  unsigned* counters = p.sync + 1;
+  const int units = pl.tiles * pl.splits * pl.rt;
+  int stats_m0 = -1;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int t = u % pl.tiles;
+    const int sp = (u / pl.tiles) % pl.splits;
+    const int m0 = u / (pl.tiles * pl.splits) * kMT;
+    int c0, width;
+    tile_cols(pr, t, q.N, p.D, &c0, &width);
+    const int kb = sp * pl.depth;
+    const int ke = min(q.K, kb + pl.depth);
+    if (q.ln_s != nullptr && stats_m0 != m0) {
+      row_stats(q.a, m0, p.B, q.K, p.vec != 0, mu, rstd);
+      stats_m0 = m0;
+    }
+    csync();                             // As and tile are free
+    if constexpr (sizeof(T) == 2) {
+      if (tc) {
+        const int nst = (ke - kb + kUnitK - 1) / kUnitK;
+        stage_sw(q, m0, p.B, kb, ke, nst, p.vec != 0, mu, rstd, dsm);
+        sm90::fence_proxy_async();       // the rows before wgmma reads them
+        csync();
+        unit_sums_tc(nst, ring_s, bars, sm90::smem_u32(dsm), tile, it);
+      }
+    }
+    if (!tc) {
+      stage_dm(q, m0, p.B, kb, ke, mu, rstd, As);
+      csync();
+      unit_sums_cc(q, c0, kb, ke, p.vec != 0, As, ring, red, tile);
+    }
+    csync();                             // the unit's sums are in tile
+    if (pl.splits > 1) {
+      for (int i = threadIdx.x; i < kMT * width; i += kCThreads) {
+        const int m = i / width;
+        const int c = i % width;
+        if (m0 + m < p.B)
+          p.ws[((long)sp * p.B + m0 + m) * q.N + c0 + c] =
+              tile[m * kUnitN + c];
+      }
+      __threadfence();
+      csync();
+      if (threadIdx.x == 0) {
+        unsigned* ctr = counters + (m0 / kMT) * pl.tiles + t;
+        last = atomicAdd(ctr, 1u) == static_cast<unsigned>(pl.splits - 1);
+        if (last) *ctr = 0u;             // for the next product
+      }
+      csync();
+      if (!last) continue;
+      __threadfence();
+      for (int i = threadIdx.x; i < kMT * width; i += kCThreads) {
+        const int m = i / width;
+        const int c = i % width;
+        if (m0 + m >= p.B) continue;
+        // the partials in split order, up to 8 loads in flight
+        const float* part = p.ws + ((long)m0 + m) * q.N + c0 + c;
+        const long stride = (long)p.B * q.N;
+        float s = 0.f;
+        for (int j0 = 0; j0 < pl.splits; j0 += 8) {
+          float v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = j0 + j < pl.splits ? __ldcg(part + (j0 + j) * stride)
+                                      : 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (j0 + j < pl.splits) s += v[j];
+        }
+        tile[m * kUnitN + c] = s;
+      }
+      csync();
+    }
+    epilogue(p, q, pr, l, m0, c0, width, tile);
+  }
+}
+
+// The weight stream (one thread): every TMA stage of every unit this
+// block takes, layer after layer, product after product, in the order
+// the consumers take them, each once the consumers have released its
+// slot: it runs on across units, phases and grid barriers, so the next
+// phase's first weights are in flight while the consumers wait.
+__device__ void weight_stream(const MegaMaps& maps, const MegaParams& p,
+                              uint32_t ring, uint32_t bars) {
+  using namespace sm90;
+  const int D = p.D;
+  const int nq = (p.hq + 2 * p.hkv) * D;
+  const int Ks[4] = {p.dm, p.hq * D, p.dm, p.F};
+  const int Ns[4] = {nq, p.dm, p.F, p.dm};
+  Plan plans[4];
+#pragma unroll
+  for (int pr = 0; pr < 4; ++pr)
+    plans[pr] = make_plan(Ks[pr], tiles_of(pr, Ns[pr], D), p.B, p.grid,
+                          unit_cap<bf16>());
+  int it = 0;
   for (int l = 0; l < p.L; ++l) {
-    // the residual stream: the input rows at layer 0, then x_out
-    const T* xin = l == 0 ? static_cast<const T*>(p.x) : xo;
-    const T* wqkv = static_cast<const T*>(p.wqkv) + (long)l * dm * nq;
-    const T* bqkv = p.bqkv ? static_cast<const T*>(p.bqkv) + (long)l * nq
-                           : nullptr;
-    const T* wo = static_cast<const T*>(p.wo) + (long)l * no * dm;
-    const T* bo = p.bo ? static_cast<const T*>(p.bo) + (long)l * dm : nullptr;
-    const T* wup = static_cast<const T*>(p.wup) + (long)l * dm * F;
-    const T* bup = p.bup ? static_cast<const T*>(p.bup) + (long)l * F
-                         : nullptr;
-    const T* wdown = static_cast<const T*>(p.wdown) + (long)l * F * dm;
-    const T* bdown = p.bdown ? static_cast<const T*>(p.bdown) + (long)l * dm
-                             : nullptr;
+    for (int pr = 0; pr < 4; ++pr) {
+      const Plan& pl = plans[pr];
+      const int units = pl.tiles * pl.splits * pl.rt;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int t = u % pl.tiles;
+        const int sp = (u / pl.tiles) % pl.splits;
+        int c0, width;
+        tile_cols(pr, t, Ns[pr], D, &c0, &width);
+        const int kb = sp * pl.depth;
+        const int ke = min(Ks[pr], kb + pl.depth);
+        const int nst = (ke - kb + kUnitK - 1) / kUnitK;
+        for (int st = 0; st < nst; ++st, ++it) {
+          const int s = it % kRingStages;
+          if (it >= kRingStages)
+            mbar_wait(bars + 8 * (kRingStages + s),
+                      (it / kRingStages - 1) & 1);
+          const uint32_t full = bars + 8 * s;
+          const uint32_t dst = ring + s * kWStage;
+          mbar_expect_tx(full, kWStage);
+          tma_load_3d(&maps.w[pr], dst, full, c0, kb + st * kUnitK, l);
+          tma_load_3d(&maps.w[pr], dst + kAtom, full, c0 + 64,
+                      kb + st * kUnitK, l);
+        }
+      }
+    }
+  }
+}
 
-    // 1. LN1 + QKV (+ bias) -> qkv
-    const ASrc<T> a1{xin, p.ln1_s + (long)l * dm, p.ln1_b + (long)l * dm};
-    gemm_phase(grid, a1, B, dm, wqkv, nq, vec, As, ring, red, ws,
-               [&](int row, int n, float s) {
-                 qkv[(long)row * nq + n] =
-                     pt::from_float<T>(with_bias(s, bqkv, n));
-               });
-    grid.sync();
-    // 2. rope on k; every row's fresh K/V row written before any attends
-    write_phase<T>(p, l);
-    grid.sync();
-    // 3. attention -> o
-    attention_phase<T>(p, l, smem);
-    grid.sync();
-    // 4. out-projection (+ bias) + residual -> x_out
-    const ASrc<T> a2{ob, nullptr, nullptr};
-    gemm_phase(grid, a2, B, no, wo, dm, vec, As, ring, red, ws,
-               [&](int row, int n, float s) {
-      const long i = (long)row * dm + n;
-      xo[i] = pt::from_float<T>(ldcg_f(xin + i) + with_bias(s, bo, n));
-    });
-    grid.sync();
-    // 5. LN2 + up-projection (+ bias) + GELU -> u
-    const ASrc<T> a3{xo, p.ln2_s + (long)l * dm, p.ln2_b + (long)l * dm};
-    gemm_phase(grid, a3, B, dm, wup, F, vec, As, ring, red, ws,
-               [&](int row, int n, float s) {
-      ub[(long)row * F + n] =
-          pt::from_float<T>(gelu_tanh(with_bias(s, bup, n)));
-    });
-    grid.sync();
-    // 6. down-projection (+ bias) + residual -> x_out
-    const ASrc<T> a4{ub, nullptr, nullptr};
-    gemm_phase(grid, a4, B, F, wdown, dm, vec, As, ring, red, ws,
-               [&](int row, int n, float s) {
-      const long i = (long)row * dm + n;
-      xo[i] = pt::from_float<T>(ldcg_f(xo + i) + with_bias(s, bdown, n));
-    });
-    if (l + 1 < p.L) grid.sync();
+template <typename T>
+__global__ void __launch_bounds__(kMegaThreads, 1)
+    mega_kernel(const __grid_constant__ MegaMaps maps, MegaParams p) {
+  extern __shared__ unsigned char dsm_raw[];
+  const uint32_t raw = sm90::smem_u32(dsm_raw);
+  unsigned char* dsm = dsm_raw + (((raw + 1023) & ~1023u) - raw);
+  const uint32_t ring = sm90::smem_u32(dsm) + kRingOff;
+  const uint32_t bars = ring + kRingStages * kWStage;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      sm90::mbar_init(bars + 8 * s, 1);
+      sm90::mbar_init(bars + 8 * (kRingStages + s), 2);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kCThreads) {
+    sm90::regs_dec<40>();
+    if constexpr (sizeof(T) == 2) {
+      if (p.tma != 0 && threadIdx.x == kCThreads)
+        weight_stream(maps, p, ring, bars);
+    }
+    return;
+  }
+  sm90::regs_inc<232>();
+  __shared__ AttnRow arow;
+  attn_row_init(p, &arow);
+  Stamps stamps{p.stamps, p.stamp_cap, 0};
+  stamps.mark(-1);
+  int it = 0;                            // the ring's stage counter
+  for (int l = 0; l < p.L; ++l) {
+    const int c = 16 * l;
+    // 1. LN1 + QKV (+ bias), rope, the fresh K/V rows -> qkv, pools
+    product_phase<T>(p, kQkv, l, dsm, ring, bars, it);
+    grid_sync(p.sync, gridDim.x);
+    stamps.mark(c + kPhQkv);
+    // 2. attention -> o
+    attention_phase<T>(p, l, reinterpret_cast<float*>(dsm), &arow);
+    grid_sync(p.sync, gridDim.x);
+    stamps.mark(c + kPhAttn);
+    // 3. out-projection (+ bias) + residual -> x_out
+    product_phase<T>(p, kWo, l, dsm, ring, bars, it);
+    grid_sync(p.sync, gridDim.x);
+    stamps.mark(c + kPhWo);
+    // 4. LN2 + up-projection (+ bias) + GELU -> u
+    product_phase<T>(p, kUp, l, dsm, ring, bars, it);
+    grid_sync(p.sync, gridDim.x);
+    stamps.mark(c + kPhUp);
+    // 5. down-projection (+ bias) + residual -> x_out
+    product_phase<T>(p, kDown, l, dsm, ring, bars, it);
+    // the record closes the last phase with one more barrier
+    if (l + 1 < p.L || p.stamps != nullptr) {
+      grid_sync(p.sync, gridDim.x);
+      stamps.mark(c + kPhDown);
+    }
   }
 }
 
@@ -1091,26 +1515,84 @@ int mega_grid() {
   if (!coop) return -static_cast<int>(cudaErrorNotSupported);
   err = cudaFuncSetAttribute(mega_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             kMegaSmem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mega_kernel<T>, kThreads, kSmemBytes);
+      &per_sm, mega_kernel<T>, kMegaThreads, kMegaSmem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   return per_sm * sms;
 }
 
+// 32-bit words of K8's workspace: the grid barrier's word and a split
+// counter per (row tile, column tile), rounded up to 4, then the split
+// products' fp32 partial sums (the largest of the four products')
+__host__ inline long mega_ws_words(int B, int dm, int hq, int hkv, int D,
+                                   int F, int grid, int cap,
+                                   long* counters) {
+  const int nq = (hq + 2 * hkv) * D;
+  const int Ks[4] = {dm, hq * D, dm, F};
+  const int Ns[4] = {nq, dm, F, dm};
+  long ctr = 0, most = 0;
+  for (int pr = 0; pr < 4; ++pr) {
+    const Plan pl = make_plan(Ks[pr], tiles_of(pr, Ns[pr], D), B, grid, cap);
+    const long c = (long)pl.tiles * pl.rt;
+    if (c > ctr) ctr = c;
+    const long w = pl.splits > 1 ? (long)pl.splits * B * Ns[pr] : 0;
+    if (w > most) most = w;
+  }
+  *counters = (1 + ctr + 3) / 4 * 4;
+  return *counters + most;
+}
+
+// the 3D map (N, K, L) of an (L, K, N) bf16 weight stack, read in boxes
+// of 64 columns x 64 depths with the 128-byte swizzle
+inline int weight_map(CUtensorMap* map, const void* w, int L, int K, int N) {
+  const sm90::EncodeTiled enc = sm90::encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 2,
+                                 static_cast<cuuint64_t>(K) * N * 2};
+  const cuuint32_t box[3] = {64, kUnitK, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w),
+          dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
-int launch_mega(MegaParams& p, long ws_floats, cudaStream_t st) {
+int launch_mega(MegaParams& p, long ws_words, cudaStream_t st) {
   const int g = mega_grid<T>();
   if (g < 0) return -g;
-  if (mega_ws_floats(p.B, p.dm, (p.hq + 2 * p.hkv) * p.D, p.hq * p.D, p.F,
-                     g) > ws_floats)
+  long counters = 0;
+  if (mega_ws_words(p.B, p.dm, p.hq, p.hkv, p.D, p.F, g, unit_cap<T>(),
+                    &counters) > ws_words)
     return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&p};
+  p.ws = reinterpret_cast<float*>(p.sync + counters);
+  p.grid = g;
+  MegaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const int nq = (p.hq + 2 * p.hkv) * p.D;
+  p.tma = sizeof(T) == 2 && p.vec && nq % 8 == 0 && p.dm % 8 == 0 &&
+          p.F % 8 == 0;
+  if (p.tma) {
+    const int Ks[4] = {p.dm, p.hq * p.D, p.dm, p.F};
+    const int Ns[4] = {nq, p.dm, p.F, p.dm};
+    const void* ws[4] = {p.wqkv, p.wo, p.wup, p.wdown};
+    for (int pr = 0; pr < 4; ++pr) {
+      const int rc = weight_map(&maps.w[pr], ws[pr], p.L, Ks[pr], Ns[pr]);
+      if (rc != 0) return rc;
+    }
+  }
+  void* args[] = {&maps, &p};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(mega_kernel<T>), dim3(g), dim3(kThreads), args,
-      kSmemBytes, st));
+      reinterpret_cast<void*>(mega_kernel<T>), dim3(g), dim3(kMegaThreads),
+      args, kMegaSmem, st));
 }
 
 // -- K9 -----------------------------------------------------------------------
@@ -1143,7 +1625,7 @@ __global__ void __launch_bounds__(kThreads) logits_kernel(LogitsParams p) {
   __shared__ bool last;
   T* As = reinterpret_cast<T*>(dsm);
   uint4* ring = reinterpret_cast<uint4*>(dsm + kACapBytes);
-  float* red = reinterpret_cast<float*>(dsm + kACapBytes + kRingBytes);
+  float* red = reinterpret_cast<float*>(dsm + kACapBytes + kK9Ring);
   int staged = -1;
   const int B = p.B;
   const int lane = threadIdx.x & 31;
@@ -1257,22 +1739,25 @@ int launch_logits(LogitsParams& p, bool kmajor, cudaStream_t st) {
 }  // namespace
 
 // K8. w: the 12 slab pointers in _WEIGHT_ORDER (a null bias is absent).
-// The caller guarantees B <= 64, dm <= a_cap<T>() (8192 bf16, 4096
-// fp32: a LayerNorm'd row resident whole), D <= 128 and even,
-// Hq % Hkv == 0,
+// The caller guarantees B <= 64, D <= 128 and even, Hq % Hkv == 0,
 // Hq / Hkv <= 8, page a multiple of 128, every tensor contiguous and of
-// the one dtype (the LayerNorm vectors fp32). Returns the launch's error:
-// a refused cooperative launch never runs.
+// the one dtype (the LayerNorm vectors fp32). ws: pt_mega_workspace(...)
+// 32-bit words, zeroed when allocated (the barrier word and the split
+// counters; every launch leaves the counters zero). stamps: null, or
+// stamp_cap int64s for the phase-time record. Returns the launch's
+// error: a refused cooperative launch never runs.
 extern "C" int pt_mega_decode(int dtype, const void* const* w, const void* x,
                               void* xo, void* kp, void* vp, const void* table,
                               const void* pos, const void* slot,
                               const void* write, void* qkv, void* o, void* u,
-                              void* ws, long ws_floats,
+                              void* ws, long ws_words, void* stamps,
+                              int stamp_cap,
                               int B, int dm, int L, int hq, int hkv, int D,
                               int F, int page, int P, int mx, int rope,
                               float theta, float scale, int vec,
                               void* stream) {
   MegaParams p;
+  memset(&p, 0, sizeof(p));
   p.ln1_s = static_cast<const float*>(w[0]);
   p.ln1_b = static_cast<const float*>(w[1]);
   p.wqkv = w[2];
@@ -1296,7 +1781,9 @@ extern "C" int pt_mega_decode(int dtype, const void* const* w, const void* x,
   p.qkv = qkv;
   p.o = o;
   p.u = u;
-  p.ws = static_cast<float*>(ws);
+  p.sync = static_cast<unsigned*>(ws);
+  p.stamps = static_cast<long long*>(stamps);
+  p.stamp_cap = stamp_cap;
   p.B = B;
   p.dm = dm;
   p.L = L;
@@ -1312,20 +1799,25 @@ extern "C" int pt_mega_decode(int dtype, const void* const* w, const void* x,
   p.scale = scale;
   p.vec = vec;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kBFloat16) return launch_mega<bf16>(p, ws_floats, st);
-  if (dtype == pt::kFloat32) return launch_mega<float>(p, ws_floats, st);
+  if (dtype == pt::kBFloat16) return launch_mega<bf16>(p, ws_words, st);
+  if (dtype == pt::kFloat32) return launch_mega<float>(p, ws_words, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// fp32 elements of the workspace pt_mega_decode needs for these
-// operands on the current device (the depth splits' partial sums), or a
-// negative CUDA error
-extern "C" long pt_mega_workspace(int dtype, int B, int dm, int nq, int no,
-                                  int F) {
+// 32-bit words of the workspace pt_mega_decode needs for these operands
+// on the current device (the barrier word, the split counters, the
+// splits' partial sums), or a negative CUDA error
+extern "C" long pt_mega_workspace(int dtype, int B, int dm, int hq, int hkv,
+                                  int D, int F) {
   const int g = dtype == pt::kBFloat16 ? mega_grid<bf16>()
                                        : mega_grid<float>();
   if (g < 0) return g;
-  return mega_ws_floats(B, dm, nq, no, F, g);
+  long counters = 0;
+  return dtype == pt::kBFloat16
+             ? mega_ws_words(B, dm, hq, hkv, D, F, g, unit_cap<bf16>(),
+                             &counters)
+             : mega_ws_words(B, dm, hq, hkv, D, F, g, unit_cap<float>(),
+                             &counters);
 }
 
 // K9. The caller guarantees B <= 64 and dm <= a_cap<T>() (as K8).
@@ -1355,3 +1847,4 @@ extern "C" int pt_mega_logits(int dtype, const void* x, const void* ln_s,
   if (dtype == pt::kFloat32) return launch_logits<float>(p, kmajor != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+

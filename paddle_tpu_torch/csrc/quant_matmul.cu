@@ -57,15 +57,38 @@
 //     the cluster barrier, the stores) is a large share of a call that
 //     streams 4-17 MB, and the streaming itself runs below the card's
 //     rate (PERF.md §6).
-// - bf16 prefill rows (M > 16): `tiles_kernel`. A block owns a 64 x 128
-//   output tile; each 32-deep step stages x's 64 x 32 tile and q's
-//   32 x 128 int8 tile through shared memory, the int8 tile widened to
-//   bf16 there, and 8 warps each run 2 x 2 wmma 16x16x16 bf16 fragments
-//   (fp32 accumulate) over their 32 x 32 piece; the fp32 tile is then
-//   staged through shared memory for the scale-and-round epilogue. At
-//   M 512, 2 M FLOP per weight byte passes the ridge, so the bf16 tensor
-//   cores (989 TFLOP/s) bound it; this route has no TMA or wgmma
-//   (ROADMAP R1).
+// - bf16 prefill rows (M > 16): `int8_tiles_sm90`, the int8 engine's
+//   prefill chunks (buckets of 16-512 tokens: 96 calls a chunk on
+//   gpt3_1p3b). Bound: bytes at M 128 (the weight once, 2 M FLOP per
+//   weight byte), operations at M 512 (past the ridge of about 295). A
+//   block owns a 128 x 128 output tile and walks its K range in 64-deep
+//   stages through a ring of kTStages slots, warp-specialised:
+//   * one thread keeps TMA loads in flight: x's [128 rows][64 k] box
+//     with the 128-byte swizzle (wgmma's K-major A) and q's [64 k][128 n]
+//     int8 box;
+//   * three warps widen each landed int8 box into two [64 k][64 n] bf16
+//     boxes laid out as TMA lays out a swizzled bf16 tile, which wgmma
+//     reads as its MN-major B: the decode route's byte permutes (no I2F),
+//     16 weights a chunk, chunks XOR-placed so the stores hit no bank
+//     twice;
+//   * two consumer warpgroups run wgmma m64n128k16 (bf16 in, fp32
+//     accumulate) on their 64 rows and release each slot once its
+//     products retire, so widening, loads and products overlap.
+//   Of the two ways to feed int8 to wgmma, this keeps (b), widening in
+//   shared memory, over (a), the swapped product outT = qT . xT with qT
+//   widened into A's registers: A's register fragment needs, per
+//   thread, 8 bytes from 4 different weight rows (byte loads), and its
+//   64 rows would be output columns, so a 512-row tile would need 8
+//   accumulators of 64 x 64; the widened tile costs 16 KB of shared
+//   memory a stage, which the ring has. K splits over a cluster of up to
+//   8 blocks where the tiles give fewer blocks than SMs (wo and wdown at
+//   M 128: 16 column tiles; `tiles_splits` asks the occupancy API), the
+//   sums reduced through distributed shared memory: one launch, no
+//   workspace. The scale multiplies the finished fp32 sum once and the
+//   result is rounded once. TMA needs 16-byte aligned rows (K % 8 for x,
+//   N % 16 for q); otherwise the same kernel's widening warps load both
+//   boxes with bounds (kTma false). Left: the per-call fixed part at
+//   M 32-128 and the reduction's shared-memory round trip (PERF.md §6).
 // - fp32 x at any M: `rows_kernel`, on the fp32 pipes (the tiny fp32
 //   models of the tests). A block owns a strip of 32 output columns and
 //   up to 16 rows of x; it walks K in chunks of 256 weight rows staged
@@ -77,18 +100,17 @@
 //   out here (`rows_geometry`) from the card's SM count; the caller asks
 //   `pt_int8_matmul_workspace` for the workspace's size.
 #include <cooperative_groups.h>
-#include <mma.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // -- fp32 rows ---------------------------------------------------------------
 constexpr int kRowThreads = 256;
@@ -484,109 +506,291 @@ int8_rows_sm90(const bf16* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// -- prefill rows (bf16) ------------------------------------------------------
-constexpr int kTM = 64;
-constexpr int kTN = 128;
-constexpr int kTK = 32;
-constexpr int kTileThreads = 256;      // 8 warps: 2 (rows) x 4 (columns)
-constexpr int kXLd = kTK + 8;          // bf16 row strides, 16-byte padded
-constexpr int kQLd = kTN + 8;
-constexpr int kCLd = kTN + 4;          // fp32 staged tile
-constexpr int kXBytes = kTM * kXLd * 2;
-constexpr int kQBytes = kTK * kQLd * 2;
-constexpr int kCBytes = kTM * kCLd * 4;
-constexpr int kTileSmem =
-    kXBytes + kQBytes > kCBytes ? kXBytes + kQBytes : kCBytes;
+// -- bf16 prefill rows on TMA + wgmma ---------------------------------------
+constexpr int kTM = 128;                 // output rows a block (2 x 64)
+constexpr int kTN = 128;                 // output columns a block
+constexpr int kTK = 64;                  // stage depth
+constexpr int kTStages = 5;
+constexpr int kTThreads = 384;           // producer warp + 11 widening warps
+constexpr int kTWideners = kTThreads - 32;   // 8 of them also consumers
+constexpr uint32_t kTXBytes = kTM * kTK * 2;      // x: [128 rows][64 k]
+constexpr uint32_t kTWBytes = kTK * kTN * 2;      // q widened: 2 boxes
+constexpr uint32_t kTQBytes = kTK * kTN;          // q raw: [64 k][128 n]
+constexpr uint32_t kTStageBytes = kTXBytes + kTWBytes + kTQBytes;
+// after the mainloop the ring holds the cluster's fp32 tile sums, each
+// row padded so that a warp's stores of one column pair spread over banks
+constexpr int kTRedLd = kTN + 4;
+static_assert(kTM * kTRedLd * 4 <= kTStages * kTStageBytes,
+              "the sums fit in the ring");
+constexpr int kTSmem = kTStages * kTStageBytes + 2 * kTStages * 8 + 1024;
+constexpr int kTMaxSplit = 8;            // the portable cluster
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__global__ void __launch_bounds__(kTileThreads)
-tiles_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-             const float* __restrict__ scale, bf16* __restrict__ out, int M,
-             int N, int K, bool vec_x, bool vec_q) {
-  __shared__ __align__(128) unsigned char smem[kTileSmem];
-  bf16* xs = reinterpret_cast<bf16*>(smem);               // [kTM][kXLd]
-  bf16* qs = reinterpret_cast<bf16*>(smem + kXBytes);     // [kTK][kQLd]
-  float* cs = reinterpret_cast<float*>(smem);             // [kTM][kCLd]
-
-  const int m0 = blockIdx.y * kTM;
-  const int n0 = blockIdx.x * kTN;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp / 4) * 32;
-  const int wn = (warp % 4) * 32;
-
-  FragC acc[2][2];
+// 16 int8 weights (one 16-byte chunk, sign bits flipped) widened to
+// bf16, columns n .. n + 15 of row k, stored into a [64 k][64 n] bf16
+// box with the 128-byte swizzle TMA would give it: the 16-byte chunk
+// c of row k at chunk c ^ (k % 8)
+__device__ __forceinline__ void widen_chunk(uint4 w, uint32_t box, int k,
+                                            int n64) {
+  uint32_t pairs[8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int c = 0; c < 4; ++c) {
+    const unsigned u = word(w, c) ^ 0x80808080u;
+    pairs[2 * c] = bf16_pair(widen(u, 0), widen(u, 1));
+    pairs[2 * c + 1] = bf16_pair(widen(u, 2), widen(u, 3));
+  }
+  const int c0 = n64 / 8;                // even: two chunks c0, c0 + 1
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t dst = box + k * 128 + (((c0 + h) ^ (k & 7)) << 4);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "r"(pairs[4 * h]), "r"(pairs[4 * h + 1]),
+                 "r"(pairs[4 * h + 2]), "r"(pairs[4 * h + 3])
+                 : "memory");
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-    __syncthreads();                     // the previous step is consumed
-    {  // x: 64 rows x 32 columns, 8 bf16 (16 bytes) per thread
-      const int r = tid / 4;
-      const int c = (tid % 4) * 8;
-      const int mm = m0 + r;
-      const int k = k0 + c;
-      bf16* dst = xs + r * kXLd + c;
-      if (vec_x && mm < M && k + 8 <= K) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(x + (long)mm * K + k);
-      } else {
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (mm < M && k + j < K) ? x[(long)mm * K + k + j]
-                                         : __float2bfloat16(0.f);
+// out (M, N) = round((x @ q) * scale), bf16 x, M > 16. grid: (cluster's K
+// splits, column tiles, row tiles), cluster (splits, 1, 1);
+// k_per_split a multiple of kTK. Block tile 128 x 128 over its K range in
+// 64-deep stages through a ring of kTStages slots:
+//   warp 0, lane 0 (kTma): TMA loads of x's [128 rows][64 k] box with the
+//     128-byte swizzle (wgmma's K-major A) and q's [64 k][128 n] int8
+//     box into the slot, completing on full[s], each once the slot's
+//     previous stage is released on empty[s];
+//   the other 11 warps (kTWideners threads), every stage: widen their
+//     share of the landed int8 box into two [64 k][64 n] bf16 boxes laid
+//     out as TMA lays out a swizzled bf16 tile (wgmma's MN-major B),
+//     fence the async proxy and meet at a named barrier; without kTma
+//     they first load both boxes from global memory with bounds;
+//   warpgroups 1 and 2 then issue wgmma m64n128k16 on their 64 rows
+//     (fp32 accumulate) and go on to widen the next stage while the
+//     products run, releasing each slot once its products retire. The
+//     products sit in the consumers' own loop: issued from a loop that
+//     warpgroup 0 runs too, ptxas serialised them (C7518).
+// Widening is the mainloop's largest cost at M <= 128 (3 warps took
+// 0.65 us a stage on the H100), so 11 warps share it. Rows past M,
+// columns past N and depths past K load as zeros (TMA fills them; the
+// bounded loads write them) and are never stored. With one split the
+// consumers scale, round and store from registers; with more, every
+// block stores its fp32 sums into its own ring, and after a cluster
+// barrier each block adds up its slice of the tile's columns from every
+// block's shared memory in rank order, scales, rounds and stores it; a
+// second barrier keeps the sums alive until all are read.
+template <bool kTma>
+__global__ void __launch_bounds__(kTThreads, 1)
+int8_tiles_sm90(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tq,
+                const bf16* __restrict__ x, const int8_t* __restrict__ q,
+                const float* __restrict__ scale, bf16* __restrict__ out,
+                int M, int N, int K, int k_per_split) {
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + kTStages * kTStageBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kTStages + s); };
+  auto xtile = [&](int s) { return base + s * kTStageBytes; };
+  auto wtile = [&](int s) { return xtile(s) + kTXBytes; };
+  auto qtile = [&](int s) { return wtile(s) + kTWBytes; };
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n0 = blockIdx.y * kTN;
+  const int m0 = blockIdx.z * kTM;
+  const int kb = rank * k_per_split;
+  const int ke = min(K, kb + k_per_split);
+  const int nk = ke > kb ? (ke - kb + kTK - 1) / kTK : 0;
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // stage it's widening share of this thread (w of kTWideners), then the
+  // named barrier that hands the slot's bf16 boxes to wgmma
+  auto widen_stage = [&](int it, int w) {
+    const int s = it % kTStages;
+    const int k0 = kb + it * kTK;
+    if constexpr (kTma) {
+      mbar_wait(full(s), (it / kTStages) & 1);
+      // q's landed box: [64 k][128 n], 512 chunks of 16 bytes, two a
+      // step with both loads in flight
+      for (int c0 = w; c0 < kTK * kTN / 16; c0 += 2 * kTWideners) {
+        uint4 v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = c0 + h * kTWideners;
+          if (ci < kTK * kTN / 16)
+            asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(v[h].x), "=r"(v[h].y), "=r"(v[h].z),
+                           "=r"(v[h].w)
+                         : "r"(qtile(s) + (ci >> 3) * kTN +
+                               (ci & 7) * 16));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = c0 + h * kTWideners;
+          if (ci < kTK * kTN / 16) {
+            const int n = (ci & 7) * 16;
+            widen_chunk(v[h], wtile(s) + (n / 64) * kAtom, ci >> 3, n % 64);
+          }
+        }
+      }
+    } else {
+      // the slot's previous stage (it - kTStages) has retired: the
+      // consumers waited on its products before an earlier barrier
+      for (int ci = w; ci < kTK * kTN / 16; ci += kTWideners) {
+        const int k = ci >> 3;
+        const int n = (ci & 7) * 16;
+        widen_chunk(load_q16(q, k0 + k, ke, n0 + n, N, false),
+                    wtile(s) + (n / 64) * kAtom, k, n % 64);
+      }
+      // x: [128 rows][64 k], 8 bf16 a chunk, swizzled as TMA would
+      for (int ci = w; ci < kTM * kTK / 8; ci += kTWideners) {
+        const int r = ci >> 3;
+        const int c = ci & 7;
+        alignas(16) bf16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int k = k0 + c * 8 + e;
+          v[e] = m0 + r < M && k < ke ? x[(long)(m0 + r) * K + k]
+                                      : __float2bfloat16(0.f);
+        }
+        const uint4 u = *reinterpret_cast<const uint4*>(v);
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         xtile(s) + r * 128 + ((c ^ (r & 7)) << 4)),
+                     "r"(u.x), "r"(u.y), "r"(u.z), "r"(u.w)
+                     : "memory");
       }
     }
-    {  // q: 32 rows x 128 columns, 16 int8 per thread, widened to bf16
-      const int r = tid / 8;
-      const int c = (tid % 8) * 16;
-      const uint4 raw = load_q16(q, k0 + r, K, n0 + c, N, vec_q);
-      const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-      bf16* dst = qs + r * kQLd + c;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        dst[j] = __float2bfloat16(static_cast<float>(v[j]));
+    fence_proxy_async();                 // generic stores before wgmma
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kTWideners) : "memory");
+  };
+
+  if (wg == 0) {
+    if (threadIdx.x == 0 && kTma) {
+      // the producer: every stage of the range, each once its slot's
+      // previous stage has been consumed
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kTStages;
+        if (it >= kTStages) mbar_wait(empty(s), (it / kTStages - 1) & 1);
+        const int k0 = kb + it * kTK;
+        mbar_expect_tx(full(s), kTXBytes + kTQBytes);
+        tma_load(&tx, xtile(s), full(s), k0, m0);
+        tma_load(&tq, qtile(s), full(s), n0, k0);
+      }
+    } else if (threadIdx.x >= 32) {
+      for (int it = 0; it < nk; ++it) widen_stage(it, threadIdx.x - 32);
     }
-    __syncthreads();
+  } else {
+    // the consumers widen too, then issue the stage's products, which run
+    // while they widen the next stage
+    const int cw = wg - 1;
+    float acc[kTN / 2];
 #pragma unroll
-    for (int kk = 0; kk < kTK; kk += 16) {
-      FragA a[2];
-      FragB bq[2];
+    for (int i = 0; i < kTN / 2; ++i) acc[i] = 0.f;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % kTStages;
+      widen_stage(it, threadIdx.x - 32);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm + i * 16) * kXLd + kk, kXLd);
+      for (int kk = 0; kk < kTK / 16; ++kk)
+        wgmma_ss_n128<0, 1>(acc, operand_desc<false>(xtile(s), cw, kk),
+                            operand_desc<true>(wtile(s), 0, kk), 1);
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();
+      if (it > 0 && t == 0) mbar_arrive(empty((it - 1) % kTStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    // thread t: rows r0 and r0 + 8, columns 8 j + 2 (t % 4) + {0, 1}
+    const int r0 = cw * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int c0 = 2 * (t % 4);
+    if (splits == 1) {
+      const bool pairs = (N & 1) == 0;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bq[j], qs + kk * kQLd + wn + j * 16, kQLd);
+      for (int j = 0; j < kTN / 8; ++j) {
+        const int n = n0 + c0 + 8 * j;
+        if (n >= N) continue;
+        const float s0 = __ldg(scale + n);
+        const float s1 = n + 1 < N ? __ldg(scale + n + 1) : 0.f;
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + r0 + 8 * h;
+          if (m >= M) continue;
+          const float a = acc[4 * j + 2 * h] * s0;
+          const float b = acc[4 * j + 2 * h + 1] * s1;
+          bf16* o = out + (long)m * N + n;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(a, b);
+          } else {
+            o[0] = __float2bfloat16(a);
+            if (n + 1 < N) o[1] = __float2bfloat16(b);
+          }
+        }
+      }
+    } else {
+      // every slot is consumed by both warpgroups before the ring is
+      // overwritten with the sums
+      asm volatile("bar.sync 2, 256;\n" ::: "memory");
+      float* red = reinterpret_cast<float*>(
+          smem_raw + (base - smem_u32(smem_raw)));
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], bq[j], acc[i][j]);
+      for (int j = 0; j < kTN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(red + (r0 + 8 * h) * kTRedLd + c0 +
+                                     8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-  __syncthreads();                       // cs aliases xs and qs
+  if (splits == 1) return;
+  cluster.sync();
+  // this block's slice of the tile's columns (a multiple of 4 wide, the
+  // last rank's narrower or empty), summed over the cluster in rank
+  // order, every rank's 16-byte load in flight
+  const float* red = reinterpret_cast<const float*>(
+      smem_raw + (base - smem_u32(smem_raw)));
+  const int width = (kTN / splits + 3) / 4 * 4;
+  const int cb = rank * width;
+  const int ce = min(kTN, cb + width);
+  const int w4 = ce > cb ? (ce - cb) / 4 : 0;
+  for (int i = threadIdx.x; i < kTM * w4; i += kTThreads) {
+    const int r = i / w4;
+    const int c = cb + (i % w4) * 4;
+    float4 v[kTMaxSplit];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int b = 0; b < kTMaxSplit; ++b)
+      if (b < splits)
+        v[b] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(red, b) + r * kTRedLd + c);
+    float4 sum = v[0];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm + i * 16) * kCLd + wn + j * 16,
-                              acc[i][j], kCLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kTM * kTN; e += kTileThreads) {
-    const int r = e / kTN;
-    const int c = e % kTN;
-    const int mm = m0 + r;
-    const int n = n0 + c;
-    if (mm < M && n < N)
-      out[(long)mm * N + n] = __float2bfloat16(cs[r * kCLd + c] * scale[n]);
+    for (int b = 1; b < kTMaxSplit; ++b)
+      if (b < splits) {
+        sum.x += v[b].x;
+        sum.y += v[b].y;
+        sum.z += v[b].z;
+        sum.w += v[b].w;
+      }
+    const int m = m0 + r;
+    const float f[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + c + e;
+      if (m < M && n < N)
+        out[(long)m * N + n] = __float2bfloat16(f[e] * __ldg(scale + n));
+    }
   }
+  cluster.sync();
 }
 
 int sm_count() {
@@ -712,8 +916,104 @@ int launch_mma(const bf16* x, const int8_t* q, const float* scale,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// the route of a call: 0 the tensor-core decode rows, 1 the wmma tiles,
-// 2 the fp32 rows
+// the map of a row-major (outer, inner) tensor of 1- or 2-byte elements,
+// read in boxes {box_inner, box_outer}; entries past the extents read as
+// zeros
+int map_2d(CUtensorMap* map, CUtensorMapDataType type, int elt,
+           const void* p, long inner, long outer, int box_inner,
+           int box_outer, CUtensorMapSwizzle swizzle) {
+  const sm90::EncodeTiled enc = sm90::encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elt};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(p), dims, strides,
+                         box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The prefill tiles' cluster K splits: the largest cluster, up to the
+// portable 8, whose blocks stay within one wave of the card's SMs, whose
+// clusters stay resident (cudaOccupancyMaxActiveClusters: a cluster's
+// blocks share a GPC, so 8-block clusters may not all fit where 6 do)
+// and whose splits keep at least 4 stages each; a failed query returns
+// minus its error
+template <bool kTma>
+int tiles_splits(long tiles, int K) {
+  static int fits[kTMaxSplit + 1] = {};          // clusters resident, by size
+  const int stages = (K + kTK - 1) / kTK;
+  const int sms = sm_count();
+  for (int splits = kTMaxSplit; splits > 1; --splits) {
+    if (tiles * splits > sms || stages < 4 * splits) continue;
+    if (fits[splits] == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(splits, 1, 1);
+      cfg.blockDim = dim3(kTThreads);
+      cfg.dynamicSmemBytes = kTSmem;
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = splits;
+      at[0].val.clusterDim.y = 1;
+      at[0].val.clusterDim.z = 1;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      int n = 0;
+      const cudaError_t err =
+          cudaOccupancyMaxActiveClusters(&n, int8_tiles_sm90<kTma>, &cfg);
+      if (err != cudaSuccess) return -static_cast<int>(err);
+      fits[splits] = n > 0 ? n : -1;
+    }
+    if (tiles <= fits[splits]) return splits;
+  }
+  return 1;
+}
+
+template <bool kTma>
+int launch_tiles(const bf16* x, const int8_t* q, const float* scale,
+                 bf16* out, int M, int N, int K, cudaStream_t st) {
+  auto kern = int8_tiles_sm90<kTma>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tx = {}, tq = {};
+  if (kTma) {
+    int rc = map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, kTK,
+                    kTM, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc == 0)
+      rc = map_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, N, K, kTN, kTK,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc != 0) return rc;
+  }
+  const int tiles_n = (N + kTN - 1) / kTN;
+  const int tiles_m = (M + kTM - 1) / kTM;
+  const int splits = tiles_splits<kTma>((long)tiles_n * tiles_m, K);
+  if (splits < 0) return -splits;
+  const int stages = (K + kTK - 1) / kTK;
+  const int k_per_split = (stages + splits - 1) / splits * kTK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, tiles_n, tiles_m);
+  cfg.blockDim = dim3(kTThreads);
+  cfg.dynamicSmemBytes = kTSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, tx, tq, x, q, scale,
+                                             out, M, N, K, k_per_split);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// the route of a call: 0 the tensor-core decode rows, 1 the TMA + wgmma
+// prefill tiles, 2 the fp32 rows
 int route(int dtype, int M) {
   if (dtype != pt::kBFloat16) return 2;
   return M <= kMmaRows ? 0 : 1;
@@ -722,7 +1022,8 @@ int route(int dtype, int M) {
 }  // namespace
 
 // the kernel a call of these operands launches: 0 `int8_rows_sm90`, 1
-// `tiles_kernel`, 2 `rows_kernel` (then `finalize_kernel` where K splits)
+// `int8_tiles_sm90`, 2 `rows_kernel` (then `finalize_kernel` where K
+// splits)
 extern "C" int pt_int8_matmul_route(int dtype, int M) {
   return route(dtype, M);
 }
@@ -755,10 +1056,9 @@ extern "C" int pt_int8_matmul(int dtype, const void* x, const void* q,
                  ? launch_mma<true>(xp, qp, sp, op, M, N, K, st)
                  : launch_mma<false>(xp, qp, sp, op, M, N, K, st);
     }
-    const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-    tiles_kernel<<<grid, kTileThreads, 0, st>>>(xp, qp, sp, op, M, N, K,
-                                                vec_x != 0, vec_q != 0);
-    return static_cast<int>(cudaGetLastError());
+    return vec_x && vec_q ? launch_tiles<true>(xp, qp, sp, op, M, N, K, st)
+                          : launch_tiles<false>(xp, qp, sp, op, M, N, K,
+                                                st);
   }
   if (dtype == pt::kFloat32) {
     const RowsGeometry g = rows_geometry(M, N, K);

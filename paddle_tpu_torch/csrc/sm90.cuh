@@ -4,8 +4,9 @@
 // accumulate; A from shared memory or from registers), register
 // rebalancing, and the host's tensor-map encoder. Used by ce_gemm.cuh
 // (the fused CE's mainloop: K5, and the backward's dl pass, K6 and K7),
-// the flash attention sources (K1, K3, K4) and the flash-decode kernel
-// (K10: mbarriers and bulk copies).
+// the flash attention sources (K1, K3, K4), the flash-decode kernel
+// (K10: mbarriers and bulk copies), the int8 matmul's prefill tiles (K12)
+// and the decode megakernel's weight stream (K8: 3D TMA, m64n8k16).
 //
 // Conventions (from the PTX ISA's wgmma and cp.async.bulk.tensor
 // sections): a TMA box whose innermost extent is 64 bf16 (128 bytes),
@@ -94,6 +95,18 @@ __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// the same for a 3D map
+__device__ __forceinline__ void tma_load_3d(const CUtensorMap* map,
+                                            uint32_t dst, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
       : "memory");
 }
 
@@ -232,6 +245,21 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// d (64 x 8, fp32) += A (64 x 16) . B (16 x 8), bf16, both operands from
+// shared memory; kTA / kTB: A / B MN-major. The thread's d[0, 1] are
+// rows 16 (t / 32) + (t % 32) / 4, columns 2 (t % 4) + {0, 1}; d[2, 3]
+// the same columns 8 rows on
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
 }
 

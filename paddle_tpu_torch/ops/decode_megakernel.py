@@ -41,7 +41,9 @@ from paddle_tpu_torch.ops.paged_attention import (
 __all__ = ["mega_decode_layers", "mega_decode_layers_reference",
            "mega_logits_sample", "mega_logits_sample_reference",
            "epilogue_logits",
-           "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL", "mega_decode_layers_cost", "mega_logits_sample_cost"]
+           "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL",
+           "mega_decode_layers_cost", "mega_logits_sample_cost",
+           "PHASES", "phase_times"]
 
 # stacked-weight order of the kernel ABI (the JAX package's
 # decode_megakernel.py:77-79); a bias-free stack has no bias entries
@@ -59,9 +61,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D_MODEL = {torch.float32: 4096, torch.bfloat16: 8192}
 
 # device scratch of the kernels, one set per (device, stream, geometry):
-# K8's q|k|v, o and MLP rows and its split partial sums, K9's zeroed
-# merge words. A launch leaves
-# K9's words zeroed again; launches on one stream run in order.
+# K8's q|k|v, o and MLP rows and its workspace (the grid barrier's word,
+# the split counters, the split partial sums), K9's zeroed merge words. A
+# launch leaves K8's counters and K9's words zeroed again; launches on
+# one stream run in order.
 _SCRATCH: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
 
@@ -85,6 +88,30 @@ def mega_decode_layers_cost(lengths, weights, n_heads, kv_heads,
     flops = (2 * rows * macs
              + 4 * sum(lengths) * n_heads * head_dim * n_layers)
     return flops, nbytes
+
+
+# K8's phase codes in the phase-time record (csrc/decode_megakernel.cu
+# kPh*): a code names the phase that ended at its grid barrier
+PHASES = ("qkv", "attention", "wo", "up", "down")
+
+
+def phase_times(stamps):
+    """The phases K8's phase-time record holds, in order, as (layer,
+    phase, ms): each phase's time from the previous barrier (or the
+    kernel's start) to the barrier that ended it, all blocks done.
+    ``stamps``: the int64 buffer passed as ``mega_decode_layers(...,
+    stamps=)``, zeroed before the call; the record ends at its first
+    unwritten pair."""
+    v = [int(t) for t in stamps.reshape(-1).tolist()]
+    out, prev = [], None
+    for i in range(0, len(v) - 1, 2):
+        t, code = v[i], v[i + 1]
+        if t == 0:
+            break
+        if prev is not None:
+            out.append((code // 16, PHASES[code % 16], (t - prev) / 1e6))
+        prev = t
+    return out
 
 
 def mega_logits_sample_cost(rows, d_model, vocab, elt=2):
@@ -182,10 +209,10 @@ def _lib():
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([i, ctypes.POINTER(ctypes.c_void_p)] + [vp] * 12
-                       + [ctypes.c_long] + [i] * 11 + [f, f, i, vp])
+                       + [ctypes.c_long, vp] + [i] * 12 + [f, f, i, vp])
         fn.restype = ctypes.c_int
         ws = lib.pt_mega_workspace
-        ws.argtypes = [i] * 6
+        ws.argtypes = [i] * 7
         ws.restype = ctypes.c_long
         lg = lib.pt_mega_logits
         lg.argtypes = [i] + [vp] * 8 + [i] * 5 + [vp]
@@ -254,7 +281,7 @@ def _check_cuda_operands(x, weights, k_pages, v_pages, page_table, ints,
 def mega_decode_layers(x, weights, k_pages, v_pages, page_table, positions,
                        row_slot, row_write, *, page, n_pages, n_heads,
                        kv_heads, head_dim, rope=False, rope_theta=10000.0,
-                       scale=None):
+                       scale=None, stamps=None):
     """Run every layer of one decode step in one launch (K8).
 
     x: (B, dm) embedded rows. weights: the (L, ...) slabs by the names of
@@ -264,13 +291,23 @@ def mega_decode_layers(x, weights, k_pages, v_pages, page_table, positions,
     the scratch page. page_table: (S, max_pages) int32, UNFOLDED (the
     kernel adds l * n_pages for layer l). positions, row_slot, row_write:
     (B,) int32. Returns x_out (B, dm), the hidden rows after the last
-    block (before the final norm)."""
+    block (before the final norm).
+
+    stamps: None on the serving path, or a contiguous int64 CUDA tensor
+    that receives the phase-time record (``phase_times`` reads it): a
+    (%globaltimer ns, code) pair after each grid barrier, as many as it
+    holds. A CPU call ignores it."""
     b, dm, L = _geometry(x, weights, k_pages, page_table, n_pages,
                          n_heads, kv_heads, head_dim)
     hq, hkv, d = int(n_heads), int(kv_heads), int(head_dim)
     page, P = int(page), int(n_pages)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.device != x.device
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"stamps must be a contiguous int64 tensor on "
+                         f"{x.device}")
     if x.device.type == "cpu":
         return mega_decode_layers_reference(
             x, weights, k_pages, v_pages, page_table, positions, row_slot,
@@ -289,16 +326,19 @@ def mega_decode_layers(x, weights, k_pages, v_pages, page_table, positions,
     code = _DTYPE_CODES[x.dtype]
     lib = _lib()
     with torch.cuda.device(x.device):
-        # the kernel's depth splits (csrc/decode_megakernel.cu
-        # split_count, from the device's resident blocks) size it
-        ws_len = lib.pt_mega_workspace(code, b, dm, nq, hq * d, f)
+        # the grid barrier's word, the split counters and the depth
+        # splits' partial sums (csrc/decode_megakernel.cu make_plan, from
+        # the device's resident blocks); zeroed once: every launch leaves
+        # the counters zero
+        ws_len = lib.pt_mega_workspace(code, b, dm, hq, hkv, d, f)
     if ws_len < 0:
         _build.check(lib, -ws_len, "mega_decode_layers workspace")
     qkv, o, u, ws = _scratch(
-        ("mega", x.device, stream.cuda_stream, x.dtype, b, nq, hq * d, f),
+        ("mega", x.device, stream.cuda_stream, x.dtype, b, dm, nq, hq * d,
+         f, ws_len),
         lambda: tuple(torch.empty((b, n), dtype=x.dtype, device=x.device)
                       for n in (nq, hq * d, f))
-        + (torch.empty((max(ws_len, 1),), dtype=torch.float32,
+        + (torch.zeros((max(ws_len, 1),), dtype=torch.int32,
                        device=x.device),))
     slabs = [weights.get(n) for n in _WEIGHT_ORDER]
     ptrs = (ctypes.c_void_p * len(slabs))(
@@ -314,7 +354,8 @@ def mega_decode_layers(x, weights, k_pages, v_pages, page_table, positions,
             k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
             positions.data_ptr(), row_slot.data_ptr(), row_write.data_ptr(),
             qkv.data_ptr(), o.data_ptr(), u.data_ptr(), ws.data_ptr(),
-            ws.numel(), b, dm, L, hq, hkv,
+            ws.numel(), None if stamps is None else stamps.data_ptr(),
+            0 if stamps is None else stamps.numel(), b, dm, L, hq, hkv,
             d, f, page, P, page_table.shape[1], int(bool(rope)),
             float(rope_theta), float(scale), vec, stream.cuda_stream)
     _build.check(lib, rc, "mega_decode_layers cooperative launch")

@@ -23,7 +23,7 @@ __all__ = ["int8_matmul", "int8_matmul_reference", "int8_matmul_cost",
            "int8_matmul_route"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = ("int8_rows_sm90", "tiles_kernel", "rows_kernel")
+_ROUTES = ("int8_rows_sm90", "int8_tiles_sm90", "rows_kernel")
 
 
 def int8_matmul_cost(m, k, n, elt=2):
@@ -60,7 +60,7 @@ def _lib():
 def int8_matmul_route(dtype, m):
     """The kernel a CUDA call with x of ``dtype`` and ``m`` rows
     launches, as ``csrc/quant_matmul.cu`` chooses it (builds the kernel
-    library on first use): ``int8_rows_sm90``, ``tiles_kernel`` or
+    library on first use): ``int8_rows_sm90``, ``int8_tiles_sm90`` or
     ``rows_kernel``."""
     return _ROUTES[_lib().pt_int8_matmul_route(_DTYPE_CODES[dtype], m)]
 
@@ -112,7 +112,8 @@ def int8_matmul(x, q, scale):
     Routes on CUDA, by x's dtype and its M = x.numel() / K rows alone
     (``int8_matmul_route``): bf16 with M <= 16 (decode) runs
     ``int8_rows_sm90`` on the tensor cores, one launch with no
-    workspace; bf16 with M > 16 (prefill) the wmma ``tiles_kernel``;
+    workspace; bf16 with M > 16 (prefill) ``int8_tiles_sm90`` (TMA +
+    wgmma, K split over a cluster), one launch with no workspace;
     fp32 at any M ``rows_kernel`` on the fp32 pipes, followed by
     ``finalize_kernel`` where it splits K over blocks."""
     _check_operands(x, q, scale)

@@ -551,3 +551,114 @@ def test_cached_decode_check():
     bad = steps.clone()
     bad[1, 3] = full[1, 2]              # a token attending one step late
     assert not chip_smoke.cached_decode_check(bad, full)["ok"]
+
+
+class _Cuda:
+    @staticmethod
+    def synchronize():
+        pass
+
+
+class _Torch:
+    cuda = _Cuda
+
+
+def _fake_windows(monkeypatch, windows):
+    """Make ``chip_smoke._profile_events`` return ``windows`` in turn (each
+    a list of (kernel name, device microseconds)); returns the list of
+    the iteration counts it was asked for."""
+    asked = []
+
+    def events(torch, fn, iters):
+        asked.append(iters)
+        return windows.pop(0)
+
+    monkeypatch.setattr(chip_smoke, "_profile_events", events)
+    return asked
+
+
+@pytest.mark.parametrize("case", ["full", "short_then_full", "all_short"])
+def test_device_ms_checks_each_windows_launch_count(monkeypatch, case):
+    """A profiler window counts only when it holds iters x launches
+    matching kernels: a full one is read at once, a short one is
+    profiled again, and three short ones give None (the phase fails)."""
+    iters, us = 4, 250.0
+    full = [("k12_kernel", us)] * (2 * iters) + [("other", 9e9)]
+    short = [("k12_kernel", us / 2)] * iters + [("other", 9e9)]
+    windows = {"full": [full], "short_then_full": [short, full],
+               "all_short": [short, short, short]}[case]
+    asked = _fake_windows(monkeypatch, list(windows))
+    got = chip_smoke._device_ms(_Torch, lambda: None, keys=("k12",),
+                                launches=2, iters=iters, warmup=1)
+    assert asked == [iters] * len(windows)
+    if case == "all_short":
+        assert got is None
+        assert len(asked) == chip_smoke.PROFILE_WINDOWS
+    else:
+        assert got == pytest.approx(2 * us / 1e3)
+
+
+def test_device_ms_counts_a_calls_launches_when_not_given(monkeypatch):
+    """Without the caller's count (plain versions, library calls), the
+    median of what one-call windows recorded is the count a window must
+    hold per call: a one-call window that lost a launch, or caught one
+    more, does not set it."""
+    one = [("a", 1.0), ("b", 2.0), ("c", 3.0)]
+    windows = [one, one[:2], one + [("d", 4.0)]] + [one * 2 + one[:1],
+                                                    one * 2]
+    asked = _fake_windows(monkeypatch, windows)
+    got = chip_smoke._device_ms(_Torch, lambda: None, iters=2, warmup=0)
+    assert asked == [1, 1, 1, 2, 2]
+    assert got == pytest.approx(6.0 / 1e3)
+
+
+def test_profiled_window_is_padded_on_both_sides(monkeypatch):
+    """Every profiler window opens and closes with PROFILE_PAD_S of idle
+    time, the device synchronised first, so no kernel of the body lies
+    at the window's edge (where the profiler drops what it finds
+    outside the window on its own clock)."""
+    import torch.profiler as tp
+    log = []
+
+    class _Prof:
+        def __enter__(self):
+            log.append("start")
+            return self
+
+        def __exit__(self, *exc):
+            log.append("stop")
+            return False
+
+    class _SyncCuda:
+        @staticmethod
+        def synchronize():
+            log.append("sync")
+
+    class _SyncTorch:
+        cuda = _SyncCuda
+
+    monkeypatch.setattr(tp, "profile", lambda **kw: _Prof())
+    monkeypatch.setattr(chip_smoke.time, "sleep",
+                        lambda s: log.append(("sleep", s)))
+    with chip_smoke._profiled(_SyncTorch) as prof:
+        assert isinstance(prof, _Prof)
+        log.append("body")
+    pad = ("sleep", chip_smoke.PROFILE_PAD_S)
+    assert chip_smoke.PROFILE_PAD_S > 0
+    assert log == ["sync", "start", pad, "body", "sync", pad, "stop"]
+
+
+def test_phase_times_reads_the_record():
+    """K8's phase-time record: (time, code) pairs from the kernel's
+    start, each code naming the phase that ended at its barrier (16 per
+    layer), read up to the first unwritten pair."""
+    from paddle_tpu_torch.ops.decode_megakernel import PHASES, phase_times
+    codes = [-1] + [16 * l + p for l in range(2) for p in range(len(PHASES))]
+    times = [1000 + 7000 * i for i in range(len(codes))]
+    buf = torch.zeros(2 * len(codes) + 4, dtype=torch.int64)
+    buf[0:2 * len(codes):2] = torch.tensor(times)
+    buf[1:2 * len(codes):2] = torch.tensor(codes)
+    got = phase_times(buf)
+    assert [(layer, name) for layer, name, _ in got] == [
+        (layer, name) for layer in range(2) for name in PHASES]
+    assert all(ms == pytest.approx(0.007) for _, _, ms in got)

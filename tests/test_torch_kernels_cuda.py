@@ -536,10 +536,10 @@ def test_decode_attention_kernel_writes_the_fresh_row(dev, dtype, hq, hkv,
     (17, 128, 256), (64, 520, 136), (130, 2048, 6144), (5, 8192, 64)])
 def test_int8_matmul_kernel_matches_plain(dev, dtype, m, k, n):
     """K12 against its plain version on every route (bf16 M <= 16: the
-    tensor-core decode rows; bf16 M > 16: the wmma tiles; fp32: the rows
-    kernel), with ragged M, K and N and split K: per row within 2^-7
-    relative L2 (bf16: one rounding of fp32 sums in another order) or
-    1e-5 (fp32); one launch a call."""
+    tensor-core decode rows; bf16 M > 16: the TMA + wgmma tiles; fp32:
+    the rows kernel), with ragged M, K and N and split K: per row within
+    2^-7 relative L2 (bf16: one rounding of fp32 sums in another order)
+    or 1e-5 (fp32); one launch a call."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     x = _randn(gen, (m, k), dtype, dev)
@@ -547,7 +547,7 @@ def test_int8_matmul_kernel_matches_plain(dev, dtype, m, k, n):
                       dtype=torch.int32).to(torch.int8)
     scale = torch.rand((1, n), generator=gen, device=dev) * 0.02 + 1e-3
     want = ("rows_kernel" if dtype == torch.float32
-            else "int8_rows_sm90" if m <= 16 else "tiles_kernel")
+            else "int8_rows_sm90" if m <= 16 else "int8_tiles_sm90")
     assert int8_matmul_route(dtype, m) == want
     before = int8_matmul.launches
     out = int8_matmul(x, q, scale)
@@ -590,12 +590,43 @@ def test_int8_matmul_decode_route_every_m(dev, m, k, n):
     assert err.max().item() <= 2.0 ** -7
 
 
+@pytest.mark.parametrize("m", [17, 63, 65, 129, 1200])
+@pytest.mark.parametrize("k, n", [(2048, 2048), (1000, 1040), (300, 520),
+                                  (520, 136)])
+def test_int8_matmul_prefill_route_matches_plain(dev, m, k, n):
+    """The prefill route (bf16, M > 16: ``int8_tiles_sm90``) at ragged
+    shapes: M around the 128-row tile, N not a multiple of the 128-column
+    tile, K not a multiple of the 64-deep stage. (2048, 2048): 16 column
+    tiles, K split over a cluster of 8 at M <= 128 and of 2 at M 129,
+    unsplit at M 1200 (160 tiles); (1000, 1040): TMA with ragged K and
+    N; (300, 520) and (520, 136): x's rows (K % 8) or q's (N % 16) not
+    16-byte aligned, the boxes loaded with bounds. Per row within 2^-7
+    relative L2 of the plain version, one launch a call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7 + m)
+    x = _randn(gen, (m, k), torch.bfloat16, dev)
+    q = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-3
+    assert int8_matmul_route(torch.bfloat16, m) == "int8_tiles_sm90"
+    before = int8_matmul.launches
+    out = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_reference(x.float(), q, scale)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    err = ((out.float() - ref).norm(dim=-1)
+           / ref.norm(dim=-1).clamp_min(1e-30))
+    assert err.max().item() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("m", [16, 40])
 @pytest.mark.parametrize("k, n", [(256, 256), (272, 136)])
-def test_int8_matmul_widens_every_int8_exactly(dev, k, n):
-    """The decode route's widening: x of one-hot rows and scale 1 give
-    q's rows back as bf16, bit for bit, with each picked row of q
-    holding all 256 int8 values (N 136: the ragged fill by threads)."""
-    m = 16
+def test_int8_matmul_widens_every_int8_exactly(dev, m, k, n):
+    """Both bf16 routes' widening (M 16: the decode rows; M 40: the
+    prefill tiles): x of one-hot rows and scale 1 give q's rows back as
+    bf16, bit for bit, with each picked row of q holding all 256 int8
+    values (N 136: the ragged fills)."""
     cols = torch.arange(n, device=dev)
     rows = torch.arange(k, device=dev)[:, None]
     q = ((rows * 37 + cols) % 256 - 128).to(torch.int8)
@@ -659,22 +690,56 @@ def test_generate_on_gpu_matches_cpu(dev):
     assert torch.equal(q_got.cpu(), q_want)
 
 
-@pytest.mark.parametrize("case", ["gpt3_1p3b", "llama_shaped", "fp32"])
+def _flat_rows(n):
+    """``n`` flat (slot, position, write) rows, four consecutive
+    positions a slot (each row attends over its slot's earlier rows'
+    fresh K/V), even slots straddling the first 128-token page (positions
+    126-129), every fifth row with write flag 0 (its K/V to the scratch
+    page)."""
+    return tuple((r // 4, (126 if r // 4 % 2 == 0 else 60 * (r // 4 % 4))
+                  + r % 4, 0 if r % 5 == 4 else 1) for r in range(n))
+
+
+@pytest.mark.parametrize("case", ["gpt3_1p3b", "llama_shaped", "fp32",
+                                  "rows64_gqa4", "fp32_d128",
+                                  "gpt3_24layers"])
 def test_mega_decode_kernel_matches_plain(dev, case):
-    """K8 over 2 layers against its plain version: full-width gpt3_1p3b
-    blocks (16 kv heads, biases), llama_style_1b-shaped blocks (4 kv
-    heads, rope, no biases), and a narrow fp32 stack; the chip's rows
-    (an inactive row, two rows of one slot)."""
+    """K8 against its plain version: 2 full-width gpt3_1p3b blocks (16
+    kv heads, biases), 2 llama_style_1b-shaped blocks (4 kv heads, rope,
+    no biases), a narrow fp32 stack, all on the chip's rows (an inactive
+    row, two rows of one slot); 64 flat rows (``_flat_rows``: rows with
+    write flag 0, positions straddling a page) over 2 blocks at d_model
+    2048 with 16 query heads over 4 kv heads and rope; d_model 128 in
+    fp32 (2 heads of 64) on 64 rows; 24 gpt3_1p3b blocks at the init's
+    weight scale (std 0.02) on 64 rows, within 2.5e-2 (the compounded
+    roundings of depth). Pools bit for bit outside the written rows."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    tol = chip_smoke.REL_L2_TOL
     if case == "gpt3_1p3b":
         inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 16, 128, 2)
     elif case == "llama_shaped":
         inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 4, 128, 2,
                                      bias=False, rope=True)
-    else:
+    elif case == "fp32":
         inp = chip_smoke.mega_inputs(torch, dev, gen, 64, 4, 2, 16, 2,
                                      rope=True, dtype=torch.float32)
+        tol = 1e-4
+    elif case == "rows64_gqa4":
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 4, 128, 2,
+                                     rope=True, rows=_flat_rows(64))
+    elif case == "fp32_d128":
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 128, 2, 2, 64, 2,
+                                     dtype=torch.float32,
+                                     rows=_flat_rows(64))
+        tol = 1e-4
+    else:
+        inp = chip_smoke.mega_inputs(torch, dev, gen, 2048, 16, 16, 128, 24,
+                                     rows=_flat_rows(64))
+        for n, t in inp["w"].items():
+            if n.startswith("w"):
+                t.mul_(0.02 * t.shape[1] ** 0.5)
+        tol = chip_smoke.THROUGH_DEPTH_TOL
     args = (inp["table"], inp["pos"], inp["slot"], inp["write"])
     kp, vp = inp["kp"].clone(), inp["vp"].clone()
     before = mega_decode_layers.launches
@@ -685,7 +750,6 @@ def test_mega_decode_kernel_matches_plain(dev, case):
     rkp, rvp = inp["kp"].clone(), inp["vp"].clone()
     ref = mega_decode_layers_reference(inp["x"], inp["w"], rkp, rvp, *args,
                                        **inp["geo"])
-    tol = 1e-4 if case == "fp32" else chip_smoke.REL_L2_TOL
     rec = chip_smoke.mega_layers_check(out, ref, (kp, vp), (rkp, rvp),
                                        (inp["kp"], inp["vp"]),
                                        inp["written"], tol)
