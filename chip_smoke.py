@@ -80,10 +80,12 @@ Phases, each fatal on failure:
    THROUGH_DEPTH_TOL; K9 on the 24-layer output and the tied head (V
    50,304) with a planted tie, an overflowing row and a poisoned row
    (``mega_logits_check``). Device times of K8, its plain version and
-   the per-layer path at the same shapes, and of K9; K8's phase-time
-   record (``k8_phase_record``: block 0 stamps %globaltimer at each
-   grid barrier) on one gpt3_1p3b layer, at d_model 128 and through the
-   24 layers, with the grid barriers a layer takes;
+   the per-layer path at the same shapes, and of K9 (its route and
+   plan named) beside ``context_ms``, the three calls a user would
+   write for its function (F.layer_norm, x @ wte.t(), argmax); K8's
+   phase-time record (``k8_phase_record``: block 0 stamps %globaltimer
+   at each grid barrier) on one gpt3_1p3b layer, at d_model 128 and
+   through the 24 layers, with the grid barriers a layer takes;
 12. single-dispatch serving — the same model and prompts as 4 through
    ``make_engine(model)``, whose default runs one K8 and one K9 launch
    per decode step: K8 = K9 = decode steps, K2 = 0, K1 = L x cold
@@ -513,37 +515,47 @@ def mega_layers_check(x_out, ref_x, pools, ref_pools, pools0, written,
 
 
 def mega_logits_inputs(torch, x, head_w, lnf_scale, lnf_bias,
-                       tie_rows=(0, 1), overflow_row=4, poison_row=2):
+                       tie_rows=(0, 1), overflow_row=4, poison_row=2,
+                       tie_cols=None):
     """K9's planted cases on copies of x and of the head ``head_w``
-    (V, dm), the tied ``wte``: row 0's maximum at two equal columns in
-    different 32-column strips, row 1's at two neighbours in one strip;
-    depth 7 of x zeroed but for a large value in ``overflow_row`` and a
-    small positive one in the tie rows, and one column (V - 5) that
-    reads only depth 7, at -1e38, so that ``overflow_row``'s logit alone
-    overflows to inf, in one strip (the tie rows' is near -2e38);
-    ``poison_row`` poisoned. Returns (x, w, poison, ties {row: the
+    (V, dm), the tied ``wte``: row 0's maximum at two equal columns far
+    apart (``tie_cols[0]``, default 1000 and V // 2 + 17: in different
+    vocabulary tiles and blocks), row 1's at two neighbours in one tile
+    (``tie_cols[1]``, default 2000 and 2001); depth 7 of x zeroed but
+    for a large value in ``overflow_row`` and a small positive one in
+    the tie rows, and one column (V - 5) that reads only depth 7, at
+    -1e38, so that ``overflow_row``'s logit alone overflows to inf, in
+    one tile (the tie rows' is near -2e38); ``poison_row`` poisoned.
+    Rows past x's are not planted. Returns (x, w, poison, ties {row: the
     lowest tied column})."""
     from paddle_tpu_torch.models.gpt import final_ln
     x = x.clone()
     w = head_w.clone()
-    V = w.shape[0]
+    B, V = x.shape[0], w.shape[0]
+    if tie_cols is None:
+        tie_cols = ((1000, V // 2 + 17), (2000, 2001))
     k0, col = 7, V - 5
     x[:, k0] = 0
-    x[overflow_row, k0] = -40
+    if overflow_row < B:
+        x[overflow_row, k0] = -40
     std = x.float().std(dim=1)
     for r in tie_rows:
-        x[r, k0] = 2 * std[r]
+        if r < B:
+            x[r, k0] = 2 * std[r]
     w[col] = 0
     w[col, k0] = -1e38
     h = final_ln(x, lnf_scale, lnf_bias).float()
     ties = {}
-    for r, cols in zip(tie_rows, ((1000, V // 2 + 17), (2000, 2001))):
-        ties[r] = cols[0]
+    for r, cols in zip(tie_rows, tie_cols):
+        if r >= B:
+            continue
+        ties[r] = min(cols)
         for c in cols:
             w[c] = (3 * h[r] / h[r].norm()).to(w.dtype)
             w[c, k0] = 0
-    poison = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    poison[poison_row] = 1
+    poison = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    if poison_row < B:
+        poison[poison_row] = 1
     return x, w, poison, ties
 
 
@@ -641,6 +653,18 @@ def _paged_inputs(torch, dev, gen, hkv, lengths, page=128, max_pages=2):
     return q, kp, vp, table, lens
 
 
+def _paged_geometry(table, page, pairs):
+    """K2's launch geometry for a table and a launch of ``pairs`` (row,
+    kv head) pairs: the cluster's blocks and the ring's slots
+    (``ops/paged_attention.py``)."""
+    from paddle_tpu_torch.device import sm_count
+    from paddle_tpu_torch.ops import paged_attention as pa
+    splits = pa.cluster_size(table.shape[1], page, pairs,
+                             sm_count(table.device))
+    return {"splits": splits,
+            "stages": pa.ring_stages(table.shape[1], page, splits)}
+
+
 def k2_fused_case(torch, dev, gen, hkv):
     from paddle_tpu_torch.ops.paged_attention import (
         paged_append_attend, paged_append_attend_cost,
@@ -681,6 +705,7 @@ def k2_fused_case(torch, dev, gen, hkv):
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k2_paged_fused_hkv{hkv}", "B": B, "Hq": q.shape[1],
            "Hkv": hkv, "D": D, "page": page, "lengths": lengths,
+           "geometry": _paged_geometry(table, page, B * hkv),
            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
            "row_rel_l2_max": row_err, "tol_rel_l2": REL_L2_TOL,
            "pool_write_exact": rows_ok, "kernel_ms": ms,
@@ -729,6 +754,8 @@ def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k2p_paged_plain{name}_hkv{hkv}", "B": len(lengths),
            "Hq": q.shape[1], "Hkv": hkv, "D": D, "page": kp.shape[2],
+           "geometry": _paged_geometry(table, kp.shape[2],
+                                       len(lengths) * hkv),
            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
            "row_rel_l2_max": row_err, "tol_rel_l2": REL_L2_TOL,
            "stats_ok": stats_ok, "kernel_ms": ms, "call_ms": call_ms,
@@ -1367,16 +1394,31 @@ def k89_phase(torch, dev, gen, model):
                     ("logits_kernel",), launches=1)
     plain_ms = _device_ms(torch, lambda: mk.mega_logits_sample_reference(
         x, s, b, w.t(), poison), iters=5, warmup=1)
+    # no one PyTorch call computes K9's function: the three a user would
+    # write (F.layer_norm with the norm's vectors in x's dtype, the head
+    # product, argmax), timed as context and not as a library call
+    import torch.nn.functional as F
+    s_x, b_x, head = s.to(x.dtype), b.to(x.dtype), w.t()
+    context_ms = _device_ms(torch, lambda: torch.argmax(
+        F.layer_norm(x, (dm,), s_x, b_x) @ head, dim=-1))
     B, V = x.shape[0], w.shape[0]
     flops, nbytes = mk.mega_logits_sample_cost(B, dm, V, x.element_size())
     bound_ms, bound_by = _bound(nbytes, flops)
+    route = mk.logits_route(x.dtype, dm, V, True, True)
+    plan = (dict(zip(("group", "n", "stages", "grid"), mk.logits_plan(
+        B, dm, V, torch.cuda.get_device_properties(dev)
+        .multi_processor_count))) if route == "tensor_cores" else None)
     k9 = {"phase": "k9_gpt3_1p3b_head", "B": B, "d_model": dm, "V": V,
-          "dtype": str(x.dtype), "check": check, "ties": ties,
+          "dtype": str(x.dtype), "route": route, "plan": plan,
+          "check": check, "ties": ties,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+          "context_ms": context_ms,
           "timing": "device time (torch.profiler); the head (0.21 GB) "
-                    "is read cold by every call",
+                    "is read cold by every call; context_ms: "
+                    "F.layer_norm, x @ wte.t(), argmax",
           "bound_ms": bound_ms, "bound_by": bound_by,
-          "ok": bool(check["ok"] and None not in (ms, plain_ms))}
+          "ok": bool(check["ok"] and None not in (ms, plain_ms,
+                                                  context_ms))}
     _phase(k9)
     return k8, k9
 
@@ -1512,6 +1554,9 @@ _FAMILIES = (("flash_fwd", ("flash_fwd_",)),
              ("flash_bwd", ("flash_bwd_",)),
              ("fused_ce", ("ce_fwd_", "ce_bwd_wgmma", "ce_bwd_simt")),
              ("paged_attention", ("paged_kernel",)),
+             # K8 and K9 (K9's tensor-core kernel is named for sm90, like
+             # the library GEMMs below)
+             ("decode_megakernel", ("mega_kernel", "logits_kernel")),
              ("decode_attention", K10_KERNELS),
              ("int8_matmul", K12_KERNELS),
              ("layer_norm", ("fused_ln_fwd",)))
@@ -2838,7 +2883,9 @@ def main():
                      main["kernel_ms"], main["plain_ms"],
                      (main["bound_ms"], main["bound_by"]),
                      main["library_ms"],
-                     max(r["max_abs_err"] for r in recs))
+                     max(r["max_abs_err"] for r in recs),
+                     design="bulk-copied page tiles, a cluster per (row, "
+                            "kv head), csrc/decode_attn.cuh")
 
     fa_py = "paddle_tpu/ops/pallas/flash_attention.py"
     ce_py = "paddle_tpu/ops/pallas/fused_ce.py"
@@ -2927,11 +2974,17 @@ def main():
               design=wgmma),
         # max_abs_err: the worst gap between the picked token's plain
         # logit and the row's plain maximum
-        entry("mega_logits_sample", "decode_megakernel.cu",
-              "paddle_tpu/ops/pallas/decode_megakernel.py:458",
-              k9["kernel_ms"], k9["plain_ms"],
-              (k9["bound_ms"], k9["bound_by"]), None,
-              k9["check"]["token_logit_gap_max"]),
+        # context_ms: F.layer_norm, the head product and argmax, the
+        # three calls a user would write (no one call computes K9's
+        # function)
+        dict(entry("mega_logits_sample", "decode_megakernel.cu",
+                   "paddle_tpu/ops/pallas/decode_megakernel.py:458",
+                   k9["kernel_ms"], k9["plain_ms"],
+                   (k9["bound_ms"], k9["bound_by"]), None,
+                   k9["check"]["token_logit_gap_max"],
+                   design=f"{k9['route']}: TMA head stream + wgmma, "
+                          f"csrc/sm90.cuh"),
+             context_ms=k9["context_ms"]),
         # at the encoder's rows, N 768; library: F.layer_norm on the sum
         entry("fused_layer_norm", "layer_norm.cu",
               "paddle_tpu/ops/pallas/layer_norm.py:120",

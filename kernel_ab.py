@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """A/B readings of the flash kernels K1, K3 and K4, the fused
-cross-entropy kernels K5, K6 and K7, and the contiguous engine's decode
-kernels K10 and K12 on one GPU.
+cross-entropy kernels K5, K6 and K7, the contiguous engine's decode
+kernels K10 and K12, and the paged engines' K2, K2' and K9 on one GPU.
 
     python3 kernel_ab.py DIR_A DIR_B [--rounds 1] [--ce-chunks 2048,8192]
-        [--ce-plans 2,33] [--only decode]
+        [--ce-plans 2,33] [--paged-plans 2x4,8x4] [--only decode]
 
 DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
@@ -32,7 +32,14 @@ weights cold, each beside ``torch.matmul`` on the dequantized weight
 (``library_ms``) and its bound (``bound_ms``: the int8 weight, the
 scales, x and the output once at 3.35 TB/s, or the flops at 989.4
 TFLOP/s), and one layer's four summed at M 8 and at M 128
-(``k12_layer_M8``, ``k12_layer_M128``). Each time is read twice: the
+(``k12_layer_M8``, ``k12_layer_M128``); at ``chip_smoke.py``'s paged
+and single-dispatch shapes: K2 (``k2_fused``: B 8 rows of lengths 0..255
+over a table of 2 pages of 128, 16 heads of 128, the fresh rows written;
+``k2_fused_engine``: the per-layer engine's table of 16 pages, lengths
+128..184), K2' (``k2p_suffix``: the suffix prefill's 64 rows over one
+sequence, row t seeing min(129 + t, 168) tokens) and K9 (``k9_B8_tied``:
+B 8 rows, gpt3_1p3b's tied head, V 50,304, read cold by every call, as
+it is 0.21 GB). Each time is read twice: the
 call's device time from a torch.profiler trace (``kernel_ms``; the CE
 backward and K10 sum every kernel in the window) and the call's,
 wrapper included, by CUDA events around back-to-back calls
@@ -45,8 +52,11 @@ is profiled again, and after three short windows the case reads None.
 ``--ce-chunks`` also times a checkout's ``fused_ce_bwd`` at those vocab
 chunk widths (its default is timed as above), and ``--ce-plans`` K5 with
 its vocab tiles cut into about that many ranges (where the checkout
-plans them with ``fused_ce._plan``). ``--only decode`` times K10 and
-K12 alone. Prints each run's readings as one JSON line tagged with its
+plans them with ``fused_ce._plan``), and ``--paged-plans`` K2 and K2'
+under each (cluster size)x(ring slots) geometry given (where the
+checkout picks them with ``paged_attention.cluster_size`` and
+``ring_stages``). ``--only decode`` times K10, K12, K2, K2' and K9
+alone. Prints each run's readings as one JSON line tagged with its
 checkout and round, then one line with each checkout's medians. Exits
 non-zero if a run fails.
 """
@@ -178,8 +188,69 @@ def decode_cases():
     out["k12_layer_M128"] = layers[128]
 
 
+def paged_cases():
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import paged_attention as pa
+    bf = torch.bfloat16
+    H, D, page = 16, 128, 128
+
+    def inputs(lengths, mx):
+        B = len(lengths)
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(bf)
+        kp, vp = (torch.randn((B * mx + 1, H, page, D), generator=gen,
+                              device=dev).to(bf) for _ in range(2))
+        table = torch.randperm(B * mx, generator=gen, device=dev)
+        table = table.reshape(B, mx).to(torch.int32).contiguous()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return q, kp, vp, table, lens
+
+    def fused(lengths, mx):
+        q, kp, vp, table, lens = inputs(lengths, mx)
+        kr, vr = (torch.randn((len(lengths), H, D), generator=gen,
+                              device=dev).to(bf) for _ in range(2))
+        wp = table.gather(1, (lens // page)[:, None].long())[:, 0]
+        wp = wp.contiguous()
+        return lambda: pa.paged_append_attend(q, kp, vp, kr, vr, table, wp,
+                                              lens)
+
+    def suffix():
+        lengths = [min(129 + t, 168) for t in range(64)]
+        q, kp, vp, table, lens = inputs(lengths, 2)
+        table = table[:1].expand(64, -1).contiguous()
+        return lambda: pa.paged_decode_attention(q, kp, vp, table, lens)
+
+    calls = {"k2_fused": fused([0, 1, 127, 128, 255, 64, 200, 17], 2),
+             "k2_fused_engine": fused([128 + 8 * i for i in range(8)], 16),
+             "k2p_suffix": suffix()}
+    for name, fn in calls.items():
+        out[name] = {"kernel_ms": device_ms(fn, ("paged_kernel",), 50, 1),
+                     "call_ms": call_ms(fn, 50)}
+    plans = [tuple(int(v) for v in c.split("x"))
+             for c in sys.argv[5].split(",") if c]
+    if plans and hasattr(pa, "ring_stages"):
+        default = pa.cluster_size, pa.ring_stages
+        for splits, stages in plans:
+            pa.cluster_size = lambda *shape, s=splits: s
+            pa.ring_stages = lambda *shape, st=stages: st
+            for name, fn in calls.items():
+                out[f"{name}_S{splits}x{stages}"] = {
+                    "kernel_ms": device_ms(fn, ("paged_kernel",), 50, 1),
+                    "call_ms": call_ms(fn, 50)}
+        pa.cluster_size, pa.ring_stages = default
+    dm, V = 2048, 50304
+    x = torch.randn((8, dm), generator=gen, device=dev).to(bf)
+    wte = (0.02 * torch.randn((V, dm), generator=gen, device=dev)).to(bf)
+    s = 1.0 + 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    fn = lambda: mk.mega_logits_sample(x, s, b, wte.t())
+    out["k9_B8_tied"] = {"kernel_ms": device_ms(fn, ("logits_kernel",), 20,
+                                                1),
+                         "call_ms": call_ms(fn, 20)}
+
+
 if ONLY == "decode":
     decode_cases()
+    paged_cases()
     print("KERNEL_AB " + json.dumps(out), flush=True)
     sys.exit(0)
 
@@ -278,6 +349,7 @@ if plans and hasattr(ce, "_plan"):
                      "call_ms": statistics.median(r[1] for r in runs)}
 del x, w, labels, g, lse
 decode_cases()
+paged_cases()
 print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
@@ -287,9 +359,9 @@ _TIMING = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chip_smoke.py")
 
 
-def run_one(root, timeout, ce_chunks, ce_plans, only):
+def run_one(root, timeout, ce_chunks, ce_plans, only, paged_plans):
     out = subprocess.run([sys.executable, "-c", _CHILD, ce_chunks, ce_plans,
-                          only, _TIMING],
+                          only, _TIMING, paged_plans],
                          cwd=root,
                          capture_output=True, text=True, timeout=timeout)
     recs = [json.loads(line[len("KERNEL_AB "):])
@@ -312,15 +384,18 @@ def main():
                     help="comma-separated chunk widths for fused_ce_bwd")
     ap.add_argument("--ce-plans", default="",
                     help="comma-separated range counts for K5 (bf16)")
+    ap.add_argument("--paged-plans", default="",
+                    help="comma-separated SPLITSxSTAGES geometries for "
+                         "K2 and K2'")
     ap.add_argument("--only", default="all", choices=("all", "decode"),
-                    help="'decode': time K10 and K12 alone")
+                    help="'decode': time K10, K12, K2, K2' and K9 alone")
     args = ap.parse_args()
     roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     got = {"a": [], "b": []}
     for rnd in range(args.rounds):
         for tag in ("a", "b", "b", "a"):
             rec = run_one(roots[tag], args.timeout, args.ce_chunks,
-                          args.ce_plans, args.only)
+                          args.ce_plans, args.only, args.paged_plans)
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)

@@ -42,20 +42,16 @@
 //   same kernel stages each tile by threads instead. The ring (24 KB in
 //   bf16 at D 128) lets about 8 blocks share an SM, so the 1,024 blocks
 //   of the serving shape are resident in about one wave.
-// - Compute from shared memory with the first port's lane layout: a lane
-//   holds 16 bytes of a row along D (16 lanes a row in bf16, 32 in fp32),
-//   the scores reduce across a row's lanes with shuffles, and all G =
-//   Hq / Hkv query rows of the kv head share each K/V row read. Each warp
-//   keeps its own online softmax in fp32; p is rounded to the cache dtype
-//   before the value product, as `online_softmax_step` rounds it (:63-64),
-//   and the running max has the TPU kernel's -1e30 floor.
-// - Combine through distributed shared memory. The block's warps merge
-//   into the block's (m, l, acc[G][D]) in its own shared memory; after
-//   the cluster barrier, block s merges entries s, s + S, ... (in units of
-//   the block's threads) of the S blocks' partials, read through
-//   map_shared_rank, and writes o and, on request, (m, l). A block that
-//   saw no key weighs nothing. No workspace, no second launch: K10 stays
-//   one launch per layer.
+// - Compute from shared memory and combine through distributed shared
+//   memory, with the pieces K2 shares (csrc/decode_attn.cuh): a lane
+//   holds 16 bytes of a row along D, the scores reduce across a row's
+//   lanes with shuffles, and all G = Hq / Hkv query rows of the kv head
+//   share each K/V row read; each warp keeps its own online softmax in
+//   fp32; p is rounded to the cache dtype before the value product, as
+//   `online_softmax_step` rounds it (:63-64), and the running max has the
+//   TPU kernel's -1e30 floor. The warps merge in shared memory, the
+//   cluster's blocks through map_shared_rank. No workspace, no second
+//   launch: K10 stays one launch per layer.
 // - The fresh row inside. With k_new/v_new, row lengths[b] - 1 (the
 //   clamped position `cache_rows` gives) is taken from k_new/v_new rather
 //   than the cache, where write[b] holds (all rows without a mask), and
@@ -67,67 +63,20 @@
 //   each at T 2048) keep 3 tiles (24 KB) in flight, so their walk is a
 //   chain of round trips to device memory, and the cluster's merge and
 //   barriers come on top (PERF.md §6).
-#include <cooperative_groups.h>
-
 #include <cstdint>
 
-#include "common.cuh"
+#include "decode_attn.cuh"
 #include "sm90.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDMax = 128;             // largest head_dim
-constexpr int kTile = 16;              // cache rows of a ring slot
+using namespace dattn;
+
 constexpr int kStages = 3;             // ring slots
-constexpr int kMaxSplit = 8;           // blocks of a cluster, at most
 
-// 16 bytes of T as fp32 lanes
-template <typename T>
-struct Vec {
-  static constexpr int kN = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ void load_row(const T* p, int e0, int D,
-                                         bool vec_ok, float* out) {
-  constexpr int V = Vec<T>::kN;
-  if (vec_ok && e0 + V <= D) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p + e0);
-    const T* el = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < V; ++e) out[e] = pt::to_float(el[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      out[e] = e0 + e < D ? pt::to_float(p[e0 + e]) : 0.f;
-  }
-}
-
-// dynamic shared memory: the ring (reused after the walk for the warps'
-// partials), then the block's partial (m[G], l[G], acc[G][D], fp32)
-__host__ __device__ inline int ring_bytes(int D, int elt) {
-  return kStages * 2 * kTile * D * elt;
-}
-__host__ __device__ inline int partial_floats(int G, int D) {
-  return G * (D + 2);
-}
-__host__ __device__ inline int part_offset(int G, int D, int elt) {
-  const int ring = ring_bytes(D, elt);
-  const int warps = kWarps * partial_floats(G, D) * 4;
-  return ((ring > warps ? ring : warps) + 15) / 16 * 16;
-}
-__host__ __device__ inline int smem_bytes(int G, int D, int elt) {
-  return part_offset(G, D, elt) + partial_floats(G, D) * 4;
-}
-
-// G: the group size the registers are sized for (1, 2, 4 or 8); the
-// runtime group is at most G, and the rows past it carry zero queries
-// whose outputs are never written. aligned: D * sizeof(T) is a multiple
-// of 16 and every pointer 16-byte aligned (bulk copies, 16-byte loads).
+// G: the group size the registers are sized for (1, 2, 4 or 8; see
+// dattn::Online). aligned: D * sizeof(T) is a multiple of 16 and every
+// pointer 16-byte aligned (bulk copies, 16-byte loads).
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
@@ -137,11 +86,6 @@ flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
                   float* __restrict__ m_out, float* __restrict__ l_out,
                   int Hq, int Hkv, int T_len, int D, float scale,
                   bool aligned) {
-  constexpr int V = Vec<T>::kN;          // elements per lane
-  constexpr int kLpr = kDMax / V;        // lanes per row: 16 or 32
-  constexpr int kRpw = 32 / kLpr;        // rows per warp load: 2 or 1
-  constexpr int kU = kTile / (kWarps * kRpw);   // a lane group's rows a tile
-
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages];
 
@@ -151,10 +95,6 @@ flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int group = Hq / Hkv;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rg = lane / kLpr;            // row within the warp's load
-  const int e0 = (lane % kLpr) * V;      // this lane's first element
   const int len = max(0, min(lengths[b], T_len));
   const int fresh = k_new != nullptr && len > 0 &&
                             (write == nullptr || write[b] != 0)
@@ -190,26 +130,8 @@ flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
     for (int j = 0; j < min(mine, kStages); ++j) issue(j);
   }
 
-  float qf[G][V];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (g < group) {
-      load_row(q + ((long)b * Hq + hk * group + g) * D, e0, D, aligned,
-               qf[g]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) qf[g][e] = 0.f;
-    }
-  }
-
-  float m[G], l[G], acc[G][V];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
-  }
+  Online<T, G> st;
+  st.init(q + ((long)b * Hq + hk * group) * D, group, D, aligned);
 
   for (int j = 0; j < mine; ++j) {
     const int s = j % kStages;
@@ -246,141 +168,14 @@ flash_decode_sm90(const T* __restrict__ q, T* __restrict__ kc,
       sm90::fence_proxy_async();
       __syncthreads();
     }
-
-    float kf[kU][V], vf[kU][V];
-    int tk[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int r = (u * kWarps + warp) * kRpw + rg;
-      tk[u] = r0 + r;
-      load_row(ks + r * D, e0, D, aligned, kf[u]);
-      load_row(vs + r * D, e0, D, aligned, vf[u]);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float sc[kU];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < V; ++e) d += qf[g][e] * kf[u][e];
-        // sum over the lanes of one row (neighbouring lanes)
-#pragma unroll
-        for (int off = kLpr / 2; off >= 1; off >>= 1)
-          d += __shfl_xor_sync(0xffffffffu, d, off);
-        sc[u] = tk[u] < len ? d * scale : -INFINITY;
-        mx = fmaxf(mx, sc[u]);
-      }
-      if (kRpw > 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, kLpr));
-      // the same max on every lane of the warp
-      const float m_new = fmaxf(fmaxf(m[g], mx), pt::kMaxFloor);
-      const float alpha = __expf(m[g] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int e = 0; e < V; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const float p = __expf(sc[u] - m_new);
-        psum += p;
-        const float pr = pt::round_to<T>(p);
-#pragma unroll
-        for (int e = 0; e < V; ++e) acc[g][e] += pr * vf[u][e];
-      }
-      l[g] = l[g] * alpha + psum;
-      m[g] = m_new;
-    }
+    // p rounded to the cache dtype; rows past the length as they are
+    st.template tile<true, false>(ks, vs, r0, len, D, aligned, scale);
     __syncthreads();                     // every warp is done with slot s
     if (aligned && threadIdx.x == 0 && j + kStages < mine) issue(j + kStages);
   }
 
-  // every copy issued has been waited for: the ring holds the warps'
-  // partials now ([kWarps][G] m, [kWarps][G] l, [kWarps][G][D] acc)
-  const int pf = partial_floats(G, D);
-  float* wpart = reinterpret_cast<float*>(smem);
-  float* bpart =
-      reinterpret_cast<float*>(smem + part_offset(G, D, sizeof(T)));
-  // the rows of a warp's load share its max: their sums add
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (kRpw > 1) {
-      l[g] += __shfl_xor_sync(0xffffffffu, l[g], kLpr);
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], kLpr);
-    }
-    float* wp = wpart + warp * pf;
-    if (rg == 0) {
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        if (e0 + e < D) wp[2 * G + g * D + e0 + e] = acc[g][e];
-    }
-    if (lane == 0) {
-      wp[g] = m[g];
-      wp[G + g] = l[g];
-    }
-  }
-  __syncthreads();
-  // the block's partial: the warps merged against the block's max
-  for (int i = threadIdx.x; i < group * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float mm = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wpart[w * pf + g]);
-    float ll = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that saw no key (m = -inf) weighs nothing; on an empty
-      // share every warp is such, and exp(-inf - -inf) would be NaN
-      const float mw = wpart[w * pf + g];
-      const float wt = mw == -INFINITY ? 0.f : __expf(mw - mm);
-      ll += wpart[w * pf + G + g] * wt;
-      a += wpart[w * pf + 2 * G + g * D + d] * wt;
-    }
-    bpart[2 * G + g * D + d] = a;
-    if (d == 0) {
-      bpart[g] = mm;
-      bpart[G + g] = ll;
-    }
-  }
-  cluster.sync();
-  // the cluster's merge: block `rank` finishes entries rank * kThreads +
-  // tid, stepping S * kThreads
-  for (int i = rank * kThreads + threadIdx.x; i < group * D;
-       i += S * kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float pm[kMaxSplit], pl[kMaxSplit], pa[kMaxSplit];
-    float mm = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      pm[r] = -INFINITY;
-      pl[r] = pa[r] = 0.f;
-      if (r < S) {
-        const float* p = cluster.map_shared_rank(bpart, r);
-        pm[r] = p[g];
-        pl[r] = p[G + g];
-        pa[r] = p[2 * G + g * D + d];
-      }
-      mm = fmaxf(mm, pm[r]);
-    }
-    float ll = 0.f, a = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxSplit; ++r) {
-      const float wt = pm[r] == -INFINITY ? 0.f : __expf(pm[r] - mm);
-      ll += pl[r] * wt;
-      a += pa[r] * wt;
-    }
-    const long qi = (long)b * Hq + hk * group + g;
-    o[qi * D + d] = pt::from_float<T>(a / (ll == 0.f ? 1.f : ll));
-    if (m_out != nullptr && d == 0) {
-      m_out[qi] = mm;
-      l_out[qi] = ll;
-    }
-  }
-  // no block leaves while another reads its partial
-  cluster.sync();
+  st.finish(smem, part_offset(kStages, G, D, sizeof(T)), cluster, group, D,
+            o, m_out, l_out, (long)b * Hq + hk * group);
 }
 
 template <typename T, int G>
@@ -393,24 +188,12 @@ int launch_g(const T* q, T* kc, T* vc, const int* lens, const T* k_new,
   // for the largest head dim
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(G, kDMax, sizeof(T)));
+      smem_bytes(kStages, G, kDMax, sizeof(T)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes(G, D, sizeof(T));
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = splits;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kern, q, kc, vc, lens, k_new, v_new, write, o,
-                         m_out, l_out, Hq, Hkv, T_len, D, scale, aligned);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_split(kern, splits, Hkv, B,
+                      smem_bytes(kStages, G, D, sizeof(T)), st, q, kc, vc,
+                      lens, k_new, v_new, write, o, m_out, l_out, Hq, Hkv,
+                      T_len, D, scale, aligned);
 }
 
 template <typename T>

@@ -79,26 +79,47 @@
 // TMA, `__ldg` or cp.async. The phase-time record (`stamps`): block 0
 // stamps %globaltimer at each barrier, when the caller passes a buffer.
 //
-// K9 design. A regular launch, one block per SM; each block keeps its
-// 8 rows resident whole after the final LN (`ensure_a`), and takes units
-// of vocabulary columns x 8 rows: for the tied head, whose (V, dm) rows
-// are contiguous along dm, 32 columns, one warp per 4 reading along dm;
-// for a (dm, V) row-major head, 256-column tiles over the whole depth
-// (`tile_sums`). Their logits, rounded to x's dtype, NaN where the row
-// is poisoned. Per row it keeps the non-finite flag over the true vocab
-// and the largest key = (order-preserving float bits << 32 | ~index):
-// the largest value wins, and among equal values the lowest index
-// (jnp.argmax's first max). NaN never enters the max; it sets the flag.
-// Blocks merge with one 64-bit atomicMax per row; the last block to
-// finish (a counter) writes the tokens and flags and zeroes the
-// workspace for the next launch. The (B, V) logits never reach global
-// memory.
+// K9 design (bf16, `logits_kernel_sm90`). A persistent launch, one
+// block per SM, each taking a contiguous range of 64-column vocabulary
+// tiles (786 at V 50,304: 5 or 6 a block on 132 SMs), so no last partial
+// wave of strips leaves blocks idle. Per group of rows (as many as fit
+// in shared memory beside the head ring: 32 at d_model 2048, 128 KB;
+// ops/decode_megakernel.py `logits_plan`) the consumer warpgroup
+// LayerNorms the rows once into shared memory as wgmma's K-major B
+// operand (N = 8, 16, 32 or 64 columns), so the head is read once per
+// group: once at the engine's B 8, where the first port read it again
+// for every 8 rows. A producer warp streams the range's head boxes (64
+// columns x 64 deep, 8 KB, 128-byte swizzle) by TMA through a ring of 8
+// to 16 slots that runs on across tiles and groups, never drained: the
+// tied (V, dm) head's boxes are the K-major A operand, a row-major
+// (dm, V) head's the MN-major one. The consumers run wgmma m64nNk16 with
+// the head box as A, 64 vocabulary columns x N rows, the sums in
+// registers; a tile's logits are rounded to bf16 there, poisoned rows
+// are NaN, the flag covers the true vocabulary, and each row's key
+// (order-preserving value bits << 32 | ~index: the largest value wins,
+// and among equal values the lowest index, jnp.argmax's first max; NaN
+// never enters) is kept per thread, reduced over the lanes by shuffles
+// and over the warps by shared atomics. Blocks merge with one 64-bit
+// atomicMax per row; the last block to finish (a counter) writes the
+// tokens and flags and zeroes the workspace for the next launch. The
+// (B, V) logits never reach global memory.
+//
+// K9's other route (`logits_kernel`, fp32 heads, and bf16 ones whose
+// rows are not whole 16-byte pieces; chosen by `logits_route` before
+// the launch): each block keeps 8 rows resident after the final LN
+// (`ensure_a`) and takes units of vocabulary columns x 8 rows on the
+// CUDA cores, 32 columns of the tied head (`strip_kmajor`) or 256 of a
+// row-major one (`tile_sums`), with the same keys, flags and merge.
 //
 // Bound on the H100: bytes. K8 does 2 B FLOP per weight element it
 // reads, far below the ridge (about 295 FLOP per byte), so its floor is
 // reading every layer's weights once, plus the valid K/V rows each row
 // attends to, plus the fresh rows written, at 3.35 TB/s; K9's the head
-// (V x dm) once. What keeps K8 above it (its phase-time record on an
+// (V x dm) once: 0.21 GB, 61.5 us for gpt3_1p3b. K9 on the tensor cores
+// reads it in 81 us (2.5 TB/s) at B 8 (PERF.md §6); what holds the rest
+// is not measured apart (the LayerNorm staging before the first product,
+// the ring's 128 KB in flight a block, the last block's merge). What
+// keeps K8 above its bound (its phase-time record on an
 // H100 80GB HBM3 at 700 W, PERF.md §6): not the weight stream, whose
 // mainloops take a fifth to a third of each product phase, but each
 // phase's latency-bound fixed part: the LayerNorm statistics and the
@@ -1736,6 +1757,370 @@ int launch_logits(LogitsParams& p, bool kmajor, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- K9 on the tensor cores (bf16) -------------------------------------------
+
+constexpr int kK9Consumers = 128;        // one warpgroup
+constexpr int kK9Threads = kK9Consumers + 32;   // + the head stream's warp
+constexpr int kK9Cols = 64;              // vocabulary columns of a tile
+constexpr int kK9Depth = 64;             // depth of a head box
+constexpr uint32_t kK9Box = kK9Cols * kK9Depth * 2;   // 8 KB
+constexpr int kK9MaxStages = 16;
+
+struct LogitsTc {
+  const bf16* x;          // (B, dm)
+  const float* ln_s;      // (dm,)
+  const float* ln_b;
+  const int* poison;      // (B,) or null
+  unsigned long long* ws; // keys (B), flags (B), counter: zero between calls
+  int* tok;               // (B,)
+  int* nonfin;            // (B,)
+  int B, dm, V;
+  int rows;               // rows of a group (<= N)
+  int stages;             // head boxes in the ring
+};
+
+// the consumers' block barrier (the head stream's warp never joins)
+__device__ __forceinline__ void k9_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kK9Consumers) : "memory");
+}
+
+// Rows r0 .. r0 + nr of x, LayerNormed (eps 1e-5, fp32 statistics: the
+// mean, then the mean squared deviation; rounded to bf16 as the block
+// rounds them), into `rows` as wgmma's K-major B operand of N rows: per
+// 64-deep slab N rows of 128 bytes, 8-row groups 1024 bytes apart, the
+// 16-byte chunk c of row r at chunk c ^ (r % 8) (the 128-byte swizzle).
+// Rows nr .. N and depths past dm are zeros. Warp w takes rows w, w + 4,
+// ...; a row of up to 2048 elements is read once, 16 bytes a lane all in
+// flight, and held in registers; a longer one is read three times. The
+// caller guarantees dm % 8 == 0 and x 16-byte aligned.
+template <int N>
+__device__ void k9_stage(const LogitsTc& p, int r0, int nr,
+                         unsigned char* rows) {
+  constexpr int kHeld = 8;               // 16-byte pieces a lane holds
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int dm = p.dm;
+  const int kpad = (dm + kK9Depth - 1) / kK9Depth * kK9Depth;
+  const bool held = dm <= 32 * 8 * kHeld;
+  for (int r = w; r < N; r += kK9Consumers / 32) {
+    const bf16* src = p.x + (long)(r0 + r) * dm;
+    const bool real = r < nr;
+    uint4 raw[kHeld];
+    float mean = 0.f, rstd = 0.f;
+    if (real) {
+      float s = 0.f;
+      if (held) {
+#pragma unroll
+        for (int c = 0; c < kHeld; ++c) {
+          const int k = (lane + 32 * c) * 8;
+          raw[c] = k < dm ? *reinterpret_cast<const uint4*>(src + k)
+                          : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int c = 0; c < kHeld; ++c)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            s += __bfloat162float(reinterpret_cast<const bf16*>(&raw[c])[e]);
+      } else {
+        for (int k = lane * 8; k < dm; k += 256) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src + k);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            s += __bfloat162float(reinterpret_cast<const bf16*>(&v)[e]);
+        }
+      }
+      mean = warp_sum(s) / dm;
+      float q = 0.f;
+      if (held) {
+#pragma unroll
+        for (int c = 0; c < kHeld; ++c) {
+          if ((lane + 32 * c) * 8 >= dm) continue;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float t =
+                __bfloat162float(reinterpret_cast<const bf16*>(&raw[c])[e]) -
+                mean;
+            q += t * t;
+          }
+        }
+      } else {
+        for (int k = lane * 8; k < dm; k += 256) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src + k);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float t =
+                __bfloat162float(reinterpret_cast<const bf16*>(&v)[e]) - mean;
+            q += t * t;
+          }
+        }
+      }
+      rstd = 1.0f / sqrtf(warp_sum(q) / dm + 1e-5f);
+    }
+    for (int k = lane * 8, c = 0; k < kpad; k += 256, ++c) {
+      alignas(16) bf16 out[8];
+      if (real && k < dm) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (held) {
+          // c < kHeld: k < dm <= 2048
+#pragma unroll
+          for (int i = 0; i < kHeld; ++i)
+            if (i == c) v = raw[i];
+        } else {
+          v = *reinterpret_cast<const uint4*>(src + k);
+        }
+        const float4 s0 = *reinterpret_cast<const float4*>(p.ln_s + k);
+        const float4 s1 = *reinterpret_cast<const float4*>(p.ln_s + k + 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(p.ln_b + k);
+        const float4 b1 = *reinterpret_cast<const float4*>(p.ln_b + k + 4);
+        const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+        const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          out[e] = __float2bfloat16(
+              (__bfloat162float(reinterpret_cast<const bf16*>(&v)[e]) -
+               mean) *
+                  rstd * sc[e] +
+              bi[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) out[e] = __float2bfloat16(0.f);
+      }
+      const int ch = (k % kK9Depth) / 8;
+      *reinterpret_cast<uint4*>(rows + (k / kK9Depth) * (N * 128) +
+                                (r / 8) * 1024 + (r % 8) * 128 +
+                                ((ch ^ (r % 8)) << 4)) =
+          *reinterpret_cast<const uint4*>(out);
+    }
+  }
+  // the rows are read by wgmma (the async proxy)
+  sm90::fence_proxy_async();
+}
+
+// K9, bf16 with a 16-byte aligned head: a persistent block per SM (the
+// grid: min(SMs, vocabulary tiles), from the caller) takes the contiguous
+// range of 64-column vocabulary tiles [blockIdx.x * tiles / grid,
+// (blockIdx.x + 1) * tiles / grid). Per group of p.rows rows (N = the
+// wgmma width that holds them), the consumer warpgroup LayerNorms the
+// rows into shared memory once (`k9_stage`), then for each tile of the
+// range multiplies its head boxes (64 columns x 64 deep, streamed by the
+// last warp's thread through a ring of p.stages slots that runs on across
+// tiles and groups, so the head is read once per group) by the rows:
+// wgmma m64nNk16 with the head box as A (tied (V, dm): K-major; (dm, V):
+// MN-major) and the rows as the K-major B, the sums in registers. A
+// tile's logits are rounded to bf16 in registers, poisoned rows are NaN,
+// the flag covers the true vocabulary, and each row's largest key
+// (order-preserving value bits << 32 | ~index) is kept per thread, then
+// reduced over the quad's lanes by shuffles and the warps by shared
+// atomics; the blocks merge as logits_kernel's do.
+template <int N, bool kKMajor>
+__global__ void __launch_bounds__(kK9Threads, 1)
+    logits_kernel_sm90(const __grid_constant__ CUtensorMap head,
+                       LogitsTc p) {
+  using namespace sm90;
+  constexpr int kAcc = N / 2;            // accumulators a thread
+  constexpr int kMine = N / 4;           // rows a thread sees
+  extern __shared__ unsigned char dsm_raw[];
+  const uint32_t raw = smem_u32(dsm_raw);
+  unsigned char* rows = dsm_raw + (((raw + 1023) & ~1023u) - raw);
+  __shared__ __align__(8) uint64_t bars[2 * kK9MaxStages];
+  __shared__ unsigned long long best[kMaxRows];
+  __shared__ int flag[kMaxRows];
+  __shared__ bool last;
+  const int B = p.B;
+  const int nk = (p.dm + kK9Depth - 1) / kK9Depth;   // boxes a tile
+  const uint32_t rows_u = smem_u32(rows);
+  const uint32_t ring = rows_u + nk * N * 128;
+  const uint32_t full = smem_u32(bars);
+  const uint32_t empty = full + 8 * kK9MaxStages;
+  const int S = p.stages;
+  const int tiles = (p.V + kK9Cols - 1) / kK9Cols;
+  const int t_begin = (int)((long)blockIdx.x * tiles / gridDim.x);
+  const int t_end = (int)((long)(blockIdx.x + 1) * tiles / gridDim.x);
+  const int groups = (B + p.rows - 1) / p.rows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    mbar_fence_init();
+  }
+  for (int r = threadIdx.x; r < B; r += kK9Threads) {
+    best[r] = 0ull;
+    flag[r] = 0;
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kK9Consumers) {
+    // the head stream: every box of every tile of the range, group after
+    // group, each once the consumers have released its slot
+    if (threadIdx.x == kK9Consumers) {
+      int it = 0;
+      for (int g = 0; g < groups; ++g)
+        for (int t = t_begin; t < t_end; ++t)
+          for (int k = 0; k < nk; ++k, ++it) {
+            const int s = it % S;
+            if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+            mbar_expect_tx(full + 8 * s, kK9Box);
+            if (kKMajor)
+              tma_load(&head, ring + s * kK9Box, full + 8 * s,
+                       k * kK9Depth, t * kK9Cols);
+            else
+              tma_load(&head, ring + s * kK9Box, full + 8 * s,
+                       t * kK9Cols, k * kK9Depth);
+          }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int q4 = lane & 3;
+  int it = 0;
+  for (int g = 0; g < groups; ++g) {
+    const int r0 = g * p.rows;
+    const int nr = min(p.rows, B - r0);
+    k9_sync();                           // the last group's products retired
+    k9_stage<N>(p, r0, nr, rows);
+    k9_sync();
+    // the thread's rows 8 j + 2 q4 + e of the group, at index 2 j + e
+    unsigned long long key[kMine];
+    unsigned bad = 0u, live = 0u;
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
+      key[i] = 0ull;
+      const int r = 8 * (i / 2) + 2 * q4 + (i % 2);
+      if (r < nr) {
+        if (p.poison != nullptr && p.poison[r0 + r] != 0)
+          bad |= 1u << i;                // every logit NaN: no key
+        else
+          live |= 1u << i;
+      }
+    }
+    for (int t = t_begin; t < t_end; ++t) {
+      float acc[kAcc];
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+      for (int k = 0; k < nk; ++k, ++it) {
+        const int s = it % S;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        const uint32_t box = ring + s * kK9Box;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kK9Depth / 16; ++kk)
+          wgmma_ss_narrow<N, kKMajor ? 0 : 1, 0>(
+              acc, operand_desc<!kKMajor>(box, 0, kk),
+              gmma_desc(rows_u + k * N * 128 + kk * 32, 16, 1024));
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        if (k > 0 && tid == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (tid == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      // acc[4 j + 2 h + e]: column t * 64 + 16 w + lane / 4 + 8 h, row
+      // 8 j + 2 q4 + e
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = t * kK9Cols + 16 * w + lane / 4 + 8 * h;
+        if (n >= p.V) continue;
+        const unsigned int inv = 0xFFFFFFFFu - static_cast<unsigned int>(n);
+#pragma unroll
+        for (int i = 0; i < kMine; ++i) {
+          if (!((live >> i) & 1u)) continue;
+          const float v = pt::round_to<bf16>(acc[4 * (i / 2) + 2 * h + i % 2]);
+          if (!isfinite(v)) bad |= 1u << i;
+          if (!isnan(v)) {
+            const unsigned long long kv =
+                ((unsigned long long)ordered(v) << 32) | inv;
+            key[i] = kv > key[i] ? kv : key[i];
+          }
+        }
+      }
+    }
+    // the group's keys and flags: over the lanes of a quad position
+    // (lane / 4), then the warps
+#pragma unroll
+    for (int i = 0; i < kMine; ++i) {
+#pragma unroll
+      for (int off = 4; off <= 16; off <<= 1) {
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, key[i], off);
+        key[i] = o > key[i] ? o : key[i];
+      }
+    }
+#pragma unroll
+    for (int off = 4; off <= 16; off <<= 1)
+      bad |= __shfl_xor_sync(0xffffffffu, bad, off);
+    if (lane < 4) {
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        const int r = 8 * (i / 2) + 2 * q4 + (i % 2);
+        if (r >= nr) continue;
+        if (key[i] != 0ull) atomicMax(&best[r0 + r], key[i]);
+        if ((bad >> i) & 1u) flag[r0 + r] = 1;
+      }
+    }
+  }
+  k9_sync();
+  unsigned long long* keys = p.ws;
+  unsigned long long* flags = p.ws + B;
+  unsigned long long* counter = p.ws + 2 * B;
+  for (int r = tid; r < B; r += kK9Consumers) {
+    if (best[r] != 0ull) atomicMax(keys + r, best[r]);
+    if (flag[r]) atomicOr(flags + r, 1ull);
+  }
+  __threadfence();
+  k9_sync();
+  if (tid == 0)
+    last = atomicAdd(counter, 1ull) == (unsigned long long)gridDim.x - 1;
+  k9_sync();
+  if (!last) return;
+  __threadfence();
+  // the last block: every other block's atomics are done
+  for (int r = tid; r < B; r += kK9Consumers) {
+    const unsigned long long kv = atomicExch(keys + r, 0ull);
+    const unsigned long long f = atomicExch(flags + r, 0ull);
+    p.tok[r] = kv != 0ull ? static_cast<int>(
+                                0xFFFFFFFFu -
+                                static_cast<unsigned int>(kv & 0xFFFFFFFFull))
+                          : 0;
+    p.nonfin[r] = f != 0ull ? 1 : 0;
+  }
+  if (tid == 0) atomicExch(counter, 0ull);
+}
+
+// dynamic shared memory of logits_kernel_sm90: the rows (slabs of N x 128
+// bytes), the ring, and 1024 bytes to align them
+__host__ inline int k9_smem(int N, int dm, int stages) {
+  const int nk = (dm + kK9Depth - 1) / kK9Depth;
+  return nk * N * 128 + stages * static_cast<int>(kK9Box) + 1024;
+}
+
+template <int N, bool kKMajor>
+int launch_logits_tc_n(const CUtensorMap& map, const LogitsTc& p, int grid,
+                       cudaStream_t st) {
+  auto kern = logits_kernel_sm90<N, kKMajor>;
+  const int smem = k9_smem(N, p.dm, p.stages);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, kK9Threads, smem, st>>>(map, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kKMajor>
+int launch_logits_tc(const CUtensorMap& map, const LogitsTc& p, int N,
+                     int grid, cudaStream_t st) {
+  if (N == 8) return launch_logits_tc_n<8, kKMajor>(map, p, grid, st);
+  if (N == 16) return launch_logits_tc_n<16, kKMajor>(map, p, grid, st);
+  if (N == 32) return launch_logits_tc_n<32, kKMajor>(map, p, grid, st);
+  if (N == 64) return launch_logits_tc_n<64, kKMajor>(map, p, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // K8. w: the 12 slab pointers in _WEIGHT_ORDER (a null bias is absent).
@@ -1848,3 +2233,43 @@ extern "C" int pt_mega_logits(int dtype, const void* x, const void* ln_s,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// K9 on the tensor cores (bf16). The caller guarantees B <= 64, dm % 8 ==
+// 0 (and V % 8 == 0 for a row-major head), x and w 16-byte aligned, and
+// the plan of ops/decode_megakernel.py `logits_plan`: rows <= N, N in
+// {8, 16, 32, 64}, stages in 1..16, the shared memory within the card's,
+// grid <= the vocabulary's 64-column tiles. ws, poison, kmajor: as
+// pt_mega_logits.
+extern "C" int pt_mega_logits_sm90(const void* x, const void* ln_s,
+                                   const void* ln_b, const void* w,
+                                   const void* poison, void* ws, void* tok,
+                                   void* nonfin, int B, int dm, int V,
+                                   int kmajor, int rows, int N, int stages,
+                                   int grid, void* stream) {
+  if (rows < 1 || rows > N || B > kMaxRows || stages < 1 ||
+      stages > kK9MaxStages || dm % 8 != 0 || grid < 1 ||
+      grid > (V + kK9Cols - 1) / kK9Cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LogitsTc p;
+  p.x = static_cast<const bf16*>(x);
+  p.ln_s = static_cast<const float*>(ln_s);
+  p.ln_b = static_cast<const float*>(ln_b);
+  p.poison = static_cast<const int*>(poison);
+  p.ws = static_cast<unsigned long long*>(ws);
+  p.tok = static_cast<int*>(tok);
+  p.nonfin = static_cast<int*>(nonfin);
+  p.B = B;
+  p.dm = dm;
+  p.V = V;
+  p.rows = rows;
+  p.stages = stages;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  // the tied head (V, dm) along dm; a row-major (dm, V) head along V
+  const int rc = kmajor ? sm90::map_2d(&map, w, dm, V)
+                        : sm90::map_2d(&map, w, V, dm);
+  if (rc != 0) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return kmajor ? launch_logits_tc<true>(map, p, N, grid, st)
+                : launch_logits_tc<false>(map, p, N, grid, st);
+}

@@ -1,5 +1,5 @@
 // K2 / K2' — paged decode attention over a block table, for Hopper
-// (sm_90a), in two modes.
+// (sm_90a), in two modes: `paged_kernel`.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/pallas/paged_attention.py
 // `_kernel` (launched by `_paged_call`, the pl.pallas_call at :306) in
@@ -9,7 +9,7 @@
 //   lengths[b] cached tokens, read through page_table[b]; optionally
 //   returns the running max m and denominator l of its online softmax;
 // - fused (`paged_append_attend`): the same, plus the fresh K/V row of
-//   the current token folded in as one more column, and that row written
+//   the current token folded in as one more key, and that row written
 //   into pool page write_pids[b] at row lengths[b] % page, in place (the
 //   pools are the caller's tensors, as `input_output_aliases` makes them
 //   on the TPU).
@@ -17,46 +17,87 @@
 // Layouts: q (B, Hq, D); pools (P, Hkv, page, D); page_table
 // (B, max_pages) int32; lengths, write_pids (B,) int32; k_row/v_row
 // (B, Hkv, D); o (B, Hq, D); m/l (B, Hq) fp32. GQA query head h reads kv
-// head h / (Hq / Hkv).
-//
-// Design. One block of 128 threads per (b, kv head); the block holds the
-// group = Hq / Hkv query rows of that head. It walks ceil(lengths[b] /
-// 32) chunks of 32 keys (each chunk's rows gathered page by page through
-// the table into shared memory as fp32) and does nothing past the row's
-// length; that loop replaces the clamped scalar-prefetch index maps of
-// the TPU kernel, which re-presented the last page to skip its DMA. The
-// score pass gives each key four threads (a shuffle sums their partial
-// dots); the value pass gives each thread one of the D dims. Running
-// (m, l, acc) stay in fp32 with the same -1e30 floor on the max as the
-// TPU kernel.
-//
-// The fused write, and why it is race-free: each (b, kv head) block
-// writes exactly one row, pool[write_pids[b], h, lengths[b] % page, :],
-// after its own reads. No block reads the row it writes: a block reads
-// rows < lengths[b] and writes row lengths[b]. The write page is never a
-// shared prefix page, because the prefix cache copies a shared page
-// before a sequence may write into it (copy-on-write in
-// inference/prefix_cache.py and the engine's admission). Inactive slots
-// all write the one scratch page; several blocks may then write the same
-// row, which is harmless: nothing reads the scratch page.
+// head h / (Hq / Hkv). A row of length 0 gives o = 0, m = -inf, l = 0
+// (fused: the fresh row alone).
 //
 // Bound on the H100: bytes. A decode step does 4 FLOP per cached K/V
 // element it reads, far below the ridge (about 295 FLOP per byte), so
-// the floor is reading each row's valid K/V once (3.35 TB/s). The design
-// reads exactly the valid rows (never a padded table tail), each once,
-// with neighbouring threads on neighbouring elements of a row.
-#include "common.cuh"
+// the floor is reading each row's valid K/V once (3.35 TB/s): 1.6 MB,
+// 2 us for the serving case's 8 rows of up to 256 keys over 16 kv heads.
+// What the chip run says is left (an H100 80GB HBM3 at 700 W, PERF.md
+// §6): the serving case takes 8.3 us, 4x the bound, a block's chain of
+// latencies (the launch, a table read and a bulk-copy round trip per
+// ring fill, two cluster barriers around the merge), which no part of
+// the kernel measures apart; a cluster of 8 instead of 4 was slower
+// (11.6 us: more blocks than the SMs hold at once, a wider merge). The
+// suffix prefill's 64 query rows over one sequence (29 us) read that
+// sequence's tiles once per row, 86 MB through L2 for 1.4 MB of K/V:
+// rows of one table do not share a tile.
+//
+// Design.
+// - Page tiles by bulk copy. One kv head's rows of one page are a run of
+//   page x D contiguous elements, and page is a multiple of kTile = 16
+//   rows (the engines use multiples of 128), so a 16-row tile never
+//   straddles a page: it is one 1D bulk copy (cp.async.bulk ...
+//   mbarrier::complete_tx) of K and one of V, addressed through one
+//   table read per tile. Tiles land in a ring of `stages` mbarrier'd
+//   slots, and the block requests all the tiles its ring holds before it
+//   computes. Only tiles that hold valid rows are copied; rows past the
+//   length are masked, and their values zeroed (a reused page may hold an
+//   earlier sequence's rows, NaN included). Where D * sizeof(T) or a
+//   pointer breaks 16-byte alignment (a head dim of 36 in bf16), the
+//   same kernel stages each tile by threads: the wrapper picks that by
+//   layout before the launch.
+// - Split each (row, kv head) over a thread-block cluster. The grid is
+//   (S, Hkv, B) with cluster dims (S, 1, 1); S and the ring's depth come
+//   from static shapes, the table's width max_pages x page and the
+//   launch's B x Hkv (ops/paged_attention.py `cluster_size`: at most 8,
+//   64 table rows a block at least, 4 blocks an SM at most;
+//   `ring_stages`), so the host never reads lengths. Block s walks an
+//   equal share of its row's valid tiles; a block whose share is empty
+//   still joins the cluster's barriers. With one block per (row, kv
+//   head), the longest row's walk would set the launch's time on one SM.
+// - Compute from shared memory and merge through distributed shared
+//   memory with K10's pieces (csrc/decode_attn.cuh): 16 bytes of a row a
+//   lane, the score reduced across the row's lanes by shuffles, all G
+//   query rows of the kv head on each K/V row read, a fp32 online
+//   softmax per warp with the -1e30 floor on its max (p is not rounded
+//   before the value product, as the TPU kernel's is not); the warps
+//   merge in shared memory, the blocks through map_shared_rank. No
+//   workspace, no second launch.
+// - The fresh row inside (fused mode). The block that owns the row's
+//   last tile (block 0 when the row is empty) folds k_row / v_row in as
+//   one more key, read from k_row / v_row, and after its walk writes
+//   them into pool[write_pids[b], h, lengths[b] % page].
+//
+// Why the fused write is race-free. No block reads the row it writes
+// while the write can land: every block reads only tiles that hold rows
+// < lengths[b], and the one tile that may also hold row lengths[b] (the
+// last, when lengths[b] % 16 != 0) is the writer's own, whose copy has
+// completed before the writer stores (it waited on the tile's mbarrier,
+// or staged it behind a block barrier). The other blocks of the cluster
+// hold earlier tiles. The write page is never a shared prefix page,
+// because the prefix cache copies a shared page before a sequence may
+// write into it (copy-on-write in inference/prefix_cache.py and the
+// engine's admission), so no other row's cluster reads it. Inactive
+// slots all write the one scratch page; several clusters may then write
+// the same row, which is harmless: nothing reads the scratch page.
+#include <cstdint>
+
+#include "decode_attn.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCK = 32;                // keys per shared-memory chunk
-constexpr int kDMax = 128;             // largest head_dim (one dim/thread)
-constexpr int kGMax = 8;               // largest GQA group
-constexpr int kTPK = 4;                // threads per key in the score pass
-constexpr int kStride = kDMax + 4;     // padded K row: conflict-free dots
+using namespace dattn;
 
-template <typename T>
+constexpr int kMaxStages = 8;          // ring slots, at most
+
+// G: the group size the registers are sized for (1, 2, 4 or 8; see
+// dattn::Online). aligned: D * sizeof(T) is a multiple of 16 and every
+// pointer 16-byte aligned (bulk copies, 16-byte loads). Plain mode when
+// k_row is null.
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_kernel(const T* __restrict__ q, T* __restrict__ kp,
              T* __restrict__ vp, const int* __restrict__ table,
@@ -64,143 +105,162 @@ paged_kernel(const T* __restrict__ q, T* __restrict__ kp,
              const T* __restrict__ v_row, const int* __restrict__ write_pids,
              T* __restrict__ o, float* __restrict__ m_out,
              float* __restrict__ l_out, int Hq, int Hkv, int D, int page,
-             int max_pages, float scale) {
-  __shared__ float qs[kGMax][kDMax];
-  __shared__ float ks[kCK][kStride];
-  __shared__ float vs[kCK][kDMax];
-  __shared__ float ss[kGMax][kCK];
+             int max_pages, int stages, float scale, bool aligned) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int hk = blockIdx.y;
+  const int b = blockIdx.z;
   const int group = Hq / Hkv;
-  const int tid = threadIdx.x;
   const bool fused = k_row != nullptr;
   const int len = max(0, min(lengths[b], max_pages * page));
+  const int n_tiles = (len + kTile - 1) / kTile;
+  const int per = (n_tiles + S - 1) / S;
+  const int tile0 = min(n_tiles, rank * per);
+  const int mine = min(n_tiles, tile0 + per) - tile0;
+  // the fused mode's writer: the owner of the last tile, which alone may
+  // hold row lengths[b]
+  const int writer = n_tiles > 0 ? (n_tiles - 1) / per : 0;
+  const int tpp = page / kTile;          // tiles a page
+  const int* tab = table + (long)b * max_pages;
+  const int tile_elems = kTile * D;
+  T* ring = reinterpret_cast<T*>(smem);
 
-  for (int e = tid; e < group * kDMax; e += kThreads) {
-    const int g = e / kDMax;
-    const int d = e % kDMax;
-    qs[g][d] = d < D ? pt::to_float(q[((long)b * Hq + hk * group + g) * D + d])
-                     : 0.f;
+  if (aligned && threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s)
+      sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  // the first element of tile t of the row: one table read
+  auto tile_off = [&](int t) {
+    const long pid = tab[t / tpp];
+    return ((pid * Hkv + hk) * page + (long)(t % tpp) * kTile) * D;
+  };
+  // tile tile0 + j of the share into slot j % stages (one thread)
+  auto issue = [&](int j) {
+    const int s = j % stages;
+    const long off = tile_off(tile0 + j);
+    const uint32_t bytes = static_cast<uint32_t>(tile_elems * sizeof(T));
+    const uint32_t bar = sm90::smem_u32(&full[s]);
+    sm90::mbar_expect_tx(bar, 2 * bytes);
+    sm90::bulk_load(sm90::smem_u32(ring + 2 * s * tile_elems), kp + off,
+                    bytes, bar);
+    sm90::bulk_load(sm90::smem_u32(ring + (2 * s + 1) * tile_elems),
+                    vp + off, bytes, bar);
+  };
+  if (aligned && threadIdx.x == 0) {
+    for (int j = 0; j < min(mine, stages); ++j) issue(j);
   }
 
-  float m[kGMax], l[kGMax], acc[kGMax];
-#pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-    acc[g] = 0.f;
+  Online<T, G> st;
+  st.init(q + ((long)b * Hq + hk * group) * D, group, D, aligned);
+
+  for (int j = 0; j < mine; ++j) {
+    const int s = j % stages;
+    T* ks = ring + 2 * s * tile_elems;
+    T* vs = ks + tile_elems;
+    if (aligned) {
+      sm90::mbar_wait(sm90::smem_u32(&full[s]), (j / stages) & 1);
+    } else {
+      // staged by threads; the slot is free (the last tile ended in a
+      // barrier)
+      const long off = tile_off(tile0 + j);
+      for (int i = threadIdx.x; i < tile_elems; i += kThreads) {
+        ks[i] = kp[off + i];
+        vs[i] = vp[off + i];
+      }
+      __syncthreads();
+    }
+    // p as it is; the values of rows past the length zeroed
+    st.template tile<false, true>(ks, vs, (tile0 + j) * kTile, len, D,
+                                  aligned, scale);
+    __syncthreads();                     // every warp is done with slot s
+    if (aligned && threadIdx.x == 0 && j + stages < mine) issue(j + stages);
   }
 
-  const int key = tid / kTPK;            // score pass: key within chunk
-  const int part = tid % kTPK;
-  const long row_base = ((long)b * Hkv + hk) * D;   // k_row / v_row row
-  // the fused mode's fresh row is one extra chunk with a single column
-  const int n_chunks = (len + kCK - 1) / kCK + (fused ? 1 : 0);
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const bool fresh = fused && ci == n_chunks - 1;
-    const int key0 = ci * kCK;
-    __syncthreads();                     // previous chunk fully consumed
-    for (int e = tid; e < kCK * kDMax; e += kThreads) {
-      const int kr = e / kDMax;
-      const int d = e % kDMax;
-      float kv = 0.f, vv = 0.f;
-      if (d < D) {
-        if (fresh) {
-          if (kr == 0) {
-            kv = pt::to_float(k_row[row_base + d]);
-            vv = pt::to_float(v_row[row_base + d]);
-          }
-        } else if (key0 + kr < len) {
-          const int t = key0 + kr;
-          const long pid = table[(long)b * max_pages + t / page];
-          const long off = ((pid * Hkv + hk) * page + t % page) * D + d;
-          kv = pt::to_float(kp[off]);
-          vv = pt::to_float(vp[off]);
-        }
-      }
-      ks[kr][d] = kv;
-      vs[kr][d] = vv;
-    }
-    __syncthreads();
-
-    const bool valid = fresh ? key == 0 : key0 + key < len;
-#pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g < group) {
-        float dot = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < kDMax / kTPK; ++i) {
-          const int d = part + kTPK * i;
-          dot += qs[g][d] * ks[key][d];
-        }
-        // the four threads of a key are neighbouring lanes
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        if (part == 0) ss[g][key] = valid ? dot * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // value pass: thread tid owns dim tid; every thread recomputes the
-    // chunk's softmax terms from shared memory (cheap next to the loads)
-#pragma unroll
-    for (int g = 0; g < kGMax; ++g) {
-      if (g < group) {
-        float tmax = -INFINITY;
-#pragma unroll 8
-        for (int j = 0; j < kCK; ++j) tmax = fmaxf(tmax, ss[g][j]);
-        const float m_new = fmaxf(fmaxf(m[g], tmax), pt::kMaxFloor);
-        const float alpha = __expf(m[g] - m_new);
-        float psum = 0.f, a = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < kCK; ++j) {
-          const float p = __expf(ss[g][j] - m_new);
-          psum += p;
-          a += p * vs[j][tid];
-        }
-        l[g] = l[g] * alpha + psum;
-        acc[g] = acc[g] * alpha + a;
-        m[g] = m_new;
-      }
+  if (fused && rank == writer) {
+    // every copy of this block has landed: the fresh row, attended from
+    // k_row / v_row, goes into its page
+    const long src = ((long)b * Hkv + hk) * D;
+    st.template key<false>(k_row + src, v_row + src, D, aligned, scale);
+    const long dst =
+        (((long)write_pids[b] * Hkv + hk) * page + lengths[b] % page) * D;
+    for (int i = threadIdx.x; i < D; i += kThreads) {
+      kp[dst + i] = k_row[src + i];
+      vp[dst + i] = v_row[src + i];
     }
   }
+  st.finish(smem, part_offset(stages, G, D, sizeof(T)), cluster, group, D,
+            o, m_out, l_out, (long)b * Hq + hk * group);
+}
 
-#pragma unroll
-  for (int g = 0; g < kGMax; ++g) {
-    if (g < group) {
-      const long qi = (long)b * Hq + hk * group + g;
-      if (tid < D) {
-        o[qi * D + tid] = pt::from_float<T>(acc[g] / (l[g] == 0.f ? 1.f : l[g]));
-      }
-      if (m_out != nullptr && tid == 0) {
-        m_out[qi] = m[g];
-        l_out[qi] = l[g];
-      }
-    }
-  }
+template <typename T, int G>
+int launch_g(const T* q, T* kp, T* vp, const int* tab, const int* lens,
+             const T* k_row, const T* v_row, const int* wp, T* o,
+             float* m_out, float* l_out, int B, int Hq, int Hkv, int D,
+             int page, int max_pages, int stages, float scale, bool aligned,
+             int splits, cudaStream_t st) {
+  auto kern = paged_kernel<T, G>;
+  // above 48 KB only after the attribute: set it once for the deepest
+  // ring at the largest head dim
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(kMaxStages, G, kDMax, sizeof(T)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return launch_split(kern, splits, Hkv, B,
+                      smem_bytes(stages, G, D, sizeof(T)), st, q, kp, vp,
+                      tab, lens, k_row, v_row, wp, o, m_out, l_out, Hq, Hkv,
+                      D, page, max_pages, stages, scale, aligned);
+}
 
-  if (fused && tid < D) {
-    const long pid = write_pids[b];
-    const long off = ((pid * Hkv + hk) * page + lengths[b] % page) * D + tid;
-    kp[off] = k_row[row_base + tid];
-    vp[off] = v_row[row_base + tid];
-  }
+template <typename T>
+int launch(const void* q, void* kp, void* vp, const int* tab,
+           const int* lens, const void* k_row, const void* v_row,
+           const int* wp, void* o, float* m_out, float* l_out, int B,
+           int Hq, int Hkv, int D, int page, int max_pages, int stages,
+           float scale, bool aligned, int splits, cudaStream_t st) {
+  const int group = Hq / Hkv;
+  const T* qp = static_cast<const T*>(q);
+  T* kpp = static_cast<T*>(kp);
+  T* vpp = static_cast<T*>(vp);
+  const T* kr = static_cast<const T*>(k_row);
+  const T* vr = static_cast<const T*>(v_row);
+  T* op = static_cast<T*>(o);
+#define PT_PAGED_LAUNCH(G)                                                 \
+  return launch_g<T, G>(qp, kpp, vpp, tab, lens, kr, vr, wp, op, m_out,    \
+                        l_out, B, Hq, Hkv, D, page, max_pages, stages,     \
+                        scale, aligned, splits, st)
+  if (group <= 1) PT_PAGED_LAUNCH(1);
+  if (group <= 2) PT_PAGED_LAUNCH(2);
+  if (group <= 4) PT_PAGED_LAUNCH(4);
+  if (group <= 8) PT_PAGED_LAUNCH(8);
+#undef PT_PAGED_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain mode when k_row is null (then v_row and write_pids are unused);
-// stats when m_out is non-null (then l_out too). The caller guarantees
-// D <= 128, Hq % Hkv == 0, Hq / Hkv <= 8 and B, Hkv > 0.
+// stats when m_out is non-null (then l_out too). aligned: D * elt is a
+// multiple of 16 and every pointer 16-byte aligned. splits: the blocks of
+// a row's cluster, 1, 2, 4 or 8; stages: the ring's slots, 1..8. The
+// caller guarantees D <= 128, Hq % Hkv == 0, Hq / Hkv <= 8, page % 16 ==
+// 0 and B, Hkv > 0.
 extern "C" int pt_paged_attention(int dtype, const void* q, void* kp,
                                   void* vp, const void* table,
                                   const void* lengths, const void* k_row,
                                   const void* v_row, const void* write_pids,
                                   void* o, void* m_out, void* l_out, int B,
                                   int Hq, int Hkv, int D, int page,
-                                  int max_pages, float scale, void* stream) {
-  const dim3 grid(B, Hkv);
+                                  int max_pages, float scale, int aligned,
+                                  int splits, int stages, void* stream) {
+  if ((splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      stages < 1 || stages > kMaxStages || page % kTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
   const int* lens = static_cast<const int*>(lengths);
@@ -208,19 +268,14 @@ extern "C" int pt_paged_attention(int dtype, const void* q, void* kp,
   float* m_f = static_cast<float*>(m_out);
   float* l_f = static_cast<float*>(l_out);
   if (dtype == pt::kBFloat16) {
-    using T = __nv_bfloat16;
-    paged_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(q), static_cast<T*>(kp), static_cast<T*>(vp),
-        tab, lens, static_cast<const T*>(k_row), static_cast<const T*>(v_row),
-        wp, static_cast<T*>(o), m_f, l_f, Hq, Hkv, D, page, max_pages, scale);
-  } else if (dtype == pt::kFloat32) {
-    paged_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<float*>(kp),
-        static_cast<float*>(vp), tab, lens, static_cast<const float*>(k_row),
-        static_cast<const float*>(v_row), wp, static_cast<float*>(o), m_f,
-        l_f, Hq, Hkv, D, page, max_pages, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<__nv_bfloat16>(q, kp, vp, tab, lens, k_row, v_row, wp, o,
+                                 m_f, l_f, B, Hq, Hkv, D, page, max_pages,
+                                 stages, scale, aligned != 0, splits, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == pt::kFloat32) {
+    return launch<float>(q, kp, vp, tab, lens, k_row, v_row, wp, o, m_f,
+                         l_f, B, Hq, Hkv, D, page, max_pages, stages, scale,
+                         aligned != 0, splits, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

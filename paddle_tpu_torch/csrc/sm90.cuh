@@ -5,8 +5,10 @@
 // rebalancing, and the host's tensor-map encoder. Used by ce_gemm.cuh
 // (the fused CE's mainloop: K5, and the backward's dl pass, K6 and K7),
 // the flash attention sources (K1, K3, K4), the flash-decode kernel
-// (K10: mbarriers and bulk copies), the int8 matmul's prefill tiles (K12)
-// and the decode megakernel's weight stream (K8: 3D TMA, m64n8k16).
+// (K10, and K2 / K2' through decode_attn.cuh: mbarriers and bulk copies),
+// the int8 matmul's prefill tiles (K12), the decode megakernel's weight
+// stream (K8: 3D TMA, m64n8k16) and the LM-head epilogue's head stream
+// (K9: 2D TMA, m64n{8,16,32,64}k16).
 //
 // Conventions (from the PTX ISA's wgmma and cp.async.bulk.tensor
 // sections): a TMA box whose innermost extent is 64 bf16 (128 bytes),
@@ -263,6 +265,36 @@ __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
       : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
 }
 
+// d (64 x 16 and 64 x 32, fp32) += A (64 x 16) . B (16 x N), bf16, both
+// operands from shared memory, in the layout of wgmma_ss_n8 (d[4 j ..
+// 4 j + 3]: columns 8 j .. 8 j + 7)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
 // d (64 x N, fp32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x N), bf16,
 // both operands from shared memory (SS); kTA / kTB: A / B MN-major
 template <int kTA, int kTB>
@@ -379,6 +411,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_ss_n128<kTA, kTB>(d, da, db, scale_d);
 }
 
+// d (64 x N, fp32) += A . B for N 8, 16, 32 or 64 (the narrow products
+// of a swapped GEMM, whose N is a few rows)
+template <int N, int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_narrow(float (&d)[N / 2],
+                                                uint64_t da, uint64_t db) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                "wgmma_ss_narrow: N is 8, 16, 32 or 64");
+  if constexpr (N == 8)
+    wgmma_ss_n8<kTA, kTB>(d, da, db);
+  else if constexpr (N == 16)
+    wgmma_ss_n16<kTA, kTB>(d, da, db);
+  else if constexpr (N == 32)
+    wgmma_ss_n32<kTA, kTB>(d, da, db);
+  else
+    wgmma_ss_n64<kTA, kTB>(d, da, db, 1);
+}
+
 template <int N, int kTB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
@@ -440,6 +489,27 @@ inline int bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
       enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
           dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the 2D map of a contiguous bf16 (outer, inner) matrix, read in boxes
+// of 64 x 64 with the 128-byte swizzle: the box at (c0 innermost, c1)
+// lands as 64 rows of 128 bytes; entries past either extent read as
+// zeros (inner * 2 must be a multiple of 16)
+inline int map_2d(CUtensorMap* map, const void* base, int inner,
+                  int outer) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r =
+      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+          dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,11 +4,13 @@ The port runs on the GPU. A caller that wants the CPU (the parity
 tests) says so with ``device="cpu"``; a caller that says nothing on a
 machine without CUDA gets an error, never a quiet CPU run."""
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "sm_count"]
+
+_SMS: Dict[int, int] = {}
 
 
 def resolve(device: Optional[Union[str, torch.device]] = None
@@ -26,3 +28,14 @@ def resolve(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """The CUDA device's SM count, cached (a property query on every
+    launch would cost host time on the decode path)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]

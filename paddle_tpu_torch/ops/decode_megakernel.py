@@ -18,13 +18,18 @@ and why each phase is race-free.
   of the logits rounded to x's dtype and a non-finite flag per row over
   the vocabulary; ``poison`` forces a row non-finite. A flagged row's
   token is unspecified. The (B, V) logits never reach device memory.
+  ``logits_route`` picks its kernel before the launch: bf16 heads with
+  16-byte rows stream the head by TMA into wgmma
+  (``logits_kernel_sm90``, its geometry from ``logits_plan``), the
+  rest run on the CUDA cores (``logits_kernel``).
 
 CUDA tensors launch the kernels; CPU tensors run the plain versions,
 which are the port's own block functions (``GPTBlock._qkv`` and
 ``_block_tail``, ``final_ln``) composed as the JAX kernel composes them.
 The TPU kernel's vocab-tile autotune (``tune_mega_epilogue``,
 ``_resolve_vb``) and its VMEM geometry cases have no counterpart: the
-kernels fix their tile widths in C and size the grid from the device.
+kernels fix their tile widths in C and size the grid from the device
+(K9's row group and head ring from shared memory, ``logits_plan``).
 """
 
 import ctypes
@@ -33,6 +38,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from paddle_tpu_torch.device import sm_count
 from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig, final_ln
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.paged_attention import (
@@ -43,7 +49,8 @@ __all__ = ["mega_decode_layers", "mega_decode_layers_reference",
            "epilogue_logits",
            "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL",
            "mega_decode_layers_cost", "mega_logits_sample_cost",
-           "PHASES", "phase_times"]
+           "PHASES", "phase_times", "logits_route", "logits_plan",
+           "logits_tile_range"]
 
 # stacked-weight order of the kernel ABI (the JAX package's
 # decode_megakernel.py:77-79); a bias-free stack has no bias entries
@@ -59,6 +66,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest LayerNorm'd row the kernels hold whole in shared memory
 # (csrc/decode_megakernel.cu a_cap: 128 KB over 8 rows)
 MAX_D_MODEL = {torch.float32: 4096, torch.bfloat16: 8192}
+
+# K9 on the tensor cores (csrc/decode_megakernel.cu logits_kernel_sm90):
+# the wgmma widths a row group may take, the vocabulary columns of a tile,
+# a head box's bytes (64 x 64 bf16), the ring's depth, and the dynamic
+# shared memory a block may take (the card's 232,448 bytes less the
+# kernel's static arrays and a margin)
+_K9_WIDTHS = (8, 16, 32, 64)
+_K9_COLS = 64
+_K9_BOX = 64 * 64 * 2
+_K9_MIN_STAGES = 8
+_K9_MAX_STAGES = 16
+_K9_SMEM = 232448 - 2048
 
 # device scratch of the kernels, one set per (device, stream, geometry):
 # K8's q|k|v, o and MLP rows and its workspace (the grid barrier's word,
@@ -122,6 +141,49 @@ def mega_logits_sample_cost(rows, d_model, vocab, elt=2):
     nbytes = (vocab * d_model * elt + rows * d_model * elt
               + 2 * d_model * 4 + 3 * rows * 4)
     return 2 * rows * d_model * vocab, nbytes
+
+def logits_route(dtype, d_model, vocab, kmajor, aligned):
+    """K9's kernel for a head: ``"tensor_cores"`` (``logits_kernel_sm90``:
+    the head streamed by TMA into wgmma) for bf16 with rows a multiple of
+    16 bytes (d_model % 8 == 0, and vocab % 8 == 0 for a row-major
+    (d_model, vocab) head) and every pointer 16-byte ``aligned``; else
+    ``"cuda_cores"`` (``logits_kernel``)."""
+    if (dtype == torch.bfloat16 and aligned and d_model % 8 == 0
+            and (kmajor or vocab % 8 == 0)):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def logits_plan(rows, d_model, vocab, sms):
+    """The tensor-core K9's geometry for ``rows`` rows: ``(group, n,
+    stages, grid)``. A group of rows is LayerNormed once into shared
+    memory as the wgmma B operand, beside a ring of head boxes: the
+    group holds as many rows as fit beside a ring of 8 boxes, at most
+    64 (d_model 2048: 32), ``n`` is the narrowest wgmma width (8, 16, 32
+    or 64) that holds the group, and the ring takes the rest of the
+    shared memory, at most 16 boxes. ``grid``: one block per SM, at most
+    one per 64-column vocabulary tile. The head is read once per group:
+    ceil(rows / group) times."""
+    slab = -(-d_model // 64) * 128          # bytes of one row's depth
+    cap = max((n for n in _K9_WIDTHS
+               if n * slab + _K9_MIN_STAGES * _K9_BOX + 1024 <= _K9_SMEM),
+              default=0)
+    if cap == 0:
+        raise ValueError(f"d_model {d_model} leaves no room for 8 rows "
+                         f"beside the head ring")
+    group = min(rows, cap)
+    n = min(w for w in _K9_WIDTHS if w >= group)
+    stages = min(_K9_MAX_STAGES, (_K9_SMEM - 1024 - n * slab) // _K9_BOX)
+    tiles = -(-vocab // _K9_COLS)
+    return group, n, stages, max(1, min(sms, tiles))
+
+
+def logits_tile_range(block, vocab, grid):
+    """The 64-column vocabulary tiles ``[begin, end)`` that block
+    ``block`` of a ``grid``-block tensor-core K9 takes."""
+    tiles = -(-vocab // _K9_COLS)
+    return block * tiles // grid, (block + 1) * tiles // grid
+
 
 def _geometry(x, weights, k_pages, page_table, n_pages, n_heads, kv_heads,
               head_dim):
@@ -217,6 +279,9 @@ def _lib():
         lg = lib.pt_mega_logits
         lg.argtypes = [i] + [vp] * 8 + [i] * 5 + [vp]
         lg.restype = ctypes.c_int
+        tc = lib.pt_mega_logits_sm90
+        tc.argtypes = [vp] * 8 + [i] * 8 + [vp]
+        tc.restype = ctypes.c_int
     return lib
 
 
@@ -418,17 +483,28 @@ def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
     (ws,) = _scratch(("logits", x.device, stream.cuda_stream, b),
                      lambda: (torch.zeros((2 * b + 1,), dtype=torch.int64,
                                           device=x.device),))
-    elt = 16 // x.element_size()
-    vec = int((dm if kmajor else V) % elt == 0 and _aligned(x, w))
+    aligned = _aligned(x, w, lnf_scale, lnf_bias)
+    route = logits_route(x.dtype, dm, V, kmajor, aligned)
     lib = _lib()
     mega_logits_sample.launches += 1
+    poison_ptr = None if poison is None else poison.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.pt_mega_logits(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), lnf_scale.data_ptr(),
-            lnf_bias.data_ptr(), w.data_ptr(),
-            None if poison is None else poison.data_ptr(), ws.data_ptr(),
-            tok.data_ptr(), nonfin.data_ptr(), b, dm, V, int(kmajor), vec,
-            stream.cuda_stream)
+        if route == "tensor_cores":
+            group, n, stages, grid = logits_plan(
+                b, dm, V, sm_count(x.device))
+            rc = lib.pt_mega_logits_sm90(
+                x.data_ptr(), lnf_scale.data_ptr(), lnf_bias.data_ptr(),
+                w.data_ptr(), poison_ptr, ws.data_ptr(), tok.data_ptr(),
+                nonfin.data_ptr(), b, dm, V, int(kmajor), group, n, stages,
+                grid, stream.cuda_stream)
+        else:
+            elt = 16 // x.element_size()
+            vec = int((dm if kmajor else V) % elt == 0 and _aligned(x, w))
+            rc = lib.pt_mega_logits(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), lnf_scale.data_ptr(),
+                lnf_bias.data_ptr(), w.data_ptr(), poison_ptr,
+                ws.data_ptr(), tok.data_ptr(), nonfin.data_ptr(), b, dm, V,
+                int(kmajor), vec, stream.cuda_stream)
     _build.check(lib, rc, "mega_logits_sample launch")
     return tok, nonfin
 

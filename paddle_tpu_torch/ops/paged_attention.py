@@ -2,11 +2,13 @@
 PyTorch versions, and the page allocator.
 
 Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``: the CUDA
-kernel in ``csrc/paged_attention.cu`` replaces the TPU kernel ``_kernel``
-(launched by ``_paged_call``, the ``pl.pallas_call`` at
-paged_attention.py:306) in both of its modes. Its source note says what
-bounds it on the H100, what the design does about that, and why the
-fused in-place write is race-free.
+kernel ``paged_kernel`` in ``csrc/paged_attention.cu`` replaces the TPU
+kernel ``_kernel`` (launched by ``_paged_call``, the ``pl.pallas_call``
+at paged_attention.py:306) in both of its modes. Its source note says
+what bounds it on the H100, what the design does about that (16-row page
+tiles by bulk copy into a ring, each (row, kv head) split over a
+cluster, the merge through distributed shared memory), and why the fused
+in-place write is race-free under a cluster.
 
 - ``paged_decode_attention`` (K2'): read-only pools, optional (m, l)
   online-softmax stats.
@@ -17,7 +19,9 @@ fused in-place write is race-free.
 
 CUDA tensors launch the kernel; CPU tensors run the plain version. The
 TPU kernel's (pages_per_program, head_block) autotune geometry has no
-counterpart here.
+counterpart: the launch geometry comes from static shapes alone (the
+table's width, the (row, kv head) pairs; ``cluster_size``,
+``ring_stages``), so the host never reads lengths.
 """
 
 import ctypes
@@ -26,16 +30,46 @@ from typing import List
 
 import torch
 
+from paddle_tpu_torch.device import sm_count
 from paddle_tpu_torch.ops import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "paged_append_attend", "paged_append_attend_reference",
-           "PageAllocator", "MAX_GROUP", "MAX_HEAD_DIM", "paged_decode_attention_cost", "paged_append_attend_cost"]
+           "PageAllocator", "MAX_GROUP", "MAX_HEAD_DIM", "cluster_size",
+           "ring_stages", "paged_decode_attention_cost",
+           "paged_append_attend_cost"]
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
+MAX_SPLITS = 8
+MAX_STAGES = 4
+TILE_ROWS = 16                 # pool rows a bulk-copied tile holds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_FLOOR = -1e30
+
+
+def cluster_size(max_pages, page, pairs, sms):
+    """Blocks of the cluster that walks one (row, kv head), from static
+    shapes only: the table's width T = max_pages * page and the launch's
+    (row, kv head) ``pairs`` on a card of ``sms`` SMs. The largest power
+    of two, at most 8, that leaves each block at least 64 of the table's
+    rows (4 tiles) and keeps the grid within 4 blocks an SM: K2's 8 rows
+    x 16 kv heads take 4 (T 256 or 2048), the suffix prefill's 64 x 16
+    take 1. A longer share per block costs less than a second wave or a
+    wider merge (PERF.md §6, the K2 geometry sweep)."""
+    t = max_pages * page
+    s = 1
+    while (s < MAX_SPLITS and 2 * s * 64 <= t
+           and 2 * s * pairs <= 4 * sms):
+        s *= 2
+    return s
+
+
+def ring_stages(max_pages, page, splits):
+    """Ring slots of a block: the tiles of the longest share a block can
+    get, ceil(T / (16 * splits)), at most MAX_STAGES (4), at least 1."""
+    t = max_pages * page
+    return max(1, min(MAX_STAGES, -(-t // (TILE_ROWS * splits))))
 
 
 def paged_decode_attention_cost(lengths, n_heads, kv_heads, head_dim,
@@ -135,7 +169,7 @@ def _lib():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                       i, i, i, i, i, i, ctypes.c_float, vp]
+                       i, i, i, i, i, i, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -176,6 +210,10 @@ def _check_operands(q, k_pages, v_pages, page_table, lengths, k_row=None,
         raise ValueError(f"paged attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM} and Hq/Hkv <= {MAX_GROUP}, got "
                          f"{d} and {hq // hkv}")
+    if k_pages.shape[2] % TILE_ROWS:
+        raise ValueError(f"paged attention kernel takes a page of a "
+                         f"multiple of {TILE_ROWS} rows, got "
+                         f"{k_pages.shape[2]}")
     floats = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
     ints = [("page_table", page_table), ("lengths", lengths)]
     if fused:
@@ -203,6 +241,13 @@ def _launch(q, k_pages, v_pages, page_table, lengths, scale, stats,
     lib = _lib()
     wrapper = paged_decode_attention if k_row is None else \
         paged_append_attend
+    max_pages = page_table.shape[1]
+    splits = cluster_size(max_pages, page, b * hkv, sm_count(q.device))
+    stages = ring_stages(max_pages, page, splits)
+    ptrs = [t for t in (q, k_pages, v_pages, k_row, v_row, o)
+            if t is not None]
+    aligned = int(d * q.element_size() % 16 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in ptrs))
     wrapper.launches += 1
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
@@ -211,8 +256,8 @@ def _launch(q, k_pages, v_pages, page_table, lengths, scale, stats,
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
             ptr(k_row), ptr(v_row), ptr(write_pids), o.data_ptr(), ptr(m),
-            ptr(l), b, hq, hkv, d, page, page_table.shape[1], float(scale),
-            stream)
+            ptr(l), b, hq, hkv, d, page, max_pages, float(scale), aligned,
+            splits, stages, stream)
     _build.check(lib, rc, "paged_attention launch")
     return o, m, l
 

@@ -18,8 +18,8 @@ from jax.experimental.pallas import tpu as pltpu
 from paddle_tpu.ops.pallas import decode_megakernel as jax_mega
 from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
 from paddle_tpu_torch.ops.decode_megakernel import (
-    _WEIGHT_ORDER, mega_decode_layers, mega_decode_layers_reference,
-    mega_logits_sample)
+    _WEIGHT_ORDER, logits_plan, logits_route, logits_tile_range,
+    mega_decode_layers, mega_decode_layers_reference, mega_logits_sample)
 from paddle_tpu_torch.ops.paged_attention import paged_append_attend
 
 # fp32 everywhere: the two packages sum the same products in another
@@ -232,6 +232,53 @@ def test_plain_k9_matches_jax_epilogue():
     # without poison the poisoned row is finite again
     _, nf2 = mega_logits_sample(t(x), t(s), t(b), t(w))
     assert nf2.tolist() == [0, 0, 0, 1, 0, 0]
+
+
+@pytest.mark.parametrize("dtype, dm, vocab, kmajor, aligned, route", [
+    (torch.bfloat16, 2048, 50304, True, True, "tensor_cores"),
+    (torch.bfloat16, 2048, 50304, False, True, "tensor_cores"),
+    (torch.bfloat16, 2048, 50301, True, True, "tensor_cores"),
+    (torch.bfloat16, 2048, 50301, False, True, "cuda_cores"),
+    (torch.bfloat16, 36, 4096, True, True, "cuda_cores"),
+    (torch.bfloat16, 2048, 50304, True, False, "cuda_cores"),
+    (torch.float32, 2048, 50304, True, True, "cuda_cores")])
+def test_k9_route_by_dtype_and_layout(dtype, dm, vocab, kmajor, aligned,
+                                      route):
+    """K9's kernel is chosen before the launch: bf16 heads whose rows are
+    whole 16-byte pieces take the TMA + wgmma kernel, the rest the
+    CUDA-core one."""
+    assert logits_route(dtype, dm, vocab, kmajor, aligned) == route
+
+
+@pytest.mark.parametrize("rows, dm, plan", [
+    (1, 2048, (1, 8, 16)), (8, 2048, (8, 8, 16)), (13, 2048, (13, 16, 16)),
+    (32, 2048, (32, 32, 12)), (64, 2048, (32, 32, 12)),
+    (64, 1024, (64, 64, 12)), (64, 8192, (8, 8, 12))])
+def test_k9_row_groups_fill_shared_memory(rows, dm, plan):
+    """A row group holds as many rows as fit beside a ring of 8 head
+    boxes (d_model 2048: 32 rows, 128 KB), at the narrowest wgmma width
+    that holds it; the ring takes the rest, at most 16 boxes; one block
+    per SM at gpt3_1p3b's vocabulary."""
+    group, n, stages, grid = logits_plan(rows, dm, 50304, 132)
+    assert (group, n, stages, grid) == plan + (132,)
+    assert -(-rows // group) == (2 if (rows, dm) == (64, 2048) else
+                                 8 if dm == 8192 else 1)
+    assert logits_plan(rows, dm, 100, 132)[3] == 2
+    with pytest.raises(ValueError, match="no room"):
+        logits_plan(rows, 16384, 50304, 132)
+
+
+@pytest.mark.parametrize("vocab, grid", [(50304, 132), (4096, 64),
+                                         (100, 2), (50304, 1)])
+def test_k9_tile_ranges_cover_the_vocabulary_once(vocab, grid):
+    """The blocks' contiguous ranges of 64-column tiles partition the
+    vocabulary, each within one tile of the others' length."""
+    ranges = [logits_tile_range(i, vocab, grid) for i in range(grid)]
+    tiles = -(-vocab // 64)
+    assert ranges[0][0] == 0 and ranges[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = {e - s for s, e in ranges}
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
 
 
 def test_wrappers_check_shapes():

@@ -31,13 +31,15 @@ from paddle_tpu_torch.ops import fused_ce as ce
 from paddle_tpu_torch.ops.fused_ce import (
     fused_ce_bwd, fused_ce_bwd_reference, fused_ce_fwd, fused_ce_reference,
     fused_softmax_cross_entropy, plan_chunks)
+from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops.decode_attention import (
-    cluster_size, decode_attention, decode_attention_reference)
+    decode_attention, decode_attention_reference)
 from paddle_tpu_torch.ops.decode_megakernel import (
-    epilogue_logits, mega_decode_layers, mega_decode_layers_reference,
-    mega_logits_sample, mega_logits_sample_reference)
+    epilogue_logits, logits_plan, logits_route, logits_tile_range,
+    mega_decode_layers, mega_decode_layers_reference, mega_logits_sample,
+    mega_logits_sample_reference)
 from paddle_tpu_torch.ops.paged_attention import (
-    paged_append_attend, paged_append_attend_reference,
+    cluster_size, paged_append_attend, paged_append_attend_reference,
     paged_decode_attention, paged_decode_attention_reference)
 from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                int8_matmul_reference,
@@ -154,6 +156,183 @@ def test_paged_fused_kernel_matches_plain_and_writes_one_row(dev, dtype,
     want = sorted([int(wp[i]), h, int(lens[i]) % 128]
                   for i in range(b) for h in range(hkv))
     assert sorted(changed) == want
+
+
+# the per-layer engine's geometry (B 8, 16 heads of 128, a table of 16
+# pages of 128: a cluster of 8 blocks), a page of 256, and rows so short
+# that most of a cluster's blocks see no key
+PAGED_CASES = {
+    "engine": (128, 16, [0, 1, 15, 16, 17, 127, 128, 2047]),
+    "page256": (256, 8, [0, 3, 64, 255, 256, 257, 1000, 2047]),
+    "blocks_without_keys": (128, 16, [1, 16, 17, 33, 0, 2, 31, 200]),
+}
+
+
+def _paged_geometry(gen, dev, dtype, case, hkv, hq=16, d=128):
+    page, mx, lengths = PAGED_CASES[case]
+    q, kp, vp, table, lens = _paged(gen, dev, dtype, hq, hkv, lengths, d,
+                                    page, mx)
+    # 16 kv heads: a cluster of 4; 4 kv heads (GQA 4): of 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert cluster_size(mx, page, len(lengths) * hkv, sms) == \
+        (4 if hkv == 16 else 8)
+    return q, kp, vp, table, lens, page
+
+
+def _row_rel_l2(o, ro, lens):
+    # per (row, head), over the rows that see a key (an empty row: 0)
+    err = chip_smoke.rel_l2(o, ro, (2,))
+    return err[lens > 0].max().item(), o[lens == 0].abs().max().item() \
+        if bool((lens == 0).any()) else 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("hkv", [16, 4])
+def test_paged_plain_kernel_at_engine_geometry(dev, dtype, case, hkv):
+    """K2' over a cluster of blocks, each a share of the row's tiles."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q, kp, vp, table, lens, _ = _paged_geometry(gen, dev, dtype, case,
+                                                hkv)
+    o, m, l = paged_decode_attention(q, kp, vp, table, lens,
+                                     return_stats=True)
+    torch.cuda.synchronize()
+    ro, rm, rl = paged_decode_attention_reference(q.float(), kp, vp, table,
+                                                  lens, return_stats=True)
+    worst, empty = _row_rel_l2(o, ro, lens)
+    assert worst <= chip_smoke.REL_L2_TOL and empty == 0.0
+    assert torch.equal(torch.isinf(m), torch.isinf(rm))
+    fin = torch.isfinite(rm)
+    torch.testing.assert_close(m[fin], rm[fin], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("hkv", [16, 4])
+def test_paged_fused_kernel_at_engine_geometry(dev, dtype, case, hkv):
+    """K2 over a cluster: the fresh row folded in by one block and
+    written into its page, every other pool row untouched."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    q, kp, vp, table, lens, page = _paged_geometry(gen, dev, dtype, case,
+                                                   hkv)
+    b, hkv, d = q.shape[0], kp.shape[1], q.shape[-1]
+    k_row = _randn(gen, (b, hkv, d), dtype, dev)
+    v_row = _randn(gen, (b, hkv, d), dtype, dev)
+    wp = table.gather(1, (lens // page).long()[:, None])[:, 0].contiguous()
+    kp1, vp1, kp2, vp2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    o, _, _ = paged_append_attend(q, kp1, vp1, k_row, v_row, table, wp,
+                                  lens)
+    torch.cuda.synchronize()
+    ro, _, _ = paged_append_attend_reference(q.float(), kp2, vp2, k_row,
+                                             v_row, table, wp, lens)
+    assert chip_smoke.rel_l2(o, ro, (2,)).max().item() <= \
+        chip_smoke.REL_L2_TOL
+    assert torch.equal(kp1, kp2) and torch.equal(vp1, vp2)
+    changed = ((kp1 != kp).any(-1) | (vp1 != vp).any(-1)).nonzero().tolist()
+    want = sorted([int(wp[i]), h, int(lens[i]) % page]
+                  for i in range(b) for h in range(hkv))
+    assert sorted(changed) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_fused_kernel_inactive_slots_write_the_scratch_page(dev,
+                                                                  dtype):
+    """Every slot inactive: all write the one scratch page (the pool's
+    last), several the same rows; nothing else moves, and each element
+    of a written row is that element of one of the rows aimed at it (the
+    writes of several slots may interleave)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    q, kp, vp, table, lens, page = _paged_geometry(gen, dev, dtype,
+                                                   "engine", 16)
+    b, hkv, d = q.shape[0], kp.shape[1], q.shape[-1]
+    scratch = kp.shape[0] - 1
+    k_row = _randn(gen, (b, hkv, d), dtype, dev)
+    v_row = _randn(gen, (b, hkv, d), dtype, dev)
+    wp = torch.full((b,), scratch, dtype=torch.int32, device=dev)
+    kp1, vp1 = kp.clone(), vp.clone()
+    o, _, _ = paged_append_attend(q, kp1, vp1, k_row, v_row, table, wp,
+                                  lens)
+    torch.cuda.synchronize()
+    ro, _, _ = paged_append_attend_reference(q.float(), kp.clone(),
+                                             vp.clone(), k_row, v_row,
+                                             table, wp, lens)
+    assert chip_smoke.rel_l2(o, ro, (2,)).max().item() <= \
+        chip_smoke.REL_L2_TOL
+    assert torch.equal(kp1[:scratch], kp[:scratch])
+    assert torch.equal(vp1[:scratch], vp[:scratch])
+    offs = (lens % page).long()
+    for pool, old, rows in ((kp1, kp, k_row), (vp1, vp, v_row)):
+        got = pool[scratch]                       # (Hkv, page, D)
+        # (B, Hkv, D): slot i's row where it aims at that offset
+        hit = torch.zeros_like(got, dtype=torch.bool)
+        for i in range(b):
+            hit[:, offs[i]] |= got[:, offs[i]] == rows[i]
+        aimed = torch.zeros((page,), dtype=torch.bool, device=dev)
+        aimed[offs] = True
+        assert bool(hit[:, aimed].all())
+        assert torch.equal(got[:, ~aimed], old[scratch][:, ~aimed])
+
+
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 36),
+                                      (torch.float32, 33)])
+def test_paged_kernels_stage_unaligned_rows_by_threads(dev, dtype, d):
+    """Rows of D * elt bytes that are not whole 16-byte pieces (72 and
+    132 bytes) take the same kernel's threads-staged tiles: K2' and K2
+    against their plain versions, the fresh rows written bit for bit."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    lengths = [0, 1, 15, 16, 17, 127, 128, 2047]
+    q, kp, vp, table, lens = _paged(gen, dev, dtype, 8, 2, lengths, d,
+                                    128, 16)
+    o, m, l = paged_decode_attention(q, kp, vp, table, lens,
+                                     return_stats=True)
+    torch.cuda.synchronize()
+    ro, rm, rl = paged_decode_attention_reference(q.float(), kp, vp, table,
+                                                  lens, return_stats=True)
+    worst, empty = _row_rel_l2(o, ro, lens)
+    assert worst <= chip_smoke.REL_L2_TOL and empty == 0.0
+    fin = torch.isfinite(rm)
+    torch.testing.assert_close(m[fin], rm[fin], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
+    k_row = _randn(gen, (len(lengths), 2, d), dtype, dev)
+    v_row = _randn(gen, (len(lengths), 2, d), dtype, dev)
+    wp = table.gather(1, (lens // 128).long()[:, None])[:, 0].contiguous()
+    kp1, vp1, kp2, vp2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    o, _, _ = paged_append_attend(q, kp1, vp1, k_row, v_row, table, wp,
+                                  lens)
+    torch.cuda.synchronize()
+    ro, _, _ = paged_append_attend_reference(q.float(), kp2, vp2, k_row,
+                                             v_row, table, wp, lens)
+    assert chip_smoke.rel_l2(o, ro, (2,)).max().item() <= \
+        chip_smoke.REL_L2_TOL
+    assert torch.equal(kp1, kp2) and torch.equal(vp1, vp2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp, n", [(128, 168), (1000, 1064)])
+def test_paged_plain_kernel_rows_sharing_one_table(dev, dtype, sp, n):
+    """The suffix prefill's call: 64 query rows over one sequence, row t
+    seeing min(sp + 1 + t, n) tokens, at the engine's table of 16
+    pages."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    lengths = [min(sp + 1 + t, n) for t in range(64)]
+    q, kp, vp, table, lens = _paged(gen, dev, dtype, 16, 16, lengths, 128,
+                                    128, 16)
+    table = table[:1].expand(64, -1).contiguous()
+    o, m, l = paged_decode_attention(q, kp, vp, table, lens,
+                                     return_stats=True)
+    torch.cuda.synchronize()
+    ro, rm, rl = paged_decode_attention_reference(q.float(), kp, vp, table,
+                                                  lens, return_stats=True)
+    assert chip_smoke.rel_l2(o, ro, (2,)).max().item() <= \
+        chip_smoke.REL_L2_TOL
+    torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, rl, atol=1e-4, rtol=1e-4)
 
 
 def test_engine_on_gpu_matches_engine_on_cpu(dev):
@@ -453,9 +632,9 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, T,
 
 def _split_edges(T):
     """Lengths at, just below and just past the edges of the blocks'
-    shares of a cache of T (each of ``cluster_size(T)`` blocks walks
+    shares of a cache of T (each of ``da.cluster_size(T)`` blocks walks
     16-row tiles): 16 S k for k = 1, 2 and T / (16 S), and 0, 1."""
-    s = cluster_size(T)
+    s = da.cluster_size(T)
     edges = sorted({16 * s, 32 * s, T})
     got = {0, 1}
     for e in edges:
@@ -495,7 +674,7 @@ def test_decode_attention_kernel_writes_the_fresh_row(dev, dtype, hq, hkv,
     row T - 1 written), an empty row (writes nothing), and rows at the
     shares' edges. Every cache entry equals the plain version's bit for
     bit; o, m, l as ``_k10_check``."""
-    lengths = [1, 300 % T, T, 0, 129, T - 1, 17, 16 * cluster_size(T)]
+    lengths = [1, 300 % T, T, 0, 129, T - 1, 17, 16 * da.cluster_size(T)]
     write = [True, False, True, True, True, True, True, True]
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     wr = torch.tensor(write, device=dev)
@@ -785,6 +964,56 @@ def test_mega_logits_kernel_matches_plain(dev, dtype, dm, V, tied):
     ref_tok2, ref_nf2 = mega_logits_sample_reference(x, s, b, head)
     torch.cuda.synchronize()
     assert torch.equal(nf2, ref_nf2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tied", [True, False])
+@pytest.mark.parametrize("rows", [1, 8, 13, 32, 64])
+def test_mega_logits_kernel_rows_and_ties_across_blocks(dev, dtype, tied,
+                                                        rows):
+    """K9 at 1 to 64 rows: bf16 on the gpt3_1p3b head (the tensor-core
+    route; 64 rows are two row groups), fp32 on a narrow one (the CUDA
+    cores). Row 0's planted tie straddles two blocks' vocabulary ranges:
+    the lower column must win. A second call on other rows shows the
+    merge words were left zeroed."""
+    dm, V = (2048, 50304) if dtype == torch.bfloat16 else (64, 4096)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = _randn(gen, (rows, dm), dtype, dev)
+    wte = (0.02 * torch.randn((V, dm), generator=gen, device=dev)).to(dtype)
+    s = 1.0 + 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    group, n, stages, grid = logits_plan(rows, dm, V, sms)
+    _, end0 = logits_tile_range(0, V, grid)
+    cut = end0 * 64                      # block 1's first column
+    x, w, poison, ties = chip_smoke.mega_logits_inputs(
+        torch, x, wte, s, b, tie_cols=((cut - 1, cut), (2000, 2001)))
+    head = w.t() if tied else w.t().contiguous()
+    route = logits_route(dtype, dm, V, tied, True)
+    assert route == ("tensor_cores" if dtype == torch.bfloat16
+                     else "cuda_cores")
+    if route == "tensor_cores":
+        assert (group, -(-rows // group)) == (min(rows, 32),
+                                              1 if rows <= 32 else 2)
+    before = mega_logits_sample.launches
+    tok, nf = mega_logits_sample(x, s, b, head, poison)
+    torch.cuda.synchronize()
+    assert mega_logits_sample.launches == before + 1
+    logits = epilogue_logits(x, s, b, head, poison)
+    _, ref_nf = mega_logits_sample_reference(x, s, b, head, poison)
+    rec = chip_smoke.mega_logits_check(tok, nf, logits, ref_nf, ties)
+    assert rec["ok"], rec
+    # the rows rolled by one and no poison: stale keys or flags of the
+    # first call would show
+    x2 = x.roll(1, 0)
+    tok2, nf2 = mega_logits_sample(x2, s, b, head)
+    torch.cuda.synchronize()
+    logits2 = epilogue_logits(x2, s, b, head)
+    _, ref_nf2 = mega_logits_sample_reference(x2, s, b, head)
+    ties2 = {(r + 1) % rows: c for r, c in ties.items()}
+    rec2 = chip_smoke.mega_logits_check(tok2, nf2, logits2, ref_nf2, ties2)
+    assert rec2["ok"], rec2
 
 
 # ---- K11 and the attention bias and dropout of K1/K3/K4 ----------------

@@ -14,8 +14,9 @@ from paddle_tpu.ops.pallas.paged_attention import (
     paged_append_attend as jax_append_attend,
     paged_decode_attention as jax_decode_attention)
 from paddle_tpu_torch.ops.paged_attention import (
-    PageAllocator, paged_append_attend, paged_append_attend_reference,
-    paged_decode_attention, paged_decode_attention_reference)
+    PageAllocator, cluster_size, paged_append_attend,
+    paged_append_attend_reference, paged_decode_attention,
+    paged_decode_attention_reference, ring_stages)
 
 # fp32 on both sides; only the summation order differs (per-page online
 # softmax vs one dense softmax)
@@ -145,6 +146,31 @@ def test_operand_shape_errors():
         paged_decode_attention(q[:, :3].contiguous(), kp, vp, table, lens)
     with pytest.raises(ValueError, match="k_row"):
         paged_append_attend(q, kp, vp, q, q, table, lens, lens)
+
+
+@pytest.mark.parametrize("max_pages, page, pairs, splits", [
+    (1, 16, 128, 1), (1, 128, 128, 2), (2, 128, 128, 4),
+    (16, 128, 128, 4), (8, 256, 128, 4), (16, 128, 32, 8),
+    (2, 128, 32, 4), (2, 128, 1024, 1), (16, 128, 1024, 1),
+    (64, 128, 8, 8), (16, 128, 264, 2)])
+def test_cluster_size_follows_the_static_shapes(max_pages, page, pairs,
+                                                splits):
+    """K2's cluster on 132 SMs: the largest power of two up to 8 that
+    leaves a block 64 of the table's T = max_pages * page rows and keeps
+    the grid within 4 blocks an SM (the per-layer engine's 8 rows x 16
+    kv heads: 4; the suffix prefill's 64 x 16: 1), from static shapes,
+    never the lengths."""
+    assert cluster_size(max_pages, page, pairs, 132) == splits
+
+
+@pytest.mark.parametrize("max_pages, page, splits, stages", [
+    (1, 16, 1, 1), (1, 32, 1, 2), (1, 48, 1, 3), (2, 128, 2, 4),
+    (16, 128, 8, 4), (3, 128, 2, 4)])
+def test_ring_stages_hold_the_longest_share(max_pages, page, splits,
+                                            stages):
+    """K2's ring: as many 16-row slots as the longest share of tiles a
+    block can get, at most 4."""
+    assert ring_stages(max_pages, page, splits) == stages
 
 
 def test_page_allocator_lifecycle():
