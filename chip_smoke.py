@@ -96,7 +96,10 @@ Phases, each fatal on failure:
    residual and dropout 0.1, at N 768, 1024 and 1000: y and pre per row
    within REL_L2_TOL, mean and rstd within LN_STATS_TOL, the mask (read
    through an all-ones input) equal to the plain hash bit for bit
-   (``layer_norm_check``); device times of K11, its plain version and
+   (``layer_norm_check``); each N's launch plan (``_plan``: variant,
+   access width, values a thread, block, grid) and one kernel in the
+   profiler window of one call (bf16 vectors, the seed on the device, as
+   the encoder passes them); device times of K11, its plain version and
    F.layer_norm on the precomputed sum;
 14. K1, K3 and K4 with an additive bias and hash dropout 0.1 at the
    encoder's shape (B 16, S 512, 12 heads of 64): the padding bias (B,
@@ -129,7 +132,9 @@ Phases, each fatal on failure:
 
 17. K13, the launch probe (``ops/launch_probe.py``): one (8, 128) fp32
    copy, equal to its input bit for bit, its counter equal to the
-   launches made; its device time and bound, and the launch tax
+   launches made; its device time and bound beside the card's launch
+   floor (``launch_floor``: an empty kernel of one block of 32 threads,
+   timed the same way, ``floor_ms``), and the launch tax
    ``devprof.pallas_launch_tax_s`` meters with it beside
    ``launch_tax_s``'s x + 1 and the same readback round around
    ``clone`` (median microseconds each);
@@ -196,7 +201,12 @@ SEED = 0
 
 
 def _fail(msg):
-    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    """Stop with exit code 1, the reason on standard output (beside the
+    phases' records) and on standard error (where a caller that keeps
+    only the error stream finds it)."""
+    line = f"chip_smoke: FAILED: {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -232,18 +242,46 @@ PROFILE_WINDOWS = 3
 # and closes with this much idle time (seconds), the device synchronised
 # on both sides.
 PROFILE_PAD_S = 0.05
+# On some H100s a window lost the first 5 to 8 device activities after
+# its opening pad, whatever the pad (0.05 s and 0.5 s alike; not at
+# 2 s): the single-dispatch decode window lost its first step's K8
+# launch and the kernels before it, window after window; one 20 ms spin
+# there was lost with the 5 kernels after it. So after the opening pad
+# WAKE_LAUNCHES short spin kernels (torch.cuda._sleep, WAKE_CYCLES
+# each: about 10 ms in all at the card's 1.98 GHz) take the losses and
+# are waited for before the body runs; the window's events leave them
+# out.
+WAKE_LAUNCHES = 64
+WAKE_CYCLES = 300_000
+WAKE_KERNEL = "spin_kernel"
+
+
+class _Window:
+    """A profiler window's events, the wake kernel left out."""
+
+    def __init__(self, prof):
+        self._prof = prof
+
+    def events(self):
+        return [e for e in self._prof.events()
+                if WAKE_KERNEL not in e.name]
 
 
 @contextlib.contextmanager
 def _profiled(torch):
     """A torch.profiler window (host and CUDA activities) padded on both
-    sides with PROFILE_PAD_S of idle device time; yields the profiler."""
+    sides with PROFILE_PAD_S of idle device time, the device woken by
+    WAKE_LAUNCHES spins before the body; yields the window
+    (``events()``, without the spins)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
-        yield prof
+        for _ in range(WAKE_LAUNCHES):
+            torch.cuda._sleep(WAKE_CYCLES)
+        torch.cuda.synchronize()
+        yield _Window(prof)
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
 
@@ -258,6 +296,20 @@ def _profile_events(torch, fn, iters):
         torch.cuda.synchronize()
     return [(e.name, e.time_range.end - e.time_range.start)
             for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _one_call_kernels(torch, fn):
+    """Names of the CUDA activities in the profiler window of one call
+    of ``fn``: the first of up to PROFILE_WINDOWS windows that holds
+    exactly one, else the last window's. A window that lost the launch
+    (or caught another activity) is profiled again, as ``_device_ms``
+    does; a call that launches more than one kernel shows them in every
+    window."""
+    for _ in range(PROFILE_WINDOWS):
+        names = [name for name, _ in _profile_events(torch, fn, 1)]
+        if len(names) == 1:
+            break
+    return names
 
 
 def _device_ms(torch, fn, keys=None, launches=None, iters=20, warmup=3):
@@ -2065,9 +2117,10 @@ def layer_norm_check(got, ref, got_keep, ref_keep):
 def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
     """K11 at the encoder's rows (M = 16 x 512), bf16, with bias,
     residual and dropout p, against its plain version; the mask through
-    an all-ones input; device times of the kernel, its plain version and
-    F.layer_norm on the precomputed sum (the nearest library call: it
-    does the LayerNorm half of the work)."""
+    an all-ones input; the launch plan, and one kernel in the profiler
+    window of one call; device times of the kernel, its plain version
+    and F.layer_norm on the precomputed sum (the nearest library call:
+    it does the LayerNorm half of the work)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import _hash
     from paddle_tpu_torch.ops import layer_norm as ln
@@ -2077,7 +2130,11 @@ def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
     gamma = (1 + 0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
     beta = (0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
     bias = (0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
-    args = (x, gamma, beta, bias, res, seed, 1e-5, p)
+    # the seed on the device, as the encoder's draw_seed passes it
+    args = (x, gamma, beta, bias, res, _hash.seed_tensor(seed, dev), 1e-5,
+            p)
+    plan = ln._plan(M, N, bf, True, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     got = ln.fused_layer_norm_fwd(*args)
     ones = torch.ones((M, N), dtype=bf, device=dev)
     probe = ln.fused_layer_norm_fwd(ones, gamma, beta, None, None, seed,
@@ -2089,6 +2146,8 @@ def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got[:2], ref[:2]))
     del probe, ref_keep, ones
+    one_call = _one_call_kernels(torch, lambda: ln.fused_layer_norm_fwd(
+        *args))
     ms = _device_ms(torch, lambda: ln.fused_layer_norm_fwd(*args),
                     keys=("fused_ln_fwd",), launches=1)
     plain_ms = _event_ms(torch, lambda: ln.fused_layer_norm_reference(
@@ -2105,10 +2164,14 @@ def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
            "max_abs_err": err, **{k: v for k, v in check.items()
                                   if k != "ok"},
            "tol_rel_l2": REL_L2_TOL, "stats_tol": LN_STATS_TOL,
+           "plan": plan._asdict(),
+           "one_call_kernels": [name[:96] for name in one_call],
            "kernel_ms": ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library": "F.layer_norm(pre)",
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "ok": bool(check["ok"] and ms is not None)}
+           "ok": bool(check["ok"] and ms is not None
+                      and len(one_call) == 1
+                      and "fused_ln_fwd" in one_call[0])}
     _phase(rec)
     return rec
 
@@ -2556,11 +2619,12 @@ def _readback_us(torch, fn, x, iters=64):
 def k13_phase(torch, dev, gen):
     """K13, the launch probe (phase 17): its output equal to its input
     bit for bit, its counter equal to the launches made, its device time
-    beside its bound, and the launch tax it meters
+    beside its bound and the card's launch floor (the empty kernel of
+    ``launch_floor``, timed the same way), and the launch tax it meters
     (``pallas_launch_tax_s``) beside ``launch_tax_s``'s x + 1 and the
     same readback round around ``clone``."""
     from paddle_tpu_torch.observability import devprof
-    from paddle_tpu_torch.ops.launch_probe import (noop_copy,
+    from paddle_tpu_torch.ops.launch_probe import (launch_floor, noop_copy,
                                                    noop_copy_cost,
                                                    noop_copy_reference)
     x = torch.randn((8, 128), generator=gen, device=dev)
@@ -2572,6 +2636,12 @@ def k13_phase(torch, dev, gen):
     ms = _device_ms(torch, lambda: noop_copy(x), ("noop_copy",),
                     launches=1)
     clone_ms = _device_ms(torch, lambda: noop_copy_reference(x))
+    f0 = launch_floor.launches
+    floor_ms = _device_ms(torch, lambda: launch_floor(dev),
+                          ("launch_floor",), launches=1)
+    floor = {"kernel": "launch_floor_kernel", "blocks": 1, "threads": 32,
+             "memory_bytes": 0, "kernel_ms": floor_ms,
+             "launches_counted": launch_floor.launches - f0}
     probe_us = devprof.pallas_launch_tax_s(force=True) * 1e6
     add_us = devprof.launch_tax_s(force=True, device=dev) * 1e6
     clone_us = _readback_us(torch, noop_copy_reference, x)
@@ -2581,8 +2651,10 @@ def k13_phase(torch, dev, gen):
            "dtype": "float32", "exact": exact, "launches_made": 3,
            "launches_counted": counted, "kernel_ms": ms,
            "plain_ms": clone_ms, "library_ms": clone_ms,
+           "floor_ms": floor_ms, "launch_floor": floor,
            "timing": "device time (torch.profiler); plain and library: "
-                     "x.clone(), one measurement",
+                     "x.clone(); floor: the empty kernel; one "
+                     "measurement each",
            "launch_tax_probe_us": probe_us, "launch_tax_add_us": add_us,
            "launch_tax_clone_us": clone_us,
            "launch_tax": "median wall time of a launch and a scalar "
@@ -2591,7 +2663,7 @@ def k13_phase(torch, dev, gen):
            "max_abs_err": 0.0 if exact else None,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "ok": bool(exact and counted == 3
-                      and None not in (ms, clone_ms))}
+                      and None not in (ms, clone_ms, floor_ms))}
     _phase(rec)
     return rec
 
@@ -2990,7 +3062,9 @@ def main():
               "paddle_tpu/ops/pallas/layer_norm.py:120",
               k11[0]["kernel_ms"], k11[0]["plain_ms"],
               (k11[0]["bound_ms"], k11[0]["bound_by"]),
-              k11[0]["library_ms"], max(r["max_abs_err"] for r in k11)),
+              k11[0]["library_ms"], max(r["max_abs_err"] for r in k11),
+              design="a warp per row (a block past N 1024), the row in "
+                     "registers, 16-byte accesses"),
         # K1, K3, K4 with the padding bias (no kv_lens) and dropout at
         # the encoder's shape, as the encoder path launches them;
         # library: sdpa with the same float mask and its own dropout
@@ -3016,11 +3090,14 @@ def main():
               max(r["max_abs_err"] for r in k134),
               counter="flash_attention_bwd_dq", only="encoder",
               design=wgmma),
-        # one (8, 128) fp32 copy; plain and library: x.clone()
-        entry("noop_copy", "launch_probe.cu",
-              "paddle_tpu/observability/devprof.py:291", k13["kernel_ms"],
-              k13["plain_ms"], (k13["bound_ms"], k13["bound_by"]),
-              k13["library_ms"], k13["max_abs_err"]),
+        # one (8, 128) fp32 copy; plain and library: x.clone();
+        # floor_ms: the card's launch floor (an empty kernel)
+        dict(entry("noop_copy", "launch_probe.cu",
+                   "paddle_tpu/observability/devprof.py:291",
+                   k13["kernel_ms"], k13["plain_ms"],
+                   (k13["bound_ms"], k13["bound_by"]), k13["library_ms"],
+                   k13["max_abs_err"]),
+             floor_ms=k13["floor_ms"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

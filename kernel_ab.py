@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B readings of the flash kernels K1, K3 and K4, the fused
 cross-entropy kernels K5, K6 and K7, the contiguous engine's decode
-kernels K10 and K12, and the paged engines' K2, K2' and K9 on one GPU.
+kernels K10 and K12, the paged engines' K2, K2' and K9, and the
+encoder's K11 and the launch probe K13 on one GPU.
 
     python3 kernel_ab.py DIR_A DIR_B [--rounds 1] [--ce-chunks 2048,8192]
-        [--ce-plans 2,33] [--paged-plans 2x4,8x4] [--only decode]
+        [--ce-plans 2,33] [--paged-plans 2x4,8x4] [--only decode|encoder]
 
 DIR_A and DIR_B are checkouts of the repository (for example a parent
 commit unpacked with ``git archive`` and the working tree ``.``). Each
@@ -39,9 +40,17 @@ over a table of 2 pages of 128, 16 heads of 128, the fresh rows written;
 128..184), K2' (``k2p_suffix``: the suffix prefill's 64 rows over one
 sequence, row t seeing min(129 + t, 168) tokens) and K9 (``k9_B8_tied``:
 B 8 rows, gpt3_1p3b's tied head, V 50,304, read cold by every call, as
-it is 0.21 GB). Each time is read twice: the
-call's device time from a torch.profiler trace (``kernel_ms``; the CE
-backward and K10 sum every kernel in the window) and the call's,
+it is 0.21 GB); at ``chip_smoke.py`` phase 13's shapes and seed: K11
+(``k11_N768``, ``k11_N1024``, ``k11_N1000``: M 8192 rows, bf16, bias,
+residual and hash dropout 0.1, each checkout through its own
+``fused_layer_norm_fwd``; at N 768 also without dropout, without the
+residual and with neither, beside ``torch.add(x, res)`` and a copy of x,
+the same bytes of three and two streams), and K13 (``k13_noop_copy``)
+beside ``clone`` (``k13_clone``) and the card's launch floor
+(``launch_floor``: the empty kernel, where the checkout has it), 100
+calls a window. Each time is read twice: the call's device time from a
+torch.profiler trace (``kernel_ms``; the CE backward and K10 sum every
+kernel in the window) and the call's,
 wrapper included, by CUDA events around back-to-back calls
 (``call_ms``). Every device time goes through this checkout's
 ``chip_smoke._device_ms`` (loaded by path, so a parent checkout is
@@ -56,8 +65,9 @@ plans them with ``fused_ce._plan``), and ``--paged-plans`` K2 and K2'
 under each (cluster size)x(ring slots) geometry given (where the
 checkout picks them with ``paged_attention.cluster_size`` and
 ``ring_stages``). ``--only decode`` times K10, K12, K2, K2' and K9
-alone. Prints each run's readings as one JSON line tagged with its
-checkout and round, then one line with each checkout's medians. Exits
+alone, ``--only encoder`` K11 and K13 alone. Prints each run's readings
+as one JSON line tagged with its checkout and round, then one line with
+each checkout's medians and the range (least, most) of its runs. Exits
 non-zero if a run fails.
 """
 
@@ -248,9 +258,60 @@ def paged_cases():
                          "call_ms": call_ms(fn, 20)}
 
 
-if ONLY == "decode":
-    decode_cases()
-    paged_cases()
+def encoder_cases():
+    from paddle_tpu_torch.ops import _hash
+    from paddle_tpu_torch.ops import launch_probe as lp
+    from paddle_tpu_torch.ops import layer_norm as ln
+    bf, M, P, SEED = torch.bfloat16, 8192, 0.1, -77
+    for N in (768, 1024, 1000):
+        x, res = (torch.randn((M, N), generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+        gamma = (1 + 0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
+        beta, bias = ((0.1 * torch.randn(N, generator=gen, device=dev))
+                      .to(bf) for _ in range(2))
+        seed = _hash.seed_tensor(SEED, dev)
+        fn = lambda: ln.fused_layer_norm_fwd(x, gamma, beta, bias, res,
+                                             seed, 1e-5, P)
+        out[f"k11_N{N}"] = {"kernel_ms": device_ms(fn, ("fused_ln_fwd",),
+                                                   50, 1),
+                            "call_ms": call_ms(fn, 50)}
+        if N == 768:
+            # where the time goes: K11 without dropout, without the
+            # residual, with neither, and the bytes alone (3 and 2
+            # streams of M x N bf16)
+            y = torch.empty_like(x)
+            parts = {
+                "k11_N768_nodrop": lambda: ln.fused_layer_norm_fwd(
+                    x, gamma, beta, bias, res, seed, 1e-5, 0.0),
+                "k11_N768_nores": lambda: ln.fused_layer_norm_fwd(
+                    x, gamma, beta, bias, None, seed, 1e-5, P),
+                "k11_N768_neither": lambda: ln.fused_layer_norm_fwd(
+                    x, gamma, beta, bias, None, seed, 1e-5, 0.0)}
+            for name, f in parts.items():
+                out[name] = {"kernel_ms": device_ms(f, ("fused_ln_fwd",),
+                                                    50, 1),
+                             "call_ms": call_ms(f, 50)}
+            for name, f in (("add_N768", lambda: torch.add(x, res, out=y)),
+                            ("copy_N768", lambda: y.copy_(x))):
+                out[name] = {"kernel_ms": device_ms(f, None, 50),
+                             "call_ms": call_ms(f, 50)}
+    x = torch.randn((8, 128), generator=gen, device=dev)
+    calls = {"k13_noop_copy": (lambda: lp.noop_copy(x), ("noop_copy",), 1),
+             "k13_clone": (lambda: x.clone(), None, None)}
+    if hasattr(lp, "launch_floor"):
+        calls["launch_floor"] = (lambda: lp.launch_floor(dev),
+                                 ("launch_floor",), 1)
+    for name, (fn, keys, n) in calls.items():
+        out[name] = {"kernel_ms": device_ms(fn, keys, 100, n),
+                     "call_ms": call_ms(fn, 100)}
+
+
+if ONLY in ("decode", "encoder"):
+    if ONLY == "decode":
+        decode_cases()
+        paged_cases()
+    else:
+        encoder_cases()
     print("KERNEL_AB " + json.dumps(out), flush=True)
     sys.exit(0)
 
@@ -350,6 +411,7 @@ if plans and hasattr(ce, "_plan"):
 del x, w, labels, g, lse
 decode_cases()
 paged_cases()
+encoder_cases()
 print("KERNEL_AB " + json.dumps(out), flush=True)
 """
 
@@ -387,8 +449,10 @@ def main():
     ap.add_argument("--paged-plans", default="",
                     help="comma-separated SPLITSxSTAGES geometries for "
                          "K2 and K2'")
-    ap.add_argument("--only", default="all", choices=("all", "decode"),
-                    help="'decode': time K10, K12, K2, K2' and K9 alone")
+    ap.add_argument("--only", default="all",
+                    choices=("all", "decode", "encoder"),
+                    help="'decode': time K10, K12, K2, K2' and K9 alone; "
+                         "'encoder': K11 and K13")
     args = ap.parse_args()
     roots = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     got = {"a": [], "b": []}
@@ -399,16 +463,19 @@ def main():
             got[tag].append(rec)
             print(json.dumps({"kernel_ab": tag, "root": roots[tag],
                               "round": rnd, **rec}), flush=True)
-    def median(vals):
+    def over_runs(f):
         # a case whose windows never held all its launches reads None
-        vals = list(vals)
-        return None if None in vals else statistics.median(vals)
+        def g(vals):
+            vals = list(vals)
+            return None if None in vals else f(vals)
+        return {tag: {case: {key: g(r[case][key] for r in recs)
+                             for key in recs[0][case]}
+                      for case in recs[0] if all(case in r for r in recs)}
+                for tag, recs in got.items()}
 
-    print(json.dumps({"kernel_ab_medians": {
-        tag: {case: {key: median(r[case][key] for r in recs)
-                     for key in recs[0][case]}
-              for case in recs[0] if all(case in r for r in recs)}
-        for tag, recs in got.items()}}), flush=True)
+    print(json.dumps({"kernel_ab_medians": over_runs(statistics.median),
+                      "kernel_ab_ranges": over_runs(
+                          lambda v: [min(v), max(v)])}), flush=True)
     return 0
 
 

@@ -12,6 +12,11 @@ bound (8 KB of bytes, about 2.4 ns on the H100: the launch is the cost).
 shape) and returns a new tensor equal to it. CUDA tensors launch the
 kernel; CPU tensors run the plain version, ``x.clone()``, which is also
 the one PyTorch call computing the same function.
+
+``launch_floor(device)`` launches an empty kernel of one block of 32
+threads, which touches no memory: the card's launch floor, K13's
+yardstick for a kernel whose job is to cost one launch. It is a probe
+only, on no path of the port.
 """
 
 import ctypes
@@ -21,7 +26,7 @@ import torch
 from paddle_tpu_torch.ops import _build
 
 __all__ = ["noop_copy", "noop_copy_reference", "noop_copy_cost",
-           "PROBE_ELEMS"]
+           "launch_floor", "PROBE_ELEMS"]
 
 PROBE_ELEMS = 8 * 128
 
@@ -39,11 +44,12 @@ def noop_copy_cost(elt: int = 4):
 
 def _lib():
     lib = _build.load("launch_probe")
-    fn = lib.pt_noop_copy
-    if fn.argtypes is None:
+    if lib.pt_noop_copy.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp]
-        fn.restype = ctypes.c_int
+        lib.pt_noop_copy.argtypes = [vp, vp, vp]
+        lib.pt_noop_copy.restype = ctypes.c_int
+        lib.pt_launch_floor.argtypes = [vp]
+        lib.pt_launch_floor.restype = ctypes.c_int
     return lib
 
 
@@ -70,3 +76,20 @@ def noop_copy(x):
 
 
 noop_copy.launches = 0
+
+
+def launch_floor(device):
+    """Launch the empty kernel once on ``device`` (a CUDA device) and
+    return nothing: the launch floor that K13 is timed against."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"launch_floor runs on a CUDA device, got {device}")
+    lib = _lib()
+    with torch.cuda.device(device):
+        launch_floor.launches += 1
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pt_launch_floor(stream)
+    _build.check(lib, rc, "launch_floor launch")
+
+
+launch_floor.launches = 0

@@ -612,11 +612,44 @@ def test_device_ms_counts_a_calls_launches_when_not_given(monkeypatch):
     assert got == pytest.approx(6.0 / 1e3)
 
 
+@pytest.mark.parametrize("case", ["one", "lost_then_one", "two_always"])
+def test_one_call_window_is_profiled_again_when_not_one(monkeypatch,
+                                                         case):
+    """The one-call window (K11's one launch a call) is read at once
+    when it holds one kernel, profiled again when it lost the launch,
+    and a call that launches two kernels shows them after
+    PROFILE_WINDOWS windows."""
+    one = [("fused_ln_fwd", 20.0)]
+    two = [("cast", 1.0), ("fused_ln_fwd", 20.0)]
+    windows = {"one": [one], "lost_then_one": [[], one],
+               "two_always": [two] * chip_smoke.PROFILE_WINDOWS}[case]
+    asked = _fake_windows(monkeypatch, list(windows))
+    names = chip_smoke._one_call_kernels(_Torch, lambda: None)
+    assert asked == [1] * len(windows)
+    if case == "two_always":
+        assert names == ["cast", "fused_ln_fwd"]
+    else:
+        assert names == ["fused_ln_fwd"]
+
+
+def test_fail_reports_on_both_streams(capsys):
+    """A failed phase's reason reaches standard error as well as
+    standard output, and the exit code is 1."""
+    with pytest.raises(SystemExit) as stop:
+        chip_smoke._fail("phase x: planted")
+    assert stop.value.code == 1
+    out, err = capsys.readouterr()
+    assert "FAILED: phase x: planted" in out
+    assert "FAILED: phase x: planted" in err
+
+
 def test_profiled_window_is_padded_on_both_sides(monkeypatch):
     """Every profiler window opens and closes with PROFILE_PAD_S of idle
     time, the device synchronised first, so no kernel of the body lies
     at the window's edge (where the profiler drops what it finds
-    outside the window on its own clock)."""
+    outside the window on its own clock); after the opening pad
+    WAKE_LAUNCHES spins are waited for before the body, and the
+    window's events leave them out."""
     import torch.profiler as tp
     log = []
 
@@ -629,10 +662,21 @@ def test_profiled_window_is_padded_on_both_sides(monkeypatch):
             log.append("stop")
             return False
 
+        def events(self):
+            return [_Event(chip_smoke.WAKE_KERNEL), _Event("body_kernel")]
+
+    class _Event:
+        def __init__(self, name):
+            self.name = name
+
     class _SyncCuda:
         @staticmethod
         def synchronize():
             log.append("sync")
+
+        @staticmethod
+        def _sleep(cycles):
+            log.append(("spin", cycles))
 
     class _SyncTorch:
         cuda = _SyncCuda
@@ -641,11 +685,15 @@ def test_profiled_window_is_padded_on_both_sides(monkeypatch):
     monkeypatch.setattr(chip_smoke.time, "sleep",
                         lambda s: log.append(("sleep", s)))
     with chip_smoke._profiled(_SyncTorch) as prof:
-        assert isinstance(prof, _Prof)
         log.append("body")
     pad = ("sleep", chip_smoke.PROFILE_PAD_S)
-    assert chip_smoke.PROFILE_PAD_S > 0
-    assert log == ["sync", "start", pad, "body", "sync", pad, "stop"]
+    spin = ("spin", chip_smoke.WAKE_CYCLES)
+    assert chip_smoke.PROFILE_PAD_S > 0 and chip_smoke.WAKE_CYCLES > 0
+    assert chip_smoke.WAKE_LAUNCHES > 8
+    assert log == (["sync", "start", pad]
+                   + [spin] * chip_smoke.WAKE_LAUNCHES
+                   + ["sync", "body", "sync", pad, "stop"])
+    assert [e.name for e in prof.events()] == ["body_kernel"]
 
 
 def test_phase_times_reads_the_record():

@@ -1018,26 +1018,63 @@ def test_mega_logits_kernel_rows_and_ties_across_blocks(dev, dtype, tied,
 
 # ---- K11 and the attention bias and dropout of K1/K3/K4 ----------------
 
+def _ln_rows(gen, m, n, dtype, dev, misaligned=False, fill=None):
+    """(m, n) contiguous rows; ``misaligned``: starting one element past
+    a 16-byte boundary (the kernel's one-element-access instance)."""
+    buf = torch.empty(m * n + 1, dtype=dtype, device=dev)
+    t = buf[int(misaligned):int(misaligned) + m * n].view(m, n)
+    if fill is None:
+        t.copy_(torch.randn((m, n), generator=gen, device=dev))
+    else:
+        t.fill_(fill)
+    return t
+
+
+# (n, m, bias, residual, dropout p, x misaligned): each of K11's plans
+# (a warp per row at 8 / 24 / 32 values a lane, a block per row up to
+# MAX_N; 16-byte or one-element accesses) with and without each input
+_LN_CASES = [
+    (33, 16, True, True, 0.1, False), (33, 1, False, False, 0.0, True),
+    (768, 8192, True, True, 0.1, False), (768, 16, False, True, 0.5, True),
+    (768, 1, True, False, 0.0, False),
+    (1000, 8192, True, True, 0.1, False), (1000, 16, True, True, 0.1, True),
+    (1024, 16, False, False, 0.3, False), (1024, 8192, True, True, 0.1, True),
+    (2048, 16, True, True, 0.1, False), (2048, 1, False, True, 0.0, True),
+    (16384, 16, True, True, 0.1, False), (16384, 1, True, False, 0.2, True)]
+
+
+@pytest.mark.parametrize("vec_dtype", ["x's", "other"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n, bias, residual, p", [
-    (768, True, True, 0.1), (1000, True, True, 0.1),
-    (1024, False, True, 0.5), (96, True, False, 0.0),
-    (4096, False, False, 0.3)])
-def test_layer_norm_kernel_matches_plain(dev, dtype, n, bias, residual, p):
+@pytest.mark.parametrize("n, m, bias, residual, p, misaligned", _LN_CASES)
+def test_layer_norm_kernel_matches_plain(dev, dtype, vec_dtype, n, m, bias,
+                                         residual, p, misaligned):
+    """K11 under each plan against its plain version: y and pre per row
+    within 2^-7 relative L2 (and the bf16 / fp32 absolute bound), mean
+    and rstd within 1e-5, the mask (``pre != 0`` of an all-ones input)
+    bit for bit, one launch counted per call; gamma, beta and bias in
+    x's dtype or the other one."""
     from paddle_tpu_torch.ops import _hash
+    from paddle_tpu_torch.ops import layer_norm as ln
     from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm_fwd,
                                                  fused_layer_norm_reference)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    m = 300
-    x = _randn(gen, (m, n), dtype, dev)
-    res = _randn(gen, (m, n), dtype, dev) if residual else None
-    gamma, beta = (_randn(gen, (n,), dtype, dev) for _ in range(2))
-    b = _randn(gen, (n,), dtype, dev) if bias else None
+    vdt = dtype if vec_dtype == "x's" else (
+        torch.bfloat16 if dtype == torch.float32 else torch.float32)
+    x = _ln_rows(gen, m, n, dtype, dev, misaligned)
+    res = _ln_rows(gen, m, n, dtype, dev) if residual else None
+    gamma, beta = (_randn(gen, (n,), vdt, dev) for _ in range(2))
+    b = _randn(gen, (n,), vdt, dev) if bias else None
+    plan = ln._plan(m, n, dtype, not misaligned,
+                    torch.cuda.get_device_properties(dev)
+                    .multi_processor_count)
+    assert plan.variant == ("warp" if n <= ln.WARP_MAX_N else "block")
+    assert (plan.vec > 1) == (not misaligned and n % (16 // x.element_size())
+                              == 0)
     args = (x, gamma, beta, b, res, -3, 1e-5, p)
     before = fused_layer_norm_fwd.launches
     got = fused_layer_norm_fwd(*args)
-    ones = torch.ones_like(x)
+    ones = _ln_rows(gen, m, n, dtype, dev, misaligned, fill=1.0)
     probe = fused_layer_norm_fwd(ones, gamma, beta, None, None, -3, 1e-5,
                                  p)[1]
     torch.cuda.synchronize()
@@ -1046,11 +1083,30 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, n, bias, residual, p):
     for g, r in zip(got[:2], ref[:2]):
         assert (g.float() - r.float()).abs().max().item() <= \
             TOL[dtype](r.float())
+    keep = (_hash.layer_norm_keep(-3, (m, n), p, device=dev) if p > 0
+            else torch.ones((m, n), dtype=torch.bool, device=dev))
+    rec = chip_smoke.layer_norm_check(got, ref, probe != 0, keep)
+    assert rec["ok"], rec
     torch.testing.assert_close(got[2], ref[2], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(got[3], ref[3], atol=0, rtol=1e-5)
-    if p > 0:
-        assert torch.equal(probe != 0,
-                           _hash.layer_norm_keep(-3, (m, n), p, device=dev))
+
+
+def test_layer_norm_call_with_bf16_vectors_is_one_kernel(dev):
+    """One K11 call at the encoder's shape, bf16 vectors and a seed on
+    the device (as the encoder passes them): one kernel in a profiler
+    window of that call, nothing cast beside it."""
+    from paddle_tpu_torch.ops import _hash
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm_fwd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    bf = torch.bfloat16
+    x, res = (_randn(gen, (8192, 768), bf, dev) for _ in range(2))
+    g, b, bias = (_randn(gen, (768,), bf, dev) for _ in range(3))
+    seed = _hash.seed_tensor(5, dev)
+    fn = lambda: fused_layer_norm_fwd(x, g, b, bias, res, seed, 1e-5, 0.1)
+    fn()
+    events = chip_smoke._profile_events(torch, fn, 1)
+    assert len(events) == 1 and "fused_ln_fwd" in events[0][0], events
 
 
 def test_layer_norm_kernel_refuses_a_row_too_wide(dev):
@@ -1212,3 +1268,18 @@ def test_launch_probe_kernel_copies_bit_for_bit(dev):
         with pytest.raises(ValueError):
             noop_copy(bad)
     assert devprof.pallas_launch_tax_s(force=True) > 0
+
+
+def test_launch_floor_is_one_empty_kernel(dev):
+    """The launch-floor probe: one launch of the empty kernel per call,
+    counted, and nothing else in its profiler window."""
+    from paddle_tpu_torch.ops.launch_probe import launch_floor
+    n0 = launch_floor.launches
+    launch_floor(dev)
+    torch.cuda.synchronize()
+    assert launch_floor.launches == n0 + 1
+    events = chip_smoke._profile_events(torch, lambda: launch_floor(dev), 3)
+    assert len(events) == 3 and all("launch_floor_kernel" in name
+                                    for name, _ in events), events
+    with pytest.raises(ValueError):
+        launch_floor("cpu")

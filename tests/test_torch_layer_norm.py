@@ -18,6 +18,7 @@ import torch
 
 from paddle_tpu.ops.pallas import layer_norm as jax_ln
 from paddle_tpu_torch.ops import _hash
+from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                              fused_layer_norm_plain,
                                              fused_layer_norm_fwd,
@@ -166,3 +167,86 @@ def test_tensor_seed_equals_int_seed_forward_and_backward():
         out.append([y.detach(), pre.detach()] + [t.grad for t in ts])
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+# ---- the kernel's launch plan and its vectors (pure Python) ------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 33, 768, 1000, 1024, 1025, 4096,
+                               16384])
+def test_plan_covers_the_row_with_a_shape_the_kernel_takes(n, dtype,
+                                                            aligned):
+    """``_plan``: a warp per row up to WARP_MAX_N, else a block; 16-byte
+    accesses only when aligned and N is a multiple of their width; every
+    element of the row held by one thread; the limits the C entry checks
+    (csrc/layer_norm.cu: elems 8/16/24/32 for a warp, 32 for a block,
+    threads a multiple of 32 up to 256 / 512)."""
+    m = 8192
+    plan = ln._plan(m, n, dtype, aligned, H100_SMS)
+    width = 16 // dtype.itemsize
+    assert plan.vec == (width if aligned and n % width == 0 else 1)
+    assert plan.elems % plan.vec == 0 and plan.threads % 32 == 0
+    if n <= ln.WARP_MAX_N:
+        assert plan.variant == "warp" and plan.threads == 256
+        assert plan.elems in (8, 16, 24, 32) and 32 * plan.elems >= n
+        assert 32 * (plan.elems - 8) < n       # no whole idle access
+        assert plan.grid == min(m // 8, H100_SMS * ln._WARP_BLOCKS_PER_SM)
+    else:
+        assert plan.variant == "block" and plan.elems == 32
+        assert plan.threads * 32 >= n > (plan.threads - 32) * 32
+        assert plan.threads <= 512
+        assert H100_SMS <= plan.grid <= min(m, H100_SMS * 64)
+
+
+def test_plan_at_the_encoders_rows_and_for_few_rows():
+    """The encoder's K11 (M 8192, N 768, bf16, aligned): 24 values a lane
+    in 16-byte accesses, 8 rows a block, a persistent grid; one row
+    launches one block; the widest row fits the shared memory of its
+    staged fp32 vectors at one block an SM."""
+    plan = ln._plan(8192, 768, torch.bfloat16, True, 132)
+    assert plan == ln.Plan("warp", 8, 24, 256, 264)
+    assert ln._plan(1, 768, torch.bfloat16, True, 132).grid == 1
+    wide = ln._plan(8192, 16384, torch.float32, True, 132)
+    assert wide == ln.Plan("block", 4, 32, 512, 132)
+    assert ln._plan(3, 2048, torch.bfloat16, False, 132) == \
+        ln.Plan("block", 1, 32, 64, 3)
+
+
+@pytest.mark.parametrize("n", [0, ln.MAX_N + 1])
+def test_plan_refuses_a_row_the_kernel_does_not_take(n):
+    with pytest.raises(ValueError, match="N <="):
+        ln._plan(4, n, torch.float32, True, 132)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vec_returns_the_vector_itself_without_a_cast(dtype):
+    """``_vec`` checks shape and device and hands the kernel the vector
+    in its own dtype: the same storage, nothing launched for it."""
+    t = torch.randn(96).to(dtype).requires_grad_()
+    got = ln._vec(t, 96, "gamma", t.device)
+    assert got.dtype == dtype and got.data_ptr() == t.data_ptr()
+    assert ln._vec(None, 96, "bias", t.device) is None
+    with pytest.raises(ValueError, match="gamma"):
+        ln._vec(t, 95, "gamma", t.device)
+
+
+def test_vectors_of_one_dtype_stay_and_mixed_dtypes_are_cast_to_fp32():
+    """Three bf16 (or fp32) vectors go to the kernel as they are, with
+    their dtype code; vectors of different dtypes (or of a dtype the
+    kernel does not read) are all cast to fp32, the one case with extra
+    launches."""
+    g, b, bb = (torch.randn(64).bfloat16() for _ in range(3))
+    *vs, code = ln._vectors(g, b, bb, 64, g.device)
+    assert code == 1 and [v.data_ptr() for v in vs] == \
+        [t.data_ptr() for t in (g, b, bb)]
+    *vs, code = ln._vectors(g, b, None, 64, g.device)
+    assert code == 1 and vs[2] is None and vs[0].data_ptr() == g.data_ptr()
+    *vs, code = ln._vectors(g, b.float(), bb, 64, g.device)
+    assert code == 0 and all(v.dtype == torch.float32 for v in vs)
+    torch.testing.assert_close(vs[0], g.float(), rtol=0, atol=0)
+    *vs, code = ln._vectors(g.half(), b.half(), None, 64, g.device)
+    assert code == 0 and vs[0].dtype == torch.float32
