@@ -156,8 +156,48 @@ Phases, each fatal on failure:
    back for ``serve/dispatch`` and ``serve/harvest`` spans. The path
    must launch K1, K2, K2', K8, K9, K10 and K13.
 
+19. train with every option — gpt3_1p3b at full width, dropout 0.1,
+   from seed 0, the batch of 5, ``PRNGKey(0)`` every step, AdamW with
+   a 2-step linear warmup into a cosine over 6 (peak 1e-4), decay 0.01
+   on every parameter but the LayerNorm scales and biases (masks over
+   the slabs), the global-norm clip at 1.0, bf16 moments, and
+   ``PT_NUMERICS_EVERY=1``. Checks: the first layer's salt-1 mask at
+   (4, 2048, 2048) drawn on the card (from the CPU key and from the key
+   on the card) equals the CPU's draw bit for bit; step 1 through the
+   plain versions and through the kernels: losses 1e-3, gradients
+   2.5e-2 relative L2, the clip's global norm 1e-2
+   (``options_step_check``); the rate of each update equals the
+   schedule's ``value_at`` on the CPU (``lr_check``); the masks
+   registered on the slabs (``decay_mask_check``); the second update of
+   ``stacked.wqkv`` (decayed, bf16) and ``stacked.ln1_scale`` (exempt,
+   fp32) recomputed by hand from the saved (p, g, m, v) within 1e-6,
+   with three controls from the same values (the unclipped gradient,
+   the decay flipped, the next step): each control that moves a value
+   by more than 1e-6 must fail, at least one must move, and those that
+   cannot are recorded (``update_controls``; the decay term, lr * wd *
+   p, is 1e-6 of p: on bf16 weights it crosses a rounding boundary on
+   few elements, on a scale of 1.0 it is about the tolerance); the
+   packed numerics vector
+   finite with L rows per stacked family (``numerics_check``); the loss
+   falls over the 6 kernel steps, launches per step K1 = K3 = K4 = 24,
+   K5 = 1, the dl pass = K6 = K7 = 13; last, a step with
+   ``train.grad_poison`` armed at layer 5 (the clip off, or the NaN
+   norm would spread to every layer's update): ``Monitor`` names layer
+   5 (``poison_check``) and dumps its ring into ``build/numerics/``.
+   Printed: step times beside phase 5's (dropout 0), tokens/s, MFU,
+   peak memory, the device ms of one mask and one residual dropout (and
+   the 48 a step), the step with numerics off, and a torch.profiler
+   breakdown of one step. Then one gpt3_1p3b step (dropout 0, the
+   kernels) with each of the other options (``sweep_cases``: the ten
+   optimizers, the value and per-slab norm clips, both regularizers,
+   LookAhead, and AdamW after amp's O2 cast of an fp32 model, every
+   parameter bf16 after it) and ModelAverage over the
+   result: loss, parameters and optimizer slots finite, launches per
+   step as phase 5's; each step's time.
+
 Phases 11, 4, 12 and 6-10 run before 5 (which needs the card's memory
-for training), 13, 14 and 17 before them, 15, 16 and 18 after 5. Should
+for training), 13, 14 and 17 before them, 19 (and its sweep) right
+after 5, 15, 16 and 18 after 19. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
 
@@ -1655,21 +1695,545 @@ def _device_breakdown(prof, wall_us):
             "kernel_launches": len(kernels)}
 
 
-def train_breakdown(torch, step, params, state, tokens):
-    """One more kernel step under torch.profiler."""
+def train_breakdown(torch, step, params, state, tokens, rng=None,
+                    name="train_breakdown"):
+    """One more kernel step under torch.profiler (``rng``: the dropout
+    key, passed as the step's 4th argument)."""
+    args = (params, state, tokens) + ((rng,) if rng is not None else ())
     torch.cuda.synchronize()
     with _profiled(torch) as prof:
         t0 = time.perf_counter()
-        _, _, loss = step(params, state, tokens)
+        loss = step(*args)[2]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rec = {"phase": "train_breakdown", "wall_ms": wall_us / 1e3,
-           "loss": loss.item()}
+    rec = {"phase": name, "wall_ms": wall_us / 1e3, "loss": loss.item()}
     bd = _device_breakdown(prof, wall_us)
     rec["measured"] = bd is not None
     rec.update(bd or {})
     rec["ok"] = bool(torch.isfinite(loss).item())
     _phase(rec)
+
+
+# phase 19: the train step with every option (the JAX bench's step with
+# dropout, a warmup + cosine schedule, the global-norm clip, a decay
+# mask over the slabs and the numerics capture)
+OPT_LR, OPT_WARMUP, OPT_T_MAX, OPT_WD = 1e-4, 2, 6, 0.01
+OPT_DROPOUT = 0.1
+OPT_CLIP = 1.0
+OPT_POISON_LAYER = 5
+# the clip's global norm through kernels and plain versions: fp32 sums
+# of bf16 gradients that agree to 2.5e-2 relative L2 each
+NORM_TOL_REL = 1e-2
+# one AdamW update recomputed by hand from the saved (p, g, m, v): the
+# same fp32 operations, so the same bf16 values
+UPDATE_TOL = 1e-6
+# the slabs the update check recomputes: a decayed bf16 weight and an
+# exempt fp32 LayerNorm scale
+UPDATE_SLABS = ("stacked.wqkv", "stacked.ln1_scale")
+
+
+def options_decay(name):
+    """The phase's ``apply_decay_param_fun``: decay every parameter but
+    the LayerNorm scales and biases (``ln1_*``, ``ln2_*``, ``lnf_*``)."""
+    return not name.split(".")[-1].startswith("ln")
+
+
+def options_schedule():
+    """A 2-step linear warmup from 0 into a cosine over 6 steps."""
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(OPT_LR, T_max=OPT_T_MAX),
+                           warmup_steps=OPT_WARMUP, start_lr=0.0,
+                           end_lr=OPT_LR)
+
+
+def adamw_reference(torch, p, g, m, v, lr, step, decay, b1=0.9, b2=0.999,
+                    eps=1e-8, wd=OPT_WD):
+    """AdamW's update of one slab written out: from the parameter ``p``,
+    the clipped gradient ``g`` and the moments ``m``, ``v`` before step
+    ``step`` (1-based) at rate ``lr``, in fp32; the decoupled decay
+    ``lr * (wd * p)`` where ``decay``. Returns the new parameter in p's
+    dtype."""
+    p32, g32 = p.float(), g.float()
+    m32 = b1 * m.float() + (1 - b1) * g32
+    v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
+    t = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** t).item()
+    bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** t).item()
+    new = p32 - lr * (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+    if decay:
+        new = new - lr * (wd * p32)
+    return new.to(p.dtype)
+
+
+def clipped(torch, g, norm, clip=OPT_CLIP):
+    """A gradient as the global-norm clip hands it to the update."""
+    scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return (g * scale).to(g.dtype)
+
+
+def update_check(new, ref, tol=UPDATE_TOL):
+    """A slab's new value against ``adamw_reference``: the largest
+    absolute difference within ``tol``."""
+    err = (new.float() - ref.float()).abs().max().item()
+    return {"max_abs_err": err, "tol": tol, "ok": bool(err <= tol)}
+
+
+def update_controls(torch, new, p0, g, m0, v0, norm, lr, step, decay,
+                    wd=OPT_WD, tol=UPDATE_TOL):
+    """One slab's update against the hand update (``adamw_reference`` on
+    the clipped gradient at ``step``, decayed where ``decay``), and
+    three controls recomputed from the same saved (p, g, m, v): the
+    unclipped gradient, the decay flipped, the next step. A control
+    that differs from the hand update by more than ``tol`` somewhere
+    moves a value and must then fail ``update_check`` against ``new``;
+    one that moves nothing (its difference under half an ulp of every
+    bf16 value) cannot tell, and is listed in ``cannot_move``.
+    ``moved`` counts the elements the update changed."""
+    gc = clipped(torch, g, norm)
+    ref = adamw_reference(torch, p0, gc, m0, v0, lr, step, decay, wd=wd)
+    rec = update_check(new, ref, tol)
+    rec["moved"] = int((new != p0).sum().item())
+    controls = {
+        "unclipped": lambda: adamw_reference(torch, p0, g, m0, v0, lr, step,
+                                             decay, wd=wd),
+        "decay_flipped": lambda: adamw_reference(
+            torch, p0, gc, m0, v0, lr, step, not decay, wd=wd),
+        "next_step": lambda: adamw_reference(torch, p0, gc, m0, v0, lr,
+                                             step + 1, decay, wd=wd)}
+    rec["controls"] = {}
+    for name, make in controls.items():
+        c = make()
+        rec["controls"][name] = {
+            "moves": not update_check(c, ref, tol)["ok"],
+            "caught": not update_check(new, c, tol)["ok"]}
+        del c
+    rec["cannot_move"] = [n for n, c in rec["controls"].items()
+                          if not c["moves"]]
+    rec["ok"] = bool(rec["ok"] and all(
+        c["caught"] for c in rec["controls"].values() if c["moves"]))
+    return rec
+
+
+def decay_mask_check(masks, decay_fn, n_layers):
+    """The (L, 1, ...) decay masks registered on the slabs (slab entry ->
+    mask, None where none is) against ``decay_fn`` over the per-layer
+    names ``blocks.item_<i>.<name>`` (on bf16 weights the decay term,
+    lr * wd * p, is about 1e-6 of p, under half an ulp of most values, so
+    the update check sees the decision on few elements or none)."""
+    bad = [n for n, m in masks.items()
+           if m is None or m.shape[0] != n_layers
+           or m.flatten().tolist() != [
+               float(bool(decay_fn(f"blocks.item_{i}.{n[8:]}")))
+               for i in range(n_layers)]]
+    return {"slabs": len(masks), "wrong": bad,
+            "decayed_layers": {n: int(m.sum().item())
+                               for n, m in sorted(masks.items())
+                               if m is not None},
+            "ok": bool(masks) and not bad}
+
+
+def lr_check(used, schedule, first_step=1):
+    """The rates the updates used (``optimizer.last_lr``, one a step)
+    against ``schedule.value_at(step)`` computed on the CPU: equal."""
+    want = [float(schedule.value_at(first_step + i))
+            for i in range(len(used))]
+    return {"lr_used": used, "lr_expected": want,
+            "ok": bool(used == want)}
+
+
+def numerics_check(torch, packed, layout, n_layers):
+    """The packed numerics vector: every entry finite, its size the
+    layout's, tag 1 (sampled), and L rows for every stacked family."""
+    stacked = [L for name, L, _ in layout.families
+               if "_stacked_blocks" in name]
+    finite = bool(torch.isfinite(packed).all().item())
+    rec = {"size": int(packed.numel()), "layout_size": layout.size,
+           "stacked_families": len(stacked),
+           "rows_per_stacked_family": sorted(set(stacked)),
+           "finite": finite}
+    rec["ok"] = bool(finite and packed.numel() == layout.size
+                     and float(packed[0]) == 1.0 and stacked
+                     and all(L == n_layers for L in stacked))
+    return rec
+
+
+def poison_check(snap, layer):
+    """A poisoned step's decoded snapshot names ``layer`` as the first
+    bad layer, in a stacked gradient family, and fires the alert."""
+    fam = snap.get("first_bad_family_name") or ""
+    return {"first_bad_layer": snap.get("first_bad_layer"),
+            "first_bad_family": fam, "alerts": snap.get("alerts"),
+            "ok": bool(snap.get("first_bad_layer") == layer
+                       and fam.startswith("grad/_stacked_blocks")
+                       and "nonfinite" in (snap.get("alerts") or []))}
+
+
+def options_step_check(loss, plain_loss, grad_err, norm, plain_norm,
+                       loss_tol=1e-3, grad_tol=2.5e-2,
+                       norm_tol=NORM_TOL_REL):
+    """Step 1 through the kernels against step 1 through the plain
+    versions (same weights, same key): losses, every gradient (relative
+    L2) and the clip's global norm."""
+    rec = encoder_step_check(loss, plain_loss, grad_err, loss_tol,
+                             grad_tol)
+    rec["clip_norm"], rec["plain_clip_norm"] = norm, plain_norm
+    rec["clip_norm_rel_err"] = abs(norm - plain_norm) / abs(plain_norm)
+    rec["clip_norm_tol_rel"] = norm_tol
+    rec["ok"] = bool(rec["ok"] and rec["clip_norm_rel_err"] <= norm_tol)
+    return rec
+
+
+def options_mask_phase(torch, dev, cfg, B, S):
+    """The first layer's salt-1 mask at (B, S, d), drawn on the card from
+    the CPU key and from the key on the card, against the CPU's draw bit
+    for bit; the device ms of one mask and of one residual dropout."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import gpt
+    shape = (B, S, cfg.d_model)
+    k = prng.fold_in(prng.fold_in(prng.PRNGKey(SEED), 0), 1)
+    ref = prng.bernoulli(k, 1.0 - OPT_DROPOUT, shape, device="cpu")
+    got = prng.bernoulli(k, 1.0 - OPT_DROPOUT, shape)
+    got_dev = prng.bernoulli(k.to(dev), 1.0 - OPT_DROPOUT, shape)
+    rec = {"phase": "train_options_mask", "shape": list(shape)}
+    rec.update(mask_check(got.cpu(), ref))
+    rec["device_key_mismatches"] = int((got_dev.cpu() != ref).sum().item())
+    del got, got_dev, ref
+    x = torch.randn(shape, device=dev).to(cfg.dtype)
+    lk = prng.fold_in(prng.PRNGKey(SEED), 0)
+    rec["mask_ms"] = _device_ms(torch, lambda: prng.bernoulli(
+        k, 1.0 - OPT_DROPOUT, shape, device=dev), iters=5)
+    rec["dropout_ms"] = _device_ms(torch, lambda: gpt._maybe_dropout(
+        x, OPT_DROPOUT, lk, 1), iters=5)
+    # two residual dropouts a layer, forward only (remat off)
+    rec["masks_per_step"] = 2 * cfg.n_layers
+    rec["dropout_ms_per_step"] = (None if rec["dropout_ms"] is None else
+                                  rec["dropout_ms"] * rec["masks_per_step"])
+    rec["ok"] = bool(rec["ok"] and rec["device_key_mismatches"] == 0
+                     and rec["mask_ms"] is not None
+                     and rec["dropout_ms"] is not None)
+    _phase(rec)
+    return rec
+
+
+def train_options_phase(torch, dev, base, n_steps=6, off_steps=2):
+    """gpt3_1p3b train steps with every option; see the module docstring
+    (phase 19). ``base``: phase 5's record (dropout 0, no options)."""
+    import os
+
+    import numpy as np
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import numerics
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    from paddle_tpu_torch.ops.fused_ce import fused_ce_plain, plan_chunks
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.testing import faults
+
+    cfg = gpt.gpt3_1p3b(dropout=OPT_DROPOUT)
+    B, S = 4, cfg.max_seq_len
+    L = cfg.n_layers
+    masks = options_mask_phase(torch, dev, cfg, B, S)
+    model = gpt.GPT(cfg, seed=SEED, device=dev)
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    key = prng.PRNGKey(SEED)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def optimizer():
+        return AdamW(learning_rate=options_schedule(), weight_decay=OPT_WD,
+                     apply_decay_param_fun=options_decay,
+                     grad_clip=ClipGradByGlobalNorm(OPT_CLIP),
+                     moment_dtype=torch.bfloat16)
+
+    def build(opt, every, **kw):
+        prev = os.environ.get("PT_NUMERICS_EVERY")
+        os.environ["PT_NUMERICS_EVERY"] = str(every)
+        try:
+            return gpt.build_train_step(model, opt, **kw)
+        finally:
+            if prev is None:
+                del os.environ["PT_NUMERICS_EVERY"]
+            else:
+                os.environ["PT_NUMERICS_EVERY"] = prev
+
+    def plain_attn(q, k, v, is_causal=False):
+        return flash_attention_plain(q, k, v, causal=is_causal)
+
+    opt = optimizer()
+    params, state = gpt.init_train_state(model, opt)
+    step = build(opt, 1, attn=plain_attn, ce=fused_ce_plain)
+    plain_loss = step(params, state, tokens, key)[2].item()
+    plain_norm = opt.grad_clip.last_norm.item()
+    plain_grads = {n: p.grad for n, p in params.items()}
+    del opt, params, state, step
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+            p.grad = None
+    del start
+
+    opt = optimizer()
+    params, state = gpt.init_train_state(model, opt)
+    step = build(opt, 1)
+    mon = numerics.Monitor.for_step(step, every_k=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    losses, step_s, lrs = [], [], []
+    grad_err, updates, num = {}, {}, None
+    for i in range(n_steps):
+        saved = None
+        if i == 1:
+            # (p, m, v) before the second update, for the hand update
+            saved = {n: (params[n].detach().clone(),
+                         *(s.clone() for s in state["slots"][n]))
+                     for n in UPDATE_SLABS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, packed = step(params, state, tokens, key)
+        losses.append(loss.item())          # synchronizes
+        step_s.append(time.perf_counter() - t0)
+        lrs.append(opt.last_lr)
+        mon.ingest(packed, i)
+        if i == 0:
+            for n, p in params.items():
+                ref = plain_grads[n].float()
+                grad_err[n] = ((p.grad.float() - ref).norm()
+                               / ref.norm().clamp(min=1e-30)).item()
+            del plain_grads
+            step1 = options_step_check(losses[0], plain_loss, grad_err,
+                                       opt.grad_clip.last_norm.item(),
+                                       plain_norm)
+        if saved is not None:
+            norm = opt.grad_clip.last_norm
+            for n, (p0, m0, v0) in saved.items():
+                updates[n] = update_controls(
+                    torch, params[n].detach(), p0, params[n].grad, m0, v0,
+                    norm, opt.last_lr, i + 1, decay=options_decay(n))
+            del saved
+        if i == n_steps - 1:
+            num = numerics_check(torch, packed,
+                                 step.numerics_layout.layout, L)
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    chunks = len(plan_chunks(cfg.vocab_size))
+    expected = {n: 0 for n in launches}
+    expected.update({"flash_attention": L, "flash_attention_bwd_dkdv": L,
+                     "flash_attention_bwd_dq": L, "fused_ce_fwd": 1,
+                     "fused_ce_dl": chunks, "fused_ce_dx": chunks,
+                     "fused_ce_dw": chunks})
+    per_step = {n: c / n_steps for n, c in launches.items()}
+    counts_ok = all(per_step[n] == e for n, e in expected.items())
+    lr_rec = lr_check(lrs, options_schedule())
+    decay_rec = decay_mask_check(
+        {n: opt.decay_mask(n) for n in model.slab_entries()},
+        options_decay, L)
+    timed = sorted(step_s[1:])
+    med = timed[len(timed) // 2]
+
+    # the same step with the numerics capture off, then the profiler's
+    # view of one step with it on
+    step_off = build(opt, 0)
+    off_s = []
+    for _ in range(off_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step_off(params, state, tokens, key)
+        loss.item()
+        off_s.append(time.perf_counter() - t0)
+    train_breakdown(torch, step, params, state, tokens, rng=key,
+                    name="train_options_breakdown")
+
+    # the poisoned step, the clip off: a NaN in one layer's gradient makes
+    # the global norm NaN, and then every layer's update (the JAX step
+    # does the same), so the provenance would name layer 0's update
+    # (the alert dumps the monitor's ring into build/numerics/)
+    opt.grad_clip = None
+    with faults.inject(numerics.FAULT_SITE, "nan",
+                       layer=OPT_POISON_LAYER):
+        params, state, loss, packed = step(params, state, tokens, key)
+    dump_dir = os.path.abspath(os.path.join("build", "numerics"))
+    old_dir = os.environ.get("PT_NUMERICS_DIR")
+    os.environ["PT_NUMERICS_DIR"] = dump_dir
+    try:
+        poison = poison_check(mon.ingest(packed, n_steps) or {},
+                              OPT_POISON_LAYER)
+    finally:
+        if old_dir is None:
+            del os.environ["PT_NUMERICS_DIR"]
+        else:
+            os.environ["PT_NUMERICS_DIR"] = old_dir
+    dump = os.path.join(dump_dir, f"numerics_{n_steps}.{os.getpid()}.json")
+    poison["dump"] = dump if os.path.exists(dump) else None
+
+    tok_s = B * S / med
+    finite = all(np.isfinite(losses))
+    off_med = sorted(off_s)[len(off_s) // 2]
+    rec = {"phase": "train_options_gpt3_1p3b", "params": cfg.num_params(),
+           "layers": L, "batch": B, "seq": S, "dropout": cfg.dropout,
+           "remat": cfg.remat, "schedule": "LinearWarmup(2, 0 -> 1e-4) + "
+           "CosineAnnealingDecay(1e-4, T_max=6)", "weight_decay": OPT_WD,
+           "decay_masks": decay_rec,
+           "grad_clip_global_norm": OPT_CLIP,
+           "plain_step1_loss": plain_loss, "losses": losses,
+           "step1": step1, "lr": lr_rec, "update": updates,
+           "numerics": num, "poison": poison,
+           "step_s": step_s, "step_ms_median": med * 1e3,
+           "numerics_off_step_s": off_s,
+           "numerics_off_step_ms_median": off_med * 1e3,
+           "numerics_cost_ms": (med - off_med) * 1e3,
+           "dropout0_step_ms_median": base["step_ms_median"],
+           "mask_ms": masks["mask_ms"],
+           "dropout_ms_per_step": masks["dropout_ms_per_step"],
+           "tokens_per_s": tok_s,
+           "mfu": cfg.flops_per_token() * tok_s / H100_BF16_FLOPS,
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": per_step, "expected_per_step": expected,
+           "counts_ok": bool(counts_ok)}
+    rec["ok"] = bool(finite and counts_ok and step1["ok"] and lr_rec["ok"]
+                     and decay_rec["ok"]
+                     and all(u["ok"] for u in updates.values())
+                     and len(updates) == len(UPDATE_SLABS)
+                     and any(c["moves"] for u in updates.values()
+                             for c in u["controls"].values())
+                     and num is not None and num["ok"] and poison["ok"]
+                     and poison["dump"] is not None
+                     and losses[-1] < losses[0])
+    _phase(rec)
+    return rec
+
+
+def sweep_cases():
+    """name -> a factory of each optimizer of the port with an option:
+    the ten optimizers (L2 terms on some), the value and per-slab norm
+    clips, both regularizers, LookAhead, and AdamW after amp's O2 cast
+    (last: ``train_sweep_phase`` builds an fp32 model for it and casts
+    it)."""
+    from paddle_tpu_torch import regularizer as reg
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.incubate import LookAhead
+    return {
+        "SGD": lambda: opt.SGD(learning_rate=1e-2, weight_decay=1e-4),
+        "Momentum_nesterov": lambda: opt.Momentum(
+            learning_rate=1e-3, use_nesterov=True),
+        "Adam": lambda: opt.Adam(learning_rate=1e-4, weight_decay=0.01),
+        "AdamW": lambda: opt.AdamW(learning_rate=1e-4),
+        "Adamax": lambda: opt.Adamax(learning_rate=1e-4),
+        "Adagrad": lambda: opt.Adagrad(learning_rate=1e-3),
+        "Adadelta": lambda: opt.Adadelta(learning_rate=1.0),
+        "RMSProp_centered": lambda: opt.RMSProp(
+            learning_rate=1e-4, momentum=0.9, centered=True),
+        "Lamb": lambda: opt.Lamb(learning_rate=1e-3),
+        "Lars": lambda: opt.Lars(learning_rate=1e-2),
+        "AdamW+ClipGradByValue": lambda: opt.AdamW(
+            learning_rate=1e-4, grad_clip=opt.ClipGradByValue(1e-3)),
+        "AdamW+ClipGradByNorm": lambda: opt.AdamW(
+            learning_rate=1e-4, grad_clip=opt.ClipGradByNorm(0.1)),
+        "Adam+L1Decay": lambda: opt.Adam(learning_rate=1e-4,
+                                         weight_decay=reg.L1Decay(1e-4)),
+        "AdamW+L2Decay": lambda: opt.AdamW(learning_rate=1e-4,
+                                           weight_decay=reg.L2Decay(0.01)),
+        "LookAhead(Adam)": lambda: LookAhead(opt.Adam(learning_rate=1e-4),
+                                             alpha=0.5, k=1),
+        "amp_O2+AdamW": lambda: opt.AdamW(learning_rate=1e-4),
+    }
+
+
+def cast_check(torch, before, after):
+    """amp's O2 cast: every parameter fp32 before ``decorate`` and bf16
+    after it."""
+    return {"before": sorted({str(d) for d in before}),
+            "after": sorted({str(d) for d in after}),
+            "ok": bool(before and all(d == torch.float32 for d in before)
+                       and len(after) == len(before)
+                       and all(d == torch.bfloat16 for d in after))}
+
+
+def finite_check(torch, tensors):
+    """Every tensor of ``tensors`` (parameters, optimizer slots) finite;
+    returns the names of those that are not."""
+    return [n for n, t in tensors.items()
+            if not bool(torch.isfinite(t).all().item())]
+
+
+def train_sweep_phase(torch, dev):
+    """One gpt3_1p3b train step (dropout 0, the kernels) with each
+    optimizer, clip and regularizer of the port (``sweep_cases``), and
+    ModelAverage over the result: the loss, every parameter and every
+    optimizer slot finite, launches as phase 5's per step; the step time
+    of each. The amp O2 case builds the model in fp32 and trains it after
+    ``amp.decorate`` cast every parameter to bf16 (``cast_check``)."""
+    import numpy as np
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import ModelAverage
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.fused_ce import plan_chunks
+
+    cfg = gpt.gpt3_1p3b()
+    B, S, L = 4, cfg.max_seq_len, cfg.n_layers
+    model = gpt.GPT(cfg, seed=SEED, device=dev)
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    cases, ok = {}, True
+    _zero_counters()
+    for name, make in sweep_cases().items():
+        cast = None
+        if name.startswith("amp_O2"):
+            del model
+            torch.cuda.empty_cache()
+            model = gpt.GPT(gpt.gpt3_1p3b(dtype=torch.float32), seed=SEED,
+                            device=dev)
+            before = [p.dtype for p in model.parameters()]
+            amp.decorate(model, level="O2", dtype="bfloat16")
+            cast = cast_check(torch, before,
+                              [p.dtype for p in model.parameters()])
+        opt = make()
+        params, state = gpt.init_train_state(model, opt)
+        step = gpt.build_train_step(model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)[:3]
+        loss = loss.item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        slots = state["inner"]["slots"] if "inner" in state \
+            else state["slots"]
+        tensors = dict(params)
+        for n, slot in slots.items():
+            for j, t in enumerate(slot if isinstance(slot, tuple)
+                                  else (slot,)):
+                tensors[f"{n}/slot{j}"] = t
+        bad = finite_check(torch, tensors)
+        cases[name] = {"loss": loss, "step_ms": step_ms,
+                       "lr": opt.last_lr, "not_finite": bad,
+                       "ok": bool(np.isfinite(loss) and not bad)}
+        if cast is not None:
+            cases[name]["cast"] = cast
+            cases[name]["ok"] = bool(cases[name]["ok"] and cast["ok"])
+        ok = ok and cases[name]["ok"]
+        del opt, params, state, step, slots, tensors
+        torch.cuda.empty_cache()
+    launches = _read_counters()
+    n = len(cases)
+    ma = ModelAverage(average_window_rate=0.15)
+    own = dict(model.named_parameters())
+    mst = ma.accumulate(ma.init(own), own)
+    averaged = ma.apply(mst, own)
+    ma_bad = finite_check(torch, averaged)
+    del ma, mst, averaged
+    chunks = len(plan_chunks(cfg.vocab_size))
+    expected = {k: 0 for k in launches}
+    expected.update({"flash_attention": L, "flash_attention_bwd_dkdv": L,
+                     "flash_attention_bwd_dq": L, "fused_ce_fwd": 1,
+                     "fused_ce_dl": chunks, "fused_ce_dx": chunks,
+                     "fused_ce_dw": chunks})
+    per_step = {k: c / n for k, c in launches.items()}
+    counts_ok = all(per_step[k] == e for k, e in expected.items())
+    rec = {"phase": "train_sweep_gpt3_1p3b", "steps": n, "cases": cases,
+           "model_average_not_finite": ma_bad, "launches": launches,
+           "launches_per_step": per_step, "counts_ok": bool(counts_ok),
+           "ok": bool(ok and counts_ok and not ma_bad)}
+    _phase(rec)
+    return rec
 
 
 def teacher_forced(torch, dev, model, reqs, tol=TEACHER_FORCED_TOL):
@@ -2930,6 +3494,11 @@ def main():
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
     paths["train"] = train["launches"]
+    torch.cuda.empty_cache()
+    paths["train_options"] = train_options_phase(torch, dev,
+                                                 train)["launches"]
+    torch.cuda.empty_cache()
+    paths["train_sweep"] = train_sweep_phase(torch, dev)["launches"]
     torch.cuda.empty_cache()
     paths["encoder"] = encoder_phase(torch, dev)["launches"]
     torch.cuda.empty_cache()

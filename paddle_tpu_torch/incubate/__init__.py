@@ -1,2 +1,9 @@
 """incubate (counterpart of ``paddle_tpu/incubate``): the fused
-transformer layers and functionals of ``incubate.nn``."""
+transformer layers and functionals of ``incubate.nn``, and
+``LookAhead`` / ``ModelAverage`` of ``incubate.optimizer``."""
+
+from paddle_tpu_torch.incubate import optimizer  # noqa: F401
+from paddle_tpu_torch.incubate.optimizer import (  # noqa: F401
+    LookAhead, ModelAverage)
+
+__all__ = ["optimizer", "LookAhead", "ModelAverage"]

@@ -17,7 +17,14 @@ Python loop over the layers replaces the scan.
 
 The train step (``init_train_state``, ``build_train_step``) takes the
 fused cross-entropy (K5-K7) where the JAX package does; attention
-backward runs K3/K4 on the card.
+backward runs K3/K4 on the card. It takes everything the JAX step takes
+for a dense stack on one device: any optimizer of ``optimizer`` with a
+schedule, a clip and a regularizer; ``apply_decay_param_fun``, resolved
+per layer into masks over the slabs; dropout from a JAX-style key
+(``paddle_tpu_torch.random``: ``fold_in(key, layer)``, then salt 1
+after attention and 2 after the FFN, ``bernoulli(1 - p)`` over the
+activation, the same bits as ``jax.random``); and the numerics capture
+(``PT_NUMERICS_EVERY``).
 
 The cached-decode half (``GPTBlock.decode_rows`` / ``verify_step`` /
 ``decode_step`` over a step's ``cache_rows``, ``GPT.init_cache`` /
@@ -28,8 +35,7 @@ over the prefix and that row in one launch, when the cache is long
 enough (``_use_decode_kernel``); everything else writes the rows and
 takes the dense grouped einsum. A weight map entry may
 be an int8 ``QuantTensor`` (``quantization.quantize_for_inference``),
-whose ``x @ w`` runs K12. MoE and dropout > 0 raise (dropout masks come
-from ``jax.random`` and cannot be reproduced). ``dtype`` takes a
+whose ``x @ w`` runs K12. MoE raises. ``dtype`` takes a
 ``torch.dtype`` or one of the names of ``paddle_tpu_torch.dtypes``.
 """
 
@@ -44,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes
+from paddle_tpu_torch import random as prng
+from paddle_tpu_torch.observability import numerics
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.decode_attention import decode_attention
 from paddle_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
@@ -51,8 +59,9 @@ from paddle_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 __all__ = ["GPTConfig", "GPTBlock", "GPT", "CacheRows", "cache_rows",
            "final_ln", "block_param_specs",
            "lm_loss", "fused_lm_loss", "build_train_step",
-           "init_train_state", "generate", "gpt_tiny", "gpt3_125m",
-           "gpt3_350m", "gpt3_1p3b", "llama_style_1b"]
+           "init_train_state", "register_stacked_decay_mask", "generate",
+           "gpt_tiny", "gpt3_125m", "gpt3_350m", "gpt3_1p3b",
+           "llama_style_1b"]
 
 # the JAX flag ``decode_kernel_min_t`` (paddle_tpu/flags.py:194): the
 # shortest cache whose one-token decode goes to K10
@@ -67,7 +76,8 @@ class GPTConfig:
     n_layers: int = 12
     n_heads: int = 12
     ffn_mult: int = 4
-    # any value > 0 makes GPT raise (the JAX masks are jax.random bits)
+    # residual dropout after attention and after the FFN, drawn from the
+    # key the forward is given (none without one)
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     use_bias: bool = True
@@ -229,6 +239,7 @@ class GPTBlock(nn.Module):
         self.head_dim = cfg.head_dim
         self.rope = cfg.rope
         self.rope_theta = cfg.rope_theta
+        self.dropout = cfg.dropout
         if cfg.rope and cfg.head_dim % 2:
             raise ValueError("rope needs an even head_dim")
 
@@ -265,13 +276,14 @@ class GPTBlock(nn.Module):
     def _ln(self, x, scale, bias):
         return final_ln(x, scale, bias)
 
-    def _block_tail(self, x, attn, w):
+    def _block_tail(self, x, attn, w, rng_key=None):
         """Post-attention half of the block (out-proj + MLP), shared by
-        the full forward and every cached-decode path."""
+        the full forward and every cached-decode path; with a key, the
+        residual dropout of each branch (salts 1 and 2)."""
         o = attn @ w["wo"]
         if w.get("bo") is not None:
             o = o + w["bo"]
-        x = x + o
+        x = x + _maybe_dropout(o, self.dropout, rng_key, 1)
         h = self._ln(x, w["ln2_scale"], w["ln2_bias"])
         h = h @ w["wup"]
         if w.get("bup") is not None:
@@ -279,7 +291,7 @@ class GPTBlock(nn.Module):
         h = torch_F.gelu(h, approximate="tanh") @ w["wdown"]
         if w.get("bdown") is not None:
             h = h + w["bdown"]
-        return x + h
+        return x + _maybe_dropout(h, self.dropout, rng_key, 2)
 
     def _qkv(self, x, positions, w):
         """LN1 + fused QKV (+ rope at ``positions`` (B,), the first
@@ -298,16 +310,18 @@ class GPTBlock(nn.Module):
             k = self._apply_rope(k, pos2)
         return q, k, v
 
-    def forward(self, x, w, attn: Optional[Callable] = None):
+    def forward(self, x, w, attn: Optional[Callable] = None, rng_key=None):
         """Full causal forward of (B, S, d). ``attn`` replaces the
         attention functional (same signature as
-        ``scaled_dot_product_attention``); default the port's sdpa."""
+        ``scaled_dot_product_attention``); default the port's sdpa.
+        ``rng_key`` (the layer's key) draws the dropout masks."""
         b, s, d = x.shape
         q, k, v = self._qkv(x, torch.zeros((b,), dtype=torch.int64,
                                            device=x.device), w)
         attn_fn = attn or scaled_dot_product_attention
         a = attn_fn(q, k, v, is_causal=True)
-        return self._block_tail(x, a.reshape(b, s, d).to(x.dtype), w)
+        return self._block_tail(x, a.reshape(b, s, d).to(x.dtype), w,
+                                rng_key)
 
     # -- cached decode (gpt.py:323-430 of the JAX package) ---------------
 
@@ -413,10 +427,6 @@ class GPT(nn.Module):
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE GPT is not ported (dense "
                                       "stacks only)")
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                "dropout > 0 is not ported: the JAX package draws its "
-                "masks from jax.random, which cannot be reproduced")
         dev = device_lib.resolve(device)
         self.cfg = cfg
         L = cfg.n_layers
@@ -441,6 +451,11 @@ class GPT(nn.Module):
             n: nn.Parameter(weights[n].detach())
             for n in block_param_specs(cfg) if n not in self.quantized})
         self.block = GPTBlock(cfg)
+
+    def slab_entries(self):
+        """The parameter names of the stacked (L, ...) slabs
+        (``stacked.<block name>``), as ``named_parameters`` gives them."""
+        return [f"stacked.{n}" for n in self.stacked]
 
     def layer_weights(self):
         """Per-layer name -> tensor maps, one ``unbind(0)`` per slab (views
@@ -475,23 +490,29 @@ class GPT(nn.Module):
         x = final_ln(x, self.lnf_scale, self.lnf_bias)
         return x @ self.head_weight()
 
-    def hidden_states(self, tokens, attn: Optional[Callable] = None):
+    def hidden_states(self, tokens, attn: Optional[Callable] = None,
+                      rng_key=None):
         """Final hidden states (B, S, d): forward minus the LM head. With
         ``cfg.remat`` each block is recomputed in the backward
-        (``jax.checkpoint`` per block in the JAX package)."""
+        (``jax.checkpoint`` per block in the JAX package), its dropout
+        masks redrawn from the same key. Layer i's key is
+        ``fold_in(rng_key, i)``; no key, no dropout."""
         x = self.embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        for w in self.layer_weights():
+        for i, w in enumerate(self.layer_weights()):
+            k = prng.fold_in(rng_key, i) if rng_key is not None else None
             if remat:
-                x = checkpoint(self.block, x, w, attn, use_reentrant=False)
+                x = checkpoint(self.block, x, w, attn, k,
+                               use_reentrant=False)
             else:
-                x = self.block(x, w, attn)
+                x = self.block(x, w, attn, k)
         return x
 
     @torch.no_grad()
-    def forward(self, tokens, attn: Optional[Callable] = None):
+    def forward(self, tokens, attn: Optional[Callable] = None,
+                rng_key=None):
         """(B, S) int tokens → (B, S, V) logits in the model dtype."""
-        return self.head(self.hidden_states(tokens, attn))
+        return self.head(self.hidden_states(tokens, attn, rng_key))
 
     # -- KV-cache decoding (gpt.py:680-712 of the JAX package) -----------
 
@@ -659,6 +680,18 @@ def lm_loss(logits, labels):
     return (logz - picked).mean()
 
 
+def _maybe_dropout(x, p, key, salt):
+    """Residual dropout as the JAX package draws it: keep =
+    ``bernoulli(fold_in(key, salt), 1 - p, x.shape)`` (on x's device),
+    kept entries divided by 1 - p in x's dtype."""
+    if p == 0.0 or key is None:
+        return x
+    keep = prng.bernoulli(prng.fold_in(key, salt), 1.0 - p, x.shape,
+                          device=x.device)
+    scale = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, 0.0).to(x.dtype)
+
+
 def _use_fused_ce(cfg) -> bool:
     """Where the JAX package routes the train loss through the fused CE:
     a dense stack whose vocab has a 128-multiple block divisor, that is
@@ -669,15 +702,17 @@ def _use_fused_ce(cfg) -> bool:
 
 
 def fused_lm_loss(m: GPT, tokens, attn: Optional[Callable] = None,
-                  ce: Optional[Callable] = None):
+                  ce: Optional[Callable] = None, rng_key=None):
     """Causal LM loss with head-LN + LM projection + softmax-CE fused
     (K5-K7 on the card), so the (B, S, V) logits never exist in device
     memory; ``forward`` + ``lm_loss`` where the fused CE does not apply.
     ``attn`` replaces the attention functional, ``ce`` the fused CE
-    (same signature as ``fused_softmax_cross_entropy``)."""
+    (same signature as ``fused_softmax_cross_entropy``); ``rng_key``
+    draws the dropout masks."""
     if not _use_fused_ce(m.cfg):
-        return lm_loss(m.head(m.hidden_states(tokens, attn)), tokens)
-    x = m.hidden_states(tokens, attn)
+        return lm_loss(m.head(m.hidden_states(tokens, attn, rng_key)),
+                       tokens)
+    x = m.hidden_states(tokens, attn, rng_key)
     b, s, d = x.shape
     xn = final_ln(x, m.lnf_scale, m.lnf_bias)
     w = m.head_weight()
@@ -691,16 +726,39 @@ def fused_lm_loss(m: GPT, tokens, attn: Optional[Callable] = None,
     return per_tok.sum() / (b * (s - 1))
 
 
+def register_stacked_decay_mask(optimizer, model: GPT):
+    """Resolve ``optimizer.apply_decay_param_fun`` once per layer under
+    the JAX per-layer names (``blocks.item_<i>.<name>``) into an
+    (L, 1, ...) fp32 0/1 mask per slab on the slab's device, and
+    register each under its entry name (``stacked.<name>``) with the
+    optimizer's ``set_decay_mask``. A decision that varies by layer is
+    kept (one row per layer)."""
+    decay_fn = optimizer.apply_decay_param_fun
+    set_mask = getattr(optimizer, "set_decay_mask", None)
+    if set_mask is None:
+        raise ValueError(
+            f"optimizer {type(optimizer).__name__} sets "
+            "apply_decay_param_fun but has no set_decay_mask(); the "
+            "stacked layout needs the masked update path "
+            "(paddle_tpu_torch.optimizer.AdamW)")
+    L = model.cfg.n_layers
+    for entry, (name, slab) in zip(model.slab_entries(),
+                                   model.stacked.items()):
+        col = [float(bool(decay_fn(f"blocks.item_{i}.{name}")))
+               for i in range(L)]
+        set_mask(entry, torch.tensor(
+            col, dtype=torch.float32, device=slab.device).reshape(
+                (L,) + (1,) * (slab.dim() - 1)))
+
+
 def init_train_state(model: GPT, optimizer):
     """``(params, opt_state)``: the model's own parameters by name (the
     slabs stacked, as the JAX ``stacked=True`` state) and the
-    optimizer's ``{"step", "slots"}``. A name-keyed
-    ``apply_decay_param_fun`` cannot see into the slabs; per-layer decay
-    masks are ROADMAP T3, so it raises here."""
+    optimizer's state. An ``apply_decay_param_fun`` is resolved against
+    the per-layer names into masks over the slabs
+    (``register_stacked_decay_mask``), as the JAX stacked state does."""
     if getattr(optimizer, "apply_decay_param_fun", None) is not None:
-        raise NotImplementedError(
-            "apply_decay_param_fun over the stacked block slabs needs "
-            "per-layer decay masks (ROADMAP T3)")
+        register_stacked_decay_mask(optimizer, model)
     params = dict(model.named_parameters())
     return params, optimizer.init(params)
 
@@ -708,28 +766,65 @@ def init_train_state(model: GPT, optimizer):
 def build_train_step(model: GPT, optimizer,
                      attn: Optional[Callable] = None,
                      ce: Optional[Callable] = None):
-    """``step(params, opt_state, tokens) -> (params, opt_state, loss)``:
-    forward, ``fused_lm_loss``, backward, optimizer update. ``params``
-    is the dict ``init_train_state`` returned; the step trains the model
-    in place (the new parameters are the same tensors) and leaves this
-    step's gradients in each parameter's ``.grad``. ``attn`` and ``ce``
-    replace the attention and the fused CE (the plain versions, to hold
-    the kernels against)."""
-    own = dict(model.named_parameters())
+    """``step(params, opt_state, tokens, rng=None) -> (params, opt_state,
+    loss)``: forward, ``fused_lm_loss`` (dropout drawn from ``rng``, a
+    ``paddle_tpu_torch.random`` key, when the config has it), backward,
+    optimizer update. ``params`` is the dict ``init_train_state``
+    returned; the step trains the model in place (the new parameters are
+    the same tensors) and leaves this step's gradients in each
+    parameter's ``.grad``. ``attn`` and ``ce`` replace the attention and
+    the fused CE (the plain versions, to hold the kernels against).
 
-    def step(params, opt_state, tokens):
+    With ``PT_NUMERICS_EVERY`` > 0 when the step is built, it returns a
+    4th output, the packed numerics vector (per-layer gradient and
+    update statistics and the NaN provenance header,
+    ``observability.numerics.capture_step``), and ``step.numerics_layout``
+    decodes it. The gradients pass the ``train.grad_poison`` fault site
+    before the update.
+
+    With ``apply_decay_param_fun`` set, every slab needs the mask
+    ``init_train_state`` registers: the name fn cannot see into a slab,
+    and without a mask it would decay the LayerNorm scales and biases
+    that the per-layer names exempt, so the step raises."""
+    own = dict(model.named_parameters())
+    slabs = model.slab_entries()
+    num_on = numerics.enabled()
+    num_box = numerics.LayoutBox()
+
+    def step(params, opt_state, tokens, rng=None):
         if params.keys() != own.keys() or any(
                 params[n] is not p for n, p in own.items()):
             raise ValueError("params must be the model's own parameter "
                              "dict (init_train_state)")
+        if getattr(optimizer, "apply_decay_param_fun", None) is not None:
+            bare = [n for n in slabs if optimizer.decay_mask(n) is None]
+            if bare:
+                raise ValueError(
+                    f"apply_decay_param_fun is set but the stacked slabs "
+                    f"{bare} have no registered decay mask; resolve one "
+                    f"per layer first (init_train_state does this)")
         for p in own.values():
             p.grad = None
-        loss = fused_lm_loss(model, tokens, attn, ce)
+        loss = fused_lm_loss(model, tokens, attn, ce, rng_key=rng)
         loss.backward()
-        grads = {n: p.grad for n, p in own.items()}
+        count = opt_state["step"]
+        grads = numerics.poison_grads({n: p.grad for n, p in own.items()},
+                                      slabs, step_count=count)
+        sampled = num_on and numerics.due(count)
+        old = ({n: p.detach().clone() for n, p in own.items()}
+               if sampled else None)
         params, opt_state = optimizer.update(grads, opt_state, params)
-        return params, opt_state, loss.detach()
+        loss = loss.detach()
+        if not num_on:
+            return params, opt_state, loss
+        updates = ({n: p.detach() - old[n] for n, p in own.items()}
+                   if sampled else None)
+        packed = numerics.capture_step(grads, loss=loss, updates=updates,
+                                       step_count=count,
+                                       stacked_keys=slabs, box=num_box)
+        return params, opt_state, loss, packed
 
+    step.numerics_layout = num_box
     return step
 
 

@@ -6,23 +6,30 @@ encoder path uses).
 ``QuantTensor`` weight runs the int8 matmul (K12 on the card) through
 its ``__rmatmul__``. ``dropout`` draws its Bernoulli mask from an
 explicit ``torch.Generator`` where the JAX package folds a context key
-(``fold_ctx_key``): no context RNG is ported. The masks differ from
-``jax.random``'s, which no port reproduces.
+(``fold_ctx_key``): no context RNG is ported, so the masks differ from
+the JAX function's (``paddle_tpu_torch.random`` reproduces
+``jax.random``'s bits for a given key; the GPT's residual dropout draws
+from it).
 """
 
 from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import amp_cast
+
 __all__ = ["linear", "dropout"]
 
 
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)`` with ``weight`` (in, out), as the JAX
-    ``linear``; an int8 ``QuantTensor`` weight takes K12's wrapper."""
-    out = x @ weight
+    ``linear``; an int8 ``QuantTensor`` weight takes K12's wrapper.
+    Inside an ``amp.auto_cast`` region (O1) the floating operands are
+    cast to the amp dtype (``linear`` is on the white list)."""
+    # a QuantTensor is no torch.Tensor: amp_cast leaves it to K12
+    out = amp_cast(x) @ amp_cast(weight)
     if bias is not None:
-        out = out + bias
+        out = out + amp_cast(bias)
     return out
 
 

@@ -10,19 +10,23 @@
 - ``flight`` — the per-request flight recorder; ``merge`` — trace merge
   and per-request stitch; ``comm`` — exposed-time interval algebra;
 - ``runtime`` — device-memory gauges; ``devprof`` — roofline, launch
-  tax (with the K13 probe) and step decomposition.
+  tax (with the K13 probe) and step decomposition;
+- ``numerics`` — the train step's per-layer gradient and update
+  statistics in one packed vector (``PT_NUMERICS_EVERY``), NaN
+  provenance and the host ``Monitor``.
 
 ``init_from_env()`` (called once by ``import paddle_tpu_torch``)
 activates only what the environment asks for: with neither
 ``PT_TRACE_DIR``/``PT_TRACE_FILE`` nor ``PT_STATSZ_PORT`` set it starts
-no thread and opens no socket. The JAX package's ``numerics`` and
-``fleet`` modules are not ported yet (ROADMAP).
+no thread and opens no socket. The JAX package's ``fleet`` module is
+not ported yet (ROADMAP).
 """
 
 import os
 
 from paddle_tpu_torch.observability import (comm, devprof, flight, merge,
-                                            runtime, statsz, trace)
+                                            numerics, runtime, statsz,
+                                            trace)
 from paddle_tpu_torch.observability.comm import (exposed_time,
                                                  record_step_overlap,
                                                  step_overlap)
@@ -43,7 +47,7 @@ __all__ = ["trace", "span", "begin", "end", "complete", "instant",
            "stitch_trace_files", "stitch_rank_traces",
            "request_segments", "init_from_env",
            "comm", "exposed_time", "step_overlap", "record_step_overlap",
-           "flight", "runtime", "devprof"]
+           "flight", "runtime", "devprof", "numerics"]
 
 
 def init_from_env():

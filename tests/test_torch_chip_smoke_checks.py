@@ -710,3 +710,213 @@ def test_phase_times_reads_the_record():
     assert [(layer, name) for layer, name, _ in got] == [
         (layer, name) for layer in range(2) for name in PHASES]
     assert all(ms == pytest.approx(0.007) for _, _, ms in got)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the train step with every option
+# ---------------------------------------------------------------------------
+
+def test_options_decay_exempts_only_layer_norm():
+    fn = chip_smoke.options_decay
+    for name in ("blocks.item_0.ln1_scale", "blocks.item_3.ln2_bias",
+                 "lnf_scale", "lnf_bias"):
+        assert not fn(name), name
+    for name in ("blocks.item_0.wqkv", "blocks.item_5.bqkv", "wte", "wpe",
+                 "blocks.item_1.bdown"):
+        assert fn(name), name
+
+
+def _adamw_slabs(decay, dtype, std, mean, card=False):
+    """One slab through the port's AdamW (bf16 moments, the global clip,
+    a decay mask) for two steps, and the inputs the hand update of the
+    second needs. ``card``: the phase's schedule and decay (a rate of
+    about 1e-4, wd 0.01), else a rate and decay large enough that each
+    control moves every value."""
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    rs = np.random.RandomState(0)
+    name = "stacked.w"
+    p = torch.from_numpy(mean + std * rs.randn(3, 8, 16).astype(
+        np.float32)).to(dtype)
+    lr, wd = ((chip_smoke.options_schedule(), chip_smoke.OPT_WD) if card
+              else (1e-2, 0.1))
+    opt = AdamW(learning_rate=lr, weight_decay=wd,
+                apply_decay_param_fun=lambda n: decay,
+                grad_clip=ClipGradByGlobalNorm(chip_smoke.OPT_CLIP),
+                moment_dtype=torch.bfloat16)
+    opt.set_decay_mask(name, torch.full((3, 1, 1), float(decay)))
+    params = {name: p}
+    state = opt.init(params)
+    for i in range(2):
+        g = torch.from_numpy(3 * rs.randn(3, 8, 16).astype(np.float32)).to(
+            torch.bfloat16)
+        p0 = p.clone()
+        m0, v0 = (s.clone() for s in state["slots"][name])
+        params, state = opt.update({name: g}, state, params)
+    return (p, p0, g, m0, v0, opt.grad_clip.last_norm, opt.last_lr,
+            state["step"], wd)
+
+
+@pytest.mark.parametrize("decay,dtype,std,mean", [
+    (True, torch.bfloat16, 0.002, 0.0),      # stacked.wqkv
+    (False, torch.float32, 0.1, 1.0)])       # stacked.ln1_scale
+def test_adamw_reference_equals_the_optimizer(decay, dtype, std, mean):
+    """The hand update of the second step, from the saved (p, g, m, v),
+    gives the optimizer's values exactly; at a large rate and decay
+    every control (the unclipped gradient, the decay flipped, the next
+    step) moves values and fails, and so does an update made with any
+    of them."""
+    p, p0, g, m0, v0, norm, lr, step, wd = _adamw_slabs(decay, dtype, std,
+                                                         mean)
+    assert float(norm) > chip_smoke.OPT_CLIP       # the clip engaged
+    rec = chip_smoke.update_controls(torch, p, p0, g, m0, v0, norm, lr,
+                                     step, decay, wd=wd)
+    assert rec["ok"] and rec["max_abs_err"] == 0.0 and rec["moved"] > 0
+    assert rec["cannot_move"] == []
+    assert all(c["moves"] and c["caught"] for c in rec["controls"].values())
+    gc = chip_smoke.clipped(torch, g, norm)
+    bad = [chip_smoke.adamw_reference(torch, p0, g, m0, v0, lr, step,
+                                      decay, wd=wd),
+           chip_smoke.adamw_reference(torch, p0, gc, m0, v0, lr, step,
+                                      not decay, wd=wd),
+           chip_smoke.adamw_reference(torch, p0, gc, m0, v0, lr, step + 1,
+                                      decay, wd=wd)]
+    for r in bad:
+        assert not chip_smoke.update_check(p, r)["ok"]
+        assert not chip_smoke.update_controls(
+            torch, r, p0, g, m0, v0, norm, lr, step, decay, wd=wd)["ok"]
+
+
+@pytest.mark.parametrize("slab,decay,dtype,std,mean", [
+    ("stacked.wqkv", True, torch.bfloat16, 0.02, 0.0),
+    ("stacked.ln1_scale", False, torch.float32, 0.0, 1.0)])
+def test_update_controls_at_the_card_values(slab, decay, dtype, std, mean):
+    """At the phase's own rate, decay, init and dtypes (the weights bf16,
+    the LayerNorm scales fp32): the hand update is exact, the update
+    moves values, and the unclipped gradient and the next step move
+    them otherwise and are caught."""
+    assert slab in chip_smoke.UPDATE_SLABS
+    p, p0, g, m0, v0, norm, lr, step, wd = _adamw_slabs(
+        decay, dtype, std, mean, card=True)
+    assert float(norm) > chip_smoke.OPT_CLIP
+    assert lr == pytest.approx(chip_smoke.OPT_LR, rel=1e-6)
+    rec = chip_smoke.update_controls(torch, p, p0, g, m0, v0, norm, lr,
+                                     step, decay, wd=wd)
+    assert rec["ok"] and rec["max_abs_err"] == 0.0 and rec["moved"] > 0
+    for name in ("unclipped", "next_step"):
+        c = rec["controls"][name]
+        assert c["moves"] and c["caught"], name
+    assert all(c["caught"] for c in rec["controls"].values()
+               if c["moves"])
+
+
+def test_lr_check_reads_the_schedule():
+    sched = chip_smoke.options_schedule()
+    used = [float(sched.value_at(i)) for i in range(1, 7)]
+    rec = chip_smoke.lr_check(used, chip_smoke.options_schedule())
+    assert rec["ok"] and used[0] == pytest.approx(chip_smoke.OPT_LR / 2)
+    # the step counter read before its increment: one step late
+    late = [float(sched.value_at(i)) for i in range(0, 6)]
+    assert not chip_smoke.lr_check(late, sched)["ok"]
+
+
+def _packed(n_layers=3):
+    from paddle_tpu_torch.observability import numerics
+    grads = {"stacked.a": torch.randn(n_layers, 4),
+             "stacked.b": torch.randn(n_layers, 2, 3),
+             "wte": torch.randn(5, 2)}
+    box = numerics.LayoutBox()
+    packed = numerics.capture_step(grads, loss=torch.tensor(1.0),
+                                   updates=grads,
+                                   stacked_keys=["stacked.a", "stacked.b"],
+                                   box=box)
+    return packed, box.layout
+
+
+def test_numerics_check_passes_and_fails(monkeypatch):
+    monkeypatch.setenv("PT_NUMERICS_EVERY", "1")
+    packed, layout = _packed()
+    rec = chip_smoke.numerics_check(torch, packed, layout, 3)
+    assert rec["ok"] and rec["stacked_families"] == 4
+    assert not chip_smoke.numerics_check(torch, packed, layout, 4)["ok"]
+    bad = packed.clone()
+    bad[-1] = float("nan")
+    assert not chip_smoke.numerics_check(torch, bad, layout, 3)["ok"]
+    assert not chip_smoke.numerics_check(torch, torch.zeros_like(packed),
+                                         layout, 3)["ok"]
+
+
+def test_poison_check_names_the_layer():
+    snap = {"first_bad_layer": 5,
+            "first_bad_family_name": "grad/_stacked_blocks.0",
+            "alerts": ["nonfinite"]}
+    assert chip_smoke.poison_check(snap, 5)["ok"]
+    assert not chip_smoke.poison_check(snap, 4)["ok"]
+    assert not chip_smoke.poison_check(
+        dict(snap, first_bad_family_name="upd/_stacked_blocks.0"), 5)["ok"]
+    assert not chip_smoke.poison_check(dict(snap, alerts=[]), 5)["ok"]
+    assert not chip_smoke.poison_check({}, 5)["ok"]
+
+
+def test_options_step_check_holds_the_norm():
+    grads = {"a": 1e-3, "b": 2e-2}
+    assert chip_smoke.options_step_check(2.0, 2.001, grads, 1.5, 1.51)["ok"]
+    assert not chip_smoke.options_step_check(2.0, 2.001, grads, 1.5,
+                                             1.6)["ok"]
+    assert not chip_smoke.options_step_check(2.0, 2.1, grads, 1.5,
+                                             1.5)["ok"]
+    assert not chip_smoke.options_step_check(2.0, 2.0, {"a": 0.05}, 1.5,
+                                             1.5)["ok"]
+
+
+def test_decay_mask_check_reads_the_registered_masks():
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.optimizer import AdamW
+    model = gpt.GPT(gpt.gpt_tiny(n_layers=3), seed=0, device="cpu")
+    opt = AdamW(apply_decay_param_fun=chip_smoke.options_decay)
+    gpt.init_train_state(model, opt)
+    masks = {n: opt.decay_mask(n) for n in model.slab_entries()}
+    rec = chip_smoke.decay_mask_check(masks, chip_smoke.options_decay, 3)
+    assert rec["ok"] and rec["decayed_layers"]["stacked.wqkv"] == 3
+    assert rec["decayed_layers"]["stacked.ln1_scale"] == 0
+    bad = dict(masks)
+    bad["stacked.ln2_bias"] = torch.ones(3, 1)
+    assert chip_smoke.decay_mask_check(
+        bad, chip_smoke.options_decay, 3)["wrong"] == ["stacked.ln2_bias"]
+    # a slab with no mask registered
+    bad = dict(masks, **{"stacked.wup": None})
+    assert chip_smoke.decay_mask_check(
+        bad, chip_smoke.options_decay, 3)["wrong"] == ["stacked.wup"]
+    assert not chip_smoke.decay_mask_check({}, chip_smoke.options_decay,
+                                           3)["ok"]
+
+
+def test_sweep_cases_and_finite_check():
+    """Every sweep case builds an optimizer of the port; the finite
+    check names a planted NaN or inf and nothing else."""
+    cases = chip_smoke.sweep_cases()
+    assert len(cases) == 16 and list(cases)[-1].startswith("amp_O2")
+    for make in cases.values():
+        assert hasattr(make(), "update")
+    t = {"a": torch.ones(3), "b": torch.ones(2, 2), "c": torch.zeros(4)}
+    assert chip_smoke.finite_check(torch, t) == []
+    t["b"][1, 0] = float("nan")
+    t["c"][2] = float("-inf")
+    assert chip_smoke.finite_check(torch, t) == ["b", "c"]
+
+
+def test_cast_check_wants_fp32_then_bf16():
+    """The amp O2 case's check: an fp32 model before ``decorate``, every
+    parameter bf16 after it; an already-bf16 model, or a parameter left
+    in fp32, fails."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import gpt
+    model = gpt.GPT(gpt.gpt_tiny(dtype=torch.float32), seed=0, device="cpu")
+    before = [p.dtype for p in model.parameters()]
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    after = [p.dtype for p in model.parameters()]
+    rec = chip_smoke.cast_check(torch, before, after)
+    assert rec["ok"] and rec["after"] == ["torch.bfloat16"]
+    assert not chip_smoke.cast_check(torch, after, after)["ok"]
+    assert not chip_smoke.cast_check(torch, before,
+                                     after[:-1] + [torch.float32])["ok"]
+    assert not chip_smoke.cast_check(torch, [], [])["ok"]

@@ -43,12 +43,18 @@ FIELDS = dict(vocab_size=96, max_seq_len=256, d_model=32, n_layers=2,
 JAX_FLOPS_FACTOR = 4.0
 
 
+# the tracers' default ring: a test elsewhere in the process may leave a
+# smaller one (test_observability.py's overflow test keeps the JAX
+# tracer at 8 events), which would drop the spans compared here
+TRACE_RING = 65536
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     torch.set_num_threads(1)
     for mod in (trace, jtrace):
         mod.disable()
-        mod.clear()
+        mod.clear(capacity=TRACE_RING)
     for mod in (faults, jfaults):
         mod.clear()
     for mod in (stats, jstats):

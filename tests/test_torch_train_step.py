@@ -112,13 +112,6 @@ def test_adam_l2_decay_matches_jax():
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [dict(learning_rate=lambda s: 1e-3),
-                                    dict(grad_clip=object())])
-def test_unported_optimizer_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP T3"):
-        AdamW(**kwargs)
-
-
 # ---------------------------------------------------------------------------
 # GPT train step
 # ---------------------------------------------------------------------------
@@ -274,7 +267,15 @@ def test_train_state_structure_and_errors():
     with pytest.raises(ValueError, match="own parameter dict"):
         step({n: p.detach().clone() for n, p in params.items()}, state,
              torch.zeros((1, 8), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP T3"):
-        gpt.init_train_state(model, AdamW(apply_decay_param_fun=_decay_fn))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        gpt.GPT(gpt.gpt_tiny(dropout=0.1), device="cpu")
+    # a name-keyed decay fn is resolved into a mask per slab, and a
+    # dropout config builds (its masks come from the step's key)
+    masked = AdamW(apply_decay_param_fun=_decay_fn)
+    gpt.init_train_state(model, masked)
+    assert set(masked._decay_masks) == {n for n in params
+                                        if n.startswith("stacked.")}
+    assert masked._decay_masks["stacked.wqkv"].flatten().tolist() == [
+        1.0, 1.0]
+    assert masked._decay_masks["stacked.ln1_bias"].flatten().tolist() == [
+        0.0, 0.0]
+    assert gpt.GPT(gpt.gpt_tiny(dropout=0.1),
+                   device="cpu").block.dropout == 0.1
