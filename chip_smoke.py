@@ -195,9 +195,36 @@ Phases, each fatal on failure:
    result: loss, parameters and optimizer slots finite, launches per
    step as phase 5's; each step's time.
 
+20. the MoE GPT — ``gpt3_1p3b(moe_experts=8, moe_every=2)`` at full
+   width (12 MoE blocks of 8 experts, gshard top-2, 4.14 B parameters,
+   seed 0). (a) ``top_k_gating`` on one routing group's fp32 logits (T
+   1024, E 8) on the card against the CPU, both gates at their
+   capacity: dispatch equal, combine and aux within 1e-6, the Switch
+   jitter bit for bit (``moe_gating_check``). (b) ``generate``, greedy,
+   4 prompts of 128, 32 new tokens, cache 2048: K10 = L x 31, every
+   other kernel 0; run again with its routing recorded (the same
+   tokens), then teacher-forced through the same cached route (the
+   prompt, then one token a call) with K10's plain version and the
+   recorded experts replayed (``_Routes``): each token within
+   TEACHER_FORCED_TOL of its row's maximum. (c) training, bf16-moment
+   AdamW (lr 1e-4, wd 0.01), MOE_BATCH x 2048, ``PRNGKey(0)``: step 1
+   through the kernels with its routing recorded and through the plain
+   versions with those experts replayed, from the same weights (kept in
+   host memory): losses 1e-3, every gradient MOE_GRAD_TOL relative L2
+   (4e-2; its comment gives the measurements behind it); then 6
+   kernel steps from the same weights: the loss falls, K1 = K3 = K4 =
+   24 a step, every other kernel 0; printed: the tokens a MoE block
+   whose own choice differed from the replayed one (a bf16 near-tie: an
+   expert is a different function, so without the replay a few flips
+   in the first blocks move every later gradient), step time, tokens/s,
+   MFU by ``flops_per_token`` (the JAX formula: an MoE block counted as
+   one dense FFN) and by the FLOPs executed (``moe_executed_flops``),
+   peak memory, a torch.profiler breakdown of one step and the time of
+   one AdamW update.
+
 Phases 11, 4, 12 and 6-10 run before 5 (which needs the card's memory
 for training), 13, 14 and 17 before them, 19 (and its sweep) right
-after 5, 15, 16 and 18 after 19. Should
+after 5, 20 after the sweep, 15, 16 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
 
@@ -3429,6 +3456,409 @@ def slice_phase(torch, dev):
 
 
 
+# phase 20: the MoE GPT (gpt3_1p3b width, 8 experts on every second
+# block, gshard top-2) on the card
+MOE_EXPERTS, MOE_EVERY = 8, 2
+# the train batch (rows of 2048 tokens)
+MOE_BATCH = 4
+# the gating on the card against the CPU: the same fp32 arithmetic, the
+# softmax summed in another order
+MOE_GATING_TOL = 1e-6
+# step 1's gradients, kernels against plain versions with the same
+# experts: phase 5's 2.5e-2 was set on the dense stack (worst there
+# 0.019, wpe). The MoE stack's differ more with the same kernels at the
+# same shapes: the gate's gradient is a difference of two experts'
+# outputs, which cancels, and the experts' outputs (std-0.02 matrices
+# at full width) dwarf the residual stream at this init. On the H100
+# the worst was 0.0303 (the gate of block 5) with 58-296 tokens a block
+# at near-ties the plain route would have sent elsewhere; without the
+# replayed experts 0.14-0.52 with 58-1371 tokens a block moved
+MOE_GRAD_TOL = 4e-2
+
+
+def moe_config(gpt):
+    """gpt3_1p3b with 8 experts on every second block (12 MoE blocks),
+    gshard top-2: about 4.1 B parameters."""
+    return gpt.gpt3_1p3b(moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY)
+
+
+def moe_gating_check(combine, dispatch, aux, ref_combine, ref_dispatch,
+                     ref_aux, jitter=None, ref_jitter=None,
+                     tol=MOE_GATING_TOL):
+    """``top_k_gating`` on the card against the CPU: dispatch equal,
+    combine and aux within ``tol``, the jitter (when drawn) bit for
+    bit. Tensors on any device; returns a record with ``ok``."""
+    combine, ref_combine = combine.cpu(), ref_combine.cpu()
+    rec = {"dispatch_mismatches": int((dispatch.cpu()
+                                       != ref_dispatch.cpu()).sum()),
+           "combine_max_abs_err": float((combine - ref_combine).abs()
+                                        .max()),
+           "aux_abs_err": abs(float(aux) - float(ref_aux)),
+           "kept_choices": int(ref_dispatch.sum()), "tol": tol}
+    ok = (rec["dispatch_mismatches"] == 0
+          and rec["combine_max_abs_err"] <= tol
+          and rec["aux_abs_err"] <= tol)
+    if ref_jitter is not None:
+        rec["jitter_mismatches"] = int((jitter.cpu()
+                                        != ref_jitter.cpu()).sum())
+        ok = ok and rec["jitter_mismatches"] == 0
+    rec["ok"] = bool(ok)
+    return rec
+
+
+def moe_gating_case(torch, dev):
+    """One routing group's fp32 logits (T 1024, E 8), drawn on the CPU
+    and copied over, through ``top_k_gating`` on the card and on the CPU
+    for both gates at their capacity (gshard top-2: 320; switch top-1,
+    jitter 0.01 from ``PRNGKey(SEED)``: 160)."""
+    import numpy as np
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.incubate import moe
+    T, E = 1024, MOE_EXPERTS
+    logits = torch.from_numpy(np.random.RandomState(SEED + 5).randn(
+        T, E).astype(np.float32))
+    cases = {}
+    for gate in ("gshard", "switch"):
+        r = moe.Routing.for_gate(E, gate)
+        cap = r.capacity(T)
+        key = prng.PRNGKey(SEED) if r.jitter_eps > 0 else None
+        ref = moe.top_k_gating(logits, r.k, cap, key, r.jitter_eps)
+        got = moe.top_k_gating(logits.to(dev), r.k, cap, key, r.jitter_eps)
+        jit = ref_jit = None
+        if key is not None:
+            jit = moe._jitter(key, logits.to(dev))
+            ref_jit = moe._jitter(key, logits)
+        cases[gate] = dict(k=r.k, capacity=cap, **moe_gating_check(
+            *got, *ref, jit, ref_jit))
+    rec = {"phase": "moe_gating", "tokens": T, "experts": E,
+           "cases": cases, "ok": all(c["ok"] for c in cases.values())}
+    _phase(rec)
+    return rec
+
+
+def cached_teacher_forced(torch, model, out, s0, routes,
+                          tol=TEACHER_FORCED_TOL):
+    """Each token ``generate`` emitted within ``tol`` of its row's maximum
+    under a teacher-forced run of the same cached route (the prompt,
+    then one token at a time, so each call routes the tokens
+    ``generate``'s did) with K10 swapped for its plain version and the
+    experts of ``routes`` (``generate``'s, recorded) replayed: a flip
+    of a near-tie in bf16 sends a token to another expert, whose output
+    is a different function. Also the tokens whose own choice differed
+    (``flips``), per MoE block."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.decode_attention import (
+        decode_attention_reference)
+    b, total = out.shape
+    kernel = gpt.decode_attention
+    gpt.decode_attention = decode_attention_reference
+    try:
+        with _Routes(torch, replay=routes) as pinned:
+            caches = model.init_cache(b, model.cfg.max_seq_len)
+            rows = [model.forward_cached(out[:, :s0], caches, 0)[0][:, -1]]
+            for pos in range(s0, total - 1):
+                rows.append(model.forward_cached(out[:, pos:pos + 1],
+                                                 caches, pos)[0][:, -1])
+    finally:
+        gpt.decode_attention = kernel
+    logits = torch.stack(rows, dim=1).float()        # (B, n_new, V)
+    toks = out[:, s0:].long()
+    gap = logits.max(dim=-1).values - logits.gather(-1, toks[..., None])[
+        ..., 0]
+    finite = bool(torch.isfinite(logits).all().item())
+    worst = gap.max().item()
+    n_moe = sum(gpt.is_moe_layer(model.cfg, i)
+                for i in range(model.cfg.n_layers))
+    return {"teacher_forced_max_gap": worst, "teacher_forced_tol": tol,
+            "teacher_forced_exact_frac": (gap == 0).float().mean().item(),
+            "routing_flips_per_moe_block": pinned.flips(n_moe),
+            "logits_finite": finite, "ok": bool(finite and worst <= tol)}
+
+
+def moe_generate_phase(torch, dev, model):
+    """``GPT.generate`` on the MoE model, greedy, 4 prompts of 128, 32 new
+    tokens, cache 2048: K10 = L x 31, every other kernel 0; the cached
+    teacher-forced check."""
+    import numpy as np
+    cfg = model.cfg
+    B, S0, n_new = 4, 128, 32
+    toks = np.random.RandomState(SEED + 3).randint(0, cfg.vocab_size,
+                                                   size=(B, S0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = model.generate(toks, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {n: 0 for n in launches}
+    expected["decode_attention"] = cfg.n_layers * (n_new - 1)
+    # again with the routing recorded, for the check to replay
+    with _Routes(torch) as routes:
+        again = model.generate(toks, max_new_tokens=n_new)
+    repeat = bool(torch.equal(again, out))
+    check = cached_teacher_forced(torch, model, out, S0, routes)
+    rec = {"phase": "moe_generate_gpt3_1p3b", "batch": B,
+           "prompt_len": S0, "new_tokens": n_new,
+           "cache_len": cfg.max_seq_len, "shape": list(out.shape),
+           "wall_s": wall, "tokens_per_s": B * n_new / wall,
+           "peak_mem_bytes": peak, "launches": launches,
+           "expected_launches": expected,
+           "counts_ok": launches == expected, "repeat_equal": repeat,
+           **{k: v for k, v in check.items() if k != "ok"},
+           "ok": bool(launches == expected and check["ok"] and repeat
+                      and tuple(out.shape) == (B, S0 + n_new))}
+    _phase(rec)
+    return rec
+
+
+def moe_executed_flops(cfg, B, S):
+    """The FLOPs of one MoE train step at its executed shapes: every
+    product's forward and its two backward products (one for the
+    dispatch einsum, whose one-hot operand takes no gradient), with the
+    expert products padded to capacity, the dispatch and combine
+    einsums over the one-hot (G, T, E, C) tensor, causal attention over
+    the keys each query sees, the full LM head; recomputation not
+    counted. ``cfg.flops_per_token()`` (the JAX formula) counts an MoE
+    block as one dense FFN."""
+    from paddle_tpu_torch.incubate.moe import Routing
+    from paddle_tpu_torch.models.gpt import is_moe_layer
+    d, f, L, V = cfg.d_model, cfg.d_ffn, cfg.n_layers, cfg.vocab_size
+    N = B * S
+    kv = 2 * cfg.kv_heads * cfg.head_dim
+    r = Routing.for_gate(cfg.moe_experts, cfg.moe_gate)
+    T = min(r.tokens_per_group, N)
+    G = -(-N // T)
+    C = r.capacity(T)
+    E = cfg.moe_experts
+    dense = 2 * N * d * (d + kv) + 2 * N * d * d
+    attn = 2 * 2 * B * S * (S + 1) // 2 * d
+    fwd = L * (dense + attn) + 2 * N * d * V
+    disp = 0
+    for i in range(L):
+        if is_moe_layer(cfg, i):
+            disp += 2 * G * T * E * C * d
+            fwd += (2 * N * d * E + 2 * 2 * G * E * C * d * f
+                    + 2 * G * T * E * C * d)
+        else:
+            fwd += 2 * 2 * N * d * f
+    return 3 * fwd + 2 * disp
+
+
+class _Routes:
+    """While open, routes every ``top_k_gating`` call through the gating's
+    core (``moe._route``) and keeps, call by call (one a MoE block of a
+    forward), each token's experts in round order and the experts that
+    kept it (capacity). With ``replay`` (a closed ``_Routes``), round i
+    takes the recorded run's choice instead of its own argmax, so a
+    plain route runs with a kernel route's experts and drops, and
+    ``flips`` counts the tokens whose own argmax rounds would have
+    chosen otherwise. The jitter-free gate (gshard) only."""
+
+    def __init__(self, torch, replay=None):
+        self.torch, self.replay = torch, replay
+        self.choices, self.kept, self._flips = [], [], []
+
+    def __enter__(self):
+        from paddle_tpu_torch.incubate import moe
+        self._moe, self._orig = moe, moe.top_k_gating
+        torch = self.torch
+
+        def gating(logits, k, capacity, rng_key=None, jitter_eps=0.0):
+            if jitter_eps > 0.0 and rng_key is not None:
+                raise ValueError("_Routes takes the jitter-free gate")
+            call, own = len(self.choices), []
+
+            def choose(masked_probs, i):
+                own.append(torch.argmax(masked_probs, dim=-1))
+                if self.replay is None:
+                    return own[-1]
+                return self.replay.choices[call][..., i]
+
+            out = moe._route(logits, k, capacity, choose)
+            with torch.no_grad():
+                mine = torch.stack(own, dim=-1)
+                chosen = (mine if self.replay is None
+                          else self.replay.choices[call])
+                self.choices.append(chosen)
+                self.kept.append(out[1].any(dim=-1))
+                self._flips.append((mine != chosen).any(dim=-1).sum())
+            return out
+
+        moe.top_k_gating = gating
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k_gating = self._orig
+        return False
+
+    def flips(self, n_moe):
+        """Tokens whose own choice differed from the replayed one, summed
+        per MoE block (calls cycle through the ``n_moe`` blocks)."""
+        per_call = [int(f) for f in self._flips]
+        return [sum(per_call[j::n_moe]) for j in range(n_moe)]
+
+
+def moe_train_phase(torch, dev, model, n_steps=6):
+    """MoE train steps (phase 20): bf16-moment AdamW (lr 1e-4, wd 0.01),
+    a fixed MOE_BATCH x 2048 batch, ``PRNGKey(0)`` the step key. Step 1
+    through the kernels with its routing recorded, then through the
+    plain versions with those experts replayed (``_Routes``), from the
+    same weights (the start weights and the kernel gradients kept in
+    host memory): losses within 1e-3 relative, every gradient within
+    MOE_GRAD_TOL relative L2, the tokens whose own choice differed
+    printed per MoE block. Then the kernel steps from the start weights, counted: the
+    loss falls; K1 = K3 = K4 = L a step, every other kernel 0; step time,
+    tokens/s, MFU by the JAX formula and by the executed FLOPs, peak
+    memory and a profiler breakdown."""
+    import numpy as np
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = model.cfg
+    B, S, L = MOE_BATCH, cfg.max_seq_len, cfg.n_layers
+    n_moe = sum(gpt.is_moe_layer(cfg, i) for i in range(L))
+    tokens = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    key = prng.PRNGKey(0)
+    # host copies (copy=True: a CPU rehearsal must not alias them)
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in model.named_parameters()}
+
+    def optimizer():
+        return AdamW(learning_rate=1e-4, weight_decay=0.01,
+                     moment_dtype=torch.bfloat16)
+
+    def plain_attn(q, k, v, is_causal=False):
+        return flash_attention_plain(q, k, v, causal=is_causal)
+
+    def restart():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+                p.grad = None
+
+    def step_one(attn, routes):
+        opt = optimizer()
+        params, state = gpt.init_train_state(model, opt)
+        step = gpt.build_train_step(model, opt, attn=attn)
+        t0 = time.perf_counter()
+        with routes:
+            loss = step(params, state, tokens, key)[2].item()
+        return loss, time.perf_counter() - t0, params
+
+    kernel_routes = _Routes(torch)
+    kernel_loss, _, params = step_one(None, kernel_routes)
+    kernel_grads = {n: p.grad.to("cpu", copy=True)
+                    for n, p in params.items()}
+    restart()
+    pinned = _Routes(torch, replay=kernel_routes)
+    plain_loss, plain_step_s, params = step_one(plain_attn, pinned)
+    grad_err = {}
+    for n, p in params.items():
+        ref = p.grad.float()
+        got = kernel_grads.pop(n).to(dev).float()
+        grad_err[n] = ((got - ref).norm()
+                       / ref.norm().clamp(min=1e-30)).item()
+    del params, kernel_routes
+    restart()
+    del start
+
+    opt = optimizer()
+    params, state = gpt.init_train_state(model, opt)
+    step = gpt.build_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    losses, step_s = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens, key)
+        losses.append(loss.item())          # synchronizes
+        step_s.append(time.perf_counter() - t0)
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expected = {n: 0 for n in launches}
+    expected.update({"flash_attention": L, "flash_attention_bwd_dkdv": L,
+                     "flash_attention_bwd_dq": L})
+    per_step = {n: c / n_steps for n, c in launches.items()}
+    counts_ok = all(per_step[n] == e for n, e in expected.items())
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    loss_tol, grad_tol = 1e-3, MOE_GRAD_TOL
+    worst = max(grad_err, key=grad_err.get)
+    over = {n: e for n, e in grad_err.items() if e > grad_tol}
+    over_dense_tol = sum(e > 2.5e-2 for e in grad_err.values())
+    timed = sorted(step_s[1:])               # step 1 pays first-use costs
+    med = timed[len(timed) // 2]
+    tok_s = B * S / med
+    executed = moe_executed_flops(cfg, B, S)
+    rec = {"phase": "moe_train_gpt3_1p3b", "params": sum(
+               p.numel() for p in model.parameters()),
+           "num_params_jax_formula": cfg.num_params(), "layers": L,
+           "moe_layers": n_moe,
+           "experts": cfg.moe_experts, "gate": cfg.moe_gate,
+           "d_model": cfg.d_model, "batch": B, "seq": S,
+           "kernel_step1_loss": kernel_loss,
+           "step1_repeat_equal": losses[0] == kernel_loss,
+           "plain_step1_loss": plain_loss, "plain_step1_s": plain_step_s,
+           "losses": losses, "step1_loss_rel_err": loss_rel,
+           "loss_tol_rel": loss_tol,
+           "grad_rel_l2_max": grad_err[worst], "grad_rel_l2_worst": worst,
+           "grad_over_tol": over, "grad_tol_rel_l2": grad_tol,
+           "grads_over_phase5_tol": over_dense_tol,
+           "routing_flips_per_moe_block": pinned.flips(n_moe),
+           "tokens_per_moe_block": B * S,
+           "step_s": step_s, "step_ms_median": med * 1e3,
+           "tokens_per_s": tok_s,
+           "flops_per_token": cfg.flops_per_token(),
+           "mfu": cfg.flops_per_token() * tok_s / H100_BF16_FLOPS,
+           "executed_flops_per_step": executed,
+           "mfu_executed": executed / med / H100_BF16_FLOPS,
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": per_step, "expected_per_step": expected,
+           "counts_ok": bool(counts_ok),
+           "ok": bool(all(np.isfinite(losses)) and counts_ok
+                      and loss_rel <= loss_tol and not over
+                      and losses[-1] < losses[0])}
+    _phase(rec)
+    train_breakdown(torch, step, params, state, tokens, key,
+                    name="moe_train_breakdown")
+    # the optimizer's share of a step: one more AdamW update over the
+    # last step's gradients (4.1 B values, cast to fp32 entry by entry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.update({n: p.grad for n, p in params.items()}, state, params)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "moe_adamw_update",
+                      "ms": (time.perf_counter() - t0) * 1e3}), flush=True)
+    return rec
+
+
+def moe_phase(torch, dev):
+    """Phase 20: the MoE GPT at gpt3_1p3b width from seed 0: the gating on
+    the card against the CPU, ``generate``, and training. Returns the
+    launches of the generate and train paths."""
+    from paddle_tpu_torch.models import gpt
+    moe_gating_case(torch, dev)
+    t0 = time.perf_counter()
+    model = gpt.GPT(moe_config(gpt), seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "moe_init", "config": str(model.cfg),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    generated = moe_generate_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    trained = moe_train_phase(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    return {"moe_generate": generated["launches"],
+            "moe_train": trained["launches"]}
+
+
 def main():
     try:
         import torch
@@ -3499,6 +3929,8 @@ def main():
                                                  train)["launches"]
     torch.cuda.empty_cache()
     paths["train_sweep"] = train_sweep_phase(torch, dev)["launches"]
+    torch.cuda.empty_cache()
+    paths.update(moe_phase(torch, dev))
     torch.cuda.empty_cache()
     paths["encoder"] = encoder_phase(torch, dev)["launches"]
     torch.cuda.empty_cache()

@@ -2,15 +2,18 @@
 
 ``gpt_from_jax_state`` takes the flat name -> array dict of
 ``paddle_tpu`` ``GPT.state_dict()`` as numpy arrays (``wte``, ``wpe``,
-``lnf_scale``, ``lnf_bias``, ``lm_head`` and ``blocks.item_<i>.<name>``)
-and returns the port's ``GPT`` with the same weights. Layouts stay as
-in JAX ((in, out) for every projection), so nothing is transposed. It
+``lnf_scale``, ``lnf_bias``, ``lm_head`` and ``blocks.item_<i>.<name>``,
+an MoE layer's experts under ``blocks.item_<i>.moe.<name>``) and
+returns the port's ``GPT`` with the same weights. Layouts stay as in
+JAX ((in, out) for every projection), so nothing is transposed. It
 fails on a missing or unexpected key and on a shape mismatch.
 
 ``gpt_to_jax_state`` goes the other way: the port's parameters (or,
 with ``grads=True``, their gradients) as a flat name -> fp32 numpy dict
-in the JAX names, the slabs split into ``blocks.item_<i>.<name>`` — the
-keys of ``GPT.split_params()`` and of ``jax.grad`` over them.
+in the JAX names, a dense stack's slabs split into
+``blocks.item_<i>.<name>`` (an MoE stack has its parameters under
+those names already) — the keys of ``GPT.split_params()`` and of
+``jax.grad`` over them.
 
 ``load_jax_state`` fills any port ``nn.Module`` whose JAX counterpart
 has the same structure (the ``nn`` and ``incubate.nn`` layers) from
@@ -29,7 +32,8 @@ import torch
 
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch.models.gpt import (GPT, GPTConfig, block_param_specs,
-                                         head_param_specs)
+                                         head_param_specs,
+                                         layer_param_specs)
 
 __all__ = ["gpt_from_jax_state", "gpt_to_jax_state", "load_jax_state"]
 
@@ -47,22 +51,19 @@ def _tensor(arr, shape, dtype, dev, name):
 def gpt_from_jax_state(cfg: GPTConfig, state: Dict[str, np.ndarray],
                        device=None) -> GPT:
     dev = device_lib.resolve(device)
-    heads = head_param_specs(cfg)
-    blocks = block_param_specs(cfg)
-    L = cfg.n_layers
-    expected = set(heads) | {f"blocks.item_{i}.{n}"
-                             for i in range(L) for n in blocks}
-    missing = sorted(expected - set(state))
-    unexpected = sorted(set(state) - expected)
+    specs = {**head_param_specs(cfg), **layer_param_specs(cfg)}
+    missing = sorted(set(specs) - set(state))
+    unexpected = sorted(set(state) - set(specs))
     if missing or unexpected:
         raise KeyError(f"state does not match {cfg}: missing={missing}, "
                        f"unexpected={unexpected}")
     weights = {n: _tensor(state[n], s, dt, dev, n)
-               for n, (s, dt, _) in heads.items()}
-    for n, (s, dt, _) in blocks.items():
-        weights[n] = torch.stack([
-            _tensor(state[f"blocks.item_{i}.{n}"], s, dt, dev,
-                    f"blocks.item_{i}.{n}") for i in range(L)])
+               for n, (s, dt, _) in specs.items()}
+    if cfg.moe_experts == 0:
+        # a dense stack's layers go into (L, ...) slabs
+        for n in block_param_specs(cfg):
+            weights[n] = torch.stack([weights.pop(f"blocks.item_{i}.{n}")
+                                      for i in range(cfg.n_layers)])
     return GPT(cfg, device=dev, weights=weights)
 
 
@@ -80,6 +81,10 @@ def gpt_to_jax_state(model: GPT, grads: bool = False
     cfg = model.cfg
     out = {n: _numpy(getattr(model, n), n, grads)
            for n in head_param_specs(cfg)}
+    if model.blocks is not None:
+        for n, p in model.blocks.named_parameters():
+            out[f"blocks.{n}"] = _numpy(p, f"blocks.{n}", grads)
+        return out
     for n in block_param_specs(cfg):
         slab = _numpy(model.stacked[n], f"stacked.{n}", grads)
         for i in range(cfg.n_layers):

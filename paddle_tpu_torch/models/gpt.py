@@ -1,19 +1,26 @@
 """GPT decoder-only LM (counterpart of ``paddle_tpu/models/gpt.py``).
 
 Same configuration, parameter names, layouts and numerics as the JAX
-model, for dense stacks: weights keep the JAX (in, out) layout
-(``x @ w``), LayerNorm statistics run in fp32, GELU is the tanh form
-(``jax.nn.gelu``'s default), rope uses the rotate-half convention.
+model: weights keep the JAX (in, out) layout (``x @ w``), LayerNorm
+statistics run in fp32, GELU is the tanh form (``jax.nn.gelu``'s
+default), rope uses the rotate-half convention.
 
-Weights live in stacked (L, ...) slabs, one trainable ``nn.Parameter``
-per block parameter (``GPT.stacked``, the counterpart of the JAX
-``init_train_state(stacked=True)`` layout). ``GPTBlock`` holds no
-weights: every method takes the layer's name -> tensor map, and
-``GPT.layer_weights`` makes those maps with one ``unbind(0)`` per slab,
-whose backward is one stack, so a step builds each slab's gradient once
-rather than one slab-sized zero tensor per layer. The serving engine
-takes the same maps once, detached (they see every in-place update). A
-Python loop over the layers replaces the scan.
+A dense stack keeps its weights in stacked (L, ...) slabs, one
+trainable ``nn.Parameter`` per block parameter (``GPT.stacked``, the
+counterpart of the JAX ``init_train_state(stacked=True)`` layout). An
+MoE stack (``moe_experts`` > 0: every ``moe_every``-th block swaps its
+FFN for ``incubate.moe``'s) mixes two kinds of block, which cannot
+stack: it keeps one module of parameters per layer (``GPT.blocks``,
+``blocks.item_<i>.<name>``, the expert parameters under
+``blocks.item_<i>.moe.``), the counterpart of the JAX per-layer state
+(``init_train_state(stacked=False)``), and no slabs. ``GPTBlock``
+holds no weights: every method takes the layer's name -> tensor map,
+and ``GPT.layer_weights`` makes those maps, for slabs with one
+``unbind(0)`` per slab, whose backward is one stack, so a step builds
+each slab's gradient once rather than one slab-sized zero tensor per
+layer. The serving engine takes the same maps once, detached (they see
+every in-place update). A Python loop over the layers replaces the
+scan.
 
 The train step (``init_train_state``, ``build_train_step``) takes the
 fused cross-entropy (K5-K7) where the JAX package does; attention
@@ -24,7 +31,9 @@ per layer into masks over the slabs; dropout from a JAX-style key
 (``paddle_tpu_torch.random``: ``fold_in(key, layer)``, then salt 1
 after attention and 2 after the FFN, ``bernoulli(1 - p)`` over the
 activation, the same bits as ``jax.random``); and the numerics capture
-(``PT_NUMERICS_EVERY``).
+(``PT_NUMERICS_EVERY``). An MoE stack trains on ``lm_loss`` over full
+logits plus ``moe_aux_weight`` times the summed load-balance aux, as
+the JAX step does (no fused CE).
 
 The cached-decode half (``GPTBlock.decode_rows`` / ``verify_step`` /
 ``decode_step`` over a step's ``cache_rows``, ``GPT.init_cache`` /
@@ -35,7 +44,9 @@ over the prefix and that row in one launch, when the cache is long
 enough (``_use_decode_kernel``); everything else writes the rows and
 takes the dense grouped einsum. A weight map entry may
 be an int8 ``QuantTensor`` (``quantization.quantize_for_inference``),
-whose ``x @ w`` runs K12. MoE raises. ``dtype`` takes a
+whose ``x @ w`` runs K12. An MoE block routes each call's own tokens
+(the prompt's B x S0, then B a decode step), as the JAX cached decode
+does. ``dtype`` takes a
 ``torch.dtype`` or one of the names of ``paddle_tpu_torch.dtypes``.
 """
 
@@ -51,14 +62,17 @@ from torch.utils.checkpoint import checkpoint
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes
 from paddle_tpu_torch import random as prng
+from paddle_tpu_torch.incubate.moe import (Routing, draw_param,
+                                           expert_param_specs, moe_ffn)
 from paddle_tpu_torch.observability import numerics
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.decode_attention import decode_attention
 from paddle_tpu_torch.ops.fused_ce import fused_softmax_cross_entropy
 
 __all__ = ["GPTConfig", "GPTBlock", "GPT", "CacheRows", "cache_rows",
-           "final_ln", "block_param_specs",
-           "lm_loss", "fused_lm_loss", "build_train_step",
+           "final_ln", "block_param_specs", "layer_param_specs",
+           "is_moe_layer",
+           "lm_loss", "fused_lm_loss", "train_loss", "build_train_step",
            "init_train_state", "register_stacked_decay_mask", "generate",
            "gpt_tiny", "gpt3_125m", "gpt3_350m", "gpt3_1p3b",
            "llama_style_1b"]
@@ -84,8 +98,12 @@ class GPTConfig:
     tie_embeddings: bool = True
     # recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = False
-    # MoE is not ported: any value > 0 makes GPT raise
+    # MoE: every ``moe_every``-th block swaps its FFN for an
+    # incubate.moe FFN of ``moe_experts`` experts; 0 experts = dense
     moe_experts: int = 0
+    moe_every: int = 2
+    moe_aux_weight: float = 0.01
+    moe_gate: str = "gshard"
     # GQA/MQA: fewer KV heads than query heads; None = MHA
     n_kv_heads: Optional[int] = None
     # rotary positions instead of the learned wpe table
@@ -155,6 +173,30 @@ def block_param_specs(cfg: GPTConfig) -> Dict[str, tuple]:
     return specs
 
 
+def is_moe_layer(cfg: GPTConfig, i: int) -> bool:
+    """Whether block ``i`` swaps its FFN for the MoE."""
+    return cfg.moe_experts > 0 and (i + 1) % cfg.moe_every == 0
+
+
+def layer_param_specs(cfg: GPTConfig) -> Dict[str, tuple]:
+    """Full per-layer name (``blocks.item_<i>.<name>``, the keys of the
+    JAX ``GPT.split_params()``) -> (shape, dtype, init) of every block
+    parameter. An MoE layer has no ``wup``/``wdown``/``bup``/``bdown``
+    and has the expert parameters under ``moe.``."""
+    dense = block_param_specs(cfg)
+    experts = expert_param_specs(cfg.d_model, cfg.d_ffn, cfg.moe_experts,
+                                 cfg.dtype)
+    out = {}
+    for i in range(cfg.n_layers):
+        specs = dict(dense)
+        if is_moe_layer(cfg, i):
+            for n in ("wup", "wdown", "bup", "bdown"):
+                specs.pop(n, None)
+            specs.update({f"moe.{n}": v for n, v in experts.items()})
+        out.update({f"blocks.item_{i}.{n}": v for n, v in specs.items()})
+    return out
+
+
 def head_param_specs(cfg: GPTConfig) -> Dict[str, tuple]:
     """name -> (shape, dtype, init) of the non-block parameters."""
     d, dt = cfg.d_model, cfg.dtype
@@ -166,15 +208,6 @@ def head_param_specs(cfg: GPTConfig) -> Dict[str, tuple]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, cfg.vocab_size), dt, 0.02)
     return specs
-
-
-def _init(shape, dtype, init, gen, dev):
-    if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=dev)
-    if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=dev)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-    return (x * init).to(dtype)
 
 
 def final_ln(x, scale, bias, eps: float = 1e-5):
@@ -230,7 +263,8 @@ class GPTBlock(nn.Module):
     """Pre-LN decoder block with fused QKV. It holds no weights: every
     method takes ``w``, a mapping of the JAX parameter names to one
     layer's tensors (an entry of ``GPT.layer_weights``); a bias-free
-    config has no bias entries."""
+    config has no bias entries. An MoE layer's map has no FFN entries
+    and holds its expert parameters under ``"moe"``."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -242,6 +276,8 @@ class GPTBlock(nn.Module):
         self.dropout = cfg.dropout
         if cfg.rope and cfg.head_dim % 2:
             raise ValueError("rope needs an even head_dim")
+        self.routing = (Routing.for_gate(cfg.moe_experts, cfg.moe_gate)
+                        if cfg.moe_experts > 0 else None)
 
     def _split_qkv(self, qkv):
         """(B, L, d+2·kv_dim) fused projection → contiguous q
@@ -276,15 +312,22 @@ class GPTBlock(nn.Module):
     def _ln(self, x, scale, bias):
         return final_ln(x, scale, bias)
 
-    def _block_tail(self, x, attn, w, rng_key=None):
-        """Post-attention half of the block (out-proj + MLP), shared by
-        the full forward and every cached-decode path; with a key, the
-        residual dropout of each branch (salts 1 and 2)."""
+    def _block_tail(self, x, attn, w, rng_key=None, aux_acc=None):
+        """Post-attention half of the block (out-proj + MLP or MoE),
+        shared by the full forward and every cached-decode path; with a
+        key, the residual dropout of each branch (salts 1 and 2) and the
+        MoE's jitter (the layer's key itself, as the JAX block passes
+        it). An MoE layer appends its aux loss to ``aux_acc``."""
         o = attn @ w["wo"]
         if w.get("bo") is not None:
             o = o + w["bo"]
         x = x + _maybe_dropout(o, self.dropout, rng_key, 1)
         h = self._ln(x, w["ln2_scale"], w["ln2_bias"])
+        if "moe" in w:
+            h, aux = moe_ffn(w["moe"], h, self.routing, rng_key)
+            if aux_acc is not None:
+                aux_acc.append(aux)
+            return x + _maybe_dropout(h, self.dropout, rng_key, 2)
         h = h @ w["wup"]
         if w.get("bup") is not None:
             h = h + w["bup"]
@@ -310,18 +353,20 @@ class GPTBlock(nn.Module):
             k = self._apply_rope(k, pos2)
         return q, k, v
 
-    def forward(self, x, w, attn: Optional[Callable] = None, rng_key=None):
+    def forward(self, x, w, attn: Optional[Callable] = None, rng_key=None,
+                aux_acc=None):
         """Full causal forward of (B, S, d). ``attn`` replaces the
         attention functional (same signature as
         ``scaled_dot_product_attention``); default the port's sdpa.
-        ``rng_key`` (the layer's key) draws the dropout masks."""
+        ``rng_key`` (the layer's key) draws the dropout masks; an MoE
+        layer appends its aux loss to ``aux_acc``."""
         b, s, d = x.shape
         q, k, v = self._qkv(x, torch.zeros((b,), dtype=torch.int64,
                                            device=x.device), w)
         attn_fn = attn or scaled_dot_product_attention
         a = attn_fn(q, k, v, is_causal=True)
         return self._block_tail(x, a.reshape(b, s, d).to(x.dtype), w,
-                                rng_key)
+                                rng_key, aux_acc)
 
     # -- cached decode (gpt.py:323-430 of the JAX package) ---------------
 
@@ -412,32 +457,54 @@ class GPTBlock(nn.Module):
         return self._block_tail(x, attn, w), (k_cache, v_cache)
 
 
+class _Params(nn.Module):
+    """A module holding given tensors as trainable parameters: one
+    layer of an MoE stack (``blocks.item_<i>``), or its experts
+    (``.moe``)."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for n, t in tensors.items():
+            self.register_parameter(n, nn.Parameter(t.detach()))
+
+
 class GPT(nn.Module):
     """Decoder-only LM with learned positions (or rope), tied or untied
     head. ``GPT(cfg, seed)`` draws random weights from a seeded
-    ``torch.Generator`` on ``device``; ``weights`` (name -> tensor, the
-    JAX head names plus (L, ...) slabs under the block names) builds it
-    from given tensors instead (``models/convert.py``). Every parameter
-    is trainable: the head ones under their JAX names, the slabs as
-    ``stacked.<block name>``."""
+    ``torch.Generator`` on ``device``; ``weights`` builds it from given
+    tensors instead (``models/convert.py``): name -> tensor, the JAX
+    head names plus, for a dense stack, (L, ...) slabs under the block
+    names, for an MoE stack the per-layer JAX names
+    (``layer_param_specs``). Every parameter is trainable: the head
+    ones under their JAX names, a dense stack's slabs as
+    ``stacked.<block name>``, an MoE stack's layers under their JAX
+    names (``blocks.item_<i>.<name>``, the keys of the JAX
+    ``split_params()``)."""
 
     def __init__(self, cfg: GPTConfig, seed: int = 0, device=None,
                  weights: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("MoE GPT is not ported (dense "
-                                      "stacks only)")
+        if cfg.moe_experts > 0 and cfg.moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got "
+                             f"{cfg.moe_every}")
+        if cfg.moe_experts > 0 and cfg.remat:
+            raise ValueError("moe_experts with remat is unsupported (the "
+                             "aux-loss accumulator cannot cross a "
+                             "checkpoint boundary)")
         dev = device_lib.resolve(device)
         self.cfg = cfg
         L = cfg.n_layers
+        per_layer = cfg.moe_experts > 0
+        blocks = layer_param_specs(cfg) if per_layer else {
+            n: ((L, *s), dt, init)
+            for n, (s, dt, init) in block_param_specs(cfg).items()}
         if weights is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-            weights = {n: _init(s, dt, init, gen, dev)
+            weights = {n: draw_param(s, dt, init, gen, dev)
                        for n, (s, dt, init) in head_param_specs(cfg).items()}
-            weights.update({
-                n: _init((L, *s), dt, init, gen, dev)
-                for n, (s, dt, init) in block_param_specs(cfg).items()})
+            weights.update({n: draw_param(s, dt, init, gen, dev)
+                            for n, (s, dt, init) in blocks.items()})
         self.wpe = self.lm_head = None
         # int8 weights (quantization.quantize_for_inference): a
         # QuantTensor for a head weight, a list of per-layer QuantTensors
@@ -449,18 +516,45 @@ class GPT(nn.Module):
                 setattr(self, n, nn.Parameter(weights[n].detach()))
         self.stacked = nn.ParameterDict({
             n: nn.Parameter(weights[n].detach())
-            for n in block_param_specs(cfg) if n not in self.quantized})
+            for n in block_param_specs(cfg)
+            if not per_layer and n not in self.quantized})
+        self.blocks = None
+        if per_layer:
+            if self.quantized:
+                raise NotImplementedError("an MoE stack takes no int8 "
+                                          "weights")
+            self.blocks = nn.Module()
+            for i in range(L):
+                own = {n.split(".", 2)[2]: weights[n] for n in blocks
+                       if n.startswith(f"blocks.item_{i}.")}
+                item = _Params({n: t for n, t in own.items()
+                                if not n.startswith("moe.")})
+                if is_moe_layer(cfg, i):
+                    item.moe = _Params({n[4:]: t for n, t in own.items()
+                                        if n.startswith("moe.")})
+                self.blocks.add_module(f"item_{i}", item)
         self.block = GPTBlock(cfg)
 
     def slab_entries(self):
         """The parameter names of the stacked (L, ...) slabs
-        (``stacked.<block name>``), as ``named_parameters`` gives them."""
+        (``stacked.<block name>``), as ``named_parameters`` gives them;
+        none for an MoE stack."""
         return [f"stacked.{n}" for n in self.stacked]
 
     def layer_weights(self):
-        """Per-layer name -> tensor maps, one ``unbind(0)`` per slab (views
-        of the slabs, differentiable), with the quantized block weights'
-        per-layer QuantTensors in their places."""
+        """Per-layer name -> tensor maps: an MoE stack's layer
+        parameters (the experts' as a map under ``"moe"``); else one
+        ``unbind(0)`` per slab (views of the slabs, differentiable),
+        with the quantized block weights' per-layer QuantTensors in
+        their places."""
+        if self.blocks is not None:
+            layers = []
+            for item in self.blocks.children():
+                w = dict(item.named_parameters(recurse=False))
+                if hasattr(item, "moe"):
+                    w["moe"] = dict(item.moe.named_parameters())
+                layers.append(w)
+            return layers
         names = list(self.stacked.keys())
         layers = [dict(zip(names, ts)) for ts in
                   zip(*(self.stacked[n].unbind(0) for n in names))]
@@ -491,12 +585,14 @@ class GPT(nn.Module):
         return x @ self.head_weight()
 
     def hidden_states(self, tokens, attn: Optional[Callable] = None,
-                      rng_key=None):
+                      rng_key=None, aux_acc=None):
         """Final hidden states (B, S, d): forward minus the LM head. With
         ``cfg.remat`` each block is recomputed in the backward
         (``jax.checkpoint`` per block in the JAX package), its dropout
         masks redrawn from the same key. Layer i's key is
-        ``fold_in(rng_key, i)``; no key, no dropout."""
+        ``fold_in(rng_key, i)``; no key, no dropout. Each MoE layer
+        appends its aux loss to ``aux_acc`` (an MoE stack has no
+        remat)."""
         x = self.embed(tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, w in enumerate(self.layer_weights()):
@@ -505,13 +601,28 @@ class GPT(nn.Module):
                 x = checkpoint(self.block, x, w, attn, k,
                                use_reentrant=False)
             else:
-                x = self.block(x, w, attn, k)
+                x = self.block(x, w, attn, k, aux_acc)
         return x
+
+    def logits_and_aux(self, tokens, attn: Optional[Callable] = None,
+                       rng_key=None):
+        """(logits (B, S, V), the summed MoE aux loss (fp32; zero for a
+        dense stack)), differentiable."""
+        aux_acc = []
+        logits = self.head(self.hidden_states(tokens, attn, rng_key,
+                                              aux_acc))
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for a in aux_acc:
+            aux = aux + a
+        return logits, aux
 
     @torch.no_grad()
     def forward(self, tokens, attn: Optional[Callable] = None,
-                rng_key=None):
-        """(B, S) int tokens → (B, S, V) logits in the model dtype."""
+                rng_key=None, return_aux: bool = False):
+        """(B, S) int tokens → (B, S, V) logits in the model dtype; with
+        ``return_aux``, (logits, the summed MoE aux loss)."""
+        if return_aux:
+            return self.logits_and_aux(tokens, attn, rng_key)
         return self.head(self.hidden_states(tokens, attn, rng_key))
 
     # -- KV-cache decoding (gpt.py:680-712 of the JAX package) -----------
@@ -752,22 +863,38 @@ def register_stacked_decay_mask(optimizer, model: GPT):
 
 
 def init_train_state(model: GPT, optimizer):
-    """``(params, opt_state)``: the model's own parameters by name (the
-    slabs stacked, as the JAX ``stacked=True`` state) and the
-    optimizer's state. An ``apply_decay_param_fun`` is resolved against
-    the per-layer names into masks over the slabs
-    (``register_stacked_decay_mask``), as the JAX stacked state does."""
-    if getattr(optimizer, "apply_decay_param_fun", None) is not None:
+    """``(params, opt_state)``: the model's own parameters by name and the
+    optimizer's state. A dense stack's slabs are stacked, as the JAX
+    ``stacked=True`` state: an ``apply_decay_param_fun`` is resolved
+    against the per-layer names into masks over the slabs
+    (``register_stacked_decay_mask``), as the JAX stacked state does. An
+    MoE stack's state is per layer, as the JAX default
+    ``stacked=False`` state: the names are the per-layer ones, and the
+    optimizer resolves ``apply_decay_param_fun`` on each entry."""
+    if (getattr(optimizer, "apply_decay_param_fun", None) is not None
+            and model.slab_entries()):
         register_stacked_decay_mask(optimizer, model)
     params = dict(model.named_parameters())
     return params, optimizer.init(params)
+
+
+def train_loss(m: GPT, tokens, attn: Optional[Callable] = None,
+               ce: Optional[Callable] = None, rng_key=None):
+    """The train step's loss: ``fused_lm_loss``; for an MoE stack, as the
+    JAX step (``paddle_tpu/models/gpt.py:1160-1164``), ``lm_loss`` of the
+    full logits plus ``moe_aux_weight`` times the summed aux loss (the
+    MoE's jitter, with the dropout, drawn from ``rng_key``)."""
+    if m.cfg.moe_experts > 0:
+        logits, aux = m.logits_and_aux(tokens, attn, rng_key)
+        return lm_loss(logits, tokens) + m.cfg.moe_aux_weight * aux
+    return fused_lm_loss(m, tokens, attn, ce, rng_key=rng_key)
 
 
 def build_train_step(model: GPT, optimizer,
                      attn: Optional[Callable] = None,
                      ce: Optional[Callable] = None):
     """``step(params, opt_state, tokens, rng=None) -> (params, opt_state,
-    loss)``: forward, ``fused_lm_loss`` (dropout drawn from ``rng``, a
+    loss)``: forward, ``train_loss`` (dropout drawn from ``rng``, a
     ``paddle_tpu_torch.random`` key, when the config has it), backward,
     optimizer update. ``params`` is the dict ``init_train_state``
     returned; the step trains the model in place (the new parameters are
@@ -805,7 +932,7 @@ def build_train_step(model: GPT, optimizer,
                     f"per layer first (init_train_state does this)")
         for p in own.values():
             p.grad = None
-        loss = fused_lm_loss(model, tokens, attn, ce, rng_key=rng)
+        loss = train_loss(model, tokens, attn, ce, rng_key=rng)
         loss.backward()
         count = opt_state["step"]
         grads = numerics.poison_grads({n: p.grad for n, p in own.items()},

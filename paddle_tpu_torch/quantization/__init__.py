@@ -104,6 +104,11 @@ def quantize_for_inference(model):
     train."""
     from paddle_tpu_torch.models.gpt import GPT
 
+    if model.cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "quantize_for_inference takes dense stacks: the expert weights "
+            "of an MoE model are not among the int8 selections, and the "
+            "engines that serve int8 weights refuse MoE")
     selected = _matmul_weights(model)
     weights, n_q = {}, 0
     for name, p in model.named_parameters():

@@ -1,5 +1,8 @@
 """The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K8, K9, K10 (and
-its fused write of the fresh rows) and K12 kernels to, rehearsed on the CPU at small shapes: a stand-in for a
+its fused write of the fresh rows) and K12 kernels to, and phase 20's
+(the MoE gating on the card against the CPU, the routing replay that
+pins a plain run to a kernel run's experts, the executed FLOPs),
+rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
 products, bf16 outputs, as the kernels do), held against the plain
@@ -920,3 +923,90 @@ def test_cast_check_wants_fp32_then_bf16():
     assert not chip_smoke.cast_check(torch, before,
                                      after[:-1] + [torch.float32])["ok"]
     assert not chip_smoke.cast_check(torch, [], [])["ok"]
+
+
+# -- phase 20: the MoE GPT -----------------------------------------------------
+
+def _gating(gate, dev_logits=None):
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.incubate import moe
+    r = moe.Routing.for_gate(8, gate)
+    logits = torch.from_numpy(np.random.RandomState(4).randn(
+        256, 8).astype(np.float32))
+    key = prng.PRNGKey(0) if r.jitter_eps > 0 else None
+    out = moe.top_k_gating(logits, r.k, r.capacity(256), key, r.jitter_eps)
+    jit = moe._jitter(key, logits) if key is not None else None
+    return out, jit
+
+
+@pytest.mark.parametrize("gate", ["gshard", "switch"])
+def test_moe_gating_check_passes_and_fails_planted_faults(gate):
+    (combine, dispatch, aux), jit = _gating(gate)
+    rec = chip_smoke.moe_gating_check(combine, dispatch, aux, combine,
+                                      dispatch, aux, jit, jit)
+    assert rec["ok"] and rec["dispatch_mismatches"] == 0, rec
+    # one kept choice moved to another slot of its expert
+    t, e, c = (int(i[0]) for i in torch.nonzero(dispatch, as_tuple=True))
+    moved_d, moved_c = dispatch.clone(), combine.clone()
+    moved_d[t, e, c], moved_d[t, e, c + 1] = False, True
+    moved_c[t, e, c + 1], moved_c[t, e, c] = combine[t, e, c], 0.0
+    assert not chip_smoke.moe_gating_check(moved_c, moved_d, aux, combine,
+                                           dispatch, aux)["ok"]
+    # a gate off by 1e-5, the aux off by 1e-5
+    assert not chip_smoke.moe_gating_check(combine + 1e-5 * dispatch,
+                                           dispatch, aux, combine,
+                                           dispatch, aux)["ok"]
+    assert not chip_smoke.moe_gating_check(combine, dispatch, aux + 1e-5,
+                                           combine, dispatch, aux)["ok"]
+    if jit is not None:
+        bad = jit.clone()
+        bad[3, 5] = torch.nextafter(bad[3, 5], torch.tensor(2.0))
+        rec = chip_smoke.moe_gating_check(combine, dispatch, aux, combine,
+                                          dispatch, aux, bad, jit)
+        assert not rec["ok"] and rec["jitter_mismatches"] == 1
+
+
+def test_routes_record_and_replay_pin_the_experts():
+    """``_Routes`` leaves the layer's output as it was when it records;
+    replaying another run's choices routes as that run did (the same
+    dispatch), and ``flips`` counts the tokens whose own choice
+    differed."""
+    from paddle_tpu_torch.incubate import moe
+    layer = moe.MoELayer(16, 32, 4, tokens_per_group=32, seed=1,
+                         device="cpu")
+    rs = np.random.RandomState(6)
+    x = torch.from_numpy(rs.randn(2, 40, 16).astype(np.float32))
+    y = torch.from_numpy(rs.randn(2, 40, 16).astype(np.float32))
+    with torch.no_grad():
+        want = layer(x)[0]
+        with chip_smoke._Routes(torch) as rx:
+            got = layer(x)[0]
+        with chip_smoke._Routes(torch) as ry:
+            layer(y)
+        with chip_smoke._Routes(torch, replay=rx) as same:
+            layer(x)
+        with chip_smoke._Routes(torch, replay=rx) as pinned:
+            layer(y)
+    assert torch.equal(got, want)
+    assert len(rx.choices) == 1 and rx.choices[0].shape == (3, 32, 2)
+    assert same.flips(1) == [0]
+    assert all(torch.equal(a, b) for a, b in zip(pinned.kept, rx.kept))
+    n_flip = int((ry.choices[0] != rx.choices[0]).any(-1).sum())
+    assert pinned.flips(1) == [n_flip] and n_flip > 0
+
+
+def test_moe_executed_flops_by_hand():
+    """One MoE block and one dense block, 2 x 8 tokens in one group."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny(n_layers=2, moe_experts=4, moe_every=2,
+                       vocab_size=100)
+    B, S, d, f, E = 2, 8, 64, 256, 4
+    N, C = B * S, 10          # ceil(2 * 16 * 1.25 / 4)
+    attn = 2 * 2 * B * S * (S + 1) // 2 * d
+    proj = 2 * N * d * 3 * d + 2 * N * d * d
+    dense_ffn = 2 * 2 * N * d * f
+    disp = 2 * N * E * C * d
+    moe_ffn = 2 * N * d * E + 2 * 2 * E * C * d * f + disp
+    head = 2 * N * d * 100
+    fwd = 2 * (proj + attn) + dense_ffn + moe_ffn + head
+    assert chip_smoke.moe_executed_flops(cfg, B, S) == 3 * fwd + 2 * disp

@@ -2,7 +2,8 @@
 through ``gpt_from_jax_state`` give the same logits (fp32, CPU), for
 gpt_tiny and for a tiny GQA + rope + untied + bias-free config; the
 converter refuses a missing or unexpected key; the random init is
-seeded and the per-layer weights are views of the stacked slabs."""
+seeded and the per-layer weights are views of the stacked slabs; an
+MoE config builds and the engines refuse it."""
 
 import dataclasses
 
@@ -20,7 +21,8 @@ ATOL = RTOL = 1e-4
 
 _CFG_FIELDS = ("vocab_size", "max_seq_len", "d_model", "n_layers",
                "n_heads", "ffn_mult", "use_bias", "tie_embeddings",
-               "n_kv_heads", "rope", "rope_theta")
+               "n_kv_heads", "rope", "rope_theta", "moe_experts",
+               "moe_every", "moe_aux_weight", "moe_gate")
 
 JAX_CONFIGS = {
     "gpt_tiny": jax_gpt.gpt_tiny(),
@@ -109,7 +111,13 @@ def test_presets_match_jax_presets():
         assert str(cfg.dtype).split(".")[-1] == jnp.dtype(jcfg.dtype).name
 
 
-def test_moe_config_raises():
+def test_moe_config_builds_and_engines_refuse():
+    """An MoE config builds a per-layer model; both engines refuse it, as
+    the JAX engines do (``inference/decode_engine.py:113-117``)."""
+    from paddle_tpu_torch.inference.factory import make_engine
     cfg = dataclasses.replace(gpt.gpt_tiny(), moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        gpt.GPT(cfg, device="cpu")
+    model = gpt.GPT(cfg, device="cpu")
+    assert model.slab_entries() == [] and "moe" in model.layer_weights()[1]
+    for engine in ("paged", "contiguous"):
+        with pytest.raises(NotImplementedError, match="dense"):
+            make_engine(model, engine=engine, device="cpu")

@@ -54,6 +54,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch.nn.functional.common\n"
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.incubate.moe\n"
             "import paddle_tpu_torch.observability\n"
             "import paddle_tpu_torch.observability.devprof\n"
             "import paddle_tpu_torch.ops.launch_probe\n"
