@@ -85,7 +85,14 @@ Phases, each fatal on failure:
    write for its function (F.layer_norm, x @ wte.t(), argmax); K8's
    phase-time record (``k8_phase_record``: block 0 stamps %globaltimer
    at each grid barrier) on one gpt3_1p3b layer, at d_model 128 and
-   through the 24 layers, with the grid barriers a layer takes;
+   through the 24 layers, with the grid barriers a layer takes. Then at
+   a speculative verify's flat rows (``spec_rows``: B 32 and 64, K 4
+   and 8 consecutive rows a slot, one slot's rows across a page
+   boundary, one inactive slot writing the scratch page): K8 on one
+   llama_style_1b-shaped layer and on the 24 layers
+   (``mega_layers_check``), K9 on each 24-layer output with the planted
+   tie, overflow and poisoned row; K8's and K9's device times at B 8,
+   32 and 64 beside their bounds (``k89_rows_ms``);
 12. single-dispatch serving — the same model and prompts as 4 through
    ``make_engine(model)``, whose default runs one K8 and one K9 launch
    per decode step: K8 = K9 = decode steps, K2 = 0, K1 = L x cold
@@ -222,9 +229,30 @@ Phases, each fatal on failure:
    peak memory, a torch.profiler breakdown of one step and the time of
    one AdamW update.
 
-Phases 11, 4, 12 and 6-10 run before 5 (which needs the card's memory
-for training), 13, 14 and 17 before them, 19 (and its sweep) right
-after 5, 20 after the sweep, 15, 16 and 18 after 20. Should
+21. speculative serving — the same model, ``speculative_k=4``, 16
+   verify steps a dispatch, 8 prompts of 128 tokens, 64 new tokens
+   each, two prompt sets (8-token loops repeated, and random tokens),
+   through four engines, each beside its plain twin on the same
+   prompts: paged single-dispatch (``make_engine(model,
+   speculative_k=4)``: one K8 and one K9 launch a verify of 32 rows),
+   paged per layer (``mega=False``: K2' over the 32 query rows a layer),
+   contiguous bf16 (cache 2048; a verify attends through the grouped
+   einsum, no K10) and int8 (``share_weights_with``; K12 at M 32); then
+   16 slots x K 8 single-dispatch (128 rows a verify, two K8 + K9
+   launches). Each fatal: the teacher-forced check on every emitted
+   token (int8: through K12's plain version), every request's full
+   budget, the launch counts of the speculative and the plain batches
+   (``serve_expected``: single-dispatch K8 = K9 = verify steps x launch
+   groups, K2 = 0; per layer K2' = L x verify steps, K2 = 0; contiguous
+   K10 = 0; int8 K12 = 4 L x (verify steps + prefill chunks)). Printed:
+   tokens/s of both, the mean tokens a verify emits
+   (``acceptance``), the share of tokens equal to the plain stream
+   (``equal_share``), and each engine's device ms and launches a verify
+   step (``decode_device_phase``).
+
+Phases 11, 4, 12, 6-10 and 21 run before 5 (which needs the card's
+memory for training), 13, 14 and 17 before them, 19 (and its sweep)
+right after 5, 20 after the sweep, 15, 16 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
 
@@ -550,6 +578,26 @@ def quant_matmul_check(out, ref):
 K8_ROWS = ((0, 0, 1), (1, 37, 1), (2, 127, 1), (3, 128, 1), (4, 200, 1),
            (5, 255, 0), (6, 1, 1), (6, 2, 1))
 K8_PAGES = 2                       # pages of 128 per slot: 256 tokens
+# a speculative verify's flat rows (phase 11's extension): (B rows, K
+# rows a slot) as the engines' verifies launch K8 and K9 (8 x 4, the
+# split case's 8 x 8 a launch) and the other two mixes
+SPEC_ROW_CASES = ((32, 4), (32, 8), (64, 4), (64, 8))
+
+
+def spec_rows(B, K, page=128):
+    """K8's rows of one verify: B // K slots of K consecutive rows at
+    positions p..p + K - 1 of their slot (two pages each); slot 1's rows
+    cross a page boundary (p = page - K // 2), the last slot is inactive
+    (write 0: its rows go to the scratch page), slot 0 starts at
+    position 0."""
+    n = B // K
+    rows = []
+    for s in range(n):
+        p = (page - K // 2 if s == 1
+             else (37 * s) % (K8_PAGES * page - K + 1))
+        rows += [(s, p + j, int(s != n - 1)) for j in range(K)]
+    return tuple(rows)
+
 # x_out through 24 layers: bf16 roundings at other places compound over
 # depth (the train phase's gradient tolerance, for the same reason)
 THROUGH_DEPTH_TOL = 2.5e-2
@@ -605,7 +653,8 @@ def mega_inputs(torch, dev, gen, dm, hq, hkv, d, n_layers, bias=True,
     geo = dict(page=page, n_pages=P, n_heads=hq, kv_heads=hkv,
                head_dim=d, rope=rope)
     return dict(x=x, w=weights, kp=kp, vp=vp, table=table, pos=pos,
-                slot=slot, write=write, written=written, geo=geo)
+                slot=slot, write=write, written=written, geo=geo,
+                rows=rows)
 
 
 def mega_layers_check(x_out, ref_x, pools, ref_pools, pools0, written,
@@ -838,15 +887,45 @@ def k2_fused_case(torch, dev, gen, hkv):
     return rec
 
 
+# cached tokens of the 8 slots of the K2' verify case: slot 1's rows
+# cross a page boundary, the last slot's reach the end of T 2048
+VERIFY_SLOT_LENS = (0, 126, 131, 190, 255, 640, 1500, 2040)
+
+
+def verify_rows(K, slot_lens=VERIFY_SLOT_LENS):
+    """(lens, table_rows) of a per-layer verify's K2' launch: K query
+    rows a slot, row j of a slot with n cached tokens at position n + j
+    attending its n + j + 1 keys through the slot's table row."""
+    lens = [n + j + 1 for n in slot_lens for j in range(K)]
+    return lens, [s for s in range(len(slot_lens)) for _ in range(K)]
+
+
+def distinct_keys(lengths, table_rows):
+    """Keys K2' must read once when row r attends ``lengths[r]`` keys of
+    the sequence in table row ``table_rows[r]``: the longest row's count
+    for each sequence."""
+    longest = {}
+    for n, t in zip(lengths, table_rows):
+        longest[t] = max(n, longest.get(t, 0))
+    return sum(longest.values())
+
+
 def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
-                  name=""):
+                  name="", max_pages=2):
+    """K2' over query rows attending ``lengths`` keys each; with
+    ``table_rows``, row r reads table row ``table_rows[r]`` (rows of one
+    sequence share its pages, as the suffix prefill's and a verify's
+    do), and the bound reads each sequence's keys once."""
     from paddle_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_cost,
         paged_decode_attention_reference)
-    q, kp, vp, table, lens = _paged_inputs(torch, dev, gen, hkv, lengths)
+    q, kp, vp, table, lens = _paged_inputs(torch, dev, gen, hkv, lengths,
+                                           max_pages=max_pages)
+    kv_tokens = None
     if table_rows is not None:
-        # every query row reads the same sequence (the suffix prefill)
-        table = table[:1].expand(len(lengths), -1).contiguous()
+        idx = torch.tensor(table_rows, dtype=torch.long, device=dev)
+        table = table[idx].contiguous()
+        kv_tokens = distinct_keys(lengths, table_rows)
     o, m, l = paged_decode_attention(q, kp, vp, table, lens,
                                      return_stats=True)
     torch.cuda.synchronize()
@@ -869,10 +948,11 @@ def k2_plain_case(torch, dev, gen, hkv, lengths, table_rows=None,
     D = q.shape[-1]
     flops, nbytes = paged_decode_attention_cost(
         lengths, q.shape[1], hkv, D, q.element_size(),
-        kv_tokens=None if table_rows is None else max(lengths))
+        kv_tokens=kv_tokens)
     bound_ms, bound_by = _bound(nbytes, flops)
     rec = {"phase": f"k2p_paged_plain{name}_hkv{hkv}", "B": len(lengths),
            "Hq": q.shape[1], "Hkv": hkv, "D": D, "page": kp.shape[2],
+           "table_pages": table.shape[1], "kv_tokens": kv_tokens,
            "geometry": _paged_geometry(table, kp.shape[2],
                                        len(lengths) * hkv),
            "dtype": "bfloat16", "max_abs_err": err, "tol": tol,
@@ -1428,7 +1508,9 @@ def k8_case(torch, name, inp, tol, timed=False, context=False):
                               (inp["kp"], inp["vp"]), inp["written"], tol)
     del rkp, rvp
     bound_ms, bound_by = _k8_bound(inp)
-    rec = {"phase": f"k8_{name}", "layers": L, "rows": K8_ROWS,
+    rows = inp["rows"]
+    rec = {"phase": f"k8_{name}", "layers": L,
+           "rows": rows if len(rows) <= 8 else len(rows),
            **{k: v for k, v in inp["geo"].items()},
            "d_model": inp["x"].shape[1], "dtype": str(inp["x"].dtype),
            "biases": "bqkv" in inp["w"], "tol_rel_l2": tol,
@@ -1472,9 +1554,10 @@ def k89_phase(torch, dev, gen, model):
     llama_style_1b-shaped layers (4 kv heads, rope, no biases), all 24
     of the model's own layers, each against the plain version; then K9
     on the 24-layer output and a copy of the model's tied head with a
-    planted tie, an overflowing row and a poisoned row. Returns (K8
-    record, K9 record)."""
-    from paddle_tpu_torch.ops import decode_megakernel as mk
+    planted tie, an overflowing row and a poisoned row; then both at a
+    speculative verify's rows (``spec_rows_phase``) and their device
+    times at B 8, 32 and 64 beside their bounds. Returns (K8 record, K9
+    record), each with its verify-row records under ``spec_rows``."""
     cfg = model.cfg
     dm, hq, d = cfg.d_model, cfg.n_heads, cfg.head_dim
     one = mega_inputs(torch, dev, gen, dm, hq, hq, d, 1)
@@ -1498,6 +1581,36 @@ def k89_phase(torch, dev, gen, model):
     del deep
     torch.cuda.empty_cache()
 
+    k9 = k9_case(torch, dev, model, x24, "k9_gpt3_1p3b_head")
+    del x24
+    k8["spec_rows"], k9["spec_rows"] = spec_rows_phase(torch, dev, gen,
+                                                       model)
+    _phase({"phase": "k89_rows_ms",
+            "k8": {8: _ms_bound(k8), **{r["rows"]: _ms_bound(r)
+                                        for r in k8["spec_rows"]
+                                        if "kernel_ms" in r}},
+            "k9": {8: _ms_bound(k9), **{r["B"]: _ms_bound(r)
+                                        for r in k9["spec_rows"]
+                                        if "kernel_ms" in r}},
+            "timing": "device time (torch.profiler), operands cold",
+            "ok": True})
+    return k8, k9
+
+
+def _ms_bound(rec):
+    return {"ms": rec["kernel_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"]}
+
+
+def k9_case(torch, dev, model, x24, name, timed=True):
+    """K9 on the rows ``x24`` (after the model's 24 layers) and a copy of
+    the model's tied head with a planted tie, an overflowing row and a
+    poisoned row (``mega_logits_inputs``) against its plain version
+    (``mega_logits_check``); with ``timed``, its device time, the plain
+    version's and the context's, its route, plan and bound. Returns the
+    record."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    dm = model.cfg.d_model
     x, w, poison, ties = mega_logits_inputs(
         torch, x24, model.wte.detach(), model.lnf_scale.detach(),
         model.lnf_bias.detach())
@@ -1508,6 +1621,13 @@ def k89_phase(torch, dev, gen, model):
     _, ref_nonfin = mk.mega_logits_sample_reference(x, s, b, w.t(), poison)
     check = mega_logits_check(tok, nonfin, logits, ref_nonfin, ties)
     del logits
+    B, V = x.shape[0], w.shape[0]
+    k9 = {"phase": name, "B": B, "d_model": dm, "V": V,
+          "dtype": str(x.dtype), "check": check, "ties": ties,
+          "ok": check["ok"]}
+    if not timed:
+        _phase(k9)
+        return k9
     ms = _device_ms(torch, lambda: mk.mega_logits_sample(x, s, b, w.t(),
                                                          poison),
                     ("logits_kernel",), launches=1)
@@ -1520,26 +1640,57 @@ def k89_phase(torch, dev, gen, model):
     s_x, b_x, head = s.to(x.dtype), b.to(x.dtype), w.t()
     context_ms = _device_ms(torch, lambda: torch.argmax(
         F.layer_norm(x, (dm,), s_x, b_x) @ head, dim=-1))
-    B, V = x.shape[0], w.shape[0]
     flops, nbytes = mk.mega_logits_sample_cost(B, dm, V, x.element_size())
     bound_ms, bound_by = _bound(nbytes, flops)
     route = mk.logits_route(x.dtype, dm, V, True, True)
     plan = (dict(zip(("group", "n", "stages", "grid"), mk.logits_plan(
         B, dm, V, torch.cuda.get_device_properties(dev)
         .multi_processor_count))) if route == "tensor_cores" else None)
-    k9 = {"phase": "k9_gpt3_1p3b_head", "B": B, "d_model": dm, "V": V,
-          "dtype": str(x.dtype), "route": route, "plan": plan,
-          "check": check, "ties": ties,
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
-          "context_ms": context_ms,
-          "timing": "device time (torch.profiler); the head (0.21 GB) "
-                    "is read cold by every call; context_ms: "
-                    "F.layer_norm, x @ wte.t(), argmax",
-          "bound_ms": bound_ms, "bound_by": bound_by,
-          "ok": bool(check["ok"] and None not in (ms, plain_ms,
-                                                  context_ms))}
+    k9.update({"route": route, "plan": plan,
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "context_ms": context_ms,
+               "timing": "device time (torch.profiler); the head (0.21 "
+                         "GB) is read cold by every call; context_ms: "
+                         "F.layer_norm, x @ wte.t(), argmax",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "ok": bool(check["ok"] and None not in (ms, plain_ms,
+                                                       context_ms))})
     _phase(k9)
-    return k8, k9
+    return k9
+
+
+def spec_rows_phase(torch, dev, gen, model):
+    """Phase 11's extension: K8 and K9 at a speculative verify's flat
+    rows (``spec_rows``), B 32 and 64 with K 4 and 8 rows a slot: K8 on
+    one llama_style_1b-shaped layer (REL_L2_TOL) and on the model's 24
+    layers (THROUGH_DEPTH_TOL), the written rows within the tolerance
+    and every other pool row bit for bit (``mega_layers_check``); K9 on
+    each 24-layer output with the tied head and its planted tie,
+    overflow and poisoned row. Timed at (32, 4) and (64, 8), the
+    engines' verify shapes. Returns (K8 records, K9 records)."""
+    cfg = model.cfg
+    dm, hq, d = cfg.d_model, cfg.n_heads, cfg.head_dim
+    slabs = {n: t.detach() for n, t in model.stacked.items()}
+    k8s, k9s = [], []
+    for B, K in SPEC_ROW_CASES:
+        rows = spec_rows(B, K)
+        timed = (B, K) in ((32, 4), (64, 8))
+        lla = mega_inputs(torch, dev, gen, dm, hq, 4, d, 1, bias=False,
+                          rope=True, rows=rows)
+        k8_case(torch, f"llama_shaped_1layer_B{B}_K{K}", lla, REL_L2_TOL)
+        del lla
+        deep = mega_inputs(torch, dev, gen, dm, hq, hq, d, cfg.n_layers,
+                           weights=slabs, rows=rows)
+        rec, x24 = k8_case(torch, f"gpt3_1p3b_24layers_B{B}_K{K}", deep,
+                           THROUGH_DEPTH_TOL, timed=timed)
+        rec["rows_per_slot"] = K
+        k8s.append(rec)
+        del deep
+        torch.cuda.empty_cache()
+        k9s.append(k9_case(torch, dev, model, x24,
+                           f"k9_gpt3_1p3b_head_B{B}_K{K}", timed=timed))
+        del x24
+    return k8s, k9s
 
 
 def _counters():
@@ -2482,7 +2633,7 @@ def int8_phase(torch, dev, model, donor, bf16_reqs):
 
 
 def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
-                        expect, n_dispatches=2):
+                        expect, n_dispatches=2, unit="decode", n_new=64):
     """Device time per decode step of ``eng``: 8 fresh 128-token prompts
     are admitted first, then ``n_dispatches`` decode dispatches
     (``steps_per_call`` steps each) run under torch.profiler; the
@@ -2491,14 +2642,17 @@ def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
     window counts only when it holds ``expect`` (kernel name -> launches
     per decode step) times its decode steps; else the batch runs again
     under a new window, up to PROFILE_WINDOWS, and the phase fails when
-    none held them."""
+    none held them. On a speculative engine (``unit="verify"``) a step
+    is one verify of K rows a slot, and ``n_new`` is large enough that
+    the slots are still live when the window opens (a verify may emit
+    K tokens)."""
     import numpy as np
     from torch.autograd import DeviceType
     cfg = eng.cfg
     rs = np.random.RandomState(SEED + 2)
     for window in range(1, PROFILE_WINDOWS + 1):
         reqs = [eng.submit(rs.randint(0, cfg.vocab_size, size=128).tolist(),
-                           max_new_tokens=64) for _ in range(eng.S)]
+                           max_new_tokens=n_new) for _ in range(eng.S)]
         while eng._waiting or getattr(eng, "_admitting", ()):
             eng.step()
         eng.drain()
@@ -2522,6 +2676,7 @@ def decode_device_phase(torch, eng, name, weight_bytes, head_bytes,
             break
     floor_ms = (weight_bytes + head_bytes) / H100_BYTES_PER_S * 1e3
     rec = {"phase": f"decode_device_{name}", "slots": eng.S,
+           "step_unit": unit,
            "decode_steps": decode_steps, "wall_ms": wall_us / 1e3,
            "block_weight_bytes": weight_bytes, "lm_head_bytes": head_bytes,
            "weight_read_floor_ms": floor_ms,
@@ -2583,13 +2738,269 @@ def generate_phase(torch, dev, model):
     return rec
 
 
+# phase 21: speculative serving (speculative_k) on both engines
+SPEC_K = 4
+SPEC_CHUNK = 16
+SPEC_NEW = 64
+SPEC_SPLIT = (16, 8)        # slots, K: 128 rows, two K8 + K9 groups
+
+
+def loop_prompts(vocab, n, length=128, seed=SEED + 5):
+    """Repetition-heavy prompts: ``n`` random 8-token loops repeated to
+    ``length`` tokens (as the JAX package's tools/profile_decode.py
+    builds its speculative prompts)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    loops = [rs.randint(0, vocab, size=8).tolist() for _ in range(n)]
+    return [(lp * (length // 8 + 1))[:length] for lp in loops]
+
+
+def spec_groups(slots, K, max_rows=64):
+    """K8 + K9 launch pairs a single-dispatch verify takes: groups of
+    max_rows // K whole slots."""
+    per = max(1, max_rows // K)
+    return -(-slots // per)
+
+
+def serve_expected(kind, names, L, steps, cold, suffix, chunks, spec):
+    """The launches of one batch through engine ``kind`` (every counter in
+    ``names`` not named here 0): ``steps`` decode steps, or verify steps
+    when ``spec`` (then, single-dispatch, ``spec`` is the K8 + K9 pairs
+    a verify), ``cold`` full and ``suffix`` suffix prefills (paged: K1 =
+    L a full prefill, K2' = L a suffix prefill), ``chunks`` prefill
+    chunks (contiguous). Single-dispatch: K8 = K9 = steps (x groups);
+    per layer: K2 = L a step, or K2' = L a verify; contiguous: K10 = L
+    a step, none in a verify (the grouped einsum); int8: the
+    contiguous launches and K12 = 4 L a step and a prefill chunk."""
+    exp = {n: 0 for n in names}
+    if kind.startswith("paged"):
+        exp["flash_attention"] = L * cold
+        exp["paged_decode_attention"] = L * suffix
+    if kind == "paged_mega":
+        exp["mega_decode_layers"] = exp["mega_logits_sample"] = (
+            steps * (spec or 1))
+    elif kind == "paged":
+        if spec:
+            exp["paged_decode_attention"] += L * steps
+        else:
+            exp["paged_append_attend"] = L * steps
+    else:
+        exp["decode_attention"] = 0 if spec else L * steps
+        if kind == "int8":
+            exp["int8_matmul"] = 4 * L * (steps + chunks)
+    return exp
+
+
+def acceptance(effs):
+    """Mean tokens a verify emitted for a live slot (the accepted drafts
+    and the correction: 1..K), over the n_eff entries that emitted."""
+    live = [int(n) for n in effs if n > 0]
+    return sum(live) / max(1, len(live))
+
+
+def equal_share(reqs, ref_reqs):
+    """The share of ``reqs``' tokens equal to ``ref_reqs``' at the same
+    position of the same request."""
+    same = sum(a == b for r, q in zip(reqs, ref_reqs)
+               for a, b in zip(r.tokens, q.tokens))
+    return same / max(1, sum(len(r.tokens) for r in reqs))
+
+
+def _spec_engine(torch, model, kind, K, slots=8, donor=None):
+    from paddle_tpu_torch.inference.decode_engine import DecodeEngine
+    from paddle_tpu_torch.inference.factory import make_engine
+    if kind == "paged_mega":
+        eng = make_engine(model, max_slots=slots, steps_per_call=SPEC_CHUNK,
+                          speculative_k=K)
+        if not eng.mega:
+            _fail("make_engine(model, speculative_k=...) did not turn the "
+                  "megakernel on")
+        return eng
+    if kind == "paged":
+        return make_engine(model, max_slots=slots,
+                           steps_per_call=SPEC_CHUNK, speculative_k=K,
+                           mega=False)
+    if kind == "contiguous":
+        return make_engine(model, engine="contiguous", max_slots=slots,
+                           steps_per_call=SPEC_CHUNK, speculative_k=K)
+    return DecodeEngine(None, share_weights_with=donor, weight_dtype="int8",
+                        max_slots=slots, max_len=donor.T,
+                        steps_per_call=SPEC_CHUNK, speculative_k=K)
+
+
+def _serve_counted(torch, dev, eng, prompts, n_new):
+    """``_serve_batch`` with the engine's decode steps (verify steps on a
+    speculative engine), its prefill counts and, speculative, the
+    harvested n_eff of every slot and step."""
+    from paddle_tpu_torch import stats
+    effs = []
+    if eng.spec_k:
+        replay = eng._replay_spec
+
+        def keep(rec, arr):
+            effs.extend(arr[..., eng.spec_k].ravel().tolist())
+            return replay(rec, arr)
+
+        eng._replay_spec = keep
+    steps0 = eng.steps
+    try:
+        reqs, wall, launches, peak = _serve_batch(torch, dev, eng, prompts,
+                                                  n_new)
+    finally:
+        if eng.spec_k:
+            eng._replay_spec = replay
+    return {"reqs": reqs, "wall": wall, "launches": launches,
+            "peak": peak, "steps": (eng.steps - steps0) * eng.chunk,
+            "suffix": int(stats.get("serve/dispatches/prefill_suffix")),
+            "prefills": int(stats.get("serve/dispatches/prefill")),
+            "effs": effs}
+
+
+def _spec_case(torch, dev, model, kind, name, spec, plain, prompts,
+               tf_model, groups):
+    """One prompt set through a speculative engine and its plain twin
+    (same kind, prompts and budget): launch counts of both, every
+    request's full budget, the teacher-forced check of the speculative
+    tokens; tokens/s of both, mean tokens a verify, the share equal to
+    the plain streams. Returns the record."""
+    L = model.cfg.n_layers
+    n = len(prompts)
+    got = _serve_counted(torch, dev, plain, prompts, SPEC_NEW)
+    res = _serve_counted(torch, dev, spec, prompts, SPEC_NEW)
+    chunked = kind in ("contiguous", "int8")
+    want = {}
+    for r, is_spec in ((got, False), (res, True)):
+        cold = 0 if chunked else n - r["suffix"]
+        want[is_spec] = serve_expected(
+            kind, r["launches"], L, r["steps"], cold, r["suffix"],
+            r["prefills"], (groups or 1) if is_spec else 0)
+    counts_ok = (got["launches"] == want[False]
+                 and res["launches"] == want[True])
+    done_ok = all(r.done and not r.failed and len(r.tokens) == SPEC_NEW
+                  for r in res["reqs"] + got["reqs"])
+    check = teacher_forced(torch, dev, tf_model, res["reqs"])
+    tps, plain_tps = (sum(len(q.tokens) for q in r["reqs"]) / r["wall"]
+                      for r in (res, got))
+    rec = {"phase": f"spec_{kind}_{name}", "engine": kind,
+           "speculative_k": spec.spec_k, "slots": spec.S,
+           "steps_per_call": spec.chunk, "prompts": name,
+           "requests": n, "new_tokens_each": SPEC_NEW,
+           "tokens_per_s": tps, "plain_tokens_per_s": plain_tps,
+           "speedup": tps / plain_tps,
+           "verify_steps": res["steps"], "plain_decode_steps": got["steps"],
+           "launch_groups": groups or None,
+           "mean_tokens_per_verify": acceptance(res["effs"]),
+           "tokens_equal_to_plain_share": equal_share(res["reqs"],
+                                                      got["reqs"]),
+           "launches": res["launches"], "expected_launches": want[True],
+           "plain_launches": got["launches"],
+           "plain_expected_launches": want[False],
+           "peak_mem_bytes": res["peak"], "counts_ok": bool(counts_ok),
+           "all_done": bool(done_ok),
+           **{k: v for k, v in check.items() if k != "ok"},
+           "ok": bool(counts_ok and done_ok and check["ok"])}
+    _phase(rec)
+    return rec
+
+
+def spec_phase(torch, dev, model):
+    """Phase 21: speculative serving at gpt3_1p3b width (``model``,
+    seed SEED), ``speculative_k=4``, 16 verify steps a dispatch, 8
+    prompts of 128 tokens, 64 new tokens each: repetition-heavy prompts
+    (8-token loops) and random ones, through the single-dispatch paged
+    engine (``make_engine(model, speculative_k=4)``), the per-layer one
+    (``mega=False``), the contiguous engine in bf16 (cache 2048) and in
+    int8 (``share_weights_with`` the bf16 one), each beside its plain
+    twin (``_spec_case``); then the device ms and launches a verify step
+    of each (``decode_device_phase``); then 16 slots x K 8
+    single-dispatch, 128 rows a verify in two K8 + K9 groups. Returns
+    path -> launches of the speculative batches."""
+    import numpy as np
+    from paddle_tpu_torch import quantization as quant
+    cfg = model.cfg
+    L = cfg.n_layers
+    rs = np.random.RandomState(SEED + 6)
+    sets = {"loops": loop_prompts(cfg.vocab_size, 8),
+            "random": [rs.randint(0, cfg.vocab_size, size=128).tolist()
+                       for _ in range(8)]}
+    blocks = sum(t.numel() for n, t in model.stacked.items()
+                 if n in ("wqkv", "wo", "wup", "wdown"))
+    head = cfg.vocab_size * cfg.d_model * 2
+    groups = spec_groups(8, SPEC_K)
+    paths, donor = {}, None
+    for kind in ("paged_mega", "paged", "contiguous", "int8"):
+        spec = _spec_engine(torch, model, kind, SPEC_K, donor=donor)
+        plain = _spec_engine(torch, model, kind, 0, donor=donor)
+        teacher = (_TeacherModel(quant.quantize_for_inference(model),
+                                 int8=True) if kind == "int8"
+                   else _TeacherModel(model))
+        total = {}
+        for name, prompts in sets.items():
+            rec = _spec_case(torch, dev, model, kind, name, spec, plain,
+                             prompts, teacher,
+                             groups if kind == "paged_mega" else 0)
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+        paths[f"spec_{kind}"] = total
+        expect = ({"mega_kernel": groups, "logits_kernel": groups}
+                  if kind == "paged_mega"
+                  else {"paged_kernel": L} if kind == "paged"
+                  else {K10_KERNELS[0]: 0} if kind == "contiguous"
+                  else {K10_KERNELS[0]: 0, "int8_tiles_sm90": 4 * L})
+        decode_device_phase(torch, spec, f"spec_{kind}",
+                            blocks if kind == "int8" else 2 * blocks, head,
+                            expect, unit="verify", n_new=160)
+        del plain, teacher
+        # the bf16 contiguous engine lends the int8 one its weights
+        donor = spec if kind == "contiguous" else None
+        del spec
+        torch.cuda.empty_cache()
+    slots, K = SPEC_SPLIT
+    groups = spec_groups(slots, K)
+    if groups != 2:
+        _fail(f"the split case takes {groups} launch groups, not 2")
+    spec = _spec_engine(torch, model, "paged_mega", K, slots=slots)
+    plain = _spec_engine(torch, model, "paged_mega", 0, slots=slots)
+    rec = _spec_case(torch, dev, model, "paged_mega", "loops_split", spec,
+                     plain, loop_prompts(cfg.vocab_size, slots,
+                                         seed=SEED + 7),
+                     _TeacherModel(model), groups)
+    for k, v in rec["launches"].items():
+        paths["spec_paged_mega"][k] += v
+    del spec, plain
+    torch.cuda.empty_cache()
+    return paths
+
+
+class _TeacherModel:
+    """``model`` as ``teacher_forced`` calls it; with ``int8``, the
+    forward of a ``quantize_for_inference`` model runs with K12 replaced
+    by its plain version, as ``int8_phase``'s check does."""
+
+    def __init__(self, model, int8=False):
+        self.model, self.int8 = model, int8
+
+    def __call__(self, *args, **kwargs):
+        if not self.int8:
+            return self.model(*args, **kwargs)
+        from paddle_tpu_torch import quantization as quant
+        from paddle_tpu_torch.ops.quant_matmul import int8_matmul_reference
+        kernel = quant.int8_matmul
+        quant.int8_matmul = int8_matmul_reference
+        try:
+            return self.model(*args, **kwargs)
+        finally:
+            quant.int8_matmul = kernel
+
+
 def serving_paths(torch, dev, gen=None):
     """Every serving path on one gpt3_1p3b (seed SEED): K8 and K9 at the
     single-dispatch engine's shapes (phase 11), paged serving per layer
     and its breakdown (phase 4), single-dispatch paged serving and its
     breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
-    decode device time of all four engines (9), generate (10). Returns
-    (path -> launches, (K8 record, K9 record))."""
+    decode device time of all four engines (9), generate (10),
+    speculative serving on all four (21). Returns (path -> launches, (K8
+    record, K9 record))."""
     from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
     if gen is None:
@@ -2625,9 +3036,11 @@ def serving_paths(torch, dev, gen=None):
         del paged
         torch.cuda.empty_cache()
     generated = generate_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    spec = spec_phase(torch, dev, model)
     return ({"serving": serve["launches"], "serving_mega": mega["launches"],
              "contiguous": contig["launches"], "int8": int8["launches"],
-             "generate": generated["launches"]}, k89)
+             "generate": generated["launches"], **spec}, k89)
 
 
 def breakdown_phase(torch, eng, prompts, n_new, name="serving_breakdown"):
@@ -3901,7 +4314,12 @@ def main():
     # sequence, row t seeing min(129 + t, 168) tokens
     k2p.append(k2_plain_case(torch, dev, gen, 16,
                              [min(129 + t, 168) for t in range(64)],
-                             table_rows=True, name="_suffix"))
+                             table_rows=[0] * 64, name="_suffix"))
+    # the per-layer verify's shape (phase 21): SPEC_K rows for each of
+    # 8 slots, the slot's table row repeated, row j of a slot with n
+    # cached tokens seeing n + j + 1 keys, over a table of T 2048
+    k2v = k2_plain_case(torch, dev, gen, 16, *verify_rows(SPEC_K),
+                        name="_verify", max_pages=16)
     # the train path's shapes
     k1.append(k1_case(torch, dev, 2048, 16, gen, B=4))
     k34 = [k34_case(torch, dev, gen, hkv) for hkv in (16, 4)]
@@ -3960,6 +4378,13 @@ def main():
                      design="bulk-copied page tiles, a cluster per (row, "
                             "kv head), csrc/decode_attn.cuh")
 
+    def rows_ms(rec, key):
+        # device ms and bound at B 8 and at the verify rows (phase 11)
+        return {str(b): {"ms": r["kernel_ms"], "bound_ms": r["bound_ms"]}
+                for b, r in [(8, rec)] + [(r[key], r)
+                                          for r in rec["spec_rows"]
+                                          if "kernel_ms" in r]}
+
     fa_py = "paddle_tpu/ops/pallas/flash_attention.py"
     ce_py = "paddle_tpu/ops/pallas/fused_ce.py"
     k34m, ce_r = k34[0], k567
@@ -3974,9 +4399,15 @@ def main():
         paged_entry("paged_append_attend",
                     "paddle_tpu/ops/pallas/paged_attention.py:306", k2[0],
                     k2),
-        paged_entry("paged_decode_attention",
-                    "paddle_tpu/ops/pallas/paged_attention.py:306",
-                    k2p[-1], k2p),
+        # ms: the suffix prefill's 64 rows over one sequence; verify_ms:
+        # the per-layer verify's 8 x SPEC_K rows (max_abs_err over both)
+        dict(paged_entry("paged_decode_attention",
+                         "paddle_tpu/ops/pallas/paged_attention.py:306",
+                         k2p[-1], k2p + [k2v]),
+             verify_ms={"rows": k2v["B"], "ms": k2v["kernel_ms"],
+                        "plain_ms": k2v["plain_ms"],
+                        "bound_ms": k2v["bound_ms"],
+                        "bound_by": k2v["bound_by"]}),
         entry("flash_attention_bwd_dkdv", "flash_attention_bwd.cu",
               f"{fa_py}:395", k34m["k3_kernel_ms"], k34m["plain_ms"],
               (k34m["k3_bound_ms"], k34m["k3_bound_by"]),
@@ -4039,12 +4470,16 @@ def main():
               (k12["prefill_layer_bound_ms"], "bytes"),
               k12["prefill_layer_library_ms"], k12["max_abs_err"],
               counter="int8_matmul", only="int8", design=wgmma),
-        # all 24 layers of one decode step at B 8
-        entry("mega_decode_layers", "decode_megakernel.cu",
-              "paddle_tpu/ops/pallas/decode_megakernel.py:366",
-              k8["kernel_ms"], k8["plain_ms"],
-              (k8["bound_ms"], k8["bound_by"]), None, k8["max_abs_err"],
-              design=wgmma),
+        # all 24 layers of one decode step at B 8 (rows_ms: also at a
+        # verify's 32 and 64 rows); max_abs_err over every row count
+        dict(entry("mega_decode_layers", "decode_megakernel.cu",
+                   "paddle_tpu/ops/pallas/decode_megakernel.py:366",
+                   k8["kernel_ms"], k8["plain_ms"],
+                   (k8["bound_ms"], k8["bound_by"]), None,
+                   max([k8["max_abs_err"]]
+                       + [r["max_abs_err"] for r in k8["spec_rows"]]),
+                   design=wgmma),
+             rows_ms=rows_ms(k8, "rows")),
         # max_abs_err: the worst gap between the picked token's plain
         # logit and the row's plain maximum
         # context_ms: F.layer_norm, the head product and argmax, the
@@ -4054,10 +4489,12 @@ def main():
                    "paddle_tpu/ops/pallas/decode_megakernel.py:458",
                    k9["kernel_ms"], k9["plain_ms"],
                    (k9["bound_ms"], k9["bound_by"]), None,
-                   k9["check"]["token_logit_gap_max"],
+                   max([k9["check"]["token_logit_gap_max"]]
+                       + [r["check"]["token_logit_gap_max"]
+                          for r in k9["spec_rows"]]),
                    design=f"{k9['route']}: TMA head stream + wgmma, "
                           f"csrc/sm90.cuh"),
-             context_ms=k9["context_ms"]),
+             context_ms=k9["context_ms"], rows_ms=rows_ms(k9, "B")),
         # at the encoder's rows, N 768; library: F.layer_norm on the sum
         entry("fused_layer_norm", "layer_norm.cu",
               "paddle_tpu/ops/pallas/layer_norm.py:120",

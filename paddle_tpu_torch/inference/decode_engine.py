@@ -27,6 +27,18 @@ dispatch only, while younger ones keep the card busy.
 - **Chunked device-side stepping** (``steps_per_call``) with per-slot
   eos/budget/non-finite early stop on the device, one packed
   (3, chunk, S) int32 record per dispatch.
+- **Speculative decoding** (``speculative_k`` = K >= 2, greedy only):
+  each chunk step drafts K - 1 tokens per slot by prompt lookup
+  (``prompt_lookup_draft``: the trailing bigram's latest earlier
+  continuation in the slot's own history ``toks``, on the device),
+  verifies the pending token and the drafts in one pass of K rows a
+  slot (``GPTBlock.verify_step``: the grouped einsum over the cache,
+  the rows written at their positions; on an int8 engine each block
+  product is one K12 launch at M = S·K) and keeps the longest run that
+  matches the greedy predictions (``spec_accept``), so the stream is the
+  verify pass's own greedy stream whatever the acceptance. A chunk of
+  these steps is one dispatch and one packed (chunk, S, K + 2) int32
+  record: K predictions, the count emitted, the non-finite flag.
 - **Weight-only int8** (``weight_dtype="int8"``): the four block matmul
   weights become per-(layer, output column) int8 ``QuantTensor``s, and
   every block matmul runs K12.
@@ -55,8 +67,8 @@ Instrumentation, as in the JAX engines (both engines share it):
   (``compile/retrace/*``) have no counterpart: nothing is traced.
 
 Not ported, raising ``NotImplementedError`` with their ROADMAP item:
-speculative decode (``speculative_k``, S3), KV handoff (S4),
-tensor-parallel serving (``mesh``), and the front-end hooks.
+KV handoff (S4), tensor-parallel serving (``mesh``), and the front-end
+hooks.
 """
 
 import collections
@@ -79,7 +91,8 @@ from paddle_tpu_torch.testing import faults
 
 __all__ = ["DecodeEngine", "Request", "ResilientScheduler",
            "resolve_engine_weights", "block_matmul_cost",
-           "decode_roofline_tokens_per_sec"]
+           "decode_roofline_tokens_per_sec", "prompt_lookup_draft",
+           "spec_accept", "append_history"]
 
 
 def _not_ported(what: str, item: str):
@@ -111,6 +124,77 @@ def block_matmul_cost(w, rows: int, elt: int):
         flops += f
         nbytes += b
     return flops, nbytes
+
+
+def prompt_lookup_draft(toks, lengths, last, K: int):
+    """On-device prompt-lookup drafts, shared by both engines'
+    speculative paths: the continuation of the latest earlier
+    occurrence of the trailing bigram in each slot's own history.
+    ``toks[s, i]`` is token i for i <= lengths[s] (the pending token
+    ``last`` sits at index lengths[s]). Returns cand (S, K) int32 with
+    cand[:, 0] = last; a slot without a match, and a draft position
+    past the history, drafts 0 (the verify still emits the one
+    correction token)."""
+    S, T = toks.shape
+    dev = toks.device
+    idx = torch.arange(T, device=dev)[None, :]
+    a = toks.gather(1, (lengths - 1).clamp(min=0).long()[:, None])[:, 0]
+    nxt_t = torch.cat([toks[:, 1:],
+                       torch.zeros((S, 1), dtype=toks.dtype, device=dev)],
+                      dim=1)
+    ok = ((toks == a[:, None]) & (nxt_t == last[:, None])
+          & (idx <= (lengths - 2)[:, None]))
+    has = ok.any(dim=1)
+    # the latest match (any value without one: its drafts are masked)
+    i_best = torch.where(ok, idx, -1).amax(dim=1)
+    offs = (i_best + 2)[:, None] + torch.arange(K - 1, device=dev)[None, :]
+    vals = toks.gather(1, offs.clamp(0, T - 1))
+    valid = offs <= lengths[:, None]        # within history [0, lengths]
+    tail = torch.where(has[:, None] & valid, vals, 0).to(torch.int32)
+    return torch.cat([last[:, None].to(torch.int32), tail], dim=1)
+
+
+def spec_accept(pred, n_acc, bad, active, remaining, eos, last):
+    """Greedy speculative acceptance, shared by both engines: one
+    verify's predictions (S, K), accepted-draft counts ``n_acc`` and
+    non-finite flags become the per-slot count of emitted tokens
+    ``n_eff`` (0..K: the accepted run plus the correction, cut after
+    the first eos and at the budget ``remaining``; 0 for an inactive or
+    non-finite slot), the advanced ``last`` token, ``bad`` masked by
+    ``active`` (a stale inactive slot never fails a finished request),
+    and whether the slot emitted its eos. Returns (n_eff int32, last,
+    bad, emitted_eos)."""
+    K = pred.shape[1]
+    bad = bad & active
+    n_raw = torch.where(bad, 0, n_acc + 1).to(torch.int32)
+    j = torch.arange(K, device=pred.device)[None, :]
+    is_eos = ((pred == eos[:, None]) & (eos >= 0)[:, None]
+              & (j < n_raw[:, None]))
+    any_eos = is_eos.any(dim=1)
+    first_eos = is_eos.to(torch.int32).argmax(dim=1).to(torch.int32)
+    n_eff = torch.where(any_eos, first_eos + 1, n_raw)
+    n_eff = torch.minimum(n_eff, remaining.to(torch.int32))
+    n_eff = torch.where(active, n_eff, 0).to(torch.int32)
+    new_last = pred.gather(1, (n_eff - 1).clamp(min=0).long()[:, None])[:, 0]
+    last = torch.where(n_eff > 0, new_last, last)
+    emitted_eos = any_eos & (first_eos < n_eff)
+    return n_eff, last, bad, emitted_eos
+
+
+def append_history(toks, lengths, pred, active):
+    """Append one verify's K predictions to the history ``toks`` (S, T)
+    in place: pred[:, j] is the token at position lengths + 1 + j. The
+    window starts at min(lengths + 1, T - K), as
+    ``lax.dynamic_update_slice`` clamps it; predictions past the
+    accepted run are overwritten by the next step's window or lie past
+    ``lengths``, where the drafts never read. An inactive slot rewrites
+    its own window (a mid-admission slot's stale length must not
+    clobber the prompt its prefill wrote)."""
+    T, K = toks.shape[1], pred.shape[1]
+    start = (lengths.long() + 1).clamp(max=T - K)
+    cols = start[:, None] + torch.arange(K, device=toks.device)[None, :]
+    old = toks.gather(1, cols)
+    toks.scatter_(1, cols, torch.where(active[:, None], pred, old))
 
 
 def resolve_engine_weights(model, share_weights_with):
@@ -210,9 +294,10 @@ class Request:
 class _Inflight:
     """One in-flight dispatch awaiting harvest: the live (slot, request)
     snapshot it covered, and the on-device result. ``kind`` is
-    'prefill' (payload: the sampled first token, a device scalar) or
+    'prefill' (payload: the sampled first token, a device scalar),
     'decode' (packed (3, chunk, S) int32: tokens / emit flags /
-    non-finite flags)."""
+    non-finite flags) or 'spec' (packed (chunk, S, K + 2) int32: K
+    predictions / emitted count / non-finite flag)."""
 
     __slots__ = ("kind", "live", "payload")
 
@@ -226,6 +311,10 @@ class ResilientScheduler:
     non-finite logits without disturbing its batch peers). Engines
     override ``_on_evict`` to reclaim their own per-slot resources, and
     supply ``_emit``/``_apply_token``."""
+
+    # speculative depth K (0: off); an engine's constructor sets it, and
+    # the shared replay unpacks 'spec' records (chunk, S, K + 2) by it
+    spec_k = 0
 
     def _on_evict(self, slot: int):
         self.active[slot] = False
@@ -264,17 +353,19 @@ class ResilientScheduler:
                 self.device)
 
     def _poison(self, logits, poison):
-        """(S, V) logits with the poisoned slots' rows NaN. The cached
+        """(S, ...) logits with the poisoned slots' rows NaN. The cached
         all-zero mask is the identity and costs no launch."""
         if poison is getattr(self, "_no_poison", None):
             return logits
-        return torch.where(poison[:, None] != 0, float("nan"), logits)
+        mask = poison.reshape(-1, *([1] * (logits.dim() - 1))) != 0
+        return torch.where(mask, float("nan"), logits)
 
     def _capture(self, name, flops, nbytes, weights, state):
         """The ``CostCapture`` of one decode dispatch with its footprint:
         argument bytes (``weights``, then the caches or pools and
         per-slot vectors in ``state``) and output bytes (the packed
-        record and four per-slot vectors)."""
+        record, (3, chunk, S) or speculative (chunk, S, K + 2), and four
+        per-slot vectors)."""
         seen, arg = set(), 0
         for t in (*weights, *state):
             # a tied head's projection is a view of wte: count it once
@@ -283,7 +374,8 @@ class ResilientScheduler:
             if key not in seen:
                 seen.add(key)
                 arg += _nbytes(t)
-        out = 3 * self.chunk * self.S * 4 + 4 * self.S * 4
+        words = self.spec_k + 2 if self.spec_k else 3
+        out = words * self.chunk * self.S * 4 + 4 * self.S * 4
         return devprof.capture(name, flops, nbytes,
                                {"argument_size_in_bytes": arg,
                                 "output_size_in_bytes": out})
@@ -321,7 +413,12 @@ class ResilientScheduler:
     def _resync_budgets(self, live, cover=None):
         """Re-anchor the host budget shadow to harvested truth: the
         request's true remaining minus the guaranteed progress (``chunk``
-        tokens each) of dispatches still in flight."""
+        tokens each) of dispatches still in flight. Exact for the plain
+        and chunked paths; for a speculative dispatch, whose yield is
+        chunk..chunk·K tokens a slot, ``chunk`` is the least it yields,
+        so the shadow is a lower bound, and the few dispatches it may
+        add at a request's tail find the slot stopped on the device
+        (at most ``depth`` of them)."""
         if cover is None:
             cover = self._pending_cover()
         for slot, req in live:
@@ -336,6 +433,13 @@ class ResilientScheduler:
         if self._t_disp_end is not None:
             stats.observe("serve/host_gap_s",
                           time.perf_counter() - self._t_disp_end)
+
+    def _dispatch_span(self, kind):
+        """The ``serve/dispatch`` span of one decode dispatch (``k``: the
+        speculative width, on a speculative engine)."""
+        return trace.span("serve/dispatch", kind=kind, chunk=self.chunk,
+                          inflight=len(self._pending),
+                          **({"k": self.spec_k} if self.spec_k else {}))
 
     def _finish_dispatch(self, kind, live, payload):
         """Post-enqueue bookkeeping: charge the budget shadows, queue the
@@ -388,6 +492,8 @@ class ResilientScheduler:
                 self._emit(slot, req, int(arr))
             self._resync_budgets(rec.live)
             return 0
+        if rec.kind == "spec":
+            return self._replay_spec(rec, arr)
         toks = arr[0]
         flags = arr[1].astype(bool)
         bads = arr[2].astype(bool)
@@ -405,6 +511,73 @@ class ResilientScheduler:
         self._after_replay(rec)
         self._resync_budgets(rec.live)
         return total
+
+    def _replay_spec(self, rec, arr) -> int:
+        """A speculative record (chunk, S, K + 2): per chunk step the K
+        predictions, the count emitted n_eff and the non-finite flag;
+        the first n_eff predictions of each step are the emitted
+        tokens."""
+        K = self.spec_k
+        preds, effs = arr[..., :K], arr[..., K]
+        bads = arr[..., K + 1].astype(bool)
+        total = 0
+        for slot, req in rec.live:
+            if req.done or self._slot_req[slot] is not req:
+                continue
+            for j in range(self.chunk):
+                for t in range(int(effs[j, slot])):
+                    self._apply_token(slot, req, int(preds[j, slot, t]))
+                    total += 1
+            if bads[:, slot].any() and not req.done:
+                self._fail(req, "non-finite logits", slot=slot,
+                           stat="serve/nonfinite_evictions")
+        self._after_replay(rec)
+        self._resync_budgets(rec.live)
+        return total
+
+    def _spec_chunk(self, verify, toks, lengths, last, active, remaining,
+                    eos):
+        """``chunk`` speculative steps in one dispatch, both engines:
+        draft from the history ``toks`` (updated in place), verify
+        (``verify(lengths, cand, active)`` -> the greedy predictions
+        (S, K) int32 and the per-slot non-finite flag), accept the
+        drafts while they equal the prediction before them, append the
+        predictions to the history, and stop a slot on eos, budget or
+        non-finite logits; nothing is read back to the host. Returns
+        the new lengths, last, active and remaining and the packed
+        (chunk, S, K + 2) int32 record."""
+        K = self.spec_k
+        preds, effs, bads = [], [], []
+        for _ in range(self.chunk):
+            cand = prompt_lookup_draft(toks, lengths, last, K)
+            pred, bad = verify(lengths, cand, active)
+            n_acc = torch.cumprod(
+                (cand[:, 1:] == pred[:, :-1]).to(torch.int32), dim=1).sum(1)
+            n_eff, last, bad, emitted_eos = spec_accept(
+                pred, n_acc, bad, active, remaining, eos, last)
+            append_history(toks, lengths, pred, active)
+            remaining = remaining - n_eff
+            lengths = lengths + n_eff
+            active = active & ~bad & ~emitted_eos & (remaining > 0)
+            preds.append(pred)
+            effs.append(n_eff)
+            bads.append(bad)
+        packed = torch.cat([torch.stack(preds),
+                            torch.stack(effs)[..., None],
+                            torch.stack(bads).to(torch.int32)[..., None]],
+                           dim=-1)
+        return lengths, last, active, remaining, packed
+
+    def _check_spec(self, temperature: float):
+        """The speculative options' contract (both engines)."""
+        if self.spec_k:
+            if self.spec_k < 2:
+                raise ValueError("speculative_k must be >= 2 (one input "
+                                 "token + at least one candidate)")
+            if temperature != 0.0:
+                raise NotImplementedError(
+                    "speculative decoding is greedy-only (lossless "
+                    "acceptance needs argmax determinism)")
 
     def _apply_token(self, slot: int, req: Request, token: int):
         raise NotImplementedError
@@ -486,7 +659,8 @@ class DecodeEngine(ResilientScheduler):
         eng.run()                                     # drains everything
         r1.tokens, r2.tokens
 
-    Greedy by default; temperature / top-k / top-p as ``gpt.generate``.
+    Greedy by default; temperature / top-k / top-p as ``gpt.generate``;
+    ``speculative_k`` (greedy only) verifies K tokens a slot per step.
     ``device`` defaults to CUDA and must be the model's device."""
 
     def __init__(self, model, max_slots: int = 8,
@@ -499,8 +673,6 @@ class DecodeEngine(ResilientScheduler):
                  weight_dtype: Optional[str] = None, mesh=None,
                  inflight: int = 2, warmup: bool = False,
                  prefill_tokens: Optional[int] = None, device=None):
-        if speculative_k:
-            raise _not_ported("speculative decode (speculative_k)", "S3")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported to "
@@ -519,6 +691,8 @@ class DecodeEngine(ResilientScheduler):
         self.T = min(_round_up(min(max_len or cap, cap), 128), cap)
         self.S = int(max_slots)
         self.sample = (float(temperature), float(top_p), int(top_k))
+        self.spec_k = int(speculative_k)
+        self._check_spec(float(temperature))
         if buckets is None:
             buckets = [b for b in (16, 32, 64, 128, 256, 512)
                        if b <= self.T] or [self.T]
@@ -550,6 +724,10 @@ class DecodeEngine(ResilientScheduler):
         # budgets / eos ids persist on the device across dispatches
         self.remaining = torch.zeros((self.S,), **i32)
         self.eos_ids = torch.full((self.S,), -1, **i32)
+        # speculative only: the token history the drafts read, toks[s, i]
+        # token i for i <= lengths[s] (the pending token at lengths[s])
+        self.toks = (torch.zeros((self.S, self.T), **i32) if self.spec_k
+                     else None)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
 
@@ -567,12 +745,6 @@ class DecodeEngine(ResilientScheduler):
             self.warmup()
 
     # -- not ported yet -----------------------------------------------------
-
-    def _verify_impl(self, *args, **kwargs):
-        raise _not_ported("speculative verify", "S3")
-
-    def _spec_multi_impl(self, *args, **kwargs):
-        raise _not_ported("speculative decode", "S3")
 
     def detach_handoff(self, *args, **kwargs):
         raise _not_ported("KV handoff and migration", "S4")
@@ -653,6 +825,36 @@ class DecodeEngine(ResilientScheduler):
                               torch.stack(bads).to(torch.int32)])
         return lengths, last, active, remaining, packed
 
+    def _verify_impl(self, lengths, cand, active, poison):
+        """One speculative verify: the K candidates of every slot
+        (cand (S, K), at positions lengths..lengths + K - 1) through
+        every layer's ``verify_step``, which writes the active slots'
+        K/V rows, then the LM head. Returns the greedy predictions
+        (S, K) int32 and the per-slot non-finite flag (``poison``'s
+        slots included)."""
+        S, K = cand.shape
+        head = self._head
+        x = head["wte"][cand.long()]
+        if head["wpe"] is not None:
+            pos = (lengths.long()[:, None]
+                   + torch.arange(K, device=self.device)[None])
+            x = x + head["wpe"][pos.clamp(max=self.cfg.max_seq_len - 1)]
+        rows = cache_rows(lengths, K, self.T, write=active)
+        for i, w in enumerate(self._layers):
+            x, _ = self._block.verify_step(x, w, (self.kc[i], self.vc[i]),
+                                           rows)
+        logits = self._poison(self._lm_head(x).float(), poison)
+        bad = ~torch.isfinite(logits).all(dim=2).all(dim=1)
+        return torch.argmax(logits, dim=-1).to(torch.int32), bad
+
+    def _spec_multi_impl(self, toks, lengths, last, active, remaining, eos,
+                         poison):
+        """``chunk`` speculative steps in one dispatch (``_spec_chunk``
+        over ``_verify_impl``)."""
+        return self._spec_chunk(
+            lambda n, cand, act: self._verify_impl(n, cand, act, poison),
+            toks, lengths, last, active, remaining, eos)
+
     def _prefill_impl(self, slot: int, tokens, start: int, true_total: int,
                       is_final: bool, rem0: int, eos0: int):
         """Run one prompt chunk (tokens (1, bucket)) through the slot's
@@ -660,7 +862,10 @@ class DecodeEngine(ResilientScheduler):
         first generated token and flip the slot live on the device
         (lengths / last / active / remaining / eos_ids), so decode
         dispatches enqueued behind it pick the slot up with no host
-        round trip; returns that token (a device scalar), else None."""
+        round trip; returns that token (a device scalar), else None. A
+        speculative engine also records the chunk in the history (its
+        zero pads are never read) and, on the final chunk, the pending
+        token at ``true_total``."""
         head = self._head
         bucket = tokens.shape[1]
         x = head["wte"][tokens]
@@ -671,10 +876,14 @@ class DecodeEngine(ResilientScheduler):
         for i, w in enumerate(self._layers):
             kv = (self.kc[i, slot:slot + 1], self.vc[i, slot:slot + 1])
             x, _ = self._block.verify_step(x, w, kv, rows)
+        if self.toks is not None:
+            self.toks[slot, start:start + bucket] = tokens[0]
         if not is_final:
             return None
         idx = min(max(true_total - 1 - start, 0), bucket - 1)
         nxt = self._sample(self._lm_head(x[:, idx:idx + 1])[:, 0])[0]
+        if self.toks is not None:
+            self.toks[slot, true_total] = nxt
         alive = (nxt != eos0) | (eos0 < 0) if rem0 > 0 else torch.zeros(
             (), dtype=torch.bool, device=self.device)
         self.lengths[slot] = true_total
@@ -694,6 +903,12 @@ class DecodeEngine(ResilientScheduler):
         if prompt_len + max_new_tokens > self.T:
             raise ValueError(
                 f"{prompt_len} prompt + {max_new_tokens} new tokens "
+                f"exceed cache length {self.T}")
+        if self.spec_k and (prompt_len + max_new_tokens
+                            + self.spec_k - 1 > self.T):
+            raise ValueError(
+                f"speculative window: prompt + new + K-1 "
+                f"({prompt_len}+{max_new_tokens}+{self.spec_k - 1}) "
                 f"exceed cache length {self.T}")
 
     def submit(self, prompt, max_new_tokens: int = 32,
@@ -825,20 +1040,20 @@ class DecodeEngine(ResilientScheduler):
         return n
 
     def _dispatch_decode(self) -> bool:
-        """Enqueue ONE decode dispatch over every live slot."""
+        """Enqueue ONE decode dispatch over every live slot (chunked or
+        speculative)."""
         live = [(s, r) for s, r in enumerate(self._slot_req)
                 if r is not None and self._disp_rem[s] > 0]
         if not live:
             return False
         self.steps += 1
         self._obs_host_gap()
-        with trace.span("serve/dispatch", kind="chunk", chunk=self.chunk,
-                        inflight=len(self._pending)):
+        fn, args = self.dispatch_fn_args()
+        with self._dispatch_span("spec" if self.spec_k else "chunk"):
             (self.lengths, self.last, self.active, self.remaining,
-             packed) = self._multi_impl(self.lengths, self.last,
-                                        self.active, self.remaining,
-                                        self.eos_ids, self._poison_mask())
-        self._finish_dispatch("decode", live, packed)
+             packed) = fn(*args)
+        self._finish_dispatch("spec" if self.spec_k else "decode", live,
+                              packed)
         return True
 
     def _retire_done(self, live):
@@ -876,11 +1091,12 @@ class DecodeEngine(ResilientScheduler):
     # -- warmup and device-time attribution ---------------------------------
 
     _STATE = ("kc", "vc", "lengths", "last", "active", "remaining",
-              "eos_ids")
+              "eos_ids", "toks")
 
     def warmup(self):
         """Run one prefill chunk per bucket (the last one samples a first
-        token) and one decode dispatch on throwaway zero state, so the
+        token) and one decode dispatch (the speculative program on a
+        speculative engine) on throwaway zero state, so the
         first request loads no kernel library and takes no first-launch
         cost of its own. JAX compiles here; eager PyTorch has nothing to
         compile, so warmup is these runs. The engine's caches, per-slot
@@ -891,15 +1107,13 @@ class DecodeEngine(ResilientScheduler):
         gen_state = self._gen.get_state()
         try:
             for n, t in saved.items():
-                setattr(self, n, torch.zeros_like(t))
+                setattr(self, n, None if t is None else torch.zeros_like(t))
             for b in self.buckets:
                 self._prefill_impl(0, torch.zeros((1, b), dtype=torch.int64,
                                                   device=self.device),
                                    0, 1, b == self.buckets[-1], 0, -1)
-            out = self._multi_impl(self.lengths, self.last, self.active,
-                                   self.remaining, self.eos_ids,
-                                   self._poison_mask())
-            out[-1].cpu()
+            fn, args = self.dispatch_fn_args()
+            fn(*args)[-1].cpu()
         finally:
             for n, t in saved.items():
                 setattr(self, n, t)
@@ -911,7 +1125,7 @@ class DecodeEngine(ResilientScheduler):
         geometry, as a ``devprof.CostCapture`` (recorded as
         ``prof/flops[/name]``, ``prof/hbm_bytes[/name]`` and the
         ``mem/compiled_*`` footprint; ``name`` defaults to
-        ``"decode"``).
+        ``"decode"``, ``"spec"`` for the speculative program).
 
         Counted, not measured, and nothing runs: the engine's state is
         left as it was (the slots' lengths and active flags are read from
@@ -927,11 +1141,36 @@ class DecodeEngine(ResilientScheduler):
         sampling) is not counted. The JAX engine reads XLA's cost
         analysis, which counts the dispatch's ``scan`` body once: its
         capture is one step whatever ``steps_per_call``; the port's is
-        the whole dispatch."""
+        the whole dispatch.
+
+        The speculative program counts, per verify, the four products
+        and the LM head at S·K rows, and the grouped einsum's attention:
+        every slot's whole cache (T keys) read once, its K query rows
+        over T keys, the K fresh K and V rows written (the drafts,
+        acceptance and history are not counted). The counts do not
+        depend on the lengths."""
         cfg = self.cfg
         S, hq, hkv, D = self.S, cfg.n_heads, cfg.kv_heads, cfg.head_dim
         elt = torch.empty((), dtype=cfg.dtype).element_size()
         celt = self.kc.element_size()
+        state = [t for t in (getattr(self, n) for n in self._STATE)
+                 if t is not None]
+        weights = self._weight_tensors(self._layers)
+        if self.spec_k:
+            K = self.spec_k
+            # K query rows a slot count as K times the query heads over
+            # the slot's T keys
+            fa, ba = decode_attention_cost([self.T] * S, hq * K, hkv, D,
+                                           celt)
+            flops = nbytes = 0
+            for w in self._layers:
+                fm, bm = block_matmul_cost(w, S * K, elt)
+                flops += fm + fa
+                nbytes += bm + ba + 2 * S * K * hkv * D * celt
+            fh, bh = devprof.matmul_cost(S * K, cfg.d_model,
+                                         cfg.vocab_size, elt)
+            return self._capture(name or "spec", self.chunk * (flops + fh),
+                                 self.chunk * (nbytes + bh), weights, state)
         lengths, active = self.lengths.tolist(), self.active.tolist()
         flops = nbytes = 0
         for j in range(self.chunk):
@@ -946,20 +1185,23 @@ class DecodeEngine(ResilientScheduler):
                                          elt)
             flops += fh
             nbytes += bh
-        return self._capture(
-            name or "decode", flops, nbytes,
-            self._weight_tensors(self._layers),
-            [getattr(self, n) for n in self._STATE])
+        return self._capture(name or "decode", flops, nbytes, weights,
+                             state)
 
     def dispatch_fn_args(self):
-        """The decode dispatch (a bound method) and the argument tuple the
-        serving loop calls it with at the current state, for launch
-        accounting (``devprof.count_kernel_launches``). Unlike the JAX
-        engine's, whose callers lower it without running, calling it
-        RUNS a dispatch: it writes the active slots' K/V rows in place
-        (and draws from the sampling generator) as a real dispatch does,
-        and its returned state is dropped. Call it on an engine with no
-        live slot."""
+        """The decode dispatch (a bound method: the speculative program
+        on a speculative engine) and the argument tuple the serving loop
+        calls it with at the current state, for launch accounting
+        (``devprof.count_kernel_launches``). Unlike the JAX engine's,
+        whose callers lower it without running, calling it RUNS a
+        dispatch: it writes the active slots' K/V rows (and history) in
+        place (and draws from the sampling generator) as a real dispatch
+        does, and its returned state is dropped. Call it on an engine
+        with no live slot."""
+        if self.spec_k:
+            return (self._spec_multi_impl,
+                    (self.toks, self.lengths, self.last, self.active,
+                     self.remaining, self.eos_ids, self._poison_mask()))
         return (self._multi_impl,
                 (self.lengths, self.last, self.active, self.remaining,
                  self.eos_ids, self._poison_mask()))

@@ -45,8 +45,8 @@ Design, as in the JAX engine:
   single-dispatch path), ``warmup``, ``dispatch_cost`` and
   ``dispatch_fn_args``.
 
-``speculative_k > 0``, ``prefill_only``, the handoff and migration
-methods and ``autotune`` raise ``NotImplementedError`` naming the
+``prefill_only``, the handoff and migration methods and ``autotune``
+raise ``NotImplementedError`` naming the
 ROADMAP item that ports them. The JAX engine's read-only-pool fallback
 (``fused=False``) is a reference formulation and has no counterpart
 here.
@@ -72,15 +72,15 @@ from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models.gpt import GPTBlock
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.observability import devprof, flight, trace
+from paddle_tpu_torch.ops import decode_megakernel as _mk
 from paddle_tpu_torch.ops.decode_megakernel import (_WEIGHT_ORDER,
                                                     mega_decode_layers,
                                                     mega_decode_layers_cost,
                                                     mega_logits_sample,
                                                     mega_logits_sample_cost)
-from paddle_tpu_torch.ops.paged_attention import (PageAllocator,
-                                                  paged_append_attend,
-                                                  paged_append_attend_cost,
-                                                  paged_decode_attention)
+from paddle_tpu_torch.ops.paged_attention import (
+    PageAllocator, paged_append_attend, paged_append_attend_cost,
+    paged_decode_attention, paged_decode_attention_cost)
 
 __all__ = ["PagedDecodeEngine"]
 
@@ -101,8 +101,6 @@ class PagedDecodeEngine(ResilientScheduler):
                  warmup: bool = False, prefix: bool = True,
                  prefill_only: bool = False, mega: Optional[bool] = None,
                  speculative_k: int = 0, device=None):
-        if speculative_k:
-            raise _not_ported("speculative decode", "S3")
         if prefill_only:
             raise _not_ported("prefill-only engines", "S4")
         self.device = device_lib.resolve(device)
@@ -118,6 +116,8 @@ class PagedDecodeEngine(ResilientScheduler):
         self.page = int(page_size)
         self.P = int(n_pages)
         self.chunk = int(steps_per_call)
+        self.spec_k = int(speculative_k)
+        self._check_spec(0.0)
         self.buckets = sorted(b for b in buckets if b <= cfg.max_seq_len)
         self._head, self._layers, self._stacked = head, layers, stacked
         # the megakernel streams dense (L, ...) slabs and a dense head;
@@ -154,14 +154,19 @@ class PagedDecodeEngine(ResilientScheduler):
         # zeroed as they return to the free list (see _release)
         self._tainted: set = set()
         i32 = dict(dtype=torch.int32, device=dev)
-        # the megakernel's flat rows: row s is slot s
+        # the megakernel's flat rows: row s is slot s; a verify's row
+        # s·K + j is slot s's j-th candidate
         self._rows = torch.arange(self.S, **i32)
+        self._spec_rows = self._rows.repeat_interleave(max(1, self.spec_k))
         self.lengths = torch.zeros((self.S,), **i32)
         self.last = torch.zeros((self.S,), **i32)
         self.active = torch.zeros((self.S,), dtype=torch.bool, device=dev)
         # budgets / eos ids persist on device across dispatches
         self.remaining = torch.zeros((self.S,), **i32)
         self.eos_ids = torch.full((self.S,), -1, **i32)
+        # speculative only: the token history the drafts read
+        self.toks = (torch.zeros((self.S, cfg.max_seq_len), **i32)
+                     if self.spec_k else None)
         self._slot_req: List[Optional[Request]] = [None] * self.S
         self._waiting: collections.deque = collections.deque()
         self.steps = 0
@@ -368,6 +373,97 @@ class PagedDecodeEngine(ResilientScheduler):
                               torch.stack(bads).to(torch.int32)])
         return lengths, last, active, remaining, packed
 
+    @property
+    def _verify_group_rows(self) -> int:
+        """Flat rows a single-dispatch verify launch takes (K8's and K9's
+        ``MAX_ROWS``, read at call time): the whole slots that fit, or
+        ``MAX_ROWS`` of one slot's rows when K exceeds it."""
+        K = self.spec_k
+        return _mk.MAX_ROWS // K * K if K <= _mk.MAX_ROWS else _mk.MAX_ROWS
+
+    def _mega_verify(self, table, pos, row_write, tokens, poison):
+        """The flat verify rows through ``_mega_rows``, in order, in
+        groups of ``_verify_group_rows`` (one K8 + K9 pair a group).
+        Causal either way: inside a launch every row is written before
+        any attends, and a later launch reads the rows of its slot that
+        an earlier one wrote from the pool. Returns (tokens, non-finite
+        flags) per row."""
+        per = self._verify_group_rows
+        parts = [self._mega_rows(table, pos[r:r + per],
+                                 self._spec_rows[r:r + per],
+                                 row_write[r:r + per], tokens[r:r + per],
+                                 poison[r:r + per])
+                 for r in range(0, pos.shape[0], per)]
+        if len(parts) == 1:
+            return parts[0]
+        return (torch.cat([t for t, _ in parts]),
+                torch.cat([f for _, f in parts]))
+
+    def _verify_paged(self, tables, table, lengths, cand, active, poison):
+        """One speculative verify over the pools: the K candidates of
+        every slot (cand (S, K)) at positions lengths..lengths + K - 1.
+        Single-dispatch: the S·K flat rows through ``_mega_verify``
+        (``poison`` is then the per-row mask). Per layer (``tables``:
+        the folded tables with each slot's row repeated K times): the
+        rows' fresh K/V scattered into their pages (an inactive slot's
+        into the scratch page), then one K2' launch over the S·K query
+        rows with pos + 1 keys each. Returns the greedy predictions
+        (S, K) int32 and the per-slot non-finite flag, as
+        ``DecodeEngine._verify_impl``."""
+        S, K = cand.shape
+        cfg = self.cfg
+        pos = (lengths[:, None]
+               + torch.arange(K, dtype=torch.int32, device=self.device))
+        if self.mega:
+            tok, nf = self._mega_verify(
+                table, pos.reshape(-1),
+                active.to(torch.int32).repeat_interleave(K),
+                cand.reshape(-1), poison)
+            pred = tok.reshape(S, K)
+            bad = (nf > 0).reshape(S, K).any(dim=1)
+        else:
+            x = self._embed(cand, pos)
+            pidx = torch.clamp(pos // self.page, max=self._mx - 1)
+            pages = table.gather(1, pidx.long())
+            offs = (pos % self.page).reshape(-1).long()
+            lens = torch.clamp(pos + 1, max=self._mx * self.page).to(
+                torch.int32).reshape(-1)
+            rows = torch.where(active[None, :, None],
+                               self._layer_base[:, None, None]
+                               + pages[None], self._scratch).long()
+            dt = self.kp.dtype
+            hkv, hq, D = cfg.kv_heads, cfg.n_heads, cfg.head_dim
+            blk = self._block
+            for i, w in enumerate(self._layers):
+                q, k, v = blk._qkv(x, lengths, w)
+                r = rows[i].reshape(-1)
+                self.kp[r, :, offs, :] = k.reshape(S * K, hkv, D).to(dt)
+                self.vp[r, :, offs, :] = v.reshape(S * K, hkv, D).to(dt)
+                o = paged_decode_attention(
+                    q.reshape(S * K, hq, D).to(dt).contiguous(), self.kp,
+                    self.vp, tables[i], lens, scale=self.scale)
+                x = blk._block_tail(x, o.to(x.dtype).reshape(x.shape), w)
+            logits = self._poison(self._lm_head(x).float(), poison)
+            bad = ~torch.isfinite(logits).all(dim=2).all(dim=1)
+            pred = torch.argmax(logits, dim=-1).to(torch.int32)
+        return pred, bad
+
+    def _spec_multi(self, table, toks, lengths, last, active, remaining, eos,
+                    poison):
+        """``chunk`` speculative steps in one dispatch over the pools
+        (``_spec_chunk`` over ``_verify_paged``; pages for chunk·K rows
+        a slot are reserved before it, so ``table`` is fixed)."""
+        K = self.spec_k
+        if self.mega:
+            # the per-row poison mask, once a dispatch
+            tables, poison = None, poison.repeat_interleave(K)
+        else:
+            tables = self._fold(table.repeat_interleave(K, dim=0))
+        return self._spec_chunk(
+            lambda n, cand, act: self._verify_paged(tables, table, n, cand,
+                                                    act, poison),
+            toks, lengths, last, active, remaining, eos)
+
     def _prefill(self, tokens, n, tab):
         """One-pass prefill of ONE prompt padded to its bucket
         (tokens (1, bucket)): causal self-attention only (K1 on CUDA),
@@ -444,6 +540,14 @@ class PagedDecodeEngine(ResilientScheduler):
                 f"tokens (got {prompt_len})")
         if prompt_len + max_new_tokens > self.cfg.max_seq_len:
             raise ValueError("prompt + new tokens exceed max_seq_len")
+        if self.spec_k and (prompt_len + max_new_tokens
+                            + self.spec_k - 1 > self.cfg.max_seq_len):
+            # the last accepted token's verify writes K - 1 rows past it:
+            # those positions must exist in the fixed-width table
+            raise ValueError(
+                f"prompt + new tokens + speculative window "
+                f"({prompt_len}+{max_new_tokens}+{self.spec_k - 1}) "
+                f"exceed max_seq_len {self.cfg.max_seq_len}")
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_id: Optional[int] = None,
@@ -555,6 +659,10 @@ class PagedDecodeEngine(ResilientScheduler):
         # a budget-of-one request (or one whose first token is eos)
         # never activates
         alive = (nxt != eos0) & (rem0 > 0)
+        if self.toks is not None:
+            # the drafts' history: the prompt, then the pending token
+            self.toks[slot, :n] = torch.from_numpy(prompt).to(self.device)
+            self.toks[slot, n] = nxt
         self.lengths[slot] = n
         self.last[slot] = nxt
         self.active[slot] = alive
@@ -618,12 +726,25 @@ class PagedDecodeEngine(ResilientScheduler):
                         f"{len(req.prompt)} tokens")
                 return
 
+    @property
+    def _disp_span(self) -> int:
+        """The most a dispatch grows a slot: ``chunk`` tokens, or
+        chunk·K rows speculative (every verify writes K rows at
+        lengths..lengths + K - 1, however many it accepts)."""
+        return self.chunk * max(1, self.spec_k)
+
     def _reserve_chunk(self, live):
         """Reserve pages for one chunk per live slot against the
-        PROJECTED length, capped at the request's prompt + budget."""
+        PROJECTED length, capped at the request's prompt + budget; a
+        speculative cap is K - 1 rows longer, for the rows the last
+        verify writes past the last token (``check_request`` keeps them
+        inside the table)."""
         for slot, req in live:
             cap = len(req.prompt) + req.max_new_tokens
-            need = min(int(self._proj_len[slot]) + self.chunk + 1, cap)
+            if self.spec_k:
+                cap += self.spec_k - 1
+            need = min(int(self._proj_len[slot]) + self._disp_span + 1,
+                       cap)
             self._reserve(slot, need)
 
     def _dispatch_decode(self) -> bool:
@@ -648,15 +769,14 @@ class PagedDecodeEngine(ResilientScheduler):
             self._reserve_chunk(live)
         self.steps += 1
         self._obs_host_gap()
-        with trace.span("serve/dispatch", kind="paged", chunk=self.chunk,
-                        inflight=len(self._pending)):
+        fn, args = self.dispatch_fn_args()
+        with self._dispatch_span("paged_spec" if self.spec_k else "paged"):
             (self.lengths, self.last, self.active, self.remaining,
-             packed) = self._multi(self._table(), self.lengths, self.last,
-                                   self.active, self.remaining,
-                                   self.eos_ids, self._poison_mask())
+             packed) = fn(*args)
         for s, _ in live:
-            self._proj_len[s] += self.chunk
-        self._finish_dispatch("decode", live, packed)
+            self._proj_len[s] += self._disp_span
+        self._finish_dispatch("spec" if self.spec_k else "decode", live,
+                              packed)
         return True
 
     def _resync_budgets(self, live, cover=None):
@@ -667,7 +787,7 @@ class PagedDecodeEngine(ResilientScheduler):
             if req.done or self._slot_req[slot] is not req:
                 continue
             self._proj_len[slot] = (self._host_len[slot]
-                                    + self.chunk * cover.get(slot, 0))
+                                    + self._disp_span * cover.get(slot, 0))
 
     def _apply_token(self, slot, req, token):
         """Harvested token: emit (which retires the request and releases
@@ -683,12 +803,13 @@ class PagedDecodeEngine(ResilientScheduler):
     # -- warmup and device-time attribution ---------------------------------
 
     _STATE = ("kp", "vp", "lengths", "last", "active", "remaining",
-              "eos_ids")
+              "eos_ids", "toks")
 
     def warmup(self):
         """Run one prefill per bucket (and, with the prefix cache on, one
         suffix prefill per bucket, the warm-hit admission path) and one
-        decode dispatch on throwaway zero pools and state, so the first
+        decode dispatch (the speculative program on a speculative
+        engine) on throwaway zero pools and state, so the first
         request loads no kernel library and takes no first-launch cost
         of its own. The engine's pools, tables and per-slot state are as
         they were; the pools exist twice while it runs. Records
@@ -697,17 +818,15 @@ class PagedDecodeEngine(ResilientScheduler):
         saved = {n: getattr(self, n) for n in self._STATE}
         try:
             for n, t in saved.items():
-                setattr(self, n, torch.zeros_like(t))
+                setattr(self, n, None if t is None else torch.zeros_like(t))
             for b in self.buckets:
                 tokens = torch.zeros((1, b), dtype=torch.int64,
                                      device=self.device)
                 self._prefill(tokens, 1, [0])
                 if self._prefix is not None:
                     self._prefill_suffix(tokens, 0, 1, -1, -1, [0])
-            out = self._multi(self._table(), self.lengths, self.last,
-                              self.active, self.remaining, self.eos_ids,
-                              self._poison_mask())
-            out[-1].cpu()
+            fn, args = self.dispatch_fn_args()
+            fn(*args)[-1].cpu()
         finally:
             for n, t in saved.items():
                 setattr(self, n, t)
@@ -716,23 +835,50 @@ class PagedDecodeEngine(ResilientScheduler):
     def dispatch_cost(self, name=None):
         """Flops and HBM bytes of ONE decode dispatch at the current
         geometry, as a ``devprof.CostCapture`` (``name`` defaults to
-        ``"paged"``); see ``DecodeEngine.dispatch_cost`` for what is
-        counted and how it differs from the JAX engine's. Per step over
-        all S slots at their advancing lengths: single-dispatch, K8's
-        cost (``mega_decode_layers_cost``) and K9's
+        ``"paged"``, ``"paged_spec"`` for the speculative program); see
+        ``DecodeEngine.dispatch_cost`` for what is counted and how it
+        differs from the JAX engine's. Per step over all S slots at their
+        advancing lengths: single-dispatch, K8's cost
+        (``mega_decode_layers_cost``) and K9's
         (``mega_logits_sample_cost``); per layer, each layer's four
         block products and K2's cost (``paged_append_attend_cost``,
-        which counts the fresh rows' writes), then the LM-head
-        product."""
+        which counts the fresh rows' writes), then the LM-head product.
+        A verify counts S·K rows, row j of a slot at position length + j
+        (each slot advanced one a verify, the least a verify emits):
+        single-dispatch, K8's and K9's costs once per launch group (the
+        weights are read by each); per layer, the four products, K2'
+        (``paged_decode_attention_cost``) and the fresh K and V rows
+        written, then the LM-head product."""
         cfg = self.cfg
         S, hq, hkv, D = self.S, cfg.n_heads, cfg.kv_heads, cfg.head_dim
         elt = torch.empty((), dtype=cfg.dtype).element_size()
         pelt = self.kp.element_size()
         lengths, active = self.lengths.tolist(), self.active.tolist()
+        K = max(1, self.spec_k)
+        cap = self._mx * self.page
         flops = nbytes = 0
         for j in range(self.chunk):
             pos = [n + j * bool(a) for n, a in zip(lengths, active)]
-            if self.mega:
+            if self.spec_k:
+                lens = [min(p + i + 1, cap) for p in pos for i in range(K)]
+                if self.mega:
+                    per = self._verify_group_rows
+                    parts = [c for r in range(0, len(lens), per) for c in (
+                        mega_decode_layers_cost(lens[r:r + per],
+                                                self._stacked, hq, hkv, D,
+                                                pelt),
+                        mega_logits_sample_cost(len(lens[r:r + per]),
+                                                cfg.d_model,
+                                                cfg.vocab_size, elt))]
+                else:
+                    fa, ba = paged_decode_attention_cost(lens, hq, hkv, D,
+                                                         pelt)
+                    parts = [c for w in self._layers for c in (
+                        block_matmul_cost(w, S * K, elt),
+                        (fa, ba + 2 * S * K * hkv * D * pelt))]
+                    parts.append(devprof.matmul_cost(
+                        S * K, cfg.d_model, cfg.vocab_size, elt))
+            elif self.mega:
                 parts = [mega_decode_layers_cost(
                     [min(p + 1, self._mx * self.page) for p in pos],
                     self._stacked, hq, hkv, D, pelt),
@@ -748,13 +894,22 @@ class PagedDecodeEngine(ResilientScheduler):
             nbytes += sum(b for _, b in parts)
         weights = self._weight_tensors(self._stacked if self.mega
                                        else self._layers)
-        return self._capture(name or "paged", flops, nbytes, weights,
-                             [getattr(self, n) for n in self._STATE])
+        state = [t for t in (getattr(self, n) for n in self._STATE)
+                 if t is not None]
+        return self._capture(
+            name or ("paged_spec" if self.spec_k else "paged"), flops,
+            nbytes, weights, state)
 
     def dispatch_fn_args(self):
-        """The decode dispatch (a bound method) and its argument tuple at
-        the current state; see ``DecodeEngine.dispatch_fn_args`` (calling
-        it RUNS a dispatch)."""
+        """The decode dispatch (a bound method: the speculative program
+        on a speculative engine) and its argument tuple at the current
+        state; see ``DecodeEngine.dispatch_fn_args`` (calling it RUNS a
+        dispatch)."""
+        if self.spec_k:
+            return (self._spec_multi,
+                    (self._table(), self.toks, self.lengths, self.last,
+                     self.active, self.remaining, self.eos_ids,
+                     self._poison_mask()))
         return (self._multi,
                 (self._table(), self.lengths, self.last, self.active,
                  self.remaining, self.eos_ids, self._poison_mask()))

@@ -26,9 +26,12 @@ Environment, as in the JAX tool:
     and per-layer paged paths, from ``devprof.count_kernel_launches``
     and from the ``serve/dispatch_launches`` delta; on CUDA it asserts
     single-dispatch <= 2 and per-layer == n_layers.
-- ``PD_SPEC=1`` asks for the speculative rows (the engine section's spec
-  run, the mega section's ``mega_spec`` row): speculative decode is not
-  ported (ROADMAP S3), and they raise ``NotImplementedError``.
+- ``PD_SPEC=1`` adds the speculative rows: the engine section's spec
+  run (the contiguous engine at ``speculative_k=4``, 16 steps a
+  dispatch, on repetition-heavy prompts: 8-token loops, the regime the
+  prompt-lookup drafts serve) and the mega section's ``mega_spec`` row
+  (the single-dispatch paged engine at ``speculative_k=3``, on CUDA
+  gated at <= 2 launches a verify step: one K8 and one K9).
 
 It runs on CUDA; ``--device cpu`` (or ``PD_DEVICE=cpu``) runs the plain
 versions on the CPU for the tests, where the wrappers count no launch
@@ -117,7 +120,8 @@ def _end_window():
 def run_engine(model, slots=8, s_pf=128, n_new=128, chunk=64, spec_k=0,
                inflight=2):
     """The contiguous engine: warm on the prompts, then time a drain of
-    ``slots`` fresh ``s_pf``-token prompts. Returns (tokens/s,
+    ``slots`` fresh ``s_pf``-token prompts (with ``spec_k``, speculative
+    on repetition-heavy prompts: 8-token loops). Returns (tokens/s,
     dispatches, pipeline report)."""
     cfg = model.cfg
     eng = DecodeEngine(model, max_slots=slots,
@@ -126,7 +130,13 @@ def run_engine(model, slots=8, s_pf=128, n_new=128, chunk=64, spec_k=0,
                        steps_per_call=chunk, speculative_k=spec_k,
                        inflight=inflight, device=model.wte.device)
     rs = np.random.RandomState(1)
-    prompts = [rs.randint(0, cfg.vocab_size, s_pf) for _ in range(slots)]
+    if spec_k:
+        loops = [list(rs.randint(0, cfg.vocab_size, 8))
+                 for _ in range(slots)]
+        prompts = [(lp * (s_pf // 8 + 1))[:s_pf] for lp in loops]
+    else:
+        prompts = [rs.randint(0, cfg.vocab_size, s_pf)
+                   for _ in range(slots)]
     for p in prompts:
         eng.submit(p, max_new_tokens=2)
     eng.run()
@@ -373,13 +383,15 @@ def prof_section(model, size, lengths=None):
 
 def mega_section(model, size):
     """Kernel launches per decode step of the paged paths: the
-    single-dispatch default and the per-layer path, from
-    ``devprof.count_kernel_launches`` over one dispatch (run on an
-    engine with no live slot) and the ``serve/dispatch_launches`` delta
-    over a short drain. On CUDA it asserts the single-dispatch step
-    takes <= 2 launches (K8 + K9) and the per-layer step one K2 per
-    layer; on the CPU the wrappers count no launch, so it prints only.
-    Returns label -> launches per step."""
+    single-dispatch default and the per-layer path (and with
+    ``PD_SPEC=1`` the single-dispatch speculative verify,
+    ``speculative_k=3``), from ``devprof.count_kernel_launches`` over
+    one dispatch (run on an engine with no live slot) and the
+    ``serve/dispatch_launches`` delta over a short drain. On CUDA it
+    asserts the single-dispatch step and verify take <= 2 launches (K8
+    + K9) and the per-layer step one K2 per layer; on the CPU the
+    wrappers count no launch, so it prints only. Returns label ->
+    launches per step."""
     cfg = model.cfg
     dev = model.wte.device
     if cfg.n_layers < 3:
@@ -430,11 +442,13 @@ def mega_section(model, size):
         print("mega gate: skipped on the CPU (the kernel wrappers count "
               "CUDA launches only)", flush=True)
         return counts
-    if not (counts["mega"] <= 2
+    if not (counts["mega"] <= 2 and counts.get("mega_spec", 0) <= 2
             and counts["per_layer"] == cfg.n_layers):
         raise AssertionError(f"launches per step {counts}, n_layers "
                              f"{cfg.n_layers}")
-    print(f"mega gate: single-dispatch {counts['mega']:g} <= 2, "
+    spec = (f"spec {counts['mega_spec']:g} <= 2, " if "mega_spec" in counts
+            else "")
+    print(f"mega gate: single-dispatch {counts['mega']:g} <= 2, {spec}"
           f"per-layer {counts['per_layer']:g} == n_layers={cfg.n_layers}",
           flush=True)
     return counts
@@ -490,8 +504,11 @@ def main(argv=None):
                 show(f"slots={slots} ctx={s_pf}+{n_new}", tps, disp,
                      roof, rep)
         if spec:
-            # raises NotImplementedError (ROADMAP S3)
-            run_engine(model, chunk=16, spec_k=4)
+            roof = decode_roofline_tokens_per_sec(cfg, 8, 192, hbm)
+            for depth in sweep:
+                tps, disp, rep = run_engine(model, chunk=16, spec_k=4,
+                                            inflight=depth)
+                show("spec k=4 chunk=16", tps, disp, roof, rep)
 
     if "paged" in sections:
         tiny = size == "tiny"

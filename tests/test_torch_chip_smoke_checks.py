@@ -1,7 +1,10 @@
 """The checks ``chip_smoke.py`` holds the K3/K4, K5-K7, K8, K9, K10 (and
-its fused write of the fresh rows) and K12 kernels to, and phase 20's
-(the MoE gating on the card against the CPU, the routing replay that
-pins a plain run to a kernel run's experts, the executed FLOPs),
+its fused write of the fresh rows) and K12 kernels to (K8 also at a
+speculative verify's rows), phase 20's (the MoE gating on the card
+against the CPU, the routing replay that pins a plain run to a kernel
+run's experts, the executed FLOPs) and phase 21's (the verify rows,
+launch groups, expected launches, acceptance, the share of tokens equal
+to the plain stream),
 rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
@@ -281,14 +284,14 @@ def test_int8_check_fails_planted_faults():
     assert not rec["ok"] and rec["row_rel_l2_max"] > 0.05
 
 
-def _mega_inputs(n_layers=1):
+def _mega_inputs(n_layers=1, rows=chip_smoke.K8_ROWS):
     """K8's phase at a narrow width (d_model 64, 4 query heads of 16
-    over 2 kv heads, rope), the chip's rows: the inputs in bf16, and the
-    same values in fp32 for the reference."""
+    over 2 kv heads, rope), the chip's rows (or ``rows``): the inputs in
+    bf16, and the same values in fp32 for the reference."""
     gen = torch.Generator()
     gen.manual_seed(4)
     inp = chip_smoke.mega_inputs(torch, "cpu", gen, 64, 4, 2, 16, n_layers,
-                                 bias=True, rope=True)
+                                 bias=True, rope=True, rows=rows)
     ref = dict(inp, x=inp["x"].float(), kp=inp["kp"].float(),
                vp=inp["vp"].float(),
                w={n: t.float() for n, t in inp["w"].items()})
@@ -375,6 +378,120 @@ def test_mega_layers_check_fails_planted_faults(fault, why):
         assert rec[why] > 2 * TOL, rec
     else:
         assert not rec[why]
+
+
+@pytest.mark.parametrize("B, K", chip_smoke.SPEC_ROW_CASES)
+def test_spec_rows_are_a_verify(B, K):
+    """Phase 11's verify rows: B // K slots of K consecutive positions
+    inside their two pages, slot 1 across the page boundary, the last
+    slot inactive, every other slot written."""
+    rows = chip_smoke.spec_rows(B, K)
+    assert len(rows) == B
+    slots = [rows[i:i + K] for i in range(0, B, K)]
+    for s, run in enumerate(slots):
+        assert [r[0] for r in run] == [s] * K
+        p0 = run[0][1]
+        assert [r[1] for r in run] == list(range(p0, p0 + K))
+        assert 0 <= p0 and p0 + K - 1 < chip_smoke.K8_PAGES * 128
+        assert {r[2] for r in run} == {int(s != len(slots) - 1)}
+    assert slots[1][0][1] < 128 <= slots[1][-1][1]
+    assert slots[0][0][1] == 0
+
+
+@pytest.mark.parametrize("K", [chip_smoke.SPEC_K, 8])
+def test_verify_rows_are_a_per_layer_verify(K):
+    """Phase 11's K2' verify case: K rows a slot over the slot's table
+    row, row j seeing n + j + 1 keys; slot 1 crosses a page, the last
+    slot ends inside T 2048; the bound reads each slot's keys once."""
+    lens, table_rows = chip_smoke.verify_rows(K)
+    n = chip_smoke.VERIFY_SLOT_LENS
+    assert table_rows == sorted(table_rows) == [
+        s for s in range(len(n)) for _ in range(K)]
+    for s in range(len(n)):
+        assert lens[s * K:(s + 1) * K] == [n[s] + j + 1 for j in range(K)]
+    assert n[1] < 128 <= n[1] + K - 1
+    assert max(lens) <= 2048
+    assert chip_smoke.distinct_keys(lens, table_rows) == sum(
+        m + K for m in n)
+
+
+def test_distinct_keys_by_hand():
+    assert chip_smoke.distinct_keys([3, 5, 4, 9], [0, 0, 1, 1]) == 14
+    assert chip_smoke.distinct_keys([129, 130, 168], [0, 0, 0]) == 168
+    assert chip_smoke.distinct_keys([1, 2], [0, 1]) == 3
+
+
+@pytest.mark.parametrize("B, K", [(32, 4), (64, 8)])
+def test_mega_layers_check_at_verify_rows(B, K):
+    """At a verify's rows the stand-in passes and a kernel that lets a
+    row attend before an earlier row of its slot wrote fails."""
+    inp, ref = _mega_inputs(rows=chip_smoke.spec_rows(B, K))
+    rx, rkp, rvp = _mega_run(ref)
+    gx, gkp, gvp = _mega_run(inp)
+    rec = chip_smoke.mega_layers_check(gx, rx, (gkp, gvp), (rkp, rvp),
+                                       (inp["kp"], inp["vp"]),
+                                       inp["written"], TOL)
+    assert rec["ok"], rec
+    assert int(inp["written"].sum()) == (B - K)     # one slot inactive
+    bx, bkp, bvp = _mega_run(inp, "attend_before_write")
+    rec = chip_smoke.mega_layers_check(bx, rx, (bkp, bvp), (rkp, rvp),
+                                       (inp["kp"], inp["vp"]),
+                                       inp["written"], TOL)
+    assert not rec["ok"] and rec["row_rel_l2_max"] > 2 * TOL, rec
+
+
+@pytest.mark.parametrize("slots, K, groups", [(8, 4, 1), (16, 4, 1),
+                                              (16, 8, 2), (9, 8, 2),
+                                              (3, 64, 3)])
+def test_spec_groups_keep_slots_whole(slots, K, groups):
+    assert chip_smoke.spec_groups(slots, K) == groups
+
+
+def test_serve_expected_by_hand():
+    names = ["flash_attention", "paged_append_attend",
+             "paged_decode_attention", "mega_decode_layers",
+             "mega_logits_sample", "decode_attention", "int8_matmul",
+             "noop_copy"]
+    L = 24
+    exp = chip_smoke.serve_expected("paged_mega", names, L, 48, 8, 1, 9, 2)
+    assert exp == dict.fromkeys(names, 0) | {
+        "flash_attention": 192, "paged_decode_attention": 24,
+        "mega_decode_layers": 96, "mega_logits_sample": 96}
+    exp = chip_smoke.serve_expected("paged_mega", names, L, 64, 8, 0, 8, 0)
+    assert exp["mega_decode_layers"] == exp["mega_logits_sample"] == 64
+    exp = chip_smoke.serve_expected("paged", names, L, 48, 8, 0, 8, 1)
+    assert exp["paged_decode_attention"] == 24 * 48
+    assert exp["paged_append_attend"] == 0
+    exp = chip_smoke.serve_expected("paged", names, L, 64, 8, 0, 8, 0)
+    assert exp["paged_append_attend"] == 24 * 64
+    exp = chip_smoke.serve_expected("contiguous", names, L, 48, 0, 0, 8, 1)
+    assert exp == dict.fromkeys(names, 0)
+    exp = chip_smoke.serve_expected("int8", names, L, 48, 0, 0, 8, 1)
+    assert exp == dict.fromkeys(names, 0) | {"int8_matmul": 96 * 56}
+    exp = chip_smoke.serve_expected("int8", names, L, 64, 0, 0, 8, 0)
+    assert exp["decode_attention"] == 24 * 64
+    assert exp["int8_matmul"] == 96 * 72
+
+
+def test_acceptance_and_equal_share():
+    assert chip_smoke.acceptance([0, 4, 1, 0, 2, 3]) == 2.5
+    assert chip_smoke.acceptance([0, 0]) == 0
+
+    class R:
+        def __init__(self, tokens):
+            self.tokens = tokens
+
+    got = [R([1, 2, 3, 4]), R([5, 6])]
+    ref = [R([1, 2, 9, 4]), R([5, 7])]
+    assert chip_smoke.equal_share(got, ref) == 4 / 6
+
+
+def test_loop_prompts_repeat_eight_tokens():
+    ps = chip_smoke.loop_prompts(50304, 8)
+    assert len(ps) == 8 and all(len(p) == 128 for p in ps)
+    for p in ps:
+        assert p[8:] == p[:-8] and max(p) < 50304
+    assert len({tuple(p) for p in ps}) == 8
 
 
 def _logits():

@@ -369,6 +369,17 @@ def test_engines_serve_an_int8_untied_model(engine, chunk):
 ])
 def test_unported_and_bad_options_raise(models, kwargs, match):
     _, model = models
+    if match == "speculative":
+        # ported since: a speculative engine serves generate's greedy
+        # stream (held against JAX in test_torch_speculative.py)
+        eng = DecodeEngine(model, device="cpu", **kwargs)
+        prompt = _prompts()[1]
+        req = eng.submit(prompt, max_new_tokens=8)
+        eng.run()
+        want = model.generate([prompt], max_new_tokens=8, max_len=eng.T)
+        assert req.tokens == want[0, len(prompt):].tolist()
+        assert eng.spec_k == 3 and stats.get("serve/dispatches/spec") > 0
+        return
     if match == "warmup":
         # ported since: warmup=True builds a warmed engine
         stats.reset("serve/")
@@ -382,8 +393,20 @@ def test_unported_and_bad_options_raise(models, kwargs, match):
 def test_unported_methods_raise(models):
     _, model = models
     eng = DecodeEngine(model, device="cpu")
-    for name in ("detach_handoff", "submit_handoff", "_verify_impl",
-                 "_spec_multi_impl"):
+    for name in ("detach_handoff", "submit_handoff"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(eng, name)()
+    # ported since: the speculative verify and chunk run on a
+    # speculative engine (no live slot: nothing is emitted)
+    spec = DecodeEngine(model, device="cpu", speculative_k=2)
+    cand = torch.zeros((spec.S, 2), dtype=torch.int32)
+    pred, bad = spec._verify_impl(spec.lengths, cand, spec.active,
+                                  spec._poison_mask())
+    assert pred.shape == (spec.S, 2) and pred.dtype == torch.int32
+    assert bad.shape == (spec.S,) and not bad.any()
+    packed = spec._spec_multi_impl(spec.toks, spec.lengths, spec.last,
+                                   spec.active, spec.remaining,
+                                   spec.eos_ids, spec._poison_mask())[-1]
+    assert tuple(packed.shape) == (1, spec.S, 4)
+    assert not packed[..., 2].any()
 

@@ -374,11 +374,18 @@ def test_profile_decode_sections_on_cpu(section, needles, monkeypatch,
     assert not trace.enabled()
 
 
-def test_profile_decode_spec_rows_raise(monkeypatch):
+def test_profile_decode_spec_rows_raise(monkeypatch, capsys):
+    """Ported since (the name is the one the rows had while they raised):
+    ``PD_SPEC=1`` runs the mega section's ``mega_spec`` row and the
+    engine section's speculative run, on a tiny model on the CPU."""
     from paddle_tpu_torch.tools import profile_decode
     monkeypatch.setenv("PD_SPEC", "1")
     model = gpt.GPT(gpt.gpt_tiny(max_seq_len=512), device="cpu")
-    with pytest.raises(NotImplementedError, match="S3"):
-        profile_decode.mega_section(model, "tiny")
-    with pytest.raises(NotImplementedError, match="S3"):
-        profile_decode.run_engine(model, chunk=2, spec_k=4)
+    counts = profile_decode.mega_section(model, "tiny")
+    assert set(counts) == {"mega", "per_layer", "mega_spec"}
+    assert counts["mega_spec"] == 0          # the CPU counts no launch
+    tps, disp, rep = profile_decode.run_engine(model, slots=2, s_pf=16,
+                                               n_new=8, chunk=2, spec_k=4)
+    assert tps > 0 and disp > 0 and rep["depth"] == 2
+    out = capsys.readouterr().out
+    assert "mega mega_spec: launches/step=0" in out

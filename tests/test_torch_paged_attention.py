@@ -68,6 +68,28 @@ def test_plain_matches_jax_kernel(hq, hkv, stats):
         np.testing.assert_allclose(g[fin], w[fin], atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("K", [2, 4, 8])
+@pytest.mark.parametrize("hq, hkv", [(4, 4), (4, 2)])
+def test_plain_matches_jax_kernel_at_the_verify_shape(hq, hkv, K):
+    """K2' as the per-layer speculative verify launches it: S·K query
+    rows, slot s's table row repeated K times, row j of slot s over
+    lengths[s] + j + 1 keys (one slot's rows cross a page boundary)."""
+    slot_lens = [0, 5, 126, 250 - K]
+    q, kp, vp, table, _ = _inputs(100 + K, hq, hkv, lengths=slot_lens)
+    S = len(slot_lens)
+    rs = np.random.RandomState(K)
+    q = rs.randn(S * K, hq, q.shape[-1]).astype(np.float32)
+    rows = np.repeat(table, K, axis=0)
+    lens = (np.repeat(slot_lens, K) + np.tile(np.arange(K), S)
+            + 1).astype(np.int32)
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(rows), jnp.asarray(lens), interpret=True))
+    got = paged_decode_attention(*_t(q, kp, vp, rows, lens))
+    assert got.shape == (S * K, hq, q.shape[-1])
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("hq, hkv", [(4, 4), (4, 2)])
 def test_fused_matches_jax_kernel_and_writes_the_same_rows(hq, hkv):
     q, kp, vp, table, lens = _inputs(hq + 100 * hkv, hq, hkv)

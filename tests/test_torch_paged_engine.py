@@ -216,6 +216,21 @@ def test_nonfinite_logits_evict_and_scrub():
     (dict(warmup=True), "warmup"),
 ])
 def test_unported_options_raise(port_model, kwargs, match):
+    if match == "speculative":
+        # ported since: a speculative engine (single-dispatch, the
+        # default) serves the plain engine's greedy stream (held against
+        # JAX in test_torch_speculative.py)
+        prompt = _prompts()[1]
+        streams = []
+        for kw in ({}, kwargs):
+            eng = PagedDecodeEngine(port_model, n_pages=4, device="cpu",
+                                    **kw)
+            req = eng.submit(prompt, max_new_tokens=8)
+            eng.run()
+            streams.append(req.tokens)
+        assert eng.mega and eng.spec_k == 3
+        assert streams[0] == streams[1] and len(streams[1]) == 8
+        return
     if match == "warmup":
         # ported since: warmup=True builds a warmed engine
         stats.reset("serve/")
