@@ -250,7 +250,37 @@ Phases, each fatal on failure:
    (``equal_share``), and each engine's device ms and launches a verify
    step (``decode_device_phase``).
 
-Phases 11, 4, 12, 6-10 and 21 run before 5 (which needs the card's
+22. the serving front end — the same model through
+   ``serving.FrontEnd`` over ``make_engine(model)`` (single-dispatch
+   paged) and ``make_engine(model, engine="contiguous", max_len=2048)``
+   (the front end's ``dynamic_bucket`` on its chunked prefill), 8 slots,
+   16 steps a dispatch, a fresh engine for every run. Arrivals:
+   ``loadgen.poisson_trace(32, qps, seed=0, vocab=50304,
+   prompt_len=(16, 192), new_tokens=(16, 96))`` (``fe_trace``; the same
+   prompts at every rate). Per engine: the prompts by direct
+   ``engine.submit`` + ``run`` (the reference streams, then
+   ``decode_device_phase`` on that engine); (a) a capacity probe, all 32
+   due at once, whose requests a second gives ``cap_rps``; (b) open-loop
+   rungs on the wall clock (``loadgen.replay``): paged at 0.75x and 2x
+   ``cap_rps``, contiguous at 2x; (c) paged only, a policy burst:
+   ``FrontEnd(queue_depth=12, admission="priority")``, 16 requests
+   submitted before the first step, two with ``deadline_s=1e-6``
+   (``burst_check``: 4 rejected queue-full, the 2 rejected-deadline
+   without reaching the engine, the other 10 prefilled once and
+   submitted to the engine in priority order). Each fatal: every
+   admitted request done with its budget, the teacher-forced check on
+   every emitted token, the launches with the counters zeroed just
+   before each run (``fe_expected``: K8 = K9 = decode steps, K1 = L x
+   cold prefills, K2 = 0; K10 = L x decode steps), and on the paged
+   engine each stream equal to the direct run's token for token
+   (``streams_equal``); on the contiguous engine, whose dynamic buckets
+   change the prefill chunking in bf16, the equal share is printed.
+   Printed per run, beside the card's name and power limit
+   (``rung_metrics``): offered QPS, TTFT p50 / p99, TPOT p99, goodput,
+   completed share, mean batch and fed occupancy, backfills, and the
+   engine's device ms and launches a decode step.
+
+Phases 11, 4, 12, 6-10, 21 and 22 run before 5 (which needs the card's
 memory for training), 13, 14 and 17 before them, 19 (and its sweep)
 right after 5, 20 after the sweep, 15, 16 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
@@ -2993,14 +3023,313 @@ class _TeacherModel:
             quant.int8_matmul = kernel
 
 
+# phase 22: the serving front end (FrontEnd + loadgen) over both engines
+FE_SLOTS = 8
+FE_CHUNK = 16
+FE_REQUESTS = 32
+# the JAX package's bench_serve ranges
+FE_PROMPT_LEN = (16, 192)
+FE_NEW_TOKENS = (16, 96)
+# (engine, offered load as a multiple of that engine's capacity probe)
+FE_RUNGS = (("paged", 0.75), ("paged", 2.0), ("contiguous", 2.0))
+# the policy burst: FE_BURST requests submitted before the first step
+# into a queue of FE_BURST_DEPTH (the rest rejected queue-full), the
+# FE_BURST_EXPIRED ones with deadline_s=1e-6
+FE_BURST = 16
+FE_BURST_DEPTH = 12
+FE_BURST_EXPIRED = (2, 5)
+
+
+def fe_trace(vocab, qps, n=FE_REQUESTS, seed=SEED):
+    """The phase's arrivals at ``qps`` (``loadgen.poisson_trace``): the
+    same prompts and budgets at every rate (the gaps are drawn first)."""
+    from paddle_tpu_torch.serving import loadgen
+    return loadgen.poisson_trace(n, qps, seed=seed, vocab=vocab,
+                                 prompt_len=FE_PROMPT_LEN,
+                                 new_tokens=FE_NEW_TOKENS)
+
+
+def burst_priority(i):
+    """The burst's i-th request's priority (0..4, not in arrival
+    order)."""
+    return (3 * i) % 5
+
+
+def _pct(values, q):
+    """Nearest-rank percentile (q in (0, 100]) of a non-empty list."""
+    v = sorted(values)
+    return v[max(0, math.ceil(len(v) * q / 100) - 1)]
+
+
+def rung_metrics(reqs, wall, snap, backfills):
+    """One front-end run's service metrics: TTFT p50 / p99 and TPOT p99
+    over the done requests' own timestamps (nearest rank), goodput (the
+    done requests' tokens a wall second), the completed share, the mean
+    batch occupancy over the engine's steps and the mean fed occupancy
+    over the steps whose demand exceeded the free slots (None when none
+    did; both from the ``serve/`` stats snapshot ``snap``), and the
+    backfills."""
+    done = [r for r in reqs if r.status == "done"]
+    ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
+    tpots = [r.tpot_s for r in done if r.tpot_s is not None]
+    good = sum(len(r.tokens) for r in done)
+
+    def mean(name):
+        n = snap.get(f"serve/{name}.count", 0)
+        return snap.get(f"serve/{name}.sum", 0.0) / n if n else None
+
+    return {"requests": len(reqs), "completed": len(done),
+            "completed_share": len(done) / max(1, len(reqs)),
+            "good_tokens": good, "wall_s": wall,
+            "goodput_tokens_per_s": good / wall,
+            "ttft_p50_s": _pct(ttfts, 50) if ttfts else None,
+            "ttft_p99_s": _pct(ttfts, 99) if ttfts else None,
+            "tpot_p99_s": _pct(tpots, 99) if tpots else None,
+            "occupancy_mean": mean("batch_occupancy"),
+            "fed_occupancy_mean": mean("fed_occupancy"),
+            "backfills": int(backfills)}
+
+
+def full_budgets(reqs):
+    """Every request done, with its whole budget (the phase sets no eos)."""
+    return all(r.status == "done" and len(r.tokens) == r.max_new_tokens
+               for r in reqs)
+
+
+def streams_equal(reqs, ref):
+    """Each request's stream equal to the reference request's at the same
+    index, token for token: (ok, the first difference as (request,
+    position), or None)."""
+    for i, (r, q) in enumerate(zip(reqs, ref)):
+        if list(r.tokens) != list(q.tokens):
+            pos = next((j for j, (a, b) in enumerate(zip(r.tokens,
+                                                         q.tokens))
+                        if a != b), min(len(r.tokens), len(q.tokens)))
+            return False, (i, pos)
+    if len(reqs) != len(ref):
+        return False, (min(len(reqs), len(ref)), 0)
+    return True, None
+
+
+def burst_check(reqs, order, prefills, depth=FE_BURST_DEPTH,
+                expired=FE_BURST_EXPIRED):
+    """The policy burst's outcome: the requests past ``depth`` rejected
+    queue-full, the ``expired`` ones rejected-deadline without reaching
+    the engine, every other one done with its budget and prefilled once
+    (``prefills``, the engine's count), and ``order`` (the engine's
+    submissions, by request id) the priority order: higher first, then
+    arrival."""
+    full = reqs[depth:]
+    late = [reqs[i] for i in expired]
+    admitted = [r for i, r in enumerate(reqs[:depth]) if i not in expired]
+    want = [r.id for r in sorted(admitted,
+                                 key=lambda r: (-r.priority, r.seq))]
+    rec = {"queue_full": sum(r.status == "rejected-queue-full"
+                             for r in full),
+           "deadline": sum(r.status == "rejected-deadline"
+                           and r.engine_req is None for r in late),
+           "admitted": len(admitted), "prefills": prefills,
+           "order_ok": list(order) == want,
+           "budgets_ok": full_budgets(admitted)}
+    rec["ok"] = bool(rec["queue_full"] == len(full)
+                     and rec["deadline"] == len(late)
+                     and prefills == len(admitted)
+                     and rec["order_ok"] and rec["budgets_ok"])
+    return rec
+
+
+def _fe_engine(model, kind):
+    from paddle_tpu_torch.inference.factory import make_engine
+    if kind == "paged":
+        eng = make_engine(model, max_slots=FE_SLOTS, steps_per_call=FE_CHUNK)
+        if not eng.mega:
+            _fail("make_engine(model) did not turn the megakernel on")
+        return eng
+    return make_engine(model, engine="contiguous", max_slots=FE_SLOTS,
+                       max_len=2048, steps_per_call=FE_CHUNK)
+
+
+def _fe_run(torch, eng, arrivals, mode="wall", order=None, **fe_kw):
+    """One run of ``arrivals`` through a ``FrontEnd`` over ``eng``, every
+    kernel counter and the stats zeroed just before and read just after:
+    ``mode`` "wall" replays them on the wall clock (``loadgen.replay``),
+    "closed" submits them all at once, "direct" bypasses the front end
+    (``eng.submit`` + ``run``). ``order``, a list, collects the engine's
+    submissions by request id."""
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.serving import FrontEnd, loadgen
+    if order is not None:
+        inner = eng.submit
+
+        def submit_in_order(*args, **kw):
+            order.append(kw.get("req_id"))
+            return inner(*args, **kw)
+
+        eng.submit = submit_in_order
+    fe = None if mode == "direct" else FrontEnd(eng, **fe_kw)
+    stats.reset()
+    torch.cuda.synchronize()
+    _zero_counters()
+    steps0 = eng.steps
+    t0 = time.perf_counter()
+    if mode == "direct":
+        reqs = [eng.submit(a.prompt, max_new_tokens=a.max_new_tokens)
+                for a in arrivals]
+        eng.run()
+    else:
+        def submit(a):
+            return fe.submit(a.prompt, max_new_tokens=a.max_new_tokens,
+                             deadline_s=a.deadline_s, priority=a.priority)
+
+        if mode == "closed":
+            reqs = [submit(a) for a in arrivals]
+        else:
+            reqs = loadgen.replay(arrivals, submit, pump=fe.step)
+        fe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"reqs": reqs, "wall": wall, "launches": _read_counters(),
+            "steps": (eng.steps - steps0) * eng.chunk,
+            "snap": stats.snapshot("serve/"),
+            "backfills": stats.get("serve/queue_backfill"),
+            "prefills": int(stats.get("serve/dispatches/prefill")),
+            "suffix": int(stats.get("serve/dispatches/prefill_suffix"))}
+
+
+def fe_expected(kind, names, L, run):
+    """A front-end run's launches (``serve_expected``): single-dispatch
+    paged, K8 = K9 = decode steps and K1 = L x cold prefills (every
+    admitted request's, none for a rejection); contiguous, K10 = L x
+    decode steps."""
+    if kind == "paged":
+        cold = run["prefills"] - run["suffix"]
+        return serve_expected("paged_mega", names, L, run["steps"], cold,
+                              run["suffix"], 0, 0)
+    return serve_expected("contiguous", names, L, run["steps"], 0, 0,
+                          run["prefills"], 0)
+
+
+def _fe_record(torch, dev, model, kind, name, run, budgets_ok, ok, extra):
+    """Check one front-end run (launches as ``fe_expected``, the
+    teacher-forced check on every emitted token, ``budgets_ok``, ``ok``
+    for the run's own checks) and print its record with ``extra``."""
+    exp = fe_expected(kind, run["launches"], model.cfg.n_layers, run)
+    counts_ok = run["launches"] == exp
+    check = teacher_forced(torch, dev, model,
+                           [r for r in run["reqs"] if r.tokens])
+    rec = {"phase": f"frontend_{kind}_{name}", "engine": kind,
+           "slots": FE_SLOTS, "steps_per_call": FE_CHUNK, **extra,
+           **rung_metrics(run["reqs"], run["wall"], run["snap"],
+                          run["backfills"]),
+           "decode_steps": run["steps"],
+           "prefill_dispatches": run["prefills"],
+           "launches": run["launches"], "expected_launches": exp,
+           "counts_ok": bool(counts_ok), "budgets_ok": bool(budgets_ok),
+           **{k: v for k, v in check.items() if k != "ok"}}
+    rec["ok"] = bool(counts_ok and budgets_ok and check["ok"] and ok)
+    _phase(rec)
+
+
+def _fe_engine_runs(torch, dev, model, kind, probe, card):
+    """Phase 22 on one engine kind: the direct reference run and its
+    decode device time, the capacity probe, the kind's rungs and, paged,
+    the policy burst. Returns the launches of the front-end runs."""
+    from paddle_tpu_torch.serving import Arrival
+    cfg = model.cfg
+    L = cfg.n_layers
+    eng = _fe_engine(model, kind)
+    ref = _fe_run(torch, eng, probe, mode="direct")
+    blocks = sum(t.numel() for n, t in model.stacked.items()
+                 if n in ("wqkv", "wo", "wup", "wdown"))
+    dd = decode_device_phase(
+        torch, eng, f"frontend_{kind}", 2 * blocks,
+        cfg.vocab_size * cfg.d_model * 2,
+        {"mega_kernel": 1, "logits_kernel": 1} if kind == "paged"
+        else {K10_KERNELS[0]: L})
+    common = {"card": card, **{k: dd.get(k) for k in (
+        "device_ms_per_decode_step", "launches_per_decode_step")}}
+    del eng
+    torch.cuda.empty_cache()
+    total = {}
+
+    def serve(name, arrivals, extra, **kw):
+        """One run on a fresh engine, checked and printed; on the paged
+        engine the streams must equal the direct run's."""
+        eng = _fe_engine(model, kind)
+        run = _fe_run(torch, eng, arrivals, **kw)
+        del eng
+        torch.cuda.empty_cache()
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+        same, first = streams_equal(run["reqs"], ref["reqs"])
+        _fe_record(torch, dev, model, kind, name, run,
+                   full_budgets(run["reqs"]), same or kind == "contiguous",
+                   {**common, **extra(run), "streams_equal_direct": same,
+                    "first_difference": first,
+                    "tokens_equal_direct_share": equal_share(
+                        run["reqs"], ref["reqs"])})
+        return run
+
+    # (a) the capacity probe: every arrival due at once
+    run = serve("probe", probe, lambda run: {
+        "capacity_rps": len(probe) / run["wall"],
+        "direct_prefill_dispatches": ref["prefills"]}, mode="closed")
+    cap_rps = len(probe) / run["wall"]
+    # (b) open-loop rungs on the wall clock
+    for rung_kind, frac in FE_RUNGS:
+        if rung_kind == kind:
+            qps = frac * cap_rps
+            serve(f"x{frac:g}", fe_trace(cfg.vocab_size, qps),
+                  lambda run: {"offered_qps": qps, "capacity_rps": cap_rps,
+                               "load": frac})
+    if kind == "paged":
+        # (c) the policy burst: rejections cost no launch, and the rest
+        # reach the engine by priority with the direct run's streams
+        burst = [Arrival(0.0, a.prompt, a.max_new_tokens,
+                         deadline_s=(1e-6 if i in FE_BURST_EXPIRED
+                                     else None),
+                         priority=burst_priority(i))
+                 for i, a in enumerate(probe[:FE_BURST])]
+        order = []
+        eng = _fe_engine(model, kind)
+        run = _fe_run(torch, eng, burst, mode="closed", order=order,
+                      queue_depth=FE_BURST_DEPTH, admission="priority")
+        del eng
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+        bc = burst_check(run["reqs"], order, run["prefills"])
+        admitted = [(r, q) for r, q in zip(run["reqs"], ref["reqs"])
+                    if r.engine_req is not None]
+        same, first = streams_equal([r for r, _ in admitted],
+                                    [q for _, q in admitted])
+        _fe_record(torch, dev, model, kind, "burst", run, bc["budgets_ok"],
+                   same and bc["ok"],
+                   {**common, "burst": bc, "streams_equal_direct": same,
+                    "first_difference": first})
+    torch.cuda.empty_cache()
+    return total
+
+
+def frontend_phase(torch, dev, model):
+    """Phase 22: the serving front end (``serving.FrontEnd`` over both
+    engines, arrivals from ``serving.loadgen``) at gpt3_1p3b width; see
+    the module docstring. Returns path -> launches."""
+    probe = fe_trace(model.cfg.vocab_size, 1e9)
+    card = _card_line()
+    return {f"frontend_{kind}": _fe_engine_runs(torch, dev, model, kind,
+                                                probe, card)
+            for kind in ("paged", "contiguous")}
+
+
 def serving_paths(torch, dev, gen=None):
     """Every serving path on one gpt3_1p3b (seed SEED): K8 and K9 at the
     single-dispatch engine's shapes (phase 11), paged serving per layer
     and its breakdown (phase 4), single-dispatch paged serving and its
     breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
     decode device time of all four engines (9), generate (10),
-    speculative serving on all four (21). Returns (path -> launches, (K8
-    record, K9 record))."""
+    speculative serving on all four (21), the serving front end over
+    both engines (22). Returns (path -> launches, (K8 record, K9
+    record))."""
     from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
     if gen is None:
@@ -3038,9 +3367,11 @@ def serving_paths(torch, dev, gen=None):
     generated = generate_phase(torch, dev, model)
     torch.cuda.empty_cache()
     spec = spec_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    front = frontend_phase(torch, dev, model)
     return ({"serving": serve["launches"], "serving_mega": mega["launches"],
              "contiguous": contig["launches"], "int8": int8["launches"],
-             "generate": generated["launches"], **spec}, k89)
+             "generate": generated["launches"], **spec, **front}, k89)
 
 
 def breakdown_phase(torch, eng, prompts, n_new, name="serving_breakdown"):

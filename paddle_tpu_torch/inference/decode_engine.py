@@ -66,9 +66,12 @@ Instrumentation, as in the JAX engines (both engines share it):
   counted, not read from a compiler). The JAX engine's retrace counters
   (``compile/retrace/*``) have no counterpart: nothing is traced.
 
+Service hooks for the front end (``paddle_tpu_torch/serving``):
+``on_token``, ``on_retire``, ``bucket_policy``, ``free_slots`` and
+``queued`` (``ResilientScheduler``'s docstring).
+
 Not ported, raising ``NotImplementedError`` with their ROADMAP item:
-KV handoff (S4), tensor-parallel serving (``mesh``), and the front-end
-hooks.
+KV handoff (S4) and tensor-parallel serving (``mesh``).
 """
 
 import collections
@@ -310,11 +313,40 @@ class ResilientScheduler:
     per-request degradation (evict ONE request on a deadline overrun or
     non-finite logits without disturbing its batch peers). Engines
     override ``_on_evict`` to reclaim their own per-slot resources, and
-    supply ``_emit``/``_apply_token``."""
+    supply ``_emit``/``_apply_token``.
 
+    Service hooks (the front end, ``paddle_tpu_torch/serving/
+    scheduler.py``, installs them):
+
+    - ``on_token(req, token)``: called the moment a harvested token is
+      appended to ``req.tokens``, in the request's stream order
+      (speculative emits included).
+    - ``on_retire(req)``: called exactly once when a request leaves the
+      engine (retired, deadline-evicted or poison-evicted; check
+      ``req.error``), from inside the harvest, the moment its slot
+      frees: a front end backfills the slot here.
+    - ``bucket_policy(engine, remaining)``: overrides the contiguous
+      engine's chunked-prefill bucket for a chunk covering
+      ``remaining`` prompt tokens (one of ``engine.buckets``). None
+      keeps the smallest covering bucket; the paged engine never
+      consults it."""
+
+    on_token = None
+    on_retire = None
+    bucket_policy = None
     # speculative depth K (0: off); an engine's constructor sets it, and
     # the shared replay unpacks 'spec' records (chunk, S, K + 2) by it
     spec_k = 0
+
+    @property
+    def free_slots(self) -> int:
+        """Slots with no request bound (admission capacity right now)."""
+        return sum(r is None for r in self._slot_req)
+
+    @property
+    def queued(self) -> int:
+        """Requests submitted but not yet assigned a slot."""
+        return len(self._waiting)
 
     def _on_evict(self, slot: int):
         self.active[slot] = False
@@ -606,7 +638,8 @@ class ResilientScheduler:
         """The request left the engine (done or evicted): stamp its end,
         record its TPOT, and close its ``serve/request`` span (submit to
         end) and, after a first token, its ``serve/decode`` span (first
-        token to end), once."""
+        token to end), once. The ``on_retire`` hook fires here, behind
+        the same once-only guard."""
         if req.t_end is not None:
             return
         req.t_end = time.perf_counter()
@@ -618,6 +651,8 @@ class ResilientScheduler:
         if req.t_first is not None:
             trace.complete("serve/decode", req.t_first, req.t_end,
                            rid=req.rid, tokens=len(req.tokens))
+        if self.on_retire is not None:
+            self.on_retire(req)
 
     def _obs_step(self, t0: float, emitted: int, live: int):
         stats.observe("serve/queue_depth", len(self._waiting))
@@ -962,8 +997,14 @@ class DecodeEngine(ResilientScheduler):
         req, slot = job["req"], job["slot"]
         prompt, start = job["prompt"], job["start"]
         total = len(prompt)
-        bucket = next((x for x in self.buckets if x >= total - start),
-                      self.buckets[-1])
+        if self.bucket_policy is not None:
+            bucket = int(self.bucket_policy(self, total - start))
+            if bucket not in self.buckets:
+                raise ValueError(f"bucket_policy returned {bucket}, not "
+                                 f"one of {self.buckets}")
+        else:
+            bucket = next((x for x in self.buckets if x >= total - start),
+                          self.buckets[-1])
         s0 = start
         if s0 + bucket > self.T:
             # the tail window would overrun the cache: slide it back over
@@ -1014,6 +1055,8 @@ class DecodeEngine(ResilientScheduler):
     def _emit(self, slot: int, req: Request, token: int):
         req.tokens.append(token)
         self._obs_first_token(req)
+        if self.on_token is not None:
+            self.on_token(req, token)
         hit_eos = req.eos_id is not None and token == req.eos_id
         if hit_eos or len(req.tokens) >= req.max_new_tokens:
             req.done = True
@@ -1072,7 +1115,11 @@ class DecodeEngine(ResilientScheduler):
                 self._obs_request_end(req)
 
     def _apply_token(self, slot: int, req: Request, token: int):
+        # the first generated token rides a 'prefill' record (_emit), so
+        # TTFT needs no check here: only the stream hook
         req.tokens.append(token)
+        if self.on_token is not None:
+            self.on_token(req, token)
 
     def _after_replay(self, rec):
         self._retire_done(rec.live)

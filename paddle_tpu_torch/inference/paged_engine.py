@@ -675,8 +675,13 @@ class PagedDecodeEngine(ResilientScheduler):
         self._pending.append(_Inflight("prefill", [(slot, req)], nxt))
 
     def _emit(self, slot: int, req: Request, token: int):
+        """Every harvested token lands here (the first, decode and
+        speculative emits alike), so ``on_token`` sees each request's
+        stream in order."""
         req.tokens.append(token)
         self._obs_first_token(req)
+        if self.on_token is not None:
+            self.on_token(req, token)
         if ((req.eos_id is not None and token == req.eos_id)
                 or len(req.tokens) >= req.max_new_tokens):
             req.done = True

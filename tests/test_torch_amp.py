@@ -17,6 +17,7 @@ from paddle_tpu_torch.amp import GradScaler
 from paddle_tpu_torch.amp.auto_cast import amp_cast
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.nn import functional as F
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # the module (the package re-exports its function under the same name)
 jax_ac = importlib.import_module("paddle_tpu.amp.auto_cast")

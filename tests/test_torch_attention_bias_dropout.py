@@ -25,6 +25,7 @@ from paddle_tpu_torch.nn.functional.attention import (
 from paddle_tpu_torch.ops import _hash
 from paddle_tpu_torch.ops.flash_attention import (
     attention_bias, flash_attention, flash_attention_plain)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 on both sides: outputs within 1e-5, gradients (sums over up to
 # 256 keys or queries in another order) within 1e-4
@@ -60,8 +61,9 @@ def _identity_case(b, sq, sk, h, seed):
 ])
 def test_dropout_mask_matches_jax_bit_for_bit(b, sq, sk, h, rate, seed):
     q, k, v = _identity_case(b, sq, sk, h, 11)
-    want = np.asarray(jax_flash_attention(
-        q, k, v, dropout_p=rate, dropout_seed=seed, interpret=True))
+    want = np.asarray(jax.jit(lambda q, k, v: jax_flash_attention(
+        q, k, v, dropout_p=rate, dropout_seed=seed, interpret=True))(
+            q, k, v))
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), dropout_p=rate,
                           dropout_seed=seed).numpy()
@@ -123,9 +125,14 @@ def test_plain_forward_and_grads_match_jax(name):
             kv_lens=None if lens is None else jnp.asarray(lens),
             dropout_p=rate, dropout_seed=seed, interpret=True)
 
-    want_o = np.asarray(jax_o(q, k, v))
-    want = jax.grad(lambda q, k, v: jnp.sum(jax_o(q, k, v) * do),
-                    argnums=(0, 1, 2))(q, k, v)
+    def jax_o_and_grads(q, k, v, do):
+        o, pull = jax.vjp(jax_o, q, k, v)
+        return o, pull(do)
+
+    # one compiled program: the forward once, then its vjp (op by op,
+    # the interpret-mode kernels take several times longer)
+    want_o, want = jax.jit(jax_o_and_grads)(q, k, v, do)
+    want_o = np.asarray(want_o)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     bt = torch.from_numpy(bias).requires_grad_()
     o = flash_attention(qt, kt, vt, causal=causal, bias=bt,

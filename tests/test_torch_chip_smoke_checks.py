@@ -1127,3 +1127,164 @@ def test_moe_executed_flops_by_hand():
     head = 2 * N * d * 100
     fwd = 2 * (proj + attn) + dense_ffn + moe_ffn + head
     assert chip_smoke.moe_executed_flops(cfg, B, S) == 3 * fwd + 2 * disp
+
+
+# -- phase 22: the serving front end --------------------------------------
+
+def _tiny_serving_model():
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny(max_seq_len=2048, vocab_size=512, n_layers=2)
+    model = gpt.GPT(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() >= 2:
+                p.normal_(0, 0.3, generator=torch.Generator().manual_seed(1))
+    return model
+
+
+@pytest.fixture
+def tiny_fe(monkeypatch):
+    """A tiny model for phase 22's runs on the CPU (the phase's paged
+    engine then runs the megakernel's plain versions); entry points
+    default to the CPU and the card's synchronisation is a no-op."""
+    from paddle_tpu_torch import device as device_lib
+    resolve = device_lib.resolve
+    monkeypatch.setattr(device_lib, "resolve",
+                        lambda d=None: resolve("cpu" if d is None else d))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    torch.set_num_threads(1)
+    return _tiny_serving_model()
+
+
+def test_fe_trace_keeps_its_prompts_at_every_rate():
+    slow = chip_smoke.fe_trace(50304, 1.0)
+    fast = chip_smoke.fe_trace(50304, 1e9)
+    assert len(slow) == chip_smoke.FE_REQUESTS
+    assert [a.prompt for a in slow] == [a.prompt for a in fast]
+    assert [a.max_new_tokens for a in slow] == [a.max_new_tokens
+                                                for a in fast]
+    assert fast[-1].t < 1e-6 < slow[-1].t
+    lo, hi = chip_smoke.FE_PROMPT_LEN
+    assert all(lo <= len(a.prompt) <= hi for a in slow)
+    lo, hi = chip_smoke.FE_NEW_TOKENS
+    assert all(lo <= a.max_new_tokens <= hi for a in slow)
+
+
+def test_fe_expected_by_hand():
+    names = ["flash_attention", "paged_append_attend",
+             "paged_decode_attention", "mega_decode_layers",
+             "mega_logits_sample", "decode_attention", "noop_copy"]
+    run = {"steps": 336, "prefills": 10, "suffix": 1}
+    exp = chip_smoke.fe_expected("paged", names, 24, run)
+    assert exp == dict.fromkeys(names, 0) | {
+        "flash_attention": 24 * 9, "paged_decode_attention": 24,
+        "mega_decode_layers": 336, "mega_logits_sample": 336}
+    exp = chip_smoke.fe_expected("contiguous", names, 24, run)
+    assert exp == dict.fromkeys(names, 0) | {"decode_attention": 24 * 336}
+
+
+def test_rung_accounting_of_a_tiny_run(tiny_fe):
+    """The phase's runs on the CPU: a direct run, a closed probe and a
+    tick-free wall replay through the front end give equal streams, and
+    ``rung_metrics`` counts them as the requests and stats say."""
+    from paddle_tpu_torch.serving import loadgen
+    arrivals = loadgen.poisson_trace(8, 1e9, seed=0, vocab=512,
+                                     prompt_len=(16, 40), new_tokens=(4, 9))
+    runs = {}
+    for mode in ("direct", "closed", "wall"):
+        eng = chip_smoke._fe_engine(tiny_fe, "paged")
+        runs[mode] = chip_smoke._fe_run(torch, eng, arrivals, mode=mode)
+    ref = runs["direct"]
+    for mode in ("closed", "wall"):
+        run = runs[mode]
+        assert chip_smoke.streams_equal(run["reqs"], ref["reqs"]) == (
+            True, None)
+        assert chip_smoke.full_budgets(run["reqs"])
+        assert run["prefills"] == 8 and run["suffix"] == 0
+        m = chip_smoke.rung_metrics(run["reqs"], run["wall"], run["snap"],
+                                    run["backfills"])
+        good = sum(a.max_new_tokens for a in arrivals)
+        assert (m["completed"], m["completed_share"], m["good_tokens"]) == (
+            8, 1.0, good)
+        assert m["goodput_tokens_per_s"] == good / run["wall"]
+        ttfts = sorted(r.ttft_s for r in run["reqs"])
+        assert m["ttft_p50_s"] == ttfts[3] and m["ttft_p99_s"] == ttfts[-1]
+        assert m["tpot_p99_s"] == max(r.tpot_s for r in run["reqs"])
+        assert 0 < m["occupancy_mean"] <= 1
+        # 8 requests over 8 slots: no step is backlogged
+        assert m["fed_occupancy_mean"] is None and m["backfills"] == 0
+
+
+def test_streams_equal_finds_a_planted_difference():
+    class R:
+        def __init__(self, tokens):
+            self.tokens = tokens
+
+    ref = [R([1, 2, 3]), R([4, 5, 6, 7])]
+    assert chip_smoke.streams_equal([R([1, 2, 3]), R([4, 5, 6, 7])],
+                                    ref) == (True, None)
+    assert chip_smoke.streams_equal([R([1, 2, 3]), R([4, 5, 9, 7])],
+                                    ref) == (False, (1, 2))
+    assert chip_smoke.streams_equal([R([1, 2, 3]), R([4, 5, 6])],
+                                    ref) == (False, (1, 3))
+    assert chip_smoke.streams_equal([R([1, 2, 3])], ref) == (False, (1, 0))
+
+
+def test_rung_metrics_percentiles_and_rejections():
+    class R:
+        def __init__(self, status, n, ttft=None, tpot=None):
+            self.status, self.tokens = status, [0] * n
+            self.ttft_s, self.tpot_s = ttft, tpot
+
+    reqs = ([R("done", 4, 0.01 * (i + 1), 0.001 * (i + 1))
+             for i in range(100)]
+            + [R("rejected-queue-full", 0), R("failed", 2, 0.5, 0.2)])
+    snap = {"serve/batch_occupancy.count": 4,
+            "serve/batch_occupancy.sum": 3.0}
+    m = chip_smoke.rung_metrics(reqs, 2.0, snap, 7)
+    assert m["completed"] == 100 and m["completed_share"] == 100 / 102
+    assert m["good_tokens"] == 400 and m["goodput_tokens_per_s"] == 200
+    assert m["ttft_p50_s"] == pytest.approx(0.5)
+    assert m["ttft_p99_s"] == pytest.approx(0.99)
+    assert m["tpot_p99_s"] == pytest.approx(0.099)
+    assert m["occupancy_mean"] == 0.75 and m["fed_occupancy_mean"] is None
+    assert m["backfills"] == 7
+
+
+def test_burst_check_passes_and_fails_planted_faults():
+    from paddle_tpu_torch.serving import FrontEnd
+
+    class Eng:
+        """Just enough of an engine for the front end's bookkeeping."""
+        on_token = on_retire = bucket_policy = None
+        buckets, S, chunk = [16, 32], 8, 1
+
+        def check_request(self, n, m):
+            pass
+
+    fe = FrontEnd(Eng(), queue_depth=chip_smoke.FE_BURST_DEPTH,
+                  admission="priority", dynamic_buckets=False)
+    reqs = [fe.submit([1, 2], max_new_tokens=3,
+                      priority=chip_smoke.burst_priority(i))
+            for i in range(chip_smoke.FE_BURST)]
+    depth, expired = chip_smoke.FE_BURST_DEPTH, chip_smoke.FE_BURST_EXPIRED
+    admitted = [r for i, r in enumerate(reqs[:depth]) if i not in expired]
+    for r in admitted:
+        r.status, r._buf = "done", [7, 7, 7]
+    for i in expired:
+        reqs[i].status = "rejected-deadline"
+    order = [r.id for r in sorted(admitted,
+                                  key=lambda r: (-r.priority, r.seq))]
+    assert order != [r.id for r in admitted]     # not arrival order
+    rec = chip_smoke.burst_check(reqs, order, len(admitted))
+    assert rec["ok"] and rec["queue_full"] == 4 and rec["deadline"] == 2
+    # arrival order, a prefill of a rejected request, a short stream, an
+    # expired request that reached the engine
+    assert not chip_smoke.burst_check(reqs, [r.id for r in admitted],
+                                      len(admitted))["ok"]
+    assert not chip_smoke.burst_check(reqs, order, len(admitted) + 1)["ok"]
+    admitted[0]._buf = [7]
+    assert not chip_smoke.burst_check(reqs, order, len(admitted))["ok"]
+    admitted[0]._buf = [7, 7, 7]
+    reqs[expired[0]].engine_req = object()
+    assert not chip_smoke.burst_check(reqs, order, len(admitted))["ok"]

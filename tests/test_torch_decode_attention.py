@@ -17,6 +17,7 @@ from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.convert import gpt_from_jax_state
 from paddle_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_reference)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32: the same sums in another order (the TPU kernel rescales per
 # 128-key block); bf16 outputs: within 2^-7 relative L2 per (row, head),

@@ -21,6 +21,7 @@ from paddle_tpu_torch.ops.decode_megakernel import (
     _WEIGHT_ORDER, logits_plan, logits_route, logits_tile_range,
     mega_decode_layers, mega_decode_layers_reference, mega_logits_sample)
 from paddle_tpu_torch.ops.paged_attention import paged_append_attend
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 everywhere: the two packages sum the same products in another
 # order

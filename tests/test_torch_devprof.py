@@ -28,6 +28,7 @@ from paddle_tpu_torch.ops.flash_attention import flash_attention_cost
 from paddle_tpu_torch.ops.paged_attention import (
     paged_append_attend_cost, paged_decode_attention_cost)
 from paddle_tpu_torch.ops.quant_matmul import int8_matmul, int8_matmul_cost
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 SEEDS = (0, 1, 2, 3, 4)
 TOL = 1e-12

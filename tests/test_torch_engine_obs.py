@@ -33,6 +33,7 @@ from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.convert import gpt_from_jax_state
 from paddle_tpu_torch.observability import devprof, flight, trace
 from paddle_tpu_torch.testing import faults
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 WEIGHT_STD = 0.5
 FIELDS = dict(vocab_size=96, max_seq_len=256, d_model=32, n_layers=2,

@@ -3,6 +3,7 @@ against the JAX package's Pallas flash kernel run in interpret mode, in
 fp32 on the CPU. The CUDA kernel itself is held against the same plain
 version on the GPU (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from paddle_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention)
 from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_reference)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 on both sides; only the summation order differs (online softmax
 # over 128-key blocks vs one dense softmax)
@@ -61,10 +63,11 @@ def test_reference_matches_jax_flash_kernel(name):
     rs = np.random.RandomState(NAMES.index(name))
     q, k, v = _inputs(rs, b, sq, sk, hq, hkv, d)
     lens = None if kv_lens is None else np.asarray(kv_lens, np.int32)
-    want = np.asarray(jax_flash_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        kv_lens=None if lens is None else jnp.asarray(lens),
-        interpret=True))
+    # jitted: op by op the interpret-mode kernel takes about twice as long
+    want = np.asarray(jax.jit(lambda q, k, v, lens: jax_flash_attention(
+        q, k, v, causal=causal, kv_lens=lens, interpret=True))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if lens is None else jnp.asarray(lens)))
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), causal=causal,
                           kv_lens=None if lens is None

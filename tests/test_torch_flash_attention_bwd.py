@@ -18,6 +18,7 @@ from paddle_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_dkdv, flash_attention_bwd_dq,
     flash_attention_bwd_reference, flash_attention_plain,
     flash_attention_reference)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 on both sides; the gradients sum over up to 256 keys or queries
 # in another order (128- and 256-wide blocks vs one dense einsum)
@@ -82,7 +83,9 @@ def test_plain_backward_matches_jax_grad(name):
                                 else jnp.asarray(lens), interpret=True)
         return jnp.sum(o * jnp.asarray(do))
 
-    want = jax.grad(loss, argnums=(0, 1, 2))(
+    # jitted: op by op, the interpret-mode kernels take several times
+    # longer
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     got = _port_grads(flash_attention, q, k, v, do, causal, lens)
     for g, w, what in zip(got, want, ("dq", "dk", "dv")):

@@ -23,6 +23,7 @@ from paddle_tpu_torch.ops import launch_counters
 from paddle_tpu_torch.ops.fused_ce import (
     CHUNK, fused_ce_bwd, fused_ce_bwd_reference, fused_ce_plain,
     fused_ce_reference, fused_softmax_cross_entropy, plan_chunks)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 on both sides; the logsumexp runs online over 128-512-wide vocab
 # blocks in JAX and in one pass here, and dx/dw sum over the vocab or
@@ -71,8 +72,8 @@ def test_fused_loss_vocab_rule_matches_jax():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_forward_matches_jax(name):
     x, w, labels, _ = _inputs(name)
-    want = np.asarray(jax_fused_ce(jnp.asarray(x), jnp.asarray(w),
-                                   jnp.asarray(labels), interpret=True))
+    want = np.asarray(jax.jit(lambda *a: jax_fused_ce(*a, interpret=True))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels)))
     got = fused_softmax_cross_entropy(torch.from_numpy(x),
                                       torch.from_numpy(w),
                                       torch.from_numpy(labels))
@@ -89,8 +90,8 @@ def test_backward_matches_jax_grad(name):
         per = jax_fused_ce(x, w, jnp.asarray(labels), interpret=True)
         return jnp.sum(per * jnp.asarray(g))
 
-    want_dx, want_dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
-                                                      jnp.asarray(w))
+    want_dx, want_dw = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jnp.asarray(x), jnp.asarray(w))
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
     per = fused_softmax_cross_entropy(xt, wt, torch.from_numpy(labels))
@@ -243,8 +244,8 @@ def test_chunked_backward_matches_reference_and_jax_grad(name):
         per = jax_fused_ce(x, w, jnp.asarray(labels), interpret=True)
         return jnp.sum(per * jnp.asarray(g))
 
-    want_dx, want_dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
-                                                      jnp.asarray(w))
+    want_dx, want_dw = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        jnp.asarray(x), jnp.asarray(w))
     xt, wt, lt, gt = (torch.from_numpy(a) for a in (x, w, labels, g))
     _, lse = fused_ce_reference(xt, wt, lt)
     dx, dw = fused_ce_bwd(xt, wt, lt, lse, gt, chunk=chunk)

@@ -14,6 +14,7 @@ import torch
 from paddle_tpu.models import gpt as jax_gpt
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.convert import gpt_from_jax_state
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 both sides; 2 layers of matmuls and softmax in another order
 ATOL = RTOL = 1e-4

@@ -7,6 +7,7 @@ MoE config builds and the engines refuse it."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 from paddle_tpu.models import gpt as jax_gpt
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.convert import gpt_from_jax_state
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 both sides; 2 layers of matmuls/softmax in a different order
 ATOL = RTOL = 1e-4
@@ -63,7 +65,8 @@ def test_logits_match_jax(name):
     model = gpt_from_jax_state(port_config(jcfg), state, device="cpu")
     toks = np.random.RandomState(2).randint(0, jcfg.vocab_size,
                                             size=(2, 40))
-    want = np.asarray(jmodel(jnp.asarray(toks)))
+    # jitted (op by op the forward takes several times longer)
+    want = np.asarray(jax.jit(lambda t: jmodel(t))(jnp.asarray(toks)))
     got = model(torch.from_numpy(toks)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
     assert port_config(jcfg).num_params() == jcfg.num_params()

@@ -24,6 +24,7 @@ from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.models.convert import load_jax_state
 from paddle_tpu_torch.nn.functional import common as F_common
 from paddle_tpu_torch.ops.quant_matmul import int8_matmul_reference
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 TOL = 2e-5
 B, S, D, H, FF = 2, 12, 32, 4, 64

@@ -23,6 +23,7 @@ from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                              fused_layer_norm_plain,
                                              fused_layer_norm_fwd,
                                              fused_layer_norm_reference)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -90,7 +91,7 @@ def test_grads_match_jax(n, dropout, has_bias, has_res):
 
     argnums = (0, 1, 2) + ((3,) if has_bias else ()) + \
         ((4,) if has_res else ())
-    want = jax.grad(jloss, argnums=argnums)(
+    want = jax.jit(jax.grad(jloss, argnums=argnums))(
         *(None if a is None else jnp.asarray(a)
           for a in (x, gamma, beta, bias, res)))
     ts = [None if a is None else torch.from_numpy(a).requires_grad_()

@@ -11,6 +11,7 @@ import torch
 
 from paddle_tpu.optimizer import lr as jax_lr
 from paddle_tpu_torch.optimizer import lr
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 TOL = 1e-6
 

@@ -33,6 +33,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import quantize_for_inference
 
 from test_torch_train_step import NOISE_ATOL, _rel_l2
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 both sides: the gating's arithmetic is the same op for op (its
 # combine entries are gate probabilities, softmax sums in another

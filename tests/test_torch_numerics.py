@@ -37,6 +37,7 @@ from paddle_tpu_torch.testing import faults
 
 from test_torch_gpt import JAX_CONFIGS, port_config, random_state
 from test_torch_optim_suite import _tiny_params
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 STACKED = "_stacked_blocks"
 
@@ -111,8 +112,11 @@ def test_capture_step_matches_jax(planted):
     grads = _planted(raw) if planted else raw
     upd = {n: 1e-3 * np.sign(v) for n, v in raw.items()}
     jbox, tbox = jax_nm.LayoutBox(), nm.LayoutBox()
-    want = jax_nm.capture_step(_to_jax(grads), loss=jnp.float32(2.5),
-                               updates=_to_jax(upd), box=jbox)
+    # jitted (op by op it takes several times longer); the layout is
+    # recorded into the box while tracing
+    want = jax.jit(lambda g, u: jax_nm.capture_step(
+        g, loss=jnp.float32(2.5), updates=u, box=jbox))(_to_jax(grads),
+                                                        _to_jax(upd))
     got = nm.capture_step({n: torch.from_numpy(v) for n, v in grads.items()},
                           loss=torch.tensor(2.5),
                           updates={n: torch.from_numpy(v)

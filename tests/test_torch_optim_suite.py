@@ -25,6 +25,7 @@ from paddle_tpu_torch.incubate import LookAhead, ModelAverage
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.optimizer import lr
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 TOL = 1e-6
 STACKED = "_stacked_blocks"

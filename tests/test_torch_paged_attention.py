@@ -5,6 +5,7 @@ package's Pallas paged kernel run in interpret mode, in fp32 on the CPU
 CUDA kernel itself is held against the same plain versions on the GPU
 (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from paddle_tpu_torch.ops.paged_attention import (
     PageAllocator, cluster_size, paged_append_attend,
     paged_append_attend_reference, paged_decode_attention,
     paged_decode_attention_reference, ring_stages)
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 on both sides; only the summation order differs (per-page online
 # softmax vs one dense softmax)
@@ -82,9 +84,9 @@ def test_plain_matches_jax_kernel_at_the_verify_shape(hq, hkv, K):
     rows = np.repeat(table, K, axis=0)
     lens = (np.repeat(slot_lens, K) + np.tile(np.arange(K), S)
             + 1).astype(np.int32)
-    want = np.asarray(jax_decode_attention(
-        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
-        jnp.asarray(rows), jnp.asarray(lens), interpret=True))
+    want = np.asarray(jax.jit(lambda *a: jax_decode_attention(
+        *a, interpret=True))(*(jnp.asarray(a)
+                               for a in (q, kp, vp, rows, lens))))
     got = paged_decode_attention(*_t(q, kp, vp, rows, lens))
     assert got.shape == (S * K, hq, q.shape[-1])
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)

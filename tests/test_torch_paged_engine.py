@@ -22,6 +22,7 @@ from paddle_tpu_torch.inference.factory import make_engine
 from paddle_tpu_torch.inference.paged_engine import PagedDecodeEngine
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.models.convert import gpt_from_jax_state
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 pools: the same K/V rows up to summation order over 2 layers
 ATOL = RTOL = 1e-4

@@ -5,6 +5,7 @@ ragged M, K and N in fp32 and bf16; ``quantize_tensor`` bit for bit;
 ``x @ qt`` reaching ``QuantTensor.__rmatmul__`` (and K12's wrapper);
 ``quantize_for_inference``'s selection and logits against JAX's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from paddle_tpu_torch.models.convert import gpt_from_jax_state
 from paddle_tpu_torch.ops.quant_matmul import (int8_matmul,
                                                int8_matmul_reference)
 from test_torch_gpt import port_config, random_state
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32: the same fp32 sums in another order, so apart by a few fp32
 # ulps of the largest terms (F32_TOL times the largest |out|); bf16: one
@@ -200,7 +202,8 @@ def test_quantize_for_inference_matches_jax(name, monkeypatch):
                         lambda *a: calls.append(1) or orig(*a))
     toks = np.random.RandomState(2).randint(0, 256, size=(2, 24))
     got = qmodel(torch.from_numpy(toks)).numpy()
-    want = np.asarray(jq(jnp.asarray(toks)))
+    # jitted (op by op the forward takes several times longer)
+    want = np.asarray(jax.jit(lambda t: jq(t))(jnp.asarray(toks)))
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     per_layer = sum(n in gpt.block_param_specs(model.cfg)
                     for n in qmodel.quantized)

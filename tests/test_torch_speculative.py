@@ -42,6 +42,7 @@ from paddle_tpu_torch.models.convert import gpt_from_jax_state
 from paddle_tpu_torch.observability import devprof
 from paddle_tpu_torch.ops import decode_megakernel as mk
 from paddle_tpu_torch.testing import faults
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 # fp32 caches and pools: the same K/V rows up to summation order
 ATOL = RTOL = 1e-4

@@ -31,6 +31,7 @@ from paddle_tpu_torch.optimizer import lr
 
 from test_torch_gpt import JAX_CONFIGS, port_config, random_state
 from test_torch_train_step import NOISE_ATOL
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 P = 0.1
 
@@ -93,9 +94,11 @@ def test_dropout_loss_matches_jax(remat):
     """The fused-CE loss at dropout 0.1 with a key, and without one."""
     jcfg, jmodel, model = _models(remat=remat)
     tok = _tokens(jcfg)
+    # jitted (op by op the loss takes several times longer)
+    jloss = jax.jit(lambda t, key: jax_gpt.fused_lm_loss(jmodel, t,
+                                                         rng_key=key))
     for seed in (0, 7):
-        want = float(jax_gpt.fused_lm_loss(
-            jmodel, jnp.asarray(tok), rng_key=jax.random.PRNGKey(seed)))
+        want = float(jloss(jnp.asarray(tok), jax.random.PRNGKey(seed)))
         with torch.no_grad():
             got = float(gpt.fused_lm_loss(model, torch.from_numpy(tok),
                                           rng_key=prng.PRNGKey(seed)))
@@ -103,8 +106,8 @@ def test_dropout_loss_matches_jax(remat):
     with torch.no_grad():
         plain = float(gpt.fused_lm_loss(model, torch.from_numpy(tok)))
     np.testing.assert_allclose(
-        plain, float(jax_gpt.fused_lm_loss(jmodel, jnp.asarray(tok))),
-        rtol=1e-5)
+        plain, float(jax.jit(lambda t: jax_gpt.fused_lm_loss(jmodel, t))(
+            jnp.asarray(tok))), rtol=1e-5)
     assert abs(plain - got) > 1e-3     # the key did drop entries
 
 
@@ -133,6 +136,13 @@ def _jax_flat(jmodel, jparams):
     return out
 
 
+def _jax_grads(jmodel, jparams, jtok, jkey):
+    """The JAX loss's gradients at ``jparams``, jitted (op by op they
+    take several times longer)."""
+    return jax.jit(jax.grad(lambda p: jax_gpt.fused_lm_loss(
+        jmodel.merge_params(p), jtok, rng_key=jkey)))(jparams)
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_full_option_train_step_matches_jax(remat):
     jcfg, jmodel, model = _models(remat=remat)
@@ -141,8 +151,7 @@ def test_full_option_train_step_matches_jax(remat):
     jopt, topt = _optimizers()
     jparams, jstate = jax_gpt.init_train_state(jmodel, jopt, stacked=True)
     jkey = jax.random.PRNGKey(0)
-    jgrads = _jax_flat(jmodel, jax.grad(lambda p: jax_gpt.fused_lm_loss(
-        jmodel.merge_params(p), jtok, rng_key=jkey))(jparams))
+    jgrads = _jax_flat(jmodel, _jax_grads(jmodel, jparams, jtok, jkey))
     jstep = jax_gpt.build_train_step(jmodel, jopt, donate=False)
     params, state = gpt.init_train_state(model, topt)
     step = gpt.build_train_step(model, topt)
@@ -234,8 +243,7 @@ def test_other_optimizers_train_like_jax(case):
     topt = _other_optimizers(optim, regularizer)[case]()
     jparams, jstate = jax_gpt.init_train_state(jmodel, jopt, stacked=True)
     jkey = jax.random.PRNGKey(3)
-    jgrads = _jax_flat(jmodel, jax.grad(lambda p: jax_gpt.fused_lm_loss(
-        jmodel.merge_params(p), jtok, rng_key=jkey))(jparams))
+    jgrads = _jax_flat(jmodel, _jax_grads(jmodel, jparams, jtok, jkey))
     jstep = jax_gpt.build_train_step(jmodel, jopt, donate=False)
     params, state = gpt.init_train_state(model, topt)
     step = gpt.build_train_step(model, topt)

@@ -30,6 +30,7 @@ from paddle_tpu_torch.ops.flash_attention import flash_attention
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
 from test_torch_gpt import JAX_CONFIGS, port_config, random_state
+from torch_reference_compile import fast_reference_compiles  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -171,8 +172,9 @@ def test_train_step_matches_jax(case):
     jopt = jax_optim.AdamW(learning_rate=1e-3, weight_decay=0.01,
                            moment_dtype=jnp.bfloat16)
     jparams, jstate = jax_gpt.init_train_state(jmodel, jopt)
-    jgrads = jax.grad(lambda p: jax_gpt.fused_lm_loss(
-        jmodel.merge_params(p), jtok))(jparams)
+    # jitted (op by op it takes several times longer)
+    jgrads = jax.jit(jax.grad(lambda p: jax_gpt.fused_lm_loss(
+        jmodel.merge_params(p), jtok)))(jparams)
     jstep = jax_gpt.build_train_step(jmodel, jopt, donate=False)
 
     topt = AdamW(learning_rate=1e-3, weight_decay=0.01,
@@ -249,7 +251,8 @@ def test_unfused_vocab_takes_lm_loss_like_jax():
     jmodel.set_state_dict({k: jnp.asarray(v) for k, v in state.items()})
     model = gpt_from_jax_state(port_config(jcfg), state, device="cpu")
     tokens = np.random.RandomState(6).randint(0, 100, size=(2, 20))
-    want = float(jax_gpt.fused_lm_loss(jmodel, jnp.asarray(tokens)))
+    want = float(jax.jit(lambda t: jax_gpt.fused_lm_loss(jmodel, t))(
+        jnp.asarray(tokens)))
     with torch.no_grad():
         got = float(gpt.fused_lm_loss(model, torch.from_numpy(tokens)))
     np.testing.assert_allclose(got, want, rtol=1e-6)
