@@ -123,14 +123,16 @@ Phases, each fatal on failure:
    ``fused_multi_head_attention`` (padding mask, dropout and attention
    dropout 0.1) and ``fused_feedforward`` (dropout 0.1), a fixed (16,
    512, 768) input with lengths 128..512 (one full row), a masked mean
-   square loss against a fixed target, the port's AdamW (lr 1e-3). Step
-   1 runs twice from the same weights and generator states, through the
-   plain versions (``plain_kernels``, no launch) and through the
-   kernels: losses within 1e-3 relative, every gradient within 2.5e-2
-   relative L2 (``encoder_step_check``). Then 5 more kernel steps: the
-   loss falls; launches per step K1 = K3 = K4 = K11 = 12, every other
-   kernel 0; step time, tokens/s, MFU, peak memory and a torch.profiler
-   breakdown of one step;
+   square loss against a fixed target, the port's AdamW (lr 1e-3). Each
+   step runs under ``nn.stateful(training=True, rng=PRNGKey(0))``: the
+   functionals' seeds and masks come from the context's keys (salts 101
+   and 102), as in JAX. Step 1 runs twice from the same weights and
+   keys, through the plain versions (``plain_kernels``, no launch) and
+   through the kernels: losses within 1e-3 relative, every gradient
+   within 2.5e-2 relative L2 (``encoder_step_check``). Then 5 more
+   kernel steps: the loss falls; launches per step K1 = K3 = K4 = K11
+   = 12, every other kernel 0; step time, tokens/s, MFU, peak memory
+   and a torch.profiler breakdown of one step;
 16. the incubate layers, fp32 at d 768: ``FusedBiasDropoutResidual
    LayerNorm`` in eval equals F.layer_norm of residual + x + bias;
    ``FusedMultiTransformer`` (two pre-LN layers) decoding 4 tokens
@@ -280,9 +282,36 @@ Phases, each fatal on failure:
    completed share, mean batch and fed occupancy, backfills, and the
    engine's device ms and launches a decode step.
 
+23. BERT pretraining — ``BertForPretraining(bert_base())`` at full width
+   (vocab 30528, 512 positions, d 768, 12 layers, 12 heads, dropout 0.1,
+   bf16, seed 0), a fixed 32 x 512 batch (``bert_batch``: lengths
+   128..512 with one full row, two segments, 15% of each row's tokens
+   masked, at most 80, random NSP labels), the port's AdamW (lr 1e-4, wd
+   0.01, LayerNorm scales and biases exempt, bf16 moments) on the
+   ``stacked=True`` state, ``build_pretrain_step(max_predictions=80)``,
+   ``PRNGKey(0)`` every step. Checks: (a) layer 0's salt-1 mask at (32,
+   512, 768) drawn on the card equals the CPU's bit for bit
+   (``dropout_mask_phase``); (b) step 1 from the same weights through
+   the plain attention (``plain_sdpa``: ``flash_attention_plain`` with
+   the padding bias and ``kv_lens``) and through the kernels: losses
+   within 1e-3 relative, every gradient within 2.5e-2 relative L2; (c)
+   over 6 kernel steps the loss falls; (d) K1 = K3 = K4 = 12 launches a
+   step, every other kernel 0 (``bert_family_train``). Printed: step
+   time, tokens/s, MFU by ``flops_per_token`` (and with the attention
+   term at the batch's S), peak memory, the device ms of one mask and
+   of the 24 dropouts a step, two steps at dropout 0 (no key), and a
+   torch.profiler breakdown of one step.
+24. ERNIE fine-tuning — ``ErnieForSequenceClassification(ernie3_base(),
+   num_classes=2)`` (vocab 40000, 2048 positions, 4 segment types, 3
+   task types, seed 0), a fixed 32 x 128 batch with padding (lengths
+   32..128) and task-type ids, class labels 3:1 (``CLASS1_SHARE``),
+   ``F.cross_entropy`` on the logits, dropout 0.1 from ``PRNGKey(1)``,
+   AdamW at lr 2e-5 on the per-layer state: checks (a)-(d) and the
+   printout of phase 23.
+
 Phases 11, 4, 12, 6-10, 21 and 22 run before 5 (which needs the card's
 memory for training), 13, 14 and 17 before them, 19 (and its sweep)
-right after 5, 20 after the sweep, 15, 16 and 18 after 20. Should
+right after 5, 20 after the sweep, 15, 16, 23, 24 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
 
@@ -2091,36 +2120,45 @@ def options_step_check(loss, plain_loss, grad_err, norm, plain_norm,
     return rec
 
 
-def options_mask_phase(torch, dev, cfg, B, S):
-    """The first layer's salt-1 mask at (B, S, d), drawn on the card from
-    the CPU key and from the key on the card, against the CPU's draw bit
-    for bit; the device ms of one mask and of one residual dropout."""
+def dropout_mask_phase(torch, dev, name, shape, p, masks_per_step, dtype):
+    """Layer 0's salt-1 residual dropout mask at ``shape``
+    (``bernoulli(fold_in(fold_in(PRNGKey(0), 0), 1), 1 - p)``), drawn on
+    the card from the CPU key and from the key on the card, against the
+    CPU's draw bit for bit; the device ms of one mask and of one
+    residual dropout (``gpt._maybe_dropout``, which the BERT blocks
+    share), and of the ``masks_per_step`` dropouts of a step."""
     from paddle_tpu_torch import random as prng
     from paddle_tpu_torch.models import gpt
-    shape = (B, S, cfg.d_model)
     k = prng.fold_in(prng.fold_in(prng.PRNGKey(SEED), 0), 1)
-    ref = prng.bernoulli(k, 1.0 - OPT_DROPOUT, shape, device="cpu")
-    got = prng.bernoulli(k, 1.0 - OPT_DROPOUT, shape)
-    got_dev = prng.bernoulli(k.to(dev), 1.0 - OPT_DROPOUT, shape)
-    rec = {"phase": "train_options_mask", "shape": list(shape)}
+    ref = prng.bernoulli(k, 1.0 - p, shape, device="cpu")
+    got = prng.bernoulli(k, 1.0 - p, shape)
+    got_dev = prng.bernoulli(k.to(dev), 1.0 - p, shape)
+    rec = {"phase": name, "card": _card_line(), "shape": list(shape)}
     rec.update(mask_check(got.cpu(), ref))
     rec["device_key_mismatches"] = int((got_dev.cpu() != ref).sum().item())
     del got, got_dev, ref
-    x = torch.randn(shape, device=dev).to(cfg.dtype)
+    x = torch.randn(shape, device=dev).to(dtype)
     lk = prng.fold_in(prng.PRNGKey(SEED), 0)
     rec["mask_ms"] = _device_ms(torch, lambda: prng.bernoulli(
-        k, 1.0 - OPT_DROPOUT, shape, device=dev), iters=5)
+        k, 1.0 - p, shape, device=dev), iters=5)
     rec["dropout_ms"] = _device_ms(torch, lambda: gpt._maybe_dropout(
-        x, OPT_DROPOUT, lk, 1), iters=5)
+        x, p, lk, 1), iters=5)
     # two residual dropouts a layer, forward only (remat off)
-    rec["masks_per_step"] = 2 * cfg.n_layers
+    rec["masks_per_step"] = masks_per_step
     rec["dropout_ms_per_step"] = (None if rec["dropout_ms"] is None else
-                                  rec["dropout_ms"] * rec["masks_per_step"])
+                                  rec["dropout_ms"] * masks_per_step)
     rec["ok"] = bool(rec["ok"] and rec["device_key_mismatches"] == 0
                      and rec["mask_ms"] is not None
                      and rec["dropout_ms"] is not None)
     _phase(rec)
     return rec
+
+
+def options_mask_phase(torch, dev, cfg, B, S):
+    """Phase 19's mask at (B, S, d) (``dropout_mask_phase``)."""
+    return dropout_mask_phase(torch, dev, "train_options_mask",
+                              (B, S, cfg.d_model), OPT_DROPOUT,
+                              2 * cfg.n_layers, cfg.dtype)
 
 
 def train_options_phase(torch, dev, base, n_steps=6, off_steps=2):
@@ -3465,7 +3503,7 @@ def k11_case(torch, dev, gen, N, M=ENC_B * ENC_S, p=ENC_P, seed=-77):
     gamma = (1 + 0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
     beta = (0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
     bias = (0.1 * torch.randn(N, generator=gen, device=dev)).to(bf)
-    # the seed on the device, as the encoder's draw_seed passes it
+    # the seed on the device, as the encoder's key_seed passes it
     args = (x, gamma, beta, bias, res, _hash.seed_tensor(seed, dev), 1e-5,
             p)
     plan = ln._plan(M, N, bf, True, torch.cuda.get_device_properties(
@@ -3708,11 +3746,13 @@ def encoder_weights(torch, dev, L, d, h, ffn, seed=SEED, dtype=None):
     return w
 
 
-def encoder_forward(w, x, mask, gen, n_layers, p=ENC_P, training=True):
+def encoder_forward(w, x, mask, n_layers, p=ENC_P, training=True):
     """The post-LN encoder through the incubate functionals: per block
     ``fused_multi_head_attention`` (K1 with the padding bias and hash
     dropout, K11 for the bias-dropout-residual-LN tail) then
-    ``fused_feedforward`` (GELU, generator dropout, post-LN)."""
+    ``fused_feedforward`` (GELU, the plain dropouts, post-LN). Their
+    keys come from the active ``nn.stateful`` context (salts 101 and
+    102), as in JAX."""
     from paddle_tpu_torch.incubate.nn import functional as IF
     for i in range(n_layers):
         b = {n.split(".", 1)[1]: t for n, t in w.items()
@@ -3722,19 +3762,19 @@ def encoder_forward(w, x, mask, gen, n_layers, p=ENC_P, training=True):
             ln_scale=b["ln_scale"], ln_bias=b["ln_bias"],
             qkv_bias=b["qkv_bias"], linear_bias=b["linear_bias"],
             attn_mask=mask, dropout_rate=p, attn_dropout_rate=p,
-            training=training, generator=gen)
+            training=training)
         x = IF.fused_feedforward(
             x, b["linear1_weight"], b["linear2_weight"],
             b["linear1_bias"], b["linear2_bias"], ln2_scale=b["ln2_scale"],
             ln2_bias=b["ln2_bias"], dropout1_rate=p, dropout2_rate=p,
-            activation="gelu", training=training, generator=gen)
+            activation="gelu", training=training)
     return x
 
 
 def encoder_step_check(loss, plain_loss, grad_err, loss_tol=1e-3,
                        grad_tol=2.5e-2):
     """Step 1 through the kernels against step 1 through the plain
-    versions (same weights, same generator states): the losses within
+    versions (same weights, same keys): the losses within
     ``loss_tol`` relative, every gradient within ``grad_tol`` relative
     L2 (bf16 roundings at other places, through 12 blocks)."""
     worst = max(grad_err, key=grad_err.get)
@@ -3750,6 +3790,8 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
     """The slice's main path: the BERT-base-width incubate encoder
     trained with dropout; see the module docstring (phase 15)."""
     import numpy as np
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import random as prng
     from paddle_tpu_torch.optimizer import AdamW
 
     B, S, d = ENC_B, ENC_S, ENC_D
@@ -3763,7 +3805,6 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
                           device=dev).round()
     valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
     mask = valid[:, None, None, :]            # bool, True = visible
-    gen = torch.Generator(device=dev)
     start = {n: t.detach().clone() for n, t in w.items()}
 
     def optimizer():
@@ -3773,7 +3814,9 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
     def step(opt, state):
         for t in w.values():
             t.grad = None
-        out = encoder_forward(w, x, mask, gen, n_layers)
+        # every step's dropouts from PRNGKey(0)'s context keys
+        with pnn.stateful(training=True, rng=prng.PRNGKey(SEED)):
+            out = encoder_forward(w, x, mask, n_layers)
         err = (out.float() - target).square().mean(-1)
         loss = (err * valid).sum() / valid.sum()
         loss.backward()
@@ -3781,9 +3824,8 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
         return loss, state
 
     # step 1 through the plain versions, then from the same weights and
-    # generator state through the kernels
+    # keys through the kernels
     opt, state = optimizer()
-    gen.manual_seed(SEED + 1)
     _zero_counters()
     with plain_kernels():
         loss, _ = step(opt, state)
@@ -3795,7 +3837,6 @@ def encoder_phase(torch, dev, n_steps=6, n_layers=ENC_LAYERS):
             t.copy_(start[n])
     del start
     opt, state = optimizer()
-    gen.manual_seed(SEED + 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counters()
@@ -3888,7 +3929,7 @@ def fused_layers_phase(torch, dev, n_new=4, prompt=128):
     d = ENC_D
     _zero_counters()
     ln = inn.FusedBiasDropoutResidualLayerNorm(d, dropout_rate=ENC_P,
-                                               device=dev, generator=g)
+                                               device=dev)
     with torch.no_grad():
         for t in ln.parameters():
             t.copy_(torch.randn(t.shape, generator=g, device=dev))
@@ -3930,6 +3971,308 @@ def fused_layers_phase(torch, dev, n_new=4, prompt=128):
            "ok": bool(ln_err.item() <= CACHED_DECODE_TOL and check["ok"]
                       and counts_ok)}
     _phase(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Eighteenth slice: the BERT/ERNIE family (models/bert.py, models/ernie.py)
+# pretrained and fine-tuned at full width, dropout from JAX keys
+# ---------------------------------------------------------------------------
+
+# phase 23: bert_base pretraining, 32 x 512, lengths 128..512 (one full
+# row), 15% of each row's tokens masked, at most 80 a row
+BERT_B, BERT_S, BERT_MAX_PRED = 32, 512, 80
+BERT_LENGTHS = (128, 512)
+BERT_MASK_SHARE = 0.15
+BERT_LR = 1e-4
+# phase 24: ernie3_base fine-tuning, 32 x 128, lengths 32..128
+ERNIE_B, ERNIE_S = 32, 128
+ERNIE_LENGTHS = (32, 128)
+ERNIE_LR = 2e-5
+# the [MASK] token of the BERT vocabularies: masked inputs carry it
+MASK_TOKEN = 103
+# phase 24's class labels: 3 of 4 rows in class 1. At init every row's
+# p is near 0.5, so with balanced labels the step-1 gradient of each
+# tensor the loss reaches through a sum over the rows (cls_b, pooler_b,
+# the LayerNorm biases, wpe) cancels: at 15/17 labels cls_b's gradient
+# was 0.0037 against rows' |p - y| of 0.98 (265x), and its relative L2
+# read the two paths' bf16 noise (their probabilities 0.2% apart) as
+# 5.8%; at 24/8 the worst tensor read 1.5% (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 6, phase 24)
+CLASS1_SHARE = 0.75
+
+
+def bert_batch(vocab, B, S, lengths, mask_share=0.0, max_pred=None,
+               tasks=0, seed=SEED):
+    """A fixed batch as numpy int32 arrays: row r valid for the first
+    lengths[r] positions (``linspace`` over ``lengths``, the last row
+    full; padding token 0, attention mask 0); two segments (type 1 from
+    the middle of the valid part on); ``mask_share`` of each row's valid
+    positions (at most ``max_pred``) masked: the input there is
+    MASK_TOKEN and the MLM label the original token, -100 elsewhere;
+    random NSP labels; class labels with CLASS1_SHARE of the rows in
+    class 1, shuffled; with ``tasks``, task-type ids in [0, tasks) over
+    the valid positions."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    lens = np.round(np.linspace(lengths[0], lengths[1], B)).astype(int)
+    pos = np.arange(S)[None, :]
+    mask = (pos < lens[:, None]).astype(np.int32)
+    tokens = (rs.randint(1, vocab, (B, S)) * mask).astype(np.int32)
+    types = ((pos >= lens[:, None] // 2) * mask).astype(np.int32)
+    labels = np.full((B, S), -100, np.int32)
+    for r in range(B):
+        n = int(round(mask_share * lens[r]))
+        if max_pred is not None:
+            n = min(n, max_pred)
+        at = rs.choice(lens[r], n, replace=False)
+        labels[r, at] = tokens[r, at]
+        tokens[r, at] = MASK_TOKEN
+    classes = (np.arange(B) < round(CLASS1_SHARE * B)).astype(np.int32)
+    rs.shuffle(classes)
+    out = {"tokens": tokens, "types": types, "mask": mask,
+           "mlm_labels": labels,
+           "nsp_labels": rs.randint(0, 2, B).astype(np.int32),
+           "class_labels": classes, "lengths": lens}
+    if tasks:
+        out["tasks"] = (rs.randint(0, tasks, (B, S)) * mask).astype(
+            np.int32)
+    return out
+
+
+def attention_expected(names, n_layers):
+    """Launches per step of a BERT-family step: K1, K3 and K4 once a
+    layer, every other kernel 0."""
+    expected = {n: 0 for n in names}
+    expected.update({"flash_attention": n_layers,
+                     "flash_attention_bwd_dkdv": n_layers,
+                     "flash_attention_bwd_dq": n_layers})
+    return expected
+
+
+def grad_rel_l2(grads, ref):
+    """name -> relative L2 of each gradient against its reference."""
+    return {n: ((g.float() - ref[n].float()).norm()
+                / ref[n].float().norm().clamp(min=1e-30)).item()
+            for n, g in grads.items()}
+
+
+def plain_sdpa(q, k, v, attn_mask=None, kv_lens=None, **_):
+    """The kernels' plain version under sdpa's signature: the bias and
+    ``kv_lens`` the kernels take (a BERT block passes no dropout)."""
+    from paddle_tpu_torch.nn.functional.attention import mask_to_bias
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    bias = None if attn_mask is None else mask_to_bias(attn_mask)
+    return flash_attention_plain(q, k, v, kv_lens=kv_lens, bias=bias)
+
+
+def ln_exempt(name):
+    """The phases' ``apply_decay_param_fun``: decay every parameter but
+    the LayerNorm scales and biases."""
+    import re
+    return re.search(r"ln\d*_(scale|bias)$", name) is None
+
+
+def bert_family_train(torch, dev, name, model, cfg, make_step, key,
+                      tokens, n_steps=6):
+    """The train checks of phases 23 and 24. ``make_step(attn)`` returns
+    ``step(rng) -> loss``, one training step in place from a fresh
+    optimizer state (``attn``: None for the kernels, ``plain_sdpa`` for
+    the plain versions). Step 1 from the same weights and ``key``
+    through both: losses within 1e-3, gradients within 2.5e-2 relative
+    L2 (``encoder_step_check``); then ``n_steps`` kernel steps: the
+    loss falls, K1 = K3 = K4 = L launches a step and every other kernel
+    0. Timed: the steps, two more without a key (dropout 0) and one
+    under the profiler."""
+    import numpy as np
+    params = dict(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in params.items()}
+    step = make_step(plain_sdpa)
+    _zero_counters()
+    plain_loss = step(key).item()
+    plain_launches = _read_counters()
+    plain_grads = {n: p.grad.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+            p.grad = None
+    del start
+    step = make_step(None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counters()
+    losses, step_s, grad_err = [], [], {}
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(key).item())
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            grad_err = grad_rel_l2({n: p.grad for n, p in params.items()},
+                                   plain_grads)
+            del plain_grads
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    nodrop_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(None).item()
+        nodrop_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with _profiled(torch) as prof:
+        t0 = time.perf_counter()
+        step(key)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    bd = _device_breakdown(prof, wall_us)
+    L = cfg.n_layers
+    per_step = {n: c / n_steps for n, c in launches.items()}
+    expected = attention_expected(launches, L)
+    counts_ok = all(per_step[n] == e for n, e in expected.items())
+    plain_ok = not any(plain_launches.values())
+    check = encoder_step_check(losses[0], plain_loss, grad_err)
+    timed = sorted(step_s[1:])               # step 1 pays first-use costs
+    med = timed[len(timed) // 2]
+    B, S = tokens.shape
+    tok_s = B * S / med
+    # the JAX formula counts attention at max_position; at the batch's S
+    flops_at_s = (6 * cfg.num_params(non_embedding=True)
+                  + 12 * L * cfg.d_model * S)
+    rec = {"phase": name, "card": _card_line(), "config": str(cfg),
+           "params": sum(p.numel() for p in params.values()),
+           "batch": B, "seq": S, "plain_step1_loss": plain_loss,
+           "grad_rel_l2_top": sorted(grad_err.items(),
+                                     key=lambda kv: -kv[1])[:4],
+           "plain_launches": plain_launches, "losses": losses,
+           **{k: v for k, v in check.items() if k != "ok"},
+           "step_s": step_s, "step_ms_median": med * 1e3,
+           "tokens_per_s": tok_s,
+           "flops_per_token": cfg.flops_per_token(),
+           "mfu": cfg.flops_per_token() * tok_s / H100_BF16_FLOPS,
+           "mfu_at_seq": flops_at_s * tok_s / H100_BF16_FLOPS,
+           "dropout0_step_s": nodrop_s,
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": per_step, "expected_per_step": expected,
+           "counts_ok": bool(counts_ok),
+           "breakdown_wall_ms": wall_us / 1e3,
+           "breakdown_measured": bd is not None, "breakdown": bd,
+           "ok": bool(check["ok"] and counts_ok and plain_ok
+                      and all(np.isfinite(losses))
+                      and losses[-1] < losses[0])}
+    _phase(rec)
+    return rec
+
+
+def bert_pretrain_phase(torch, dev, n_steps=6):
+    """Phase 23: ``BertForPretraining(bert_base())`` pretrained; see the
+    module docstring."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = bert.bert_base()
+    t0 = time.perf_counter()
+    model = bert.BertForPretraining(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    masks = dropout_mask_phase(torch, dev, "bert_pretrain_mask",
+                               (BERT_B, BERT_S, cfg.d_model), cfg.dropout,
+                               2 * cfg.n_layers, cfg.dtype)
+    data = bert_batch(cfg.vocab_size, BERT_B, BERT_S, BERT_LENGTHS,
+                      BERT_MASK_SHARE, BERT_MAX_PRED)
+    batch = [torch.from_numpy(data[k]).to(dev)
+             for k in ("tokens", "types", "mask", "mlm_labels",
+                       "nsp_labels")]
+
+    def optimizer():
+        return AdamW(learning_rate=BERT_LR, weight_decay=0.01,
+                     apply_decay_param_fun=ln_exempt,
+                     moment_dtype=torch.bfloat16)
+
+    # the stacked layout once, before the weights are saved
+    bert.init_train_state(model, optimizer(), stacked=True)
+
+    def make_step(attn):
+        opt = optimizer()
+        params, state = bert.init_train_state(model, opt, stacked=True)
+        step = bert.build_pretrain_step(model, opt,
+                                        max_predictions=BERT_MAX_PRED,
+                                        attn=attn)
+        box = [params, state]
+
+        def run(rng):
+            box[0], box[1], loss = step(box[0], box[1], *batch, rng)
+            return loss
+        return run
+
+    rec = bert_family_train(torch, dev, "bert_pretrain_base", model, cfg,
+                            make_step, prng.PRNGKey(SEED), batch[0],
+                            n_steps)
+    print(json.dumps({"phase": "bert_pretrain_summary",
+                      "card": rec["card"], "init_s": init_s,
+                      "lengths": data["lengths"].tolist(),
+                      "masked_per_row": (data["mlm_labels"] != -100).sum(
+                          1).tolist(),
+                      "mask_ms": masks["mask_ms"],
+                      "dropout_ms": masks["dropout_ms"],
+                      "dropout_ms_per_step": masks["dropout_ms_per_step"],
+                      "step_ms_median": rec["step_ms_median"]}),
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ernie_finetune_phase(torch, dev, n_steps=6):
+    """Phase 24: ``ErnieForSequenceClassification(ernie3_base())``
+    fine-tuned; see the module docstring."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.models import bert, ernie
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ernie.ernie3_base()
+    model = ernie.ErnieForSequenceClassification(cfg, num_classes=2,
+                                                 seed=SEED, device=dev)
+    masks = dropout_mask_phase(torch, dev, "ernie_finetune_mask",
+                               (ERNIE_B, ERNIE_S, cfg.d_model),
+                               cfg.dropout, 2 * cfg.n_layers, cfg.dtype)
+    data = bert_batch(cfg.vocab_size, ERNIE_B, ERNIE_S, ERNIE_LENGTHS,
+                      tasks=cfg.task_type_vocab_size, seed=SEED + 1)
+    tok, typ, task, mask, labels = (
+        torch.from_numpy(data[k]).to(dev)
+        for k in ("tokens", "types", "tasks", "mask", "class_labels"))
+
+    def make_step(attn):
+        opt = AdamW(learning_rate=ERNIE_LR, weight_decay=0.01,
+                    apply_decay_param_fun=ln_exempt,
+                    moment_dtype=torch.bfloat16)
+        params, state = bert.init_train_state(model, opt)
+
+        def run(rng):
+            for p in params.values():
+                p.grad = None
+            logits = model(tok, typ, task, mask, rng_key=rng, attn=attn)
+            loss = F.cross_entropy(logits.float(), labels)
+            loss.backward()
+            opt.update({n: p.grad for n, p in params.items()}, state,
+                       params)
+            return loss.detach()
+        return run
+
+    rec = bert_family_train(torch, dev, "ernie_finetune_base", model, cfg,
+                            make_step, prng.PRNGKey(1), tok, n_steps)
+    print(json.dumps({"phase": "ernie_finetune_summary",
+                      "card": rec["card"],
+                      "lengths": data["lengths"].tolist(),
+                      "class_counts": [int((data["class_labels"] == c).sum())
+                                       for c in (0, 1)],
+                      "mask_ms": masks["mask_ms"],
+                      "dropout_ms": masks["dropout_ms"],
+                      "dropout_ms_per_step": masks["dropout_ms_per_step"],
+                      "step_ms_median": rec["step_ms_median"]}),
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -4685,6 +5028,8 @@ def main():
     torch.cuda.empty_cache()
     paths["fused_layers"] = fused_layers_phase(torch, dev)["launches"]
     torch.cuda.empty_cache()
+    paths["bert_pretrain"] = bert_pretrain_phase(torch, dev)["launches"]
+    paths["ernie_finetune"] = ernie_finetune_phase(torch, dev)["launches"]
     paths["slice"] = slice_phase(torch, dev)["launches"]
 
     def entry(name, source, replaces, ms, plain_ms, bound, library_ms,

@@ -7,8 +7,9 @@
 
 Same structure and parameter names as the JAX layers; ``nn.Module``s on
 an explicit ``device`` (None: CUDA, raising without one), ``dtype`` and
-``generator`` (the source of initial weights, dropout masks and the
-hash-dropout seeds).
+``generator`` (the source of the initial weights). Dropout masks and
+hash-dropout seeds come from the context's keys, as in JAX
+(``F.fold_ctx_key``; ``nn.stateful``).
 """
 
 from typing import Optional
@@ -19,7 +20,8 @@ from torch import nn
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes
 from paddle_tpu_torch.nn.functional import activation as activations
-from paddle_tpu_torch.nn.functional.attention import draw_seed
+from paddle_tpu_torch.nn.functional.attention import key_seed
+from paddle_tpu_torch.nn.functional.common import fold_ctx_key
 from paddle_tpu_torch.nn.layer.common import Dropout, Linear
 from paddle_tpu_torch.nn.layer.norm import LayerNorm
 from paddle_tpu_torch.nn.layer.transformer import (MultiHeadAttention,
@@ -35,20 +37,18 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
     """``LN(residual + dropout(x + bias))`` in one K11 launch on CUDA
     (its plain version on the CPU): ``weight`` and ``norm_bias`` the
     LayerNorm's, ``bias`` the pre-dropout bias (``bias_attr=False`` drops
-    it). In training the mask is K11's hash of ``dropout_seed`` or of a
-    seed drawn from ``generator``."""
+    it). In training the mask is K11's hash of ``dropout_seed`` or of
+    ``key_seed(fold_ctx_key())``, as the JAX layer seeds it."""
 
     def __init__(self, embed_dim: int, dropout_rate: float = 0.5,
                  bias_attr=None, epsilon: float = 1e-5, device=None,
-                 dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 dtype=torch.float32):
         super().__init__()
         dev = device_lib.resolve(device)
         dt = dtypes.to_dtype(dtype)
         self.embed_dim = embed_dim
         self.dropout_rate = dropout_rate
         self.epsilon = epsilon
-        self.generator = generator
         self.weight = nn.Parameter(torch.ones(embed_dim, device=dev,
                                               dtype=dt))
         self.norm_bias = nn.Parameter(torch.zeros(embed_dim, device=dev,
@@ -59,7 +59,7 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
     def forward(self, x, residual, dropout_seed=None):
         p = self.dropout_rate if self.training else 0.0
         if p > 0.0 and dropout_seed is None:
-            dropout_seed = draw_seed(self.generator, x.device)
+            dropout_seed = key_seed(fold_ctx_key(), x.device)
         y, _ = ln_ops.fused_layer_norm(
             x, self.weight, self.norm_bias, residual=residual,
             bias=self.bias, dropout_p=p, dropout_seed=dropout_seed,
@@ -95,10 +95,9 @@ class FusedFeedForward(nn.Module):
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm = LayerNorm(d_model, device=device, dtype=dtype)
-        self.dropout = Dropout(dropout_rate, generator=generator)
+        self.dropout = Dropout(dropout_rate)
         self.act_dropout = Dropout(act_dropout_rate if act_dropout_rate
-                                   is not None else dropout_rate,
-                                   generator=generator)
+                                   is not None else dropout_rate)
         self.activation = activation
         self._act = activations.get(activation)
 

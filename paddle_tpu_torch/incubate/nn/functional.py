@@ -17,24 +17,27 @@ build BERT/ERNIE encoders from (counterpart of
 - ``fused_feedforward``: [pre-LN ->] linear1 -> activation -> dropout ->
   linear2 -> dropout -> residual [-> post-LN].
 
-Where the JAX functions take ``rng_key`` (or fold a context key), these
-take ``generator``: the hash-dropout kernels draw an int32 seed from it
-(``draw_seed``: on the generator's device, never waiting for the card;
-None is torch's default CPU generator), the plain dropouts their masks
-(None: the default generator of the tensors' device).
-``fused_multi_head_attention`` draws the attention seed, then the K11
-seed, mirroring ``k1, k2 = split(rng_key)``. ``ring_id`` (tensor
+Seeds and masks come from the keys the JAX functions use
+(``paddle_tpu_torch.random``, the bits of ``jax.random``):
+``fused_bias_dropout_residual_layer_norm`` seeds K11 with
+``bits(fold_ctx_key())`` as int32 when no ``dropout_seed`` is given;
+``fused_multi_head_attention`` splits ``rng_key`` (default
+``fold_ctx_key(salt=101)``) into k1, the attention's hash seed
+(``key_seed``), and k2, K11's seed or the pre-LN path's dropout mask;
+``fused_feedforward`` splits ``rng_key`` (default
+``fold_ctx_key(salt=102)``) into the keys of its two dropouts. The
+default keys are drawn on every call, training or not, as in JAX, so a
+context's key sequence stays the JAX one. ``ring_id`` (tensor
 parallelism) is ignored, as in JAX.
 """
 
-from typing import Optional
-
 import torch
 
+from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.nn.functional import activation as activations
 from paddle_tpu_torch.nn.functional import common as F_common
 from paddle_tpu_torch.nn.functional.attention import (
-    draw_seed, scaled_dot_product_attention)
+    key_seed, scaled_dot_product_attention)
 from paddle_tpu_torch.ops import layer_norm as ln_ops
 
 __all__ = ["fused_matmul_bias", "fused_linear",
@@ -68,12 +71,11 @@ def fused_linear(x, weight, bias=None, transpose_weight: bool = False,
 def fused_bias_dropout_residual_layer_norm(
         x, residual, bias=None, ln_scale=None, ln_bias=None,
         dropout_rate: float = 0.5, ln_epsilon: float = 1e-5,
-        training: bool = True, dropout_seed=None,
-        generator: Optional[torch.Generator] = None, name=None):
+        training: bool = True, dropout_seed=None, name=None):
     """``LN(residual + dropout(x + bias))`` over the last dim through K11
     (its plain version on the CPU); ``ln_scale`` / ``ln_bias`` default
-    to ones / zeros. The mask is K11's hash of ``dropout_seed``, or of a
-    seed drawn from ``generator`` when none is given."""
+    to ones / zeros. The mask is K11's hash of ``dropout_seed``, or of
+    ``key_seed(fold_ctx_key())`` when none is given."""
     d = x.shape[-1]
     gamma = (torch.ones(d, dtype=x.dtype, device=x.device)
              if ln_scale is None else ln_scale)
@@ -81,7 +83,7 @@ def fused_bias_dropout_residual_layer_norm(
             if ln_bias is None else ln_bias)
     p = dropout_rate if training else 0.0
     if p > 0.0 and dropout_seed is None:
-        dropout_seed = draw_seed(generator, x.device)
+        dropout_seed = key_seed(F_common.fold_ctx_key(), x.device)
     y, _ = ln_ops.fused_layer_norm(x, gamma, beta, residual=residual,
                                    bias=bias, dropout_p=p,
                                    dropout_seed=dropout_seed,
@@ -109,8 +111,8 @@ def fused_multi_head_attention(
         cache_kv=None, attn_mask=None, dropout_rate: float = 0.5,
         attn_dropout_rate: float = 0.5, ln_epsilon: float = 1e-5,
         training: bool = True, mode: str = "upscale_in_train",
-        ring_id: int = -1, add_residual: bool = True,
-        generator: Optional[torch.Generator] = None, name=None):
+        ring_id: int = -1, add_residual: bool = True, rng_key=None,
+        name=None):
     """The whole attention block of a fused encoder; x (B, S, D),
     qkv_weight (3, H, dh, D), qkv_bias (3, H, dh), linear_weight
     (H dh, D). Returns the output, or ``(out, cache_kv_out)`` with
@@ -131,8 +133,10 @@ def fused_multi_head_attention(
     if qkv_bias is not None:
         qkv = qkv + qkv_bias
     q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+    if rng_key is None:
+        rng_key = F_common.fold_ctx_key(salt=101)
+    k1, k2 = prng.split(rng_key)
     attn_p = attn_dropout_rate if training else 0.0
-    attn_seed = draw_seed(generator, x.device) if attn_p > 0.0 else None
     cache_out = None
     if cache_kv is not None:
         if cache_kv.dim() != 5 or cache_kv.shape[0] != 2:
@@ -154,19 +158,20 @@ def fused_multi_head_attention(
         attn_mask = bias
     attn = scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, dropout_p=attn_p, training=training,
-        dropout_seed=attn_seed)
+        rng_key=k1)
     out = attn.reshape(b, sq, h * dh) @ linear_weight
     if not pre_layer_norm and add_residual:
         # the whole tail is the sibling fused op: K11
         out = fused_bias_dropout_residual_layer_norm(
             out, residual, bias=linear_bias, ln_scale=ln_scale,
             ln_bias=ln_bias, dropout_rate=dropout_rate,
-            ln_epsilon=ln_epsilon, training=training, generator=generator)
+            ln_epsilon=ln_epsilon, training=training,
+            dropout_seed=key_seed(k2, x.device))
     else:
         if linear_bias is not None:
             out = out + linear_bias
         out = F_common.dropout(out, dropout_rate, training=training,
-                               mode=mode, generator=generator)
+                               mode=mode, key=k2)
         if add_residual:
             out = residual + out
         if not pre_layer_norm:
@@ -182,21 +187,23 @@ def fused_feedforward(
         ln1_epsilon: float = 1e-5, ln2_epsilon: float = 1e-5,
         pre_layer_norm: bool = False, training: bool = True,
         mode: str = "upscale_in_train", ring_id: int = -1,
-        add_residual: bool = True,
-        generator: Optional[torch.Generator] = None, name=None):
+        add_residual: bool = True, rng_key=None, name=None):
     """[pre-LN (ln1) ->] linear1 -> activation -> dropout1 -> linear2 ->
-    dropout2 -> residual [-> post-LN (ln2)]; the two masks are drawn
-    from ``generator`` in that order."""
+    dropout2 -> residual [-> post-LN (ln2)]; the two masks from the two
+    halves of ``split(rng_key)``."""
     residual = x
     if pre_layer_norm:
         x = _ln(x, ln1_scale, ln1_bias, ln1_epsilon)
+    if rng_key is None:
+        rng_key = F_common.fold_ctx_key(salt=102)
+    k1, k2 = prng.split(rng_key)
     h = fused_matmul_bias(x, linear1_weight, linear1_bias)
     h = activations.get(activation)(h)
     h = F_common.dropout(h, dropout1_rate, training=training, mode=mode,
-                         generator=generator)
+                         key=k1)
     h = fused_matmul_bias(h, linear2_weight, linear2_bias)
     h = F_common.dropout(h, dropout2_rate, training=training, mode=mode,
-                         generator=generator)
+                         key=k2)
     out = residual + h if add_residual else h
     if not pre_layer_norm:
         out = _ln(out, ln2_scale, ln2_bias, ln2_epsilon)

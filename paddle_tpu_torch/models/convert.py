@@ -22,6 +22,17 @@ that module's ``state_dict()``: JAX names (``weight``, ``norm_bias``,
 port's ``ModuleList`` index ``<i>``) and JAX layouts ((in, out), and
 (3, H, dh, D) for a packed QKV), nothing transposed. It fails on a
 missing or unexpected key and on a shape mismatch.
+
+``bert_from_jax_state`` fills a BERT-family model of the port
+(``models/bert.py``, ``models/ernie.py``: any head, either layout) in
+place from the JAX parameters as numpy arrays, in the JAX per-layer
+names (``bert.layers.item_<i>.<name>``, ``ernie.bert...``) or the JAX
+stacked entry's (``bert._stacked_layers.<name>``, (L, ...) arrays); a
+slab takes the per-layer arrays stacked. It fails on a missing or
+unexpected key and on a shape mismatch. ``bert_to_jax_state`` goes the
+other way, parameters or (``grads=True``) gradients, in the per-layer
+names or, with ``stacked=True``, the stacked entry's, whatever the
+model's own layout.
 """
 
 import re
@@ -35,7 +46,8 @@ from paddle_tpu_torch.models.gpt import (GPT, GPTConfig, block_param_specs,
                                          head_param_specs,
                                          layer_param_specs)
 
-__all__ = ["gpt_from_jax_state", "gpt_to_jax_state", "load_jax_state"]
+__all__ = ["gpt_from_jax_state", "gpt_to_jax_state", "load_jax_state",
+           "bert_from_jax_state", "bert_to_jax_state"]
 
 
 def _tensor(arr, shape, dtype, dev, name):
@@ -113,3 +125,68 @@ def load_jax_state(module: torch.nn.Module, state: Dict[str, np.ndarray]
             p.copy_(_tensor(state[jax_name], p.shape, p.dtype, p.device,
                             jax_name))
     return module
+
+
+_LAYER = re.compile(r"^(.*)layers\.item_(\d+)\.([^.]+)$")
+_SLAB = re.compile(r"^(.*)_stacked_layers\.([^.]+)$")
+
+
+def _per_layer(arrays):
+    """Name -> array with every stacked entry (``<prefix>_stacked_layers
+    .<name>``) split into ``<prefix>layers.item_<i>.<name>``."""
+    out = {}
+    for n, a in arrays.items():
+        m = _SLAB.match(n)
+        if m is None:
+            out[n] = a
+            continue
+        for i in range(a.shape[0]):
+            out[f"{m[1]}layers.item_{i}.{m[2]}"] = a[i]
+    return out
+
+
+def _stack_layers(arrays):
+    """The inverse of ``_per_layer`` over numpy arrays."""
+    out, groups = {}, {}
+    for n, a in arrays.items():
+        m = _LAYER.match(n)
+        if m is None:
+            out[n] = a
+        else:
+            groups.setdefault((m[1], m[3]), {})[int(m[2])] = a
+    for (prefix, name), items in groups.items():
+        out[f"{prefix}_stacked_layers.{name}"] = np.stack(
+            [items[i] for i in range(len(items))])
+    return out
+
+
+def bert_to_jax_state(model: torch.nn.Module, grads: bool = False,
+                      stacked: bool = False) -> Dict[str, np.ndarray]:
+    arrays = _per_layer({n: _numpy(p, n, grads)
+                         for n, p in model.named_parameters()})
+    return _stack_layers(arrays) if stacked else arrays
+
+
+def bert_from_jax_state(model: torch.nn.Module,
+                        state: Dict[str, np.ndarray]) -> torch.nn.Module:
+    own = dict(model.named_parameters())
+    targets = {}
+    for n, p in own.items():
+        m = _SLAB.match(n)
+        if m is None:
+            targets[n] = (n, None)
+            continue
+        for i in range(p.shape[0]):
+            targets[f"{m[1]}layers.item_{i}.{m[2]}"] = (n, i)
+    given = _per_layer(state)
+    missing = sorted(set(targets) - set(given))
+    unexpected = sorted(set(given) - set(targets))
+    if missing or unexpected:
+        raise KeyError(f"state does not match {type(model).__name__}: "
+                       f"missing={missing}, unexpected={unexpected}")
+    with torch.no_grad():
+        for name, (n, i) in targets.items():
+            dst = own[n] if i is None else own[n][i]
+            dst.copy_(_tensor(given[name], dst.shape, dst.dtype,
+                              dst.device, name))
+    return model

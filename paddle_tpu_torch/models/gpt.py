@@ -73,7 +73,9 @@ __all__ = ["GPTConfig", "GPTBlock", "GPT", "CacheRows", "cache_rows",
            "final_ln", "block_param_specs", "layer_param_specs",
            "is_moe_layer",
            "lm_loss", "fused_lm_loss", "train_loss", "build_train_step",
-           "init_train_state", "register_stacked_decay_mask", "generate",
+           "init_train_state", "register_stacked_decay_mask",
+           "register_slab_decay_masks", "check_step_params",
+           "finish_step", "generate",
            "gpt_tiny", "gpt3_125m", "gpt3_350m", "gpt3_1p3b",
            "llama_style_1b"]
 
@@ -837,13 +839,14 @@ def fused_lm_loss(m: GPT, tokens, attn: Optional[Callable] = None,
     return per_tok.sum() / (b * (s - 1))
 
 
-def register_stacked_decay_mask(optimizer, model: GPT):
+def register_slab_decay_masks(optimizer, slabs, n_layers: int, name_of):
     """Resolve ``optimizer.apply_decay_param_fun`` once per layer under
-    the JAX per-layer names (``blocks.item_<i>.<name>``) into an
-    (L, 1, ...) fp32 0/1 mask per slab on the slab's device, and
-    register each under its entry name (``stacked.<name>``) with the
-    optimizer's ``set_decay_mask``. A decision that varies by layer is
-    kept (one row per layer)."""
+    the JAX per-layer names (``name_of(i, name)``) into an (L, 1, ...)
+    fp32 0/1 mask per slab on the slab's device, and register each
+    under its entry name with the optimizer's ``set_decay_mask``.
+    ``slabs`` maps entry name -> (block parameter name, slab). A
+    decision that varies by layer is kept (one row per layer). Shared by
+    the GPT and BERT stacked layouts."""
     decay_fn = optimizer.apply_decay_param_fun
     set_mask = getattr(optimizer, "set_decay_mask", None)
     if set_mask is None:
@@ -852,14 +855,21 @@ def register_stacked_decay_mask(optimizer, model: GPT):
             "apply_decay_param_fun but has no set_decay_mask(); the "
             "stacked layout needs the masked update path "
             "(paddle_tpu_torch.optimizer.AdamW)")
-    L = model.cfg.n_layers
-    for entry, (name, slab) in zip(model.slab_entries(),
-                                   model.stacked.items()):
-        col = [float(bool(decay_fn(f"blocks.item_{i}.{name}")))
-               for i in range(L)]
+    for entry, (name, slab) in slabs.items():
+        col = [float(bool(decay_fn(name_of(i, name))))
+               for i in range(n_layers)]
         set_mask(entry, torch.tensor(
             col, dtype=torch.float32, device=slab.device).reshape(
-                (L,) + (1,) * (slab.dim() - 1)))
+                (n_layers,) + (1,) * (slab.dim() - 1)))
+
+
+def register_stacked_decay_mask(optimizer, model: GPT):
+    """``register_slab_decay_masks`` over the GPT slabs
+    (``stacked.<name>``) under the names ``blocks.item_<i>.<name>``."""
+    register_slab_decay_masks(
+        optimizer, {e: (n, t) for e, (n, t) in zip(
+            model.slab_entries(), model.stacked.items())},
+        model.cfg.n_layers, lambda i, name: f"blocks.item_{i}.{name}")
 
 
 def init_train_state(model: GPT, optimizer):
@@ -888,6 +898,50 @@ def train_loss(m: GPT, tokens, attn: Optional[Callable] = None,
         logits, aux = m.logits_and_aux(tokens, attn, rng_key)
         return lm_loss(logits, tokens) + m.cfg.moe_aux_weight * aux
     return fused_lm_loss(m, tokens, attn, ce, rng_key=rng_key)
+
+
+def check_step_params(own, params, optimizer, slabs):
+    """A train step's preamble: ``params`` must be the model's own
+    parameter dict (``own``), and with ``apply_decay_param_fun`` set
+    every slab in ``slabs`` needs its registered decay mask. Clears the
+    gradients."""
+    if params.keys() != own.keys() or any(
+            params[n] is not p for n, p in own.items()):
+        raise ValueError("params must be the model's own parameter "
+                         "dict (init_train_state)")
+    if getattr(optimizer, "apply_decay_param_fun", None) is not None:
+        bare = [n for n in slabs if optimizer.decay_mask(n) is None]
+        if bare:
+            raise ValueError(
+                f"apply_decay_param_fun is set but the stacked slabs "
+                f"{bare} have no registered decay mask; resolve one "
+                f"per layer first (init_train_state does this)")
+    for p in own.values():
+        p.grad = None
+
+
+def finish_step(own, slabs, optimizer, params, opt_state, loss, num_on,
+                num_box):
+    """A train step's tail: backward of ``loss``, the gradients through
+    the ``train.grad_poison`` site, the optimizer update in place, and
+    with ``num_on`` the packed numerics vector as a 4th output."""
+    loss.backward()
+    count = opt_state["step"]
+    grads = numerics.poison_grads({n: p.grad for n, p in own.items()},
+                                  slabs, step_count=count)
+    sampled = num_on and numerics.due(count)
+    old = ({n: p.detach().clone() for n, p in own.items()}
+           if sampled else None)
+    params, opt_state = optimizer.update(grads, opt_state, params)
+    loss = loss.detach()
+    if not num_on:
+        return params, opt_state, loss
+    updates = ({n: p.detach() - old[n] for n, p in own.items()}
+               if sampled else None)
+    packed = numerics.capture_step(grads, loss=loss, updates=updates,
+                                   step_count=count, stacked_keys=slabs,
+                                   box=num_box)
+    return params, opt_state, loss, packed
 
 
 def build_train_step(model: GPT, optimizer,
@@ -919,37 +973,10 @@ def build_train_step(model: GPT, optimizer,
     num_box = numerics.LayoutBox()
 
     def step(params, opt_state, tokens, rng=None):
-        if params.keys() != own.keys() or any(
-                params[n] is not p for n, p in own.items()):
-            raise ValueError("params must be the model's own parameter "
-                             "dict (init_train_state)")
-        if getattr(optimizer, "apply_decay_param_fun", None) is not None:
-            bare = [n for n in slabs if optimizer.decay_mask(n) is None]
-            if bare:
-                raise ValueError(
-                    f"apply_decay_param_fun is set but the stacked slabs "
-                    f"{bare} have no registered decay mask; resolve one "
-                    f"per layer first (init_train_state does this)")
-        for p in own.values():
-            p.grad = None
+        check_step_params(own, params, optimizer, slabs)
         loss = train_loss(model, tokens, attn, ce, rng_key=rng)
-        loss.backward()
-        count = opt_state["step"]
-        grads = numerics.poison_grads({n: p.grad for n, p in own.items()},
-                                      slabs, step_count=count)
-        sampled = num_on and numerics.due(count)
-        old = ({n: p.detach().clone() for n, p in own.items()}
-               if sampled else None)
-        params, opt_state = optimizer.update(grads, opt_state, params)
-        loss = loss.detach()
-        if not num_on:
-            return params, opt_state, loss
-        updates = ({n: p.detach() - old[n] for n, p in own.items()}
-                   if sampled else None)
-        packed = numerics.capture_step(grads, loss=loss, updates=updates,
-                                       step_count=count,
-                                       stacked_keys=slabs, box=num_box)
-        return params, opt_state, loss, packed
+        return finish_step(own, slabs, optimizer, params, opt_state, loss,
+                           num_on, num_box)
 
     step.numerics_layout = num_box
     return step

@@ -6,13 +6,17 @@
 length (the JAX package's ``q.shape[1] >= 128`` gate was a TPU tiling
 limit, not a semantic one): the hand-written forward K1 and, under
 autograd, the backward kernels K3 and K4, with ``attn_mask`` as their
-additive bias and their hash dropout. CPU tensors run
-``attention_reference``, as the JAX package's CPU path runs its XLA
-reference, except with dropout: the JAX CPU path draws its mask from
-``jax.random``, which no port can match, so the port's CPU call takes
-the kernels' plain versions and their hash, the mask the TPU kernels
-draw. Layout (B, S, H, D); k/v may carry fewer heads (GQA). No amp
-casting in this slice.
+additive bias and their hash dropout. The hash's seed is the JAX one,
+``bits(rng_key, ())`` as int32 (``key_seed``), or a given
+``dropout_seed``; with neither, nothing is dropped, as the JAX function
+drops nothing without a key. CPU tensors run ``attention_reference``,
+as the JAX package's CPU path runs its XLA reference, except with
+dropout: the JAX CPU path draws its mask from ``jax.random.bernoulli``
+of the key, the TPU kernels from the hash of the key's bits, and the
+port keeps the kernels' semantics on both devices, so its CPU call
+takes the kernels' plain versions and drops the cells the card drops.
+Layout (B, S, H, D); k/v may carry fewer heads (GQA). No amp casting in
+this slice.
 """
 
 import math
@@ -20,12 +24,13 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.ops import _hash
 from paddle_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_plain)
 
 __all__ = ["scaled_dot_product_attention", "attention_reference",
-           "mask_to_bias", "draw_seed"]
+           "mask_to_bias", "key_seed"]
 
 
 def attention_reference(q, k, v, mask=None, is_causal: bool = False,
@@ -56,20 +61,18 @@ def attention_reference(q, k, v, mask=None, is_causal: bool = False,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
-def draw_seed(generator=None, device=None) -> torch.Tensor:
-    """One int32 seed drawn from ``generator`` (None is torch's default
-    CPU generator), as the 0-dim int32 tensor on ``device`` (default:
-    the generator's) that the kernels' hash dropout reads, as the JAX
-    package draws ``jax.random.bits`` of a key. Nothing waits for the
-    card: a CUDA generator draws on the card, and a CPU generator's draw
-    reaches the card as a fill."""
-    gdev = torch.device("cpu") if generator is None else generator.device
-    device = gdev if device is None else torch.device(device)
-    draw = torch.randint(-2 ** 31, 2 ** 31, (), dtype=torch.int64,
-                         generator=generator, device=gdev)
-    if gdev.type == "cpu":
-        return _hash.seed_tensor(int(draw), device)
-    return draw.to(device=device, dtype=torch.int32)
+def key_seed(rng_key, device) -> torch.Tensor:
+    """The kernels' hash-dropout seed of ``rng_key``: ``bits(rng_key,
+    ())`` as int32 (JAX ``jax.random.bits(key, (), uint32)
+    .astype(int32)``), the 0-dim int32 tensor on ``device`` that the
+    kernels read. A host key's word is computed on the host and reaches
+    the card as a fill; a card key's stays on the card. Nothing waits
+    for the card."""
+    key = torch.as_tensor(rng_key)
+    if key.device.type == "cpu":
+        return _hash.seed_tensor(int(prng.bits(key, (), device="cpu")),
+                                 device)
+    return _hash.seed_tensor(prng.bits(key, ()), device)
 
 
 def mask_to_bias(attn_mask):
@@ -90,8 +93,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal: bool = False,
                                  training: bool = True,
                                  scale: Optional[float] = None,
+                                 rng_key: Optional[torch.Tensor] = None,
                                  kv_lens: Optional[torch.Tensor] = None,
-                                 generator: Optional[torch.Generator] = None,
                                  dropout_seed=None):
     """Attention over (B, S, H, D): the flash kernels (K1 forward, K3/K4
     backward) on CUDA, the plain versions on the CPU. ``kv_lens`` (B,)
@@ -99,13 +102,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     visible, or additive, broadcastable to (B, H, Sq, Sk)) is the
     kernels' bias (``mask_to_bias``). Dropout (``dropout_p`` while
     ``training``) is the kernels' hash dropout, seeded by
-    ``dropout_seed`` or by one draw from ``generator``; on the CPU such a
-    call runs ``flash_attention_plain``, so both devices drop the same
-    cells. A CPU call without dropout runs ``attention_reference``."""
+    ``dropout_seed`` or by ``key_seed(rng_key)``; with neither it drops
+    nothing (the JAX function needs a key to drop). On the CPU a
+    dropping call runs ``flash_attention_plain``, so both devices drop
+    the same cells. A CPU call without dropout runs
+    ``attention_reference``."""
     eff_dropout = dropout_p if training else 0.0
     seed = dropout_seed
     if eff_dropout > 0.0 and seed is None:
-        seed = draw_seed(generator, query.device)
+        if rng_key is None:
+            eff_dropout = 0.0
+        else:
+            seed = key_seed(rng_key, query.device)
     if query.device.type == "cuda" or eff_dropout > 0.0:
         attend = (flash_attention if query.device.type == "cuda"
                   else flash_attention_plain)

@@ -1,15 +1,18 @@
-"""``Linear`` and ``Dropout`` (counterpart of
-``paddle_tpu/nn/layer/common.py``, cut to what the transformer layers
-use).
+"""``Linear`` and the dropout layers (counterpart of
+``paddle_tpu/nn/layer/common.py``, cut to these).
 
 Every layer of the port is a ``torch.nn.Module`` built on an explicit
 ``device`` (None: the current CUDA device, which raises without one, as
-the port's other entry points do) and ``dtype``, and draws from an
-explicit ``generator`` (None: torch's default generator of that device
-type): ``Linear`` its initial weights, ``Dropout`` its masks. The
-weights keep the JAX layout, (in, out), so the JAX ``state_dict`` loads
-without transposes (``models/convert.py``). Initializer objects
-(``weight_attr``) are not ported; ``bias_attr=False`` drops the bias.
+the port's other entry points do) and ``dtype``. ``Linear`` draws its
+initial weights from an explicit ``generator`` (None: torch's default
+generator of that device type). ``Dropout``, ``Dropout2D``,
+``Dropout3D`` and ``AlphaDropout`` are the JAX layers: in training (an
+active ``nn.stateful`` context's flag, else ``self.training``) their
+masks come from the context's keys (``F.fold_ctx_key``), the bits the
+JAX layers draw. The weights keep the JAX layout, (in, out), so the JAX
+``state_dict`` loads without transposes (``models/convert.py``).
+Initializer objects (``weight_attr``) are not ported; ``bias_attr=False``
+drops the bias.
 """
 
 import math
@@ -21,8 +24,10 @@ from torch import nn
 from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import dtypes
 from paddle_tpu_torch.nn.functional import common as F
+from paddle_tpu_torch.nn.module import is_training
 
-__all__ = ["Linear", "Dropout"]
+__all__ = ["Linear", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout"]
 
 
 def _check_weight_attr(weight_attr):
@@ -56,16 +61,54 @@ class Linear(nn.Module):
 
 
 class Dropout(nn.Module):
-    """``F.dropout`` in training mode (``self.training``), with masks
-    from ``generator``."""
+    """``F.dropout`` with ``p``, ``axis`` and ``mode``; training as the
+    context says, else ``self.training``; the mask from the context's
+    key (``F.fold_ctx_key``)."""
 
     def __init__(self, p: float = 0.5, axis=None,
-                 mode: str = "upscale_in_train",
-                 generator: Optional[torch.Generator] = None):
+                 mode: str = "upscale_in_train", name=None):
         super().__init__()
         self.p, self.axis, self.mode = p, axis, mode
-        self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, axis=self.axis, training=self.training,
-                         mode=self.mode, generator=self.generator)
+        return F.dropout(x, self.p, axis=self.axis,
+                         training=is_training(self.training),
+                         mode=self.mode)
+
+
+class Dropout2D(nn.Module):
+    """``F.dropout2d``: one draw per (N, C)."""
+
+    def __init__(self, p: float = 0.5, data_format: str = "NCHW",
+                 name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=is_training(self.training),
+                           data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    """``F.dropout3d``: one draw per (N, C)."""
+
+    def __init__(self, p: float = 0.5, data_format: str = "NCDHW",
+                 name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, training=is_training(self.training),
+                           data_format=self.data_format)
+
+
+class AlphaDropout(nn.Module):
+    """``F.alpha_dropout``."""
+
+    def __init__(self, p: float = 0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p,
+                               training=is_training(self.training))

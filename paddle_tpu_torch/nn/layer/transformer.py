@@ -8,12 +8,14 @@ Same structure, parameter names and (in, out) layouts as the JAX layers
 ``layers.item_0.linear1.weight`` is ``layers.0.linear1.weight`` here,
 which ``models/convert.py`` maps). The attention core is
 ``F.scaled_dot_product_attention``: the flash kernels on CUDA, with
-``attn_mask`` as their bias. Attention dropout applies in training mode
-and is the kernels' hash dropout, seeded from the layer's generator
-(the JAX layer passes no key, so its attention never drops); the other
-dropouts draw Bernoulli masks from the same generator. Every layer takes
-an explicit ``device`` (None: CUDA, raising without one), ``dtype`` and
-``generator``.
+``attn_mask`` as their bias. Attention dropout applies in training (the
+context's flag, else ``self.training``) and is the kernels' hash
+dropout, seeded from a context key (``F.fold_ctx_key``) drawn only when
+it drops (the JAX layer passes no key, so its attention never drops, and
+draws none); the other dropouts are the JAX ``nn.Dropout``, masks from
+the context's keys. Every layer takes an explicit ``device`` (None:
+CUDA, raising without one), ``dtype`` and ``generator`` (the initial
+weights).
 """
 
 import copy
@@ -25,8 +27,10 @@ from torch import nn
 from paddle_tpu_torch.nn.functional import activation as activations
 from paddle_tpu_torch.nn.functional.attention import (
     scaled_dot_product_attention)
+from paddle_tpu_torch.nn.functional.common import fold_ctx_key
 from paddle_tpu_torch.nn.layer.common import Dropout, Linear
 from paddle_tpu_torch.nn.layer.norm import LayerNorm
+from paddle_tpu_torch.nn.module import is_training
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder"]
@@ -50,7 +54,6 @@ class MultiHeadAttention(nn.Module):
                              f"num_heads {num_heads}")
         self.dropout = dropout
         self.need_weights = need_weights
-        self.generator = generator
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
         kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
@@ -78,10 +81,13 @@ class MultiHeadAttention(nn.Module):
         if cache is not None:
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
+        training = is_training(self.training)
+        key = (fold_ctx_key() if training and self.dropout > 0.0
+               else None)
         out = scaled_dot_product_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training, generator=self.generator)
+            training=training, rng_key=key)
         b, s = out.shape[:2]
         out = self.out_proj(out.reshape(b, s, self.embed_dim))
         if cache is not None:
@@ -116,11 +122,10 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.dropout1 = Dropout(dropout, generator=generator)
-        self.dropout2 = Dropout(dropout, generator=generator)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
         self.act_dropout = Dropout(
-            act_dropout if act_dropout is not None else dropout,
-            generator=generator)
+            act_dropout if act_dropout is not None else dropout)
         self.activation = activation
         self._act = activations.get(activation)
 
@@ -155,12 +160,8 @@ class TransformerEncoder(nn.Module):
     def __init__(self, encoder_layer_fn, num_layers: int, norm=None):
         super().__init__()
         if isinstance(encoder_layer_fn, nn.Module):
-            # the copies share the prototype's generators
-            memo = {id(g): g for m in encoder_layer_fn.modules()
-                    for g in (getattr(m, "generator", None),)
-                    if g is not None}
             layers = [encoder_layer_fn] + [
-                copy.deepcopy(encoder_layer_fn, dict(memo))
+                copy.deepcopy(encoder_layer_fn)
                 for _ in range(num_layers - 1)]
         else:
             layers = [encoder_layer_fn() for _ in range(num_layers)]

@@ -462,7 +462,7 @@ def flash_attention(q, k, v, causal: bool = False,
     int32 masks keys at or past kv_lens[b]; ``bias`` is additive,
     broadcastable to (B, Hq, Sq, Sk) with leading dims full or 1 (no
     gradient); ``dropout_p`` with ``dropout_seed`` (an int, or a 0-dim
-    integer tensor such as ``draw_seed`` gives) drops probabilities by
+    integer tensor such as ``key_seed`` gives) drops probabilities by
     the JAX kernels' hash. CUDA tensors launch K1 and,
     in the backward, K3 and K4 (float32 or bfloat16, D <= 128); CPU
     tensors run the plain versions.

@@ -285,7 +285,7 @@ def fused_layer_norm(x, gamma, beta, residual=None, bias=None,
     ``pre = residual + dropout(x + bias)``, as the JAX
     ``fused_layer_norm``. Leading dims are flattened; ``dropout_seed``
     (an int, whose low 32 bits are read as int32, or a 0-dim integer
-    tensor such as ``draw_seed`` gives) replays the mask in the
+    tensor such as ``key_seed`` gives) replays the mask in the
     backward. CUDA tensors launch K11; CPU tensors run the plain
     version."""
     if x.device.type not in ("cpu", "cuda"):

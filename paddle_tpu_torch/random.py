@@ -9,7 +9,8 @@ on, its default):
 
 - ``PRNGKey(seed)``: ``(0, seed)`` for a seed in int32 range, else
   ``(seed >> 32, seed & 0xFFFFFFFF)``;
-- ``fold_in(key, d)``: ``threefry2x32(key, (0, d))``;
+- ``fold_in(key, d)``: ``threefry2x32(key, (0, d))`` (a Python int
+  ``d`` must fit a uint32, as in JAX);
 - ``split(key, n)``: ``threefry2x32(key, (hi, lo))`` over the flat
   indices 0..n-1 split into two 32-bit words; key i is the pair of
   outputs at i;
@@ -109,7 +110,12 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def fold_in(key, data) -> torch.Tensor:
     """``jax.random.fold_in``: a new key from ``key`` and an integer
-    (read as uint32), on the key's device."""
+    (read as uint32), on the key's device. A Python int must fit a
+    uint32 (JAX raises ``OverflowError`` otherwise); an integer tensor
+    or numpy integer wraps, as a JAX integer array does."""
+    if isinstance(data, int) and not 0 <= data <= _M32:
+        raise OverflowError(f"Python integer {data} out of bounds for "
+                            f"uint32")
     key = torch.as_tensor(key)
     k1, k2 = _words(key)
     if isinstance(k1, int) or not isinstance(data, torch.Tensor):

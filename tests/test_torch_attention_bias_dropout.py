@@ -225,27 +225,34 @@ def test_sdpa_mask_matches_jax(mask_kind):
 
 
 def test_sdpa_dropout_takes_the_hash_path_on_cpu():
-    """With dropout the CPU call runs the kernels' plain version with a
-    seed from the generator: the same generator state gives the same
-    output, and equals ``flash_attention_plain`` at the drawn seed."""
+    """With dropout the CPU call runs the kernels' plain version seeded
+    by the key's bits as int32, as JAX seeds its kernel
+    (``jax.random.bits(key, (), uint32).astype(int32)``): the same key
+    gives the same output, equal to ``flash_attention_plain`` at that
+    seed. Without a key or a seed nothing drops, as in JAX."""
+    from paddle_tpu_torch import random as prng
     rs = np.random.RandomState(8)
     q, k, v = (torch.from_numpy(rs.randn(1, 32, 2, 8).astype(np.float32))
                for _ in range(3))
-    g1, g2 = torch.Generator(), torch.Generator()
-    g1.manual_seed(4)
-    g2.manual_seed(4)
-    a = scaled_dot_product_attention(q, k, v, dropout_p=0.25, generator=g1)
-    b = scaled_dot_product_attention(q, k, v, dropout_p=0.25, generator=g2)
+    key = prng.PRNGKey(4)
+    a = scaled_dot_product_attention(q, k, v, dropout_p=0.25, rng_key=key)
+    b = scaled_dot_product_attention(q, k, v, dropout_p=0.25,
+                                     rng_key=prng.PRNGKey(4))
     assert torch.equal(a, b)
+    want_seed = int(np.asarray(jax.random.bits(
+        jax.random.PRNGKey(4), (), jnp.uint32)).astype(np.int32))
+    assert torch.equal(a, flash_attention_plain(
+        q, k, v, dropout_p=0.25, dropout_seed=want_seed))
     c = scaled_dot_product_attention(q, k, v, dropout_p=0.25,
                                      dropout_seed=77)
     want = flash_attention_plain(q, k, v, dropout_p=0.25, dropout_seed=77)
     assert torch.equal(c, want)
     assert not torch.equal(a, c)
-    ev = scaled_dot_product_attention(q, k, v, dropout_p=0.25,
-                                      training=False)
-    torch.testing.assert_close(
-        ev, flash_attention_plain(q, k, v), atol=1e-6, rtol=1e-6)
+    for ev in (scaled_dot_product_attention(q, k, v, dropout_p=0.25,
+                                            training=False),
+               scaled_dot_product_attention(q, k, v, dropout_p=0.25)):
+        torch.testing.assert_close(
+            ev, flash_attention_plain(q, k, v), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("seed, want", [(0, 0), (-1, -1), (2 ** 31 - 1,
@@ -266,17 +273,15 @@ def test_seed_tensor_is_the_int32_the_kernels_read(seed, want):
 
 
 def test_tensor_seed_equals_int_seed_forward_and_backward():
-    """A seed drawn as a tensor (``draw_seed``) drops what its int value
-    drops, in the forward and in the backward's replay."""
-    from paddle_tpu_torch.nn.functional.attention import draw_seed
+    """A seed made as a tensor from a key (``key_seed``) drops what its
+    int value drops, in the forward and in the backward's replay."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.nn.functional.attention import key_seed
     q, k, v, _, bias, causal, lens, rate = _inputs("bh")
-    g = torch.Generator()
-    g.manual_seed(21)
-    seed = draw_seed(g)
+    seed = key_seed(prng.PRNGKey(21), "cpu")
     assert seed.dtype == torch.int32 and seed.dim() == 0
-    g.manual_seed(21)
-    assert int(seed) == int(torch.randint(-2 ** 31, 2 ** 31, (),
-                                          generator=g))
+    assert int(seed) == int(np.asarray(jax.random.bits(
+        jax.random.PRNGKey(21), (), jnp.uint32)).astype(np.int32))
     res = []
     for s in (seed, int(seed)):
         ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]

@@ -1288,3 +1288,94 @@ def test_burst_check_passes_and_fails_planted_faults():
     admitted[0]._buf = [7, 7, 7]
     reqs[expired[0]].engine_req = object()
     assert not chip_smoke.burst_check(reqs, order, len(admitted))["ok"]
+
+
+# -- phases 23 and 24: the BERT/ERNIE batch, launches and step-1 checks --
+
+@pytest.mark.parametrize("B, S, lengths, share, max_pred",
+                         [(32, 512, (128, 512), 0.15, 80),
+                          (6, 40, (8, 40), 0.5, 5)])
+def test_bert_batch_rows_segments_and_masked_positions(B, S, lengths,
+                                                       share, max_pred):
+    d = chip_smoke.bert_batch(30528, B, S, lengths, share, max_pred,
+                              tasks=3)
+    lens = d["lengths"]
+    assert lens[0] == lengths[0] and lens[-1] == S == lengths[1]
+    assert (np.diff(lens) >= 0).all()
+    valid = np.arange(S)[None, :] < lens[:, None]
+    np.testing.assert_array_equal(d["mask"], valid)
+    assert (d["tokens"][~valid] == 0).all() and (d["types"][~valid] == 0
+                                                 ).all()
+    # two segments: type 1 from the middle of the valid part on
+    for r, n in enumerate(lens):
+        assert d["types"][r, :n].tolist() == [0] * (n // 2) + [1] * (
+            n - n // 2)
+    masked = d["mlm_labels"] != -100
+    assert not (masked & ~valid).any()
+    want = np.minimum(np.round(share * lens).astype(int), max_pred)
+    np.testing.assert_array_equal(masked.sum(1), want)
+    assert (d["tokens"][masked] == chip_smoke.MASK_TOKEN).all()
+    assert ((d["mlm_labels"][masked] > 0)
+            & (d["mlm_labels"][masked] < 30528)).all()
+    assert set(np.unique(d["nsp_labels"])) <= {0, 1}
+    assert d["class_labels"].sum() == round(chip_smoke.CLASS1_SHARE * B)
+    assert d["tasks"].max() < 3 and (d["tasks"][~valid] == 0).all()
+    # a fixed batch: the same seed gives the same arrays
+    again = chip_smoke.bert_batch(30528, B, S, lengths, share, max_pred,
+                                  tasks=3)
+    for k in d:
+        np.testing.assert_array_equal(d[k], again[k])
+
+
+def test_attention_expected_and_ln_exempt():
+    names = ["flash_attention", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "fused_layer_norm", "fused_ce_fwd"]
+    exp = chip_smoke.attention_expected(names, 12)
+    assert exp == {"flash_attention": 12, "flash_attention_bwd_dkdv": 12,
+                   "flash_attention_bwd_dq": 12, "fused_layer_norm": 0,
+                   "fused_ce_fwd": 0}
+    for n in ("bert.emb_ln_scale", "bert.layers.item_3.ln1_bias",
+              "bert._stacked_layers.ln2_scale", "mlm_ln_bias"):
+        assert not chip_smoke.ln_exempt(n), n
+    for n in ("bert.wte", "bert._stacked_layers.bqkv", "mlm_bias",
+              "cls_b", "ernie.wtask", "bert.layers.item_0.wup"):
+        assert chip_smoke.ln_exempt(n), n
+
+
+def test_grad_rel_l2_reads_each_tensor():
+    rs = np.random.RandomState(3)
+    ref = {n: torch.from_numpy(rs.randn(*s).astype(np.float32))
+           for n, s in (("a", (4, 8)), ("b", (8,)))}
+    got = {n: t.to(torch.bfloat16) for n, t in ref.items()}
+    err = chip_smoke.grad_rel_l2(got, ref)
+    assert set(err) == {"a", "b"} and 0 < max(err.values()) < 2.0 ** -8
+    got["b"] = got["b"] + 0.1 * ref["b"].abs().max()
+    assert chip_smoke.grad_rel_l2(got, ref)["b"] > 2.5e-2
+    assert chip_smoke.encoder_step_check(
+        1.0, 1.0, chip_smoke.grad_rel_l2(got, ref))["ok"] is False
+
+
+def test_plain_sdpa_takes_the_padding_bias_and_kv_lens():
+    """``plain_sdpa`` (phase 23/24's plain attention) equals the CPU
+    reference with the same bias, for a prefix row (kv_lens cuts the
+    keys) and a row with a hole (kv_lens keeps S, the bias masks)."""
+    from paddle_tpu_torch.models.bert import padding_bias
+    from paddle_tpu_torch.nn.functional.attention import attention_reference
+    rs = np.random.RandomState(4)
+    q, k, v = (torch.from_numpy(rs.randn(2, 20, 2, 16).astype(np.float32))
+               for _ in range(3))
+    mask = torch.ones(2, 20, dtype=torch.int32)
+    mask[0, 12:] = 0
+    mask[1, 5:9] = 0
+    bias, kv_lens = padding_bias(mask)
+    assert kv_lens.tolist() == [12, 20]
+    got = chip_smoke.plain_sdpa(q, k, v, attn_mask=bias, kv_lens=kv_lens,
+                                is_causal=False, dropout_p=0.0)
+    want = attention_reference(q, k, v, mask=bias)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # a planted fault: a hole row that declared its valid count as its
+    # length would drop the keys after the hole
+    wrong = chip_smoke.plain_sdpa(q, k, v, attn_mask=bias,
+                                  kv_lens=torch.tensor([12, 16],
+                                                       dtype=torch.int32))
+    assert not torch.allclose(wrong[1], want[1], atol=1e-3)

@@ -1,11 +1,12 @@
 """The port's incubate fused-transformer path (``incubate.nn.functional``,
 ``incubate.nn``, the ``nn`` transformer layers under them and
 ``models.convert.load_jax_state``) against the JAX package's, in fp32 on
-the CPU at small widths. Dropout is 0 where JAX draws its masks from
-``jax.random`` (no port reproduces those bits); the K11 functional and
-layer take an explicit seed on both sides, so they run with dropout on
-and must match mask and all. The generator-drawn dropouts are checked
-by their statistics."""
+the CPU at small widths. Dropout is 0 in the whole-block comparisons
+(the JAX ``MultiHeadAttention`` never drops; the masks themselves are
+held against JAX bit for bit in ``test_torch_nn_dropout.py``); the K11
+functional and layer take an explicit seed on both sides, so they run
+with dropout on and must match mask and all. The key-drawn dropouts are
+also checked by their statistics."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ from paddle_tpu.nn.layer.transformer import (
     TransformerEncoderLayer as JaxTransformerEncoderLayer)
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import quantization as quant
+from paddle_tpu_torch import random as prng
 from paddle_tpu_torch.incubate import nn as inn
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.models.convert import load_jax_state
@@ -290,45 +292,48 @@ def _kept_share_ok(out, x, p):
 
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_generator_dropout_statistics(p):
+    """The key-drawn dropout's statistics: the kept share and scale; one
+    key repeats its mask, another changes it; the modes; ``axis``; the
+    layer under a context."""
     x = torch.rand(64, 257) + 0.5
-    g = torch.Generator()
-    g.manual_seed(0)
-    out = F_common.dropout(x, p, generator=g)
+    out = F_common.dropout(x, p, training=True, key=prng.PRNGKey(0))
     _kept_share_ok(out, x, p)
-    g2 = torch.Generator()
-    g2.manual_seed(1)
-    assert not torch.equal(out != 0, F_common.dropout(x, p, generator=g2)
-                           != 0)
+    assert torch.equal(out, F_common.dropout(x, p, training=True,
+                                             key=prng.PRNGKey(0)))
+    assert not torch.equal(out != 0, F_common.dropout(
+        x, p, training=True, key=prng.PRNGKey(1)) != 0)
     # downscale_in_infer: kept cells unscaled in training, x * (1 - p) in
     # eval
-    down = F_common.dropout(x, p, mode="downscale_in_infer", generator=g)
+    down = F_common.dropout(x, p, training=True, mode="downscale_in_infer",
+                            key=prng.PRNGKey(2))
     assert torch.equal(down[down != 0], x[down != 0])
     torch.testing.assert_close(
         F_common.dropout(x, p, training=False, mode="downscale_in_infer"),
         x * (1 - p))
     assert torch.equal(F_common.dropout(x, p, training=False), x)
     # axis: one draw per row, broadcast along the columns
-    rows = F_common.dropout(x, p, axis=0, generator=g)
+    rows = F_common.dropout(x, p, axis=0, training=True,
+                            key=prng.PRNGKey(3))
     assert torch.equal((rows != 0).all(1), (rows != 0).any(1))
-    layer = pnn.Dropout(p, generator=g)
-    _kept_share_ok(layer(x), x, p)
+    layer = pnn.Dropout(p)
+    with pnn.stateful(training=True, rng=prng.PRNGKey(4)):
+        _kept_share_ok(layer(x), x, p)
     assert torch.equal(layer.eval()(x), x)
 
 
 def test_fused_feedforward_generator_dropout():
-    """Both FFN dropouts draw from the generator: the same state repeats
-    the output, another state changes it; the output of the second
-    linear is dropped with its kept share near 1 - p."""
+    """Both FFN dropouts draw from the halves of the call's key: the
+    same key repeats the output, another changes it; the output of the
+    second linear is dropped with its kept share near 1 - p."""
     rs = np.random.RandomState(11)
     x = torch.from_numpy(rs.randn(8, 64, D).astype(np.float32))
     w1 = torch.from_numpy((rs.randn(D, FF) * 0.2).astype(np.float32))
     w2 = torch.from_numpy((rs.randn(FF, D) * 0.2).astype(np.float32))
 
     def run(seed, **kw):
-        g = torch.Generator()
-        g.manual_seed(seed)
         return IF.fused_feedforward(x, w1, w2, dropout1_rate=0.2,
-                                    dropout2_rate=0.3, generator=g,
+                                    dropout2_rate=0.3,
+                                    rng_key=prng.PRNGKey(seed),
                                     pre_layer_norm=True, **kw)
 
     a, b, c = run(0), run(0), run(1)
@@ -346,18 +351,18 @@ def test_fused_feedforward_generator_dropout():
 
 
 def test_fused_multi_head_attention_draws_attention_then_k11_seed():
-    """The attention seed is drawn first, then K11's: replaying both
-    draws by hand gives the same output."""
+    """The attention takes the first half of ``split(rng_key)`` and K11
+    the second, each as ``bits(k) -> int32``: replaying both by hand
+    gives the same output."""
+    from paddle_tpu_torch.nn.functional.attention import key_seed
     x, w, mask = _mha_weights(12)
     tw = {k: _t(v) for k, v in w.items()}
-    g = torch.Generator()
-    g.manual_seed(3)
+    key = prng.PRNGKey(3)
     got = IF.fused_multi_head_attention(
         _t(x), **tw, attn_mask=_t(mask), dropout_rate=0.2,
-        attn_dropout_rate=0.1, generator=g)
-    g.manual_seed(3)
-    from paddle_tpu_torch.nn.functional.attention import draw_seed
-    s_attn, s_ln = draw_seed(g), draw_seed(g)
+        attn_dropout_rate=0.1, rng_key=key)
+    k1, k2 = prng.split(key)
+    s_attn, s_ln = key_seed(k1, "cpu"), key_seed(k2, "cpu")
     x_t = _t(x)
     dh = D // H
     qkv = (x_t @ tw["qkv_weight"].reshape(3 * D, D).t()).reshape(

@@ -1182,16 +1182,17 @@ def test_flash_bias_dropout_kernels_match_plain(dev, dtype, b, sq, sk, hq,
                                           (False, 0.2), (True, 0.2)])
 def test_flash_kernels_each_bias_dropout_build(dev, dtype, with_bias, p):
     """K1, K3 and K4 are built once per (bias, dropout) pair: each of
-    the four builds against the plain versions, the seed drawn on the
-    card by a CUDA generator (a device tensor the kernels read)."""
-    from paddle_tpu_torch.nn.functional.attention import draw_seed
+    the four builds against the plain versions, the seed made on the
+    card from a card key (a device tensor the kernels read)."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.nn.functional.attention import key_seed
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     b, s, h, d = 2, 192, 2, 64
     q, k, v, do = (_randn(gen, (b, s, h, d), dtype, dev) for _ in range(4))
     bias = (torch.randn((b, 1, 1, s), generator=gen, device=dev)
             if with_bias else None)
-    seed = draw_seed(gen, dev) if p > 0 else None
+    seed = key_seed(prng.PRNGKey(12, device=dev), dev) if p > 0 else None
     if seed is not None:
         assert seed.device.type == "cuda" and seed.dtype == torch.int32
     kw = dict(bias=bias, dropout_p=p, dropout_seed=seed)

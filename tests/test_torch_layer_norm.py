@@ -150,13 +150,12 @@ def test_argument_errors():
 
 
 def test_tensor_seed_equals_int_seed_forward_and_backward():
-    """K11 seeded by a tensor (``draw_seed``) drops what its int value
-    drops, in the forward and in the backward's replay."""
-    from paddle_tpu_torch.nn.functional.attention import draw_seed
+    """K11 seeded by a tensor made from a key (``key_seed``) drops what
+    its int value drops, in the forward and in the backward's replay."""
+    from paddle_tpu_torch import random as prng
+    from paddle_tpu_torch.nn.functional.attention import key_seed
     x, res, gamma, beta, bias, dy, _ = _inputs(96)
-    g = torch.Generator()
-    g.manual_seed(9)
-    seed = draw_seed(g, "cpu")
+    seed = key_seed(prng.PRNGKey(9), "cpu")
     out = []
     for s in (seed, int(seed)):
         ts = [torch.from_numpy(a).requires_grad_()
