@@ -309,8 +309,31 @@ Phases, each fatal on failure:
    AdamW at lr 2e-5 on the per-layer state: checks (a)-(d) and the
    printout of phase 23.
 
-Phases 11, 4, 12, 6-10, 21 and 22 run before 5 (which needs the card's
-memory for training), 13, 14 and 17 before them, 19 (and its sweep)
+25. autotune (``autotune_phase``) — the serving phases' gpt3_1p3b with
+   ``PT_AUTOTUNE_CACHE`` pointed at a fresh temporary file (the
+   process's cache given back afterwards, so every other phase launches
+   its formula plans): (a) ``PagedDecodeEngine.autotune()`` on the
+   single-dispatch engine of phase 4's shape (K2 at 8 rows x 16 kv heads
+   over T 2048, K9 at 8 rows) and on a ``speculative_k=4`` one (K9 at 32
+   rows), ``tune_mega_epilogue`` at 64 rows and ``tune_paged_attention``
+   (K2') at the suffix prefill's shape; (b) ``tune_flash_attention`` at
+   the train shape (4 x 2048 x 16 x 128, causal) and the BERT shape (32
+   x 512 x 12 x 64, kv_lens, padding bias, dropout 0.1), forward and
+   backward; (c) every candidate a tuner timed against the plain
+   version: K2 / K2' per (row, head) and K1 per 64-row tile within
+   REL_L2_TOL (K1's LSE 1e-3, K2's written pools exact), K9's tokens and
+   flags equal to the formula plan's bit for bit on the planted inputs
+   (that plan passing ``mega_logits_check``); (d) every tuner called
+   again: cache hits, nothing timed, no launch; (e) phase 4's batch
+   through a per-layer engine built with ``PT_PAGED_TUNE=1`` from an
+   empty cache (tuned in its constructor): phase 4's launch counts and
+   teacher-forced check; (f) every candidate's device ms (CUDA events
+   over AT_ITERS launches queued behind a spin) beside the formula
+   plan's and the winner's, each K1 tile's forward device ms (also at
+   phase 14's encoder shape with kv_lens, checked as in (c)), the card.
+
+Phases 11, 4, 12, 6-10, 21, 22 and 25 run before 5 (which needs the
+card's memory for training), 13, 14 and 17 before them, 19 (and its sweep)
 right after 5, 20 after the sweep, 15, 16, 23, 24 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
@@ -3359,6 +3382,379 @@ def frontend_phase(torch, dev, model):
             for kind in ("paged", "contiguous")}
 
 
+# phase 25: timed launches a candidate (autotune.tune's iters), after
+# its first launch and one warmup
+AT_ITERS = 10
+AT_SUFFIX_LENS = [min(129 + t, 168) for t in range(64)]
+AT_ENGINE_LENS = [0, 1, 127, 128, 255, 1000, 2000, 2047]
+AT_TRAIN = (4, 2048, 16, 128)      # B, S, heads, head dim (causal)
+AT_BERT = (32, 512, 12, 64)        # with kv_lens, the padding bias, p 0.1
+
+
+def _tuning_record(run, formula):
+    """A tuner's timings as (f) prints them: every candidate's device ms,
+    the formula (default) plan's and the winner's, and what the guard
+    refused or the card failed."""
+    ms = {str(list(c)): t * 1e3 for c, t in run["timings"].items()}
+    best = run["best"]
+    return {"key": run["key"], "hit": run["hit"],
+            "formula": list(formula),
+            "formula_ms": ms.get(str(list(formula))),
+            "winner": list(best), "winner_ms": ms.get(str(list(best))),
+            "candidates_ms": ms, "timed": len(ms),
+            "refused": {str(list(c)): r for c, r in run["refused"].items()},
+            "failed": {str(list(c)): r for c, r in run["failed"].items()}}
+
+
+def _k2_plan_checks(torch, dev, gen, plans, fused, lengths, max_pages,
+                    table_rows=None):
+    """K2 (``fused``) or K2' on random bf16 inputs under each plan: the
+    worst per (row, head) relative L2 against the plain version, and for
+    K2 whether the written pools equal the plain version's exactly."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    q, kp, vp, table, lens = _paged_inputs(torch, dev, gen, 16, lengths,
+                                           max_pages=max_pages)
+    if table_rows is not None:
+        table = table[torch.tensor(table_rows, device=dev).long()]
+        table = table.contiguous()
+    live = lens > 0
+    if fused:
+        B, D = q.shape[0], q.shape[-1]
+        k_row, v_row = (torch.randn((B, 16, D), generator=gen, device=dev)
+                        .to(q.dtype) for _ in range(2))
+        wp = table.gather(1, (lens // 128)[:, None].long())[:, 0]
+        wp = wp.contiguous()
+        kp2, vp2 = kp.clone(), vp.clone()
+        ref, _, _ = pa.paged_append_attend_reference(
+            q.float(), kp2, vp2, k_row, v_row, table, wp, lens)
+        live = torch.ones_like(live)
+    else:
+        ref = pa.paged_decode_attention_reference(q.float(), kp, vp, table,
+                                                  lens)
+    out = {}
+    for plan in plans:
+        if fused:
+            kp1, vp1 = kp.clone(), vp.clone()
+            o, _, _ = pa.paged_append_attend(q, kp1, vp1, k_row, v_row,
+                                             table, wp, lens,
+                                             splits=plan[0],
+                                             stages=plan[1])
+            exact = bool(torch.equal(kp1, kp2) and torch.equal(vp1, vp2))
+        else:
+            o = pa.paged_decode_attention(q, kp, vp, table, lens,
+                                          splits=plan[0], stages=plan[1])
+            exact = True
+        torch.cuda.synchronize()
+        err = rel_l2(o, ref, (2,))[live].max().item()
+        out[str(list(plan))] = {"row_rel_l2_max": err,
+                                "pools_exact": exact,
+                                "ok": bool(err <= REL_L2_TOL and exact)}
+    return out
+
+
+def _k9_plan_checks(torch, dev, gen, model, plans, rows):
+    """K9 at ``rows`` rows on the model's tied head with the planted tie,
+    overflow and poisoned row (``mega_logits_inputs``): the formula
+    plan's tokens and flags against the plain version
+    (``mega_logits_check``), then every plan's tokens and flags equal
+    to the formula plan's bit for bit."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    s, b = model.lnf_scale.detach(), model.lnf_bias.detach()
+    x = torch.randn((rows, model.cfg.d_model), generator=gen,
+                    device=dev).to(model.cfg.dtype)
+    x, w, poison, ties = mega_logits_inputs(torch, x, model.wte.detach(),
+                                            s, b)
+    head = w.t()
+    tok, nf = mk.mega_logits_sample(x, s, b, head, poison)
+    _, ref_nf = mk.mega_logits_sample_reference(x, s, b, head, poison)
+    check = mega_logits_check(tok, nf, mk.epilogue_logits(x, s, b, head,
+                                                          poison),
+                              ref_nf, ties)
+    out = {"formula_check": check}
+    for plan in plans:
+        t2, f2 = mk.mega_logits_sample(x, s, b, head, poison, plan=plan)
+        torch.cuda.synchronize()
+        out[str(list(plan))] = {"ok": bool(torch.equal(t2, tok)
+                                           and torch.equal(f2, nf))}
+    return out
+
+
+def _k1_inputs(torch, dev, gen, shape, bert):
+    B, S, H, D = shape
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    if not bert:
+        return (q, k, v), dict(causal=True)
+    lens = torch.linspace(128, S, B, device=dev).round().to(torch.int32)
+    lens[-1] = S
+    mask = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    bias = torch.where(mask, 0.0, -1e4)[:, None, None, :].contiguous()
+    return (q, k, v), dict(causal=False, kv_lens=lens, bias=bias,
+                           dropout_p=ENC_P, dropout_seed=11)
+
+
+def _k1_tile_checks(torch, dev, tiles, qkv, kw):
+    """K1 under each tile against the plain version: the worst 64-row
+    tile's relative L2 of o and the LSE's largest gap; with each tile's
+    forward device time (the kernel alone, torch.profiler)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    ro, rlse = fa.flash_attention_plain(*(t.float() for t in qkv),
+                                        return_lse=True, **kw)
+    out = {}
+    for bq, bk in tiles:
+        o, lse = fa.flash_attention(*qkv, return_lse=True, block_q=bq,
+                                    block_k=bk, **kw)
+        torch.cuda.synchronize()
+        err = tile_rel_l2(o, ro)[0]
+        lse_err = (lse - rlse).abs().max().item()
+        ms = _device_ms(torch, lambda: fa.flash_attention(
+            *qkv, block_q=bq, block_k=bk, **kw), keys=("flash_fwd_",),
+            launches=1, iters=10)
+        out[str([bq, bk])] = {"tile_rel_l2_max": err,
+                              "lse_max_abs_err": lse_err, "fwd_ms": ms,
+                              "ok": bool(err <= REL_L2_TOL
+                                         and lse_err <= 1e-3
+                                         and ms is not None)}
+    return out
+
+
+def autotune_phase(torch, dev, model):
+    """Phase 25: the autotuner on gpt3_1p3b (the serving phases' model,
+    bf16, seed 0) with ``PT_AUTOTUNE_CACHE`` pointed at a fresh temporary
+    file, the process's cache given back afterwards (the other phases
+    launch their formula plans). (a) ``PagedDecodeEngine.autotune()`` on
+    the single-dispatch engine of phase 4's shape (K2 at 8 rows x 16 kv
+    heads over T 2048, K9 at 8 rows), then on a ``speculative_k=4``
+    engine (K9 at 32 rows), K9 at 64 rows, and K2' at the suffix
+    prefill's 64 rows; (b) ``tune_flash_attention`` at the train shape
+    (AT_TRAIN, causal) and the BERT shape (AT_BERT, kv_lens, the padding
+    bias, dropout), forward and backward; (c) every candidate each tuner
+    timed against the plain version (K2 / K2' and K1 within REL_L2_TOL;
+    K9's tokens and flags equal to the formula plan's bit for bit, which
+    passes ``mega_logits_check``); (d) each tuner again: a cache hit,
+    nothing timed, no launch; (e) phase 4's batch through a per-layer
+    engine built with ``PT_PAGED_TUNE=1`` (tuned in its constructor
+    from an empty cache) and phase 4's teacher-forced check; (f) every
+    candidate's device ms beside the formula plan's and the winner's,
+    with the card. Returns the launches of (e)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.inference.factory import make_engine
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import geometry
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    cfg = model.cfg
+    L = cfg.n_layers
+    crd = geometry.card(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 25)
+    tmp = tempfile.mkdtemp(prefix="pt_autotune_")
+    env = {n: os.environ.get(n) for n in ("PT_AUTOTUNE_CACHE",
+                                          "PT_PAGED_TUNE")}
+    os.environ["PT_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    at.use_cache()
+    t0 = time.perf_counter()
+    try:
+        # (a) and (b): the tuners, each run's launches counted
+        runs, launched = {}, {}
+
+        def tuned(name, call, wrapper):
+            # the tuning records ``call`` appended, its kernel's launches
+            _zero_counters()
+            n0 = len(at.history)
+            call()
+            torch.cuda.synchronize()
+            launched[name] = _read_counters()[wrapper]
+            return list(at.history)[n0:]
+
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=16)
+        runs["k2_engine"], runs["k9_rows8"] = tuned(
+            "engine", lambda: eng.autotune(iters=AT_ITERS),
+            "paged_append_attend")
+        del eng
+        spec = make_engine(model, n_pages=64, max_slots=8,
+                           steps_per_call=16, speculative_k=SPEC_K)
+        new = tuned("spec_engine", lambda: spec.autotune(iters=AT_ITERS),
+                    "mega_logits_sample")
+        runs["k9_rows32"] = new[-1]
+        head = spec._head
+        spec_hits = [r["hit"] for r in new]
+        del spec
+        torch.cuda.empty_cache()
+        x64 = torch.zeros((64, cfg.d_model), dtype=cfg.dtype, device=dev)
+        k9_64 = lambda: mk.tune_mega_epilogue(  # noqa: E731
+            x64, head["lnf_scale"], head["lnf_bias"], head["proj"],
+            layers=L, page=128, iters=AT_ITERS)
+        (runs["k9_rows64"],) = tuned("k9_rows64", k9_64,
+                                     "mega_logits_sample")
+        q, kp, vp, table, lens = _paged_inputs(torch, dev, gen, 16,
+                                               AT_SUFFIX_LENS)
+        table = table[:1].expand(64, -1).contiguous()
+        k2p = lambda: pa.tune_paged_attention(  # noqa: E731
+            q, kp, vp, table, lens, fused=False, iters=AT_ITERS)
+        (runs["k2p_suffix"],) = tuned("k2p_suffix", k2p,
+                                      "paged_decode_attention")
+        k1_in = {n: _k1_inputs(torch, dev, gen, shape, n == "k1_bert")
+                 for n, shape in (("k1_train", AT_TRAIN),
+                                  ("k1_bert", AT_BERT))}
+        for n, (qkv, kw) in k1_in.items():
+            (runs[n],) = tuned(n, lambda: fa.tune_flash_attention(
+                *qkv, iters=AT_ITERS, **kw), "flash_attention")
+        tune_s = time.perf_counter() - t0
+
+        # the formula (default) plans of each tuned launch
+        sms = crd.sms
+        f_split = pa.cluster_size(16, 128, 8 * 16, sms)
+        s_split = pa.cluster_size(2, 128, 64 * 16, sms)
+        formula = {
+            "k2_engine": (f_split, pa.ring_stages(16, 128, f_split)),
+            "k2p_suffix": (s_split, pa.ring_stages(2, 128, s_split)),
+            **{f"k9_rows{r}": mk.logits_plan(r, cfg.d_model,
+                                             cfg.vocab_size, sms,
+                                             crd.smem_optin)
+               for r in (8, 32, 64)},
+            "k1_train": (128, 128), "k1_bert": (128, 128)}
+        # every run timed its candidates on the card: the kernel's
+        # launches, at least 1 + 1 + AT_ITERS a candidate
+        timed_ok = all(not r["hit"] and r["timings"]
+                       and r["best"] in r["timings"]
+                       for n, r in runs.items())
+        need = {"engine": len(runs["k2_engine"]["timings"]),
+                "spec_engine": len(runs["k9_rows32"]["timings"]),
+                "k9_rows64": len(runs["k9_rows64"]["timings"]),
+                "k2p_suffix": len(runs["k2p_suffix"]["timings"]),
+                "k1_train": len(runs["k1_train"]["timings"]),
+                "k1_bert": len(runs["k1_bert"]["timings"])}
+        launches_ok = all(launched[n] >= (2 + AT_ITERS) * c
+                          for n, c in need.items())
+
+        # (c) every timed candidate against the plain version
+        checks = {
+            "k2_engine": _k2_plan_checks(
+                torch, dev, gen, runs["k2_engine"]["timings"], True,
+                AT_ENGINE_LENS, 16),
+            "k2p_suffix": _k2_plan_checks(
+                torch, dev, gen, runs["k2p_suffix"]["timings"], False,
+                AT_SUFFIX_LENS, 2, table_rows=[0] * 64),
+            **{f"k9_rows{r}": _k9_plan_checks(
+                torch, dev, gen, model, runs[f"k9_rows{r}"]["timings"], r)
+               for r in (8, 32, 64)},
+            **{n: _k1_tile_checks(torch, dev, runs[n]["timings"], *k1_in[n])
+               for n in ("k1_train", "k1_bert")},
+            # both tiles at phase 14's encoder shape (with kv_lens), untuned
+            "k1_encoder": _k1_tile_checks(
+                torch, dev, geometry.flash_tiles(torch.bfloat16, 64),
+                *_k1_inputs(torch, dev, gen, (ENC_B, ENC_S, ENC_HEADS,
+                                              ENC_D // ENC_HEADS), True))}
+        checks_ok = all(c["ok"] for per in checks.values()
+                        for n, c in per.items() if n != "formula_check")
+        checks_ok &= all(checks[f"k9_rows{r}"]["formula_check"]["ok"]
+                         for r in (8, 32, 64))
+        del k1_in
+        torch.cuda.empty_cache()
+
+        # (d) each tuner again: hits, nothing timed, nothing launched
+        n0 = len(at.history)
+        _zero_counters()
+        again = make_engine(model, n_pages=64, max_slots=8,
+                            steps_per_call=16, speculative_k=SPEC_K)
+        again.autotune(iters=AT_ITERS)
+        del again
+        k9_64()
+        k2p()
+        for n in ("k1_train", "k1_bert"):
+            qkv, kw = _k1_inputs(torch, dev, gen,
+                                 AT_TRAIN if n == "k1_train" else AT_BERT,
+                                 n == "k1_bert")
+            fa.tune_flash_attention(*qkv, iters=AT_ITERS, **kw)
+            del qkv
+        torch.cuda.synchronize()
+        second = list(at.history)[n0:]
+        hits_ok = (len(second) == 7
+                   and all(r["hit"] and not r["timings"] for r in second)
+                   and sum(_read_counters().values()) == 0)
+        torch.cuda.empty_cache()
+
+        # (e) phase 4's batch through an engine tuned in its constructor
+        at.get_cache().clear()
+        os.environ["PT_PAGED_TUNE"] = "1"
+        n0 = len(at.history)
+        eng = make_engine(model, n_pages=64, max_slots=8,
+                          steps_per_call=16, mega=False)
+        os.environ.pop("PT_PAGED_TUNE")
+        ctor = list(at.history)[n0:]
+        ctor_ok = (len(ctor) == 1 and not ctor[0]["hit"]
+                   and at.get_cache().get(ctor[0]["key"]) is not None)
+        rs = np.random.RandomState(SEED)
+        prompts = [rs.randint(0, cfg.vocab_size, size=128).tolist()
+                   for _ in range(8)]
+        prompts.append(prompts[0][:128]
+                       + rs.randint(0, cfg.vocab_size, size=40).tolist())
+        reqs, wall, served, _ = _serve_batch(torch, dev, eng, prompts, 64)
+        decode_steps = eng.steps * eng.chunk
+        # phase 4's launch counts
+        n_suffix = int(stats.get("serve/dispatches/prefill_suffix"))
+        per = {"paged_append_attend": L * decode_steps,
+               "flash_attention": L * (len(prompts) - n_suffix)}
+        served_ok = (all(served[n] == c for n, c in per.items())
+                     and served["paged_decode_attention"] > 0
+                     and n_suffix == 1
+                     and all(v == 0 for n, v in served.items()
+                             if n not in per
+                             and n != "paged_decode_attention")
+                     and all(r.done and not r.failed and len(r.tokens) == 64
+                             for r in reqs))
+        check = teacher_forced(torch, dev, model, reqs)
+        del eng
+        torch.cuda.empty_cache()
+    finally:
+        for n, v in env.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+        at.use_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) the timings beside the formula plans and the winners
+    table_f = {n: _tuning_record(r, formula[n]) for n, r in runs.items()
+               if n in formula}
+    for n in ("k1_train", "k1_bert"):
+        table_f[n]["fwd_ms"] = {t: c["fwd_ms"] for t, c in checks[n].items()}
+    table_f["k1_encoder"] = {"fwd_ms": {t: c["fwd_ms"] for t, c in
+                                        checks["k1_encoder"].items()}}
+    rec = {"phase": "autotune", "card": _card_line(),
+           "cache": "a fresh temporary PT_AUTOTUNE_CACHE",
+           "iters": AT_ITERS, "tune_s": tune_s,
+           "timing": "CUDA events around AT_ITERS back-to-back launches "
+                     "queued behind a spin (autotune.tune), operands warm "
+                     "in L2; K1: forward + backward through the autograd "
+                     "Function; fwd_ms: K1 alone (torch.profiler)",
+           "tuned": table_f, "launches_while_tuning": launched,
+           "spec_engine_hits": spec_hits,
+           "checks": checks, "second_calls": [r["key"] for r in second],
+           "ctor_tuned": ctor[0]["key"] if ctor else None,
+           "served": {"launches": served, "decode_steps": decode_steps,
+                      **_latency(reqs, wall),
+                      **{k: v for k, v in check.items() if k != "ok"}},
+           "timed_ok": bool(timed_ok), "launches_ok": bool(launches_ok),
+           "checks_ok": bool(checks_ok), "hits_ok": bool(hits_ok),
+           "ctor_ok": bool(ctor_ok), "served_ok": bool(served_ok),
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = bool(timed_ok and launches_ok and checks_ok and hits_ok
+                     and ctor_ok and served_ok and check["ok"])
+    _phase(rec)
+    return {"autotune": served}
+
+
 def serving_paths(torch, dev, gen=None):
     """Every serving path on one gpt3_1p3b (seed SEED): K8 and K9 at the
     single-dispatch engine's shapes (phase 11), paged serving per layer
@@ -3366,8 +3762,8 @@ def serving_paths(torch, dev, gen=None):
     breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
     decode device time of all four engines (9), generate (10),
     speculative serving on all four (21), the serving front end over
-    both engines (22). Returns (path -> launches, (K8 record, K9
-    record))."""
+    both engines (22), the autotuner (25). Returns (path -> launches,
+    (K8 record, K9 record))."""
     from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
     if gen is None:
@@ -3407,9 +3803,12 @@ def serving_paths(torch, dev, gen=None):
     spec = spec_phase(torch, dev, model)
     torch.cuda.empty_cache()
     front = frontend_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    tuned = autotune_phase(torch, dev, model)
     return ({"serving": serve["launches"], "serving_mega": mega["launches"],
              "contiguous": contig["launches"], "int8": int8["launches"],
-             "generate": generated["launches"], **spec, **front}, k89)
+             "generate": generated["launches"], **spec, **front, **tuned},
+            k89)
 
 
 def breakdown_phase(torch, eng, prompts, n_new, name="serving_breakdown"):

@@ -26,9 +26,11 @@
 // masked tile contributes exactly 0, and p is rounded to the input dtype
 // for p . v, as there. Two paths:
 //  - bf16 with D % 16 == 0: `flash_fwd_sm90` below, 128-row query tiles,
-//    a TMA ring of 128-key K/V tiles, warp-specialised wgmma with S, the
-//    softmax and the output accumulator in registers (sm90.cuh holds the
-//    Hopper pieces);
+//    a TMA ring of K/V tiles of 128 keys (two stages) or 64 keys (three
+//    stages; the caller's `block_k`, which ops/flash_attention.py resolves
+//    from an explicit argument, the autotune cache or the default 128),
+//    warp-specialised wgmma with S, the softmax and the output
+//    accumulator in registers (sm90.cuh holds the Hopper pieces);
 //  - otherwise: the FP32 pipes. 256 threads, four per query row, each
 //    holding 32 of the (zero-padded) 128 dims in registers; 32-key tiles
 //    staged in shared memory as fp32 and read as conflict-free float4.
@@ -182,12 +184,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //
 // One block of three warpgroups per (b * Hq + h, 128-row query tile),
 // causal tiles longest first. Warpgroup 0 is the producer: one thread
-// loads the Q tile once and keeps a ring of kStages (K tile, V tile)
-// pairs of 128 keys in flight by TMA (4D maps over (D, H, S, B), 64-dim
-// boxes, 128-byte swizzle; rows past S and dims past D arrive as zeros).
-// Warpgroups 1 and 2 each own 64 query rows. Per key tile:
-//   S = Q . K^T      wgmma m64n128k16, both operands K-major in shared
-//                    memory (SS), into 64 fp32 registers a thread;
+// loads the Q tile once and keeps a ring of ST (K tile, V tile) pairs of
+// TK keys in flight by TMA (4D maps over (D, H, S, B), 64-dim boxes of TK
+// rows, 128-byte swizzle; rows past S and dims past D arrive as zeros).
+// TK is 128 (ST 2) or 64 (ST 3: the halved tiles leave room for a third
+// stage). Warpgroups 1 and 2 each own 64 query rows. Per key tile:
+//   S = Q . K^T      wgmma m64nTKk16, both operands K-major in shared
+//                    memory (SS), into TK / 2 fp32 registers a thread;
 //   softmax          on those registers: the scale, the bias, the masks
 //                    (only on a tile the diagonal, kv_len, Sq or a
 //                    ragged K tile cuts), the running max with the -1e30
@@ -200,41 +203,45 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // memory. Within a warpgroup the two products and the softmax run in
 // turn; the other warpgroup's work fills the gaps. (Issuing the next
 // tile's S behind the current P . V made ptxas serialize the wgmmas,
-// C7515, and ran slower on an H100.) A third ring stage bought nothing.
-// Head dims up to 64 run the 64 instance, others up to 128 the 128 one
-// (zero-filled past D, stores masked to D).
+// C7515, and ran slower on an H100.) A third ring stage bought nothing
+// at TK 128. Head dims up to 64 run the 64 instance, others up to 128 the
+// 128 one (zero-filled past D, stores masked to D). Every mask (causal,
+// kv_len, Sq), the bias read and the dropout hash take absolute (row,
+// col) indices, so the key tile changes none of them; nor the LSE.
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
 
 constexpr int kTq = 128;                   // query rows per block
-constexpr int kTk = 128;                   // keys per stage
-constexpr int kStages = 2;
 constexpr int kWgThreads = 384;            // producer + two consumers
-constexpr uint32_t kBox = 128 * 128;       // a 64-dim box of 128 rows
+constexpr uint32_t kQBox = kTq * 128;      // a 64-dim box of the Q tile
 
-template <int DP>
+// DP: the instance's head dim (64 or 128); TK: keys a stage; ST: stages
+template <int DP, int TK, int ST>
 struct FwdSmem {                           // byte offsets from the base
-  static constexpr uint32_t kQ = (DP / 64) * kBox;      // the Q tile
-  static constexpr uint32_t kKV = (DP / 64) * kBox;     // a K or V tile
+  static constexpr uint32_t kKVBox = TK * 128;          // a 64-dim K/V box
+  static constexpr uint32_t kQ = (DP / 64) * kQBox;     // the Q tile
+  static constexpr uint32_t kKV = (DP / 64) * kKVBox;   // a K or V tile
   static constexpr uint32_t kStage = 2 * kKV;
-  static constexpr uint32_t kBars = kQ + kStages * kStage;
+  static constexpr uint32_t kBars = kQ + ST * kStage;
   // the tiles, q / full / empty barriers, slack to align to 1024 bytes
-  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+  // (ops/geometry.py flash_smem counts the same)
+  static constexpr int kBytes = kBars + (1 + 2 * ST) * 8 + 1024;
 };
 
-// S (64 x 128) = the warpgroup's 64 rows of Q (at qs) . the K tile (at
+// S (64 x TK) = the warpgroup's 64 rows of Q (at qs) . the K tile (at
 // ks)^T over DP dims, issued and committed
-template <int DP>
-__device__ __forceinline__ void issue_scores(float (&s)[kTk / 2],
+template <int DP, int TK>
+__device__ __forceinline__ void issue_scores(float (&s)[TK / 2],
                                              uint32_t qs, uint32_t ks,
                                              int cw) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-    wgmma_ss<kTk, 0, 0>(s, gmma_desc(qs + off + cw * 64 * 128, 16, 1024),
-                        gmma_desc(ks + off, 16, 1024), kk > 0);
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<TK, 0, 0>(
+        s, gmma_desc(qs + (kk / 4) * kQBox + off + cw * 64 * 128, 16, 1024),
+        gmma_desc(ks + (kk / 4) * (TK * 128) + off, 16, 1024), kk > 0);
   }
   wgmma_commit();
 }
@@ -243,13 +250,13 @@ __device__ __forceinline__ void issue_scores(float (&s)[kTk / 2],
 // and row0 + 8, columns c0 + 8 j + {0, 1}): the running max m and this
 // thread's part of the running sum l of each row, acc rescaled, and the
 // dropped p in bf16 as the A operand of P . V (p[k]: keys 16 k ..)
-template <bool kMasked, int DP, typename Ex>
+template <bool kMasked, int DP, int TK, typename Ex>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[kTk / 2], float (&acc)[DP / 2], uint32_t (&p)[kTk / 16][4],
+    float (&s)[TK / 2], float (&acc)[DP / 2], uint32_t (&p)[TK / 16][4],
     float (&m)[2], float (&l)[2], const Ex& ex, int b, int h, int row0,
     int c0, int Sq, int kvlen, int causal, float scale) {
 #pragma unroll
-  for (int i = 0; i < kTk / 2; ++i) {
+  for (int i = 0; i < TK / 2; ++i) {
     const int row = row0 + (i & 2) * 4;
     const int col = c0 + 8 * (i / 4) + (i & 1);
     const bool ok =
@@ -261,7 +268,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 2 * r; i < kTk / 2; i += 4)
+    for (int i = 2 * r; i < TK / 2; i += 4)
       mx = fmaxf(mx, fmaxf(s[i], s[i + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -272,7 +279,7 @@ __device__ __forceinline__ void softmax_tile(
   }
   const unsigned bh = blockIdx.x;
 #pragma unroll
-  for (int i = 0; i < kTk / 2; i += 2) {
+  for (int i = 0; i < TK / 2; i += 2) {
     const int r = (i >> 1) & 1;
     const int row = row0 + 8 * r;
     const int col = c0 + 8 * (i / 4);
@@ -287,7 +294,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
-template <int DP, typename Ex>
+template <int DP, int TK, int ST, typename Ex>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -295,13 +302,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
                const int* __restrict__ kv_lens, bf16* __restrict__ o,
                float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
                int D, int causal, float scale, Ex ex) {
-  using L = FwdSmem<DP>;
+  using L = FwdSmem<DP, TK, ST>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzled tiles need 1024-byte alignment
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t qbar = base + L::kBars;
   const uint32_t full = qbar + 8;          // full[s] at full + 8 s
-  const uint32_t empty = full + 8 * kStages;
+  const uint32_t empty = full + 8 * ST;
   const int bh = blockIdx.x;
   const int b = bh / Hq;
   const int h = bh % Hq;
@@ -314,10 +321,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   if (kv_lens != nullptr) kvlen = max(0, min(kv_lens[b], Sk));
   // key tiles up to kv_len and, when causal, the diagonal (Sq == Sk)
   const int kend = causal ? min(kvlen, q0 + kTq) : kvlen;
-  const int nt = (kend + kTk - 1) / kTk;
+  const int nt = (kend + TK - 1) / TK;
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);
     }
@@ -327,23 +334,22 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // producer: one thread loads Q, then keeps kStages K/V tiles in flight
+    // producer: one thread loads Q, then keeps ST K/V tiles in flight
     regs_dec<24>();
     if (threadIdx.x == 0 && nt > 0) {
       mbar_expect_tx(qbar, L::kQ);
       for (int c = 0; c < DP / 64; ++c)
-        tma_load_4d(&tq, base + c * kBox, qbar, 64 * c, h, q0, b);
+        tma_load_4d(&tq, base + c * kQBox, qbar, 64 * c, h, q0, b);
       for (int j = 0; j < nt; ++j) {
-        const int s = j % kStages;
-        if (j >= kStages)
-          mbar_wait(empty + 8 * s, (j / kStages - 1) & 1);
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(empty + 8 * s, (j / ST - 1) & 1);
         const uint32_t tile = base + L::kQ + s * L::kStage;
         mbar_expect_tx(full + 8 * s, L::kStage);
         for (int c = 0; c < DP / 64; ++c) {
-          tma_load_4d(&tk, tile + c * kBox, full + 8 * s, 64 * c, hk,
-                      j * kTk, b);
-          tma_load_4d(&tv, tile + L::kKV + c * kBox, full + 8 * s, 64 * c,
-                      hk, j * kTk, b);
+          tma_load_4d(&tk, tile + c * L::kKVBox, full + 8 * s, 64 * c, hk,
+                      j * TK, b);
+          tma_load_4d(&tv, tile + L::kKV + c * L::kKVBox, full + 8 * s,
+                      64 * c, hk, j * TK, b);
         }
       }
     }
@@ -361,39 +367,43 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     if (nt > 0) {
-      float s[kTk / 2];
-      uint32_t p[kTk / 16][4];
+      float s[TK / 2];
+      uint32_t p[TK / 16][4];
       mbar_wait(qbar, 0);
       for (int j = 0; j < nt; ++j) {
-        const int st = j % kStages;
+        const int st = j % ST;
         const uint32_t ks = base + L::kQ + st * L::kStage;
-        mbar_wait(full + 8 * st, (j / kStages) & 1);
-        issue_scores<DP>(s, base, ks, cw);
+        mbar_wait(full + 8 * st, (j / ST) & 1);
+        issue_scores<DP, TK>(s, base, ks, cw);
         wgmma_wait<0>();
         fence_acc(s);
-        const int k0 = j * kTk;
-        const bool whole = k0 + kTk <= kvlen &&
-                           (!causal || k0 + kTk - 1 <= r_first) &&
+        const int k0 = j * TK;
+        const bool whole = k0 + TK <= kvlen &&
+                           (!causal || k0 + TK - 1 <= r_first) &&
                            r_first + 64 <= Sq;
         if (whole)
-          softmax_tile<false, DP>(s, acc, p, m, l, ex, b, h, row0, k0 + cq,
-                                  Sq, kvlen, causal, scale);
+          softmax_tile<false, DP, TK>(s, acc, p, m, l, ex, b, h, row0,
+                                      k0 + cq, Sq, kvlen, causal, scale);
         else
-          softmax_tile<true, DP>(s, acc, p, m, l, ex, b, h, row0, k0 + cq,
-                                 Sq, kvlen, causal, scale);
+          softmax_tile<true, DP, TK>(s, acc, p, m, l, ex, b, h, row0,
+                                     k0 + cq, Sq, kvlen, causal, scale);
         fence_acc(acc);
 #pragma unroll
-        for (int kk = 0; kk < kTk / 16; ++kk) fence_regs(p[kk]);
+        for (int kk = 0; kk < TK / 16; ++kk) fence_regs(p[kk]);
         wgmma_fence();
+        // V as the MN-major B operand: 16 keys (two 8-row groups, 2048
+        // bytes) a slice, the next 64 dims one box (kKVBox) on
 #pragma unroll
-        for (int kk = 0; kk < kTk / 16; ++kk)
+        for (int kk = 0; kk < TK / 16; ++kk)
           wgmma_rs<DP, 1>(acc, p[kk],
-                          gmma_desc(ks + L::kKV + kk * 2048, kBox, 1024), 1);
+                          gmma_desc(ks + L::kKV + kk * 2048, L::kKVBox,
+                                    1024),
+                          1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(acc);
 #pragma unroll
-        for (int kk = 0; kk < kTk / 16; ++kk) fence_regs(p[kk]);
+        for (int kk = 0; kk < TK / 16; ++kk) fence_regs(p[kk]);
         // the tile's K and V are read: release the stage
         if (t == 0) mbar_arrive(empty + 8 * st);
       }
@@ -425,27 +435,44 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// K1 on the tensor cores for head dims up to DP
-template <int DP, typename Ex>
+// K1 on the tensor cores for head dims up to DP, TK keys a stage, ST
+// stages
+template <int DP, int TK, int ST, typename Ex>
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
                     const int* lens, void* o, float* lse, int B, int Sq,
                     int Sk, int Hq, int Hkv, int D, int causal, float scale,
                     const Ex& ex, cudaStream_t st) {
+  using L = FwdSmem<DP, TK, ST>;
   CUtensorMap tq, tk, tv;
   int rc = bshd_map(&tq, q, B, Sq, Hq, D, kTq);
-  if (rc == 0) rc = bshd_map(&tk, k, B, Sk, Hkv, D, kTk);
-  if (rc == 0) rc = bshd_map(&tv, v, B, Sk, Hkv, D, kTk);
+  if (rc == 0) rc = bshd_map(&tk, k, B, Sk, Hkv, D, TK);
+  if (rc == 0) rc = bshd_map(&tv, v, B, Sk, Hkv, D, TK);
   if (rc != 0) return rc;
-  const auto kernel = flash_fwd_sm90<DP, Ex>;
+  const auto kernel = flash_fwd_sm90<DP, TK, ST, Ex>;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      FwdSmem<DP>::kBytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes));
   if (rc != 0) return rc;
   const dim3 grid(B * Hq, (Sq + kTq - 1) / kTq);
-  kernel<<<grid, kWgThreads, FwdSmem<DP>::kBytes, st>>>(
+  kernel<<<grid, kWgThreads, L::kBytes, st>>>(
       tq, tk, tv, lens, static_cast<bf16*>(o), lse, Sq, Sk, Hq, Hkv, D,
       causal, scale, ex);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the sm90 instance of key tile block_k (64: three stages; 128: two) at
+// head dims up to DP
+template <int DP, typename Ex>
+int launch_fwd_tile(int block_k, const void* q, const void* k,
+                    const void* v, const int* lens, void* o, float* lse,
+                    int B, int Sq, int Sk, int Hq, int Hkv, int D,
+                    int causal, float scale, const Ex& ex, cudaStream_t st) {
+  if (block_k == 64)
+    return launch_fwd_sm90<DP, 64, 3>(q, k, v, lens, o, lse, B, Sq, Sk, Hq,
+                                      Hkv, D, causal, scale, ex, st);
+  if (block_k == 128)
+    return launch_fwd_sm90<DP, 128, 2>(q, k, v, lens, o, lse, B, Sq, Sk,
+                                       Hq, Hkv, D, causal, scale, ex, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -454,14 +481,16 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v,
 // and of one dtype; kv_lens (B,) int32 or null; lse (B * Hq, Sq) fp32;
 // bias fp32 or null, read at b * sb + h * sh + row * sq + col; seed the
 // device int32 seed of the dropout (null for none), the other dropout
-// arguments as in pt::AttnExtra. The caller guarantees D <= 128,
-// Hq % Hkv == 0 and non-empty shapes.
+// arguments as in pt::AttnExtra. block_k: the key tile, 64 or 128 on the
+// tensor cores (bf16, D % 16 == 0), kBK (32) on the FP32 pipes. The
+// caller guarantees D <= 128, Hq % Hkv == 0 and non-empty shapes.
 extern "C" int pt_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v,
     const void* kv_lens, void* o, void* lse, int B, int Sq, int Sk, int Hq,
     int Hkv, int D, int causal, float scale, const void* bias,
     long long sb, long long sh, long long sq, const void* seed,
-    unsigned thresh, float keep_div, int stride, void* stream) {
+    unsigned thresh, float keep_div, int stride, int block_k,
+    void* stream) {
   const pt::AttnArgs args{static_cast<const float*>(bias), sb, sh, sq,
                           static_cast<const int*>(seed), thresh, keep_div,
                           stride};
@@ -472,13 +501,16 @@ extern "C" int pt_flash_attention_fwd(
   return pt::with_attn_extra(args, [&](auto ex) -> int {
     using Ex = decltype(ex);
     if (dtype == pt::kBFloat16 && D % 16 == 0) {
-      return D <= 64 ? launch_fwd_sm90<64>(q, k, v, lens, o, lse_f, B, Sq,
-                                            Sk, Hq, Hkv, D, causal, scale,
-                                            ex, st)
-                     : launch_fwd_sm90<128>(q, k, v, lens, o, lse_f, B, Sq,
-                                             Sk, Hq, Hkv, D, causal, scale,
-                                             ex, st);
-    } else if (dtype == pt::kBFloat16) {
+      return D <= 64
+                 ? launch_fwd_tile<64>(block_k, q, k, v, lens, o, lse_f, B,
+                                       Sq, Sk, Hq, Hkv, D, causal, scale,
+                                       ex, st)
+                 : launch_fwd_tile<128>(block_k, q, k, v, lens, o, lse_f, B,
+                                        Sq, Sk, Hq, Hkv, D, causal, scale,
+                                        ex, st);
+    }
+    if (block_k != kBK) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype == pt::kBFloat16) {
       using T = __nv_bfloat16;
       flash_fwd_kernel<T, Ex><<<grid, kThreads, 0, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),

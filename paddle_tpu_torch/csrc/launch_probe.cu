@@ -51,3 +51,13 @@ extern "C" int pt_launch_floor(void* stream) {
   launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
+
+// the shared memory a block of device `dev` may opt in to, in bytes, or a
+// negative CUDA error (ops/geometry.py reads it where PyTorch's device
+// properties lack it)
+extern "C" int pt_smem_optin(int dev) {
+  int bytes = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}

@@ -45,15 +45,20 @@ Design, as in the JAX engine:
   single-dispatch path), ``warmup``, ``dispatch_cost`` and
   ``dispatch_fn_args``.
 
-``prefill_only``, the handoff and migration methods and ``autotune``
-raise ``NotImplementedError`` naming the
-ROADMAP item that ports them. The JAX engine's read-only-pool fallback
-(``fused=False``) is a reference formulation and has no counterpart
-here.
+- **Autotune** (``autotune()``, or ``PT_PAGED_TUNE=1`` from the
+  constructor, before ``warmup``): K2's plan at this engine's shapes
+  and, with ``mega``, K9's at its decode rows and its verify rows
+  (``ops/autotune.py``; the cache file is ``PT_AUTOTUNE_CACHE``).
+
+``prefill_only`` and the handoff and migration methods raise
+``NotImplementedError`` naming the ROADMAP item that ports them. The JAX
+engine's read-only-pool fallback (``fused=False``) is a reference
+formulation and has no counterpart here.
 """
 
 import collections
 import math
+import os
 import time
 from typing import List, Optional
 
@@ -179,14 +184,60 @@ class PagedDecodeEngine(ResilientScheduler):
         self._table_dev = None
         self._table_dirty = True
         self._update_pool_gauges()
+        if os.environ.get("PT_PAGED_TUNE", "0") == "1":
+            # tune before the first launch: the kernels read the tuned
+            # plans from the autotune cache at launch time
+            self.autotune()
         if warmup:
             self.warmup()
 
-    # -- not ported yet -----------------------------------------------------
+    def autotune(self, iters: int = 3, candidates=None):
+        """Measure K2's launch plans ``(splits, stages)`` at this engine's
+        shapes and persist the winner in the autotune cache
+        (``ops/autotune.py``); with ``mega`` also K9's plans at the decode
+        step's S rows and, with ``speculative_k``, at each row count a
+        verify launch takes (S x K in groups of ``_verify_group_rows``):
+        the port's K9 plan depends on the rows. The representative
+        shapes are JAX's: the full batch, distinct in-range pages (in
+        throwaway zero pools, so the engine's pools are untouched),
+        lengths ``max(1, max_seq_len // 2)``, zero rows for K9. Later
+        launches at these shapes take the tuned plans; ``PT_PAGED_TUNE=1``
+        runs this from the constructor. Returns K2's (config, timings)."""
+        from paddle_tpu_torch.ops.decode_megakernel import tune_mega_epilogue
+        from paddle_tpu_torch.ops.paged_attention import tune_paged_attention
+        cfg = self.cfg
+        dev, dt = self.device, self.kp.dtype
+        n = self.S * self._mx
+        pool = (n, cfg.kv_heads, self.page, cfg.head_dim)
+        kp = torch.zeros(pool, dtype=dt, device=dev)
+        vp = torch.zeros_like(kp)
+        q = torch.zeros((self.S, cfg.n_heads, cfg.head_dim), dtype=dt,
+                        device=dev)
+        table = torch.arange(n, dtype=torch.int32,
+                             device=dev).reshape(self.S, self._mx)
+        lengths = torch.full((self.S,), max(1, cfg.max_seq_len // 2),
+                             dtype=torch.int32, device=dev)
+        res = tune_paged_attention(q, kp, vp, table, lengths,
+                                   scale=self.scale, fused=True,
+                                   candidates=candidates, iters=iters)
+        del kp, vp
+        if self.mega:
+            rows = {self.S}
+            if self.spec_k:
+                total, per = self.S * self.spec_k, self._verify_group_rows
+                rows |= {per} if total >= per else {total}
+                if total > per and total % per:
+                    rows.add(total % per)
+            head = self._head
+            for r in sorted(rows):
+                x = torch.zeros((r, cfg.d_model), dtype=cfg.dtype,
+                                device=dev)
+                tune_mega_epilogue(x, head["lnf_scale"], head["lnf_bias"],
+                                   head["proj"], layers=cfg.n_layers,
+                                   page=self.page, iters=iters)
+        return res
 
-    def autotune(self, *args, **kwargs):
-        raise _not_ported(
-            "paged-kernel autotune (launch-time tile templates)", "A1")
+    # -- not ported yet -----------------------------------------------------
 
     def detach_handoff(self, *args, **kwargs):
         raise _not_ported("KV handoff and migration", "S4")
@@ -331,7 +382,8 @@ class PagedDecodeEngine(ResilientScheduler):
             rope_theta=cfg.rope_theta, scale=self.scale)
         head = self._head
         return mega_logits_sample(x, head["lnf_scale"], head["lnf_bias"],
-                                  head["proj"], poison)
+                                  head["proj"], poison,
+                                  layers=cfg.n_layers, page=self.page)
 
     def _one_token_mega(self, tables, table, lengths, last, active, poison):
         """Single-dispatch ``_one_token``: the same signature and greedy

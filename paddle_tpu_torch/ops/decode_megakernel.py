@@ -26,10 +26,16 @@ and why each phase is race-free.
 CUDA tensors launch the kernels; CPU tensors run the plain versions,
 which are the port's own block functions (``GPTBlock._qkv`` and
 ``_block_tail``, ``final_ln``) composed as the JAX kernel composes them.
-The TPU kernel's vocab-tile autotune (``tune_mega_epilogue``,
-``_resolve_vb``) and its VMEM geometry cases have no counterpart: the
-kernels fix their tile widths in C and size the grid from the device
-(K9's row group and head ring from shared memory, ``logits_plan``).
+The tensor-core K9's launch plan ``(group, n, stages, grid)`` takes the
+place of the TPU kernel's vocab tile ``vb``: ``mega_logits_sample``
+takes it as ``plan=``; unset, a launch takes the autotune cache's entry
+for its shapes (``tune_mega_epilogue`` fills it, keyed as JAX's
+``_mega_tune_key`` plus the row count, on which the port's plan
+depends), else ``logits_plan``'s formula from the device's SM count and
+shared memory; ``geometry.logits_reason`` refuses a plan that cannot
+launch (the counterpart of ``_resolve_vb``'s VMEM clamp). The CUDA-core
+route has one plan. K8 fixes its tile widths in C and sizes its grid
+from the device; the JAX package tunes nothing of it either.
 """
 
 import ctypes
@@ -38,9 +44,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from paddle_tpu_torch.device import sm_count
 from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig, final_ln
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, autotune, geometry
 from paddle_tpu_torch.ops.paged_attention import (
     paged_decode_attention_reference)
 
@@ -50,7 +55,7 @@ __all__ = ["mega_decode_layers", "mega_decode_layers_reference",
            "MAX_ROWS", "MAX_HEAD_DIM", "MAX_GROUP", "MAX_D_MODEL",
            "mega_decode_layers_cost", "mega_logits_sample_cost",
            "PHASES", "phase_times", "logits_route", "logits_plan",
-           "logits_tile_range"]
+           "logits_tile_range", "logits_candidates", "tune_mega_epilogue"]
 
 # stacked-weight order of the kernel ABI (the JAX package's
 # decode_megakernel.py:77-79); a bias-free stack has no bias entries
@@ -67,17 +72,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (csrc/decode_megakernel.cu a_cap: 128 KB over 8 rows)
 MAX_D_MODEL = {torch.float32: 4096, torch.bfloat16: 8192}
 
-# K9 on the tensor cores (csrc/decode_megakernel.cu logits_kernel_sm90):
-# the wgmma widths a row group may take, the vocabulary columns of a tile,
-# a head box's bytes (64 x 64 bf16), the ring's depth, and the dynamic
-# shared memory a block may take (the card's 232,448 bytes less the
-# kernel's static arrays and a margin)
-_K9_WIDTHS = (8, 16, 32, 64)
-_K9_COLS = 64
-_K9_BOX = 64 * 64 * 2
+# the least ring of head boxes the tensor-core K9's formula plan leaves
+# beside a row group (ops/geometry.py holds the kernel's arithmetic)
 _K9_MIN_STAGES = 8
-_K9_MAX_STAGES = 16
-_K9_SMEM = 232448 - 2048
 
 # device scratch of the kernels, one set per (device, stream, geometry):
 # K8's q|k|v, o and MLP rows and its workspace (the grid barrier's word,
@@ -154,34 +151,57 @@ def logits_route(dtype, d_model, vocab, kmajor, aligned):
     return "cuda_cores"
 
 
-def logits_plan(rows, d_model, vocab, sms):
-    """The tensor-core K9's geometry for ``rows`` rows: ``(group, n,
+def logits_plan(rows, d_model, vocab, sms,
+                smem_optin=geometry.H100_SMEM_OPTIN):
+    """The tensor-core K9's formula plan for ``rows`` rows: ``(group, n,
     stages, grid)``. A group of rows is LayerNormed once into shared
     memory as the wgmma B operand, beside a ring of head boxes: the
     group holds as many rows as fit beside a ring of 8 boxes, at most
     64 (d_model 2048: 32), ``n`` is the narrowest wgmma width (8, 16, 32
     or 64) that holds the group, and the ring takes the rest of the
-    shared memory, at most 16 boxes. ``grid``: one block per SM, at most
-    one per 64-column vocabulary tile. The head is read once per group:
+    shared memory (the card's ``smem_optin`` less ``geometry.K9_STATIC``),
+    at most 16 boxes. ``grid``: one block per SM, at most one per
+    64-column vocabulary tile. The head is read once per group:
     ceil(rows / group) times."""
-    slab = -(-d_model // 64) * 128          # bytes of one row's depth
-    cap = max((n for n in _K9_WIDTHS
-               if n * slab + _K9_MIN_STAGES * _K9_BOX + 1024 <= _K9_SMEM),
+    limit = smem_optin - geometry.K9_STATIC
+    cap = max((n for n in geometry.K9_WIDTHS
+               if geometry.k9_smem(n, d_model, _K9_MIN_STAGES) <= limit),
               default=0)
     if cap == 0:
         raise ValueError(f"d_model {d_model} leaves no room for 8 rows "
                          f"beside the head ring")
     group = min(rows, cap)
-    n = min(w for w in _K9_WIDTHS if w >= group)
-    stages = min(_K9_MAX_STAGES, (_K9_SMEM - 1024 - n * slab) // _K9_BOX)
-    tiles = -(-vocab // _K9_COLS)
+    n = min(w for w in geometry.K9_WIDTHS if w >= group)
+    stages = min(geometry.K9_MAX_STAGES,
+                 (limit - geometry.k9_smem(n, d_model, 0)) // geometry.K9_BOX)
+    tiles = -(-vocab // geometry.K9_COLS)
     return group, n, stages, max(1, min(sms, tiles))
+
+
+def logits_candidates(rows, d_model, vocab, sms,
+                      smem_optin=geometry.H100_SMEM_OPTIN):
+    """K9's default tuning candidates at ``rows`` rows: row groups {8,
+    16, 32, 64} (at most ``rows``, each at the narrowest width that holds
+    it) x ring stages {4, 8, 16} x grids {sms, sms / 2, ceil(tiles / 4),
+    ceil(tiles / 8)} within the vocabulary's tiles, and the formula plan
+    where it is not among them. ``geometry.logits_reason`` refuses the
+    ones whose shared memory does not fit (a group must fit beside at
+    least one head box)."""
+    tiles = -(-vocab // geometry.K9_COLS)
+    grids = sorted({g for g in (sms, sms // 2, -(-tiles // 4),
+                                -(-tiles // 8)) if 1 <= g <= tiles})
+    cands = []
+    for group in sorted({min(g, rows) for g in geometry.K9_WIDTHS}):
+        n = min(w for w in geometry.K9_WIDTHS if w >= group)
+        cands += [(group, n, st, g) for st in (4, 8, 16) for g in grids]
+    formula = logits_plan(rows, d_model, vocab, sms, smem_optin)
+    return cands + ([formula] if formula not in cands else [])
 
 
 def logits_tile_range(block, vocab, grid):
     """The 64-column vocabulary tiles ``[begin, end)`` that block
     ``block`` of a ``grid``-block tensor-core K9 takes."""
-    tiles = -(-vocab // _K9_COLS)
+    tiles = -(-vocab // geometry.K9_COLS)
     return block * tiles // grid, (block + 1) * tiles // grid
 
 
@@ -427,7 +447,45 @@ def mega_decode_layers(x, weights, k_pages, v_pages, page_table, positions,
     return out
 
 
-def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
+_PLANS = autotune.memo()        # launch shape -> the cache's plan or None
+
+
+def _mega_tune_key(dm, vocab, dtype, layers, page, rows, device):
+    """The cache key of a K9 launch: JAX's (dm, vocab, dtype, layers,
+    page) plus the row count, which sets the port's plan, and the
+    device."""
+    return autotune.AutotuneCache.key(
+        "paged_mega", dm=dm, vocab=vocab, dtype=str(dtype), layers=layers,
+        page=page, rows=rows, device=autotune.device_key(device))
+
+
+def _resolve_plan(plan, rows, dm, vocab, dtype, layers, page, device):
+    """The tensor-core K9's plan: ``plan`` when given, else the autotune
+    cache's entry for these shapes (read once per shape and memoised),
+    else ``logits_plan``; its ring and grid clamped to what the card
+    holds (``geometry.clamp_logits``); ValueError with
+    ``geometry.logits_reason``'s reason when no clamp makes it launch
+    (a width K9 lacks, a group wider than its width, rows that leave no
+    room for one head box)."""
+    crd = geometry.card(device)
+    if plan is None:
+        shape = (rows, dm, vocab, dtype, layers, page, device)
+        if shape in _PLANS:
+            plan = _PLANS[shape]
+        else:
+            plan = _PLANS[shape] = autotune.get_cache().get(_mega_tune_key(
+                dm, vocab, dtype, layers, page, rows, device))
+        if plan is None:
+            return logits_plan(rows, dm, vocab, crd.sms, crd.smem_optin)
+    plan = geometry.clamp_logits(plan, dm, vocab, crd)
+    reason = geometry.logits_reason(plan, rows, dm, vocab, crd)
+    if reason:
+        raise ValueError(f"K9 plan {plan}: {reason}")
+    return plan
+
+
+def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None, plan=None,
+                       layers=0, page=0):
     """Fused final-norm -> logits -> greedy argmax epilogue (K9).
 
     x: (B, dm) rows after the last block; lnf_scale, lnf_bias: (dm,)
@@ -435,15 +493,27 @@ def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
     ``wte.t()`` view, whose (V, dm) rows the kernel reads along dm;
     poison: (B,) bool/int or None, rows forced non-finite. Returns (tok,
     nonfin), (B,) int32 each; a row's token is unspecified where its
-    flag is set."""
+    flag is set. ``plan``: the tensor-core route's ``(group, n, stages,
+    grid)`` (the module's docstring; the CUDA-core route takes none);
+    ``layers`` / ``page``: the folded geometry the autotune cache is
+    keyed by, as the engine passes them. No plan changes a token or a
+    flag."""
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"need x (B, dm) and w (dm, V), got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
-    if x.device.type == "cpu":
-        return mega_logits_sample_reference(x, lnf_scale, lnf_bias, w,
-                                            poison)
     b, dm = x.shape
     V = w.shape[1]
+    kmajor = w.stride() == (1, dm)
+    aligned = _aligned(x, w, lnf_scale, lnf_bias)
+    route = logits_route(x.dtype, dm, V, kmajor, aligned)
+    if plan is not None and route != "tensor_cores":
+        raise ValueError("the CUDA-core K9 has one plan: plan= is for the "
+                         "tensor-core route")
+    if x.device.type == "cpu":
+        if plan is not None:          # checked as the card would check it
+            _resolve_plan(plan, b, dm, V, x.dtype, layers, page, x.device)
+        return mega_logits_sample_reference(x, lnf_scale, lnf_bias, w,
+                                            poison)
     if b > MAX_ROWS:
         raise ValueError(f"the epilogue takes at most {MAX_ROWS} rows, "
                          f"got {b}")
@@ -456,7 +526,6 @@ def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
     if not isinstance(w, torch.Tensor) or w.dtype != x.dtype:
         raise TypeError("w must be a dense tensor in x's dtype (the "
                         "epilogue has no int8 head)")
-    kmajor = w.stride() == (1, dm)
     if not kmajor and not w.is_contiguous():
         raise ValueError("w must be (dm, V) row-major or a (V, dm) "
                          "tensor's transpose")
@@ -483,15 +552,13 @@ def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
     (ws,) = _scratch(("logits", x.device, stream.cuda_stream, b),
                      lambda: (torch.zeros((2 * b + 1,), dtype=torch.int64,
                                           device=x.device),))
-    aligned = _aligned(x, w, lnf_scale, lnf_bias)
-    route = logits_route(x.dtype, dm, V, kmajor, aligned)
     lib = _lib()
     mega_logits_sample.launches += 1
     poison_ptr = None if poison is None else poison.data_ptr()
     with torch.cuda.device(x.device):
         if route == "tensor_cores":
-            group, n, stages, grid = logits_plan(
-                b, dm, V, sm_count(x.device))
+            group, n, stages, grid = _resolve_plan(
+                plan, b, dm, V, x.dtype, layers, page, x.device)
             rc = lib.pt_mega_logits_sm90(
                 x.data_ptr(), lnf_scale.data_ptr(), lnf_bias.data_ptr(),
                 w.data_ptr(), poison_ptr, ws.data_ptr(), tok.data_ptr(),
@@ -511,3 +578,40 @@ def mega_logits_sample(x, lnf_scale, lnf_bias, w, poison=None):
 
 mega_decode_layers.launches = 0
 mega_logits_sample.launches = 0
+
+
+def tune_mega_epilogue(x, lnf_scale, lnf_bias, w, *, layers=0, page=0,
+                       candidates=None, iters=3):
+    """Measure the tensor-core K9's plans ``(group, n, stages, grid)`` at
+    these rows and head and cache the fastest under JAX's key plus the
+    row count (``_mega_tune_key``; ``autotune.tune``). Later launches of
+    the same shapes on this device without an explicit plan take it.
+    Candidates default to ``logits_candidates``;
+    ``geometry.logits_reason`` refuses the ones that cannot launch before
+    anything runs. On CUDA tensors the kernel is timed on the device; on
+    CPU tensors the plain version on the host's clock. A head the
+    CUDA-core route takes (fp32, or rows not 16-byte aligned) has one
+    plan: nothing is timed or cached and the return is ``(None, {})``.
+    Returns (plan, timings)."""
+    b, dm = x.shape
+    V = w.shape[1]
+    kmajor = w.stride() == (1, dm)
+    if logits_route(x.dtype, dm, V, kmajor,
+                    _aligned(x, w, lnf_scale, lnf_bias)) != "tensor_cores":
+        return None, {}
+    crd = geometry.card(x.device)
+    key = _mega_tune_key(dm, V, x.dtype, layers, page, b, x.device)
+    if candidates is None:
+        candidates = logits_candidates(b, dm, V, crd.sms, crd.smem_optin)
+    poison = torch.zeros((b,), dtype=torch.int32, device=x.device)
+
+    def build_and_run(plan):
+        mega_logits_sample(x, lnf_scale, lnf_bias, w, poison, plan=plan,
+                           layers=layers, page=page)
+
+    def geom_check(plan):
+        return geometry.logits_reason(plan, b, dm, V, crd)
+
+    return autotune.tune("paged_mega", key, candidates, build_and_run,
+                         iters=iters, geom_check=geom_check,
+                         device=x.device)

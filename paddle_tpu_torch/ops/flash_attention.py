@@ -28,6 +28,15 @@ the key length JAX pads to (``jax_key_stride`` of Sk), so both packages
 drop the same cells. The normaliser sums the un-dropped p; only p . v
 and, in the backward, dV and dP see the mask. The seed is an int or a
 0-dim integer tensor; the kernels read it from the device.
+
+K1's tile ``(block_q, block_k)`` (JAX's names) is an argument of
+``flash_attention``: explicit, else the autotune cache's entry for the
+call's shapes (``tune_flash_attention`` fills it), else the route's
+default. The bf16 route (D % 16 == 0) compiles 128-row query tiles with
+key tiles of 128 (two ring stages, the default) or 64 (three); the
+FP32-pipe route has one tile, (64, 32). ``geometry.flash_reason``
+refuses any other tile with a reason; none is coerced. K3 and K4 keep
+their own fixed tiles, whatever K1's.
 """
 
 import ctypes
@@ -36,12 +45,13 @@ from typing import Optional
 
 import torch
 
-from paddle_tpu_torch.ops import _build, _hash
+from paddle_tpu_torch.ops import _build, _hash, autotune, geometry
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_reference", "flash_attention_bwd_reference",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
-           "attention_bias", "MAX_HEAD_DIM", "flash_attention_cost"]
+           "attention_bias", "MAX_HEAD_DIM", "flash_attention_cost",
+           "tune_flash_attention"]
 
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -209,7 +219,7 @@ _EXTRA = [_VP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _VP,
           ctypes.c_uint, _F, _I]
 _ARGTYPES = {
     "pt_flash_attention_fwd": [_I] + [_VP] * 6 + [_I] * 7 + [_F] + _EXTRA
-    + [_VP],
+    + [_I, _VP],
     "pt_flash_attention_bwd_dkdv": [_I] + [_VP] * 9 + [_I] * 7 + [_F]
     + _EXTRA + [_VP],
     "pt_flash_attention_bwd_dq": [_I] + [_VP] * 8 + [_I] * 7 + [_F]
@@ -288,8 +298,9 @@ def _device_seed(dropout_p, seed, device):
     return (_hash.seed_tensor(seed, device) if dropout_p > 0.0 else None)
 
 
-def _launch(q, k, v, causal, scale, kv_lens, bias, dropout_p, dropout_seed):
-    """K1: (o, lse) for CUDA tensors."""
+def _launch(q, k, v, causal, scale, kv_lens, bias, dropout_p, dropout_seed,
+            block_k):
+    """K1: (o, lse) for CUDA tensors, with key tiles of ``block_k``."""
     _check_inputs(q, k, v, kv_lens, bias=bias)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -305,7 +316,7 @@ def _launch(q, k, v, causal, scale, kv_lens, bias, dropout_p, dropout_seed):
         rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), _ptr(kv_lens), o.data_ptr(), lse.data_ptr(),
                 b, sq, sk, hq, hkv, d, int(bool(causal)), float(scale),
-                *_extra(bias, dropout_p, seed, sk), stream)
+                *_extra(bias, dropout_p, seed, sk), int(block_k), stream)
     _build.check(lib, rc, "flash_attention_fwd launch")
     return o, lse
 
@@ -379,17 +390,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
 class _Flash(torch.autograd.Function):
     """(o, lse) = attention(q, k, v); the backward recomputes P from the
     saved LSE and replays the dropout mask from the seed. ``plain`` runs
-    the plain versions, else the kernels. The bias gets no gradient."""
+    the plain versions, else the kernels (K1 with key tiles of
+    ``block_k``). The bias gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, bias, causal, scale, dropout_p,
-                seed, plain):
+                seed, plain, block_k):
         drop = (dropout_p, seed)
         if plain:
             o, lse = flash_attention_reference(q, k, v, causal, scale,
                                                kv_lens, bias, *drop)
         else:
-            o, lse = _launch(q, k, v, causal, scale, kv_lens, bias, *drop)
+            o, lse = _launch(q, k, v, causal, scale, kv_lens, bias, *drop,
+                             block_k)
         ctx.save_for_backward(q, k, v, o, lse, kv_lens, bias)
         ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
         ctx.drop = drop
@@ -412,11 +425,52 @@ class _Flash(torch.autograd.Function):
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                         ctx.causal, ctx.scale, kv_lens,
                                         bias, *ctx.drop)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
+
+
+_BLOCKS = autotune.memo()       # call shape -> the cache's tile or None
+
+
+def _tune_key(b, sq, sk, h_q, h_kv, d, dtype, causal, has_kvlens,
+              has_bias, has_dropout, device):
+    """JAX's ``_tune_key`` plus the device."""
+    return autotune.AutotuneCache.key(
+        "flash_attention", b=b, sq=sq, sk=sk, hq=h_q, hkv=h_kv, d=d,
+        dtype=str(dtype), causal=bool(causal), kvlens=bool(has_kvlens),
+        bias=bool(has_bias), dropout=bool(has_dropout),
+        device=autotune.device_key(device))
+
+
+def _resolve_blocks(block_q, block_k, b, sq, sk, hq, hkv, d, dtype, causal,
+                    has_kvlens, has_bias, has_dropout, device):
+    """K1's tile: explicit, else the autotune cache's entry for these
+    shapes (read once per shape and memoised), else the route's default
+    (``geometry.flash_tiles``: the last, 128 keys on the bf16 route);
+    ValueError with ``geometry.flash_reason``'s reason for a tile the
+    card cannot launch."""
+    if block_q is None or block_k is None:
+        shape = (b, sq, sk, hq, hkv, d, dtype, causal, has_kvlens, has_bias,
+                 has_dropout, device)
+        if shape in _BLOCKS:
+            hit = _BLOCKS[shape]
+        else:
+            hit = _BLOCKS[shape] = autotune.get_cache().get(_tune_key(
+                b, sq, sk, hq, hkv, d, dtype, causal, has_kvlens, has_bias,
+                has_dropout, device))
+        tuned = hit if hit is not None else geometry.flash_tiles(dtype,
+                                                                 d)[-1]
+        block_q = tuned[0] if block_q is None else block_q
+        block_k = tuned[1] if block_k is None else block_k
+    reason = geometry.flash_reason(int(block_q), int(block_k), dtype, d,
+                                   geometry.card(device))
+    if reason:
+        raise ValueError(f"flash_attention tile ({block_q}, {block_k}): "
+                         f"{reason}")
+    return int(block_q), int(block_k)
 
 
 def _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p, dropout_seed,
-            return_lse, plain):
+            return_lse, plain, block_q=None, block_k=None):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B,Sq,Hq,D) and k/v (B,Sk,Hkv,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -439,12 +493,17 @@ def _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p, dropout_seed,
         scale = 1.0 / math.sqrt(d)
     if bias is not None:
         bias = attention_bias(bias, b, hq, sq, sk).detach()
+    _, block_k = _resolve_blocks(block_q, block_k, b, sq, sk, hq,
+                                 k.shape[2], d, q.dtype, bool(causal),
+                                 kv_lens is not None, bias is not None,
+                                 dropout_p > 0.0, q.device)
     # the seed goes to q's device once, so the backward replays the
     # forward's mask from the same tensor
     seed = (_hash.seed_tensor(dropout_seed, q.device) if dropout_p > 0.0
             else None)
     o, lse = _Flash.apply(q, k, v, kv_lens, bias, bool(causal),
-                          float(scale), float(dropout_p), seed, plain)
+                          float(scale), float(dropout_p), seed, plain,
+                          block_k)
     return (o, lse) if return_lse else o
 
 
@@ -452,7 +511,9 @@ def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     kv_lens: Optional[torch.Tensor] = None, bias=None,
                     dropout_p: float = 0.0, dropout_seed=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
     """Flash attention over (B, S, H, D) inputs; returns o (B, Sq, Hq, D)
     and, with ``return_lse``, the (B * Hq, Sq) fp32 log-sum-exp.
     Differentiable in q, k and v.
@@ -465,25 +526,79 @@ def flash_attention(q, k, v, causal: bool = False,
     integer tensor such as ``key_seed`` gives) drops probabilities by
     the JAX kernels' hash. CUDA tensors launch K1 and,
     in the backward, K3 and K4 (float32 or bfloat16, D <= 128); CPU
-    tensors run the plain versions.
+    tensors run the plain versions. ``block_q`` / ``block_k``: K1's tile
+    (the module's docstring); unset, the cache's or the route's default.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     return _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p,
-                   dropout_seed, return_lse, plain=q.device.type == "cpu")
+                   dropout_seed, return_lse, plain=q.device.type == "cpu",
+                   block_q=block_q, block_k=block_k)
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
                           scale: Optional[float] = None,
                           kv_lens: Optional[torch.Tensor] = None, bias=None,
                           dropout_p: float = 0.0, dropout_seed=None,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          block_q: Optional[int] = None,
+                          block_k: Optional[int] = None):
     """``flash_attention`` through the plain versions on any device (the
     forward ``flash_attention_reference``, the backward
     ``flash_attention_bwd_reference``): the function the kernels are
-    held against on the card. Launches nothing."""
+    held against on the card. Launches nothing; a tile is checked as
+    ``flash_attention`` checks it, and changes nothing."""
     return _attend(q, k, v, causal, scale, kv_lens, bias, dropout_p,
-                   dropout_seed, return_lse, plain=True)
+                   dropout_seed, return_lse, plain=True, block_q=block_q,
+                   block_k=block_k)
+
+
+def tune_flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
+                         bias=None, dropout_p=0.0, dropout_seed=None,
+                         candidates=None, include_bwd=True, iters=3):
+    """Measure K1's tiles ``(block_q, block_k)`` on these shapes and cache
+    the fastest under JAX's ``_tune_key`` plus the device
+    (``autotune.tune``); later ``flash_attention`` calls of the same
+    shapes on this device without explicit tiles take it. Candidates
+    default to the tiles the route compiles (``geometry.flash_tiles``);
+    JAX's list ((128, 128) ... (1024, 512)) may be passed, and
+    ``geometry.flash_reason`` refuses what the library does not compile
+    before anything runs. With ``include_bwd`` each run is the forward
+    and the backward through the autograd Function (K1, then K3 and K4,
+    whose tiles are fixed), as JAX times ``jax.grad``. On CUDA tensors
+    the kernels are timed on the device; on CPU tensors the plain
+    versions on the host's clock. The FP32-pipe route (fp32, or D % 16
+    != 0) has one tile: with no candidates given it is returned untimed
+    and uncached. Returns ((block_q, block_k), timings)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    tiles = geometry.flash_tiles(q.dtype, d)
+    if candidates is None:
+        if len(tiles) == 1:
+            return tiles[0], {}
+        candidates = list(tiles)
+    key = _tune_key(b, sq, sk, hq, hkv, d, q.dtype, causal,
+                    kv_lens is not None, bias is not None, dropout_p > 0.0,
+                    q.device)
+    crd = geometry.card(q.device)
+    leaves = [t.detach().requires_grad_(include_bwd) for t in (q, k, v)]
+    do = torch.ones_like(q)
+
+    def build_and_run(cfg):
+        o = flash_attention(*leaves, causal=causal, scale=scale,
+                            kv_lens=kv_lens, bias=bias, dropout_p=dropout_p,
+                            dropout_seed=dropout_seed, block_q=cfg[0],
+                            block_k=cfg[1])
+        if include_bwd:
+            torch.autograd.grad(o, leaves, do)
+
+    def geom_check(cfg):
+        return geometry.flash_reason(int(cfg[0]), int(cfg[1]), q.dtype, d,
+                                     crd)
+
+    return autotune.tune("flash_attention", key, candidates, build_and_run,
+                         iters=iters, geom_check=geom_check,
+                         device=q.device)
 
 
 flash_attention.launches = 0

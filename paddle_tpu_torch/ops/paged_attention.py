@@ -17,11 +17,18 @@ in-place write is race-free under a cluster.
   row ``lengths[b] % page``. The pools are updated IN PLACE (the JAX
   kernel aliases them); the returned pools are the same tensors.
 
-CUDA tensors launch the kernel; CPU tensors run the plain version. The
-TPU kernel's (pages_per_program, head_block) autotune geometry has no
-counterpart: the launch geometry comes from static shapes alone (the
-table's width, the (row, kv head) pairs; ``cluster_size``,
-``ring_stages``), so the host never reads lengths.
+CUDA tensors launch the kernel; CPU tensors run the plain version.
+
+The launch plan is ``(splits, stages)``: the blocks of the cluster that
+walks one (row, kv head) and the slots of a block's ring. These are the
+port's knobs in place of the TPU kernel's ``(pages_per_program,
+head_block)``, whose DMA-per-page geometry has no counterpart on the
+card. Both wrappers take them as arguments; unset, a launch takes the
+autotune cache's entry for its shapes (``tune_paged_attention`` fills
+it), else the formula plan of static shapes (``cluster_size``,
+``ring_stages``: the table's width and the (row, kv head) pairs), so the
+host never reads lengths; the plan is then clamped to validity
+(``geometry.clamp_paged``).
 """
 
 import ctypes
@@ -31,19 +38,20 @@ from typing import List
 import torch
 
 from paddle_tpu_torch.device import sm_count
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, autotune, geometry
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "paged_append_attend", "paged_append_attend_reference",
            "PageAllocator", "MAX_GROUP", "MAX_HEAD_DIM", "cluster_size",
            "ring_stages", "paged_decode_attention_cost",
-           "paged_append_attend_cost"]
+           "paged_append_attend_cost", "tune_paged_attention",
+           "paged_candidates"]
 
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
-MAX_SPLITS = 8
-MAX_STAGES = 4
-TILE_ROWS = 16                 # pool rows a bulk-copied tile holds
+MAX_SPLITS = geometry.PAGED_MAX_SPLITS
+MAX_STAGES = geometry.PAGED_MAX_STAGES
+TILE_ROWS = geometry.PAGED_TILE_ROWS   # pool rows a bulk-copied tile holds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK_FLOOR = -1e30
 
@@ -70,6 +78,46 @@ def ring_stages(max_pages, page, splits):
     get, ceil(T / (16 * splits)), at most MAX_STAGES (4), at least 1."""
     t = max_pages * page
     return max(1, min(MAX_STAGES, -(-t // (TILE_ROWS * splits))))
+
+
+_PLANS = autotune.memo()        # launch shape -> the cache's plan or None
+
+
+def _tune_key(page, hkv, d, dtype, group, fused, table_rows, pairs,
+              device):
+    """The cache key of a launch: the JAX key's (page, Hkv, D, dtype,
+    group) per mode, plus what sets the port's plan: the table's width
+    in rows, the (row, kv head) pairs, and the device."""
+    return autotune.AutotuneCache.key(
+        "paged_append" if fused else "paged_attention", page=page, hkv=hkv,
+        d=d, dtype=str(dtype), group=group, table=table_rows, pairs=pairs,
+        device=autotune.device_key(device))
+
+
+def _resolve_config(splits, stages, max_pages, page, pairs, hkv, d, dtype,
+                    group, fused, device, sms):
+    """The launch plan ``(splits, stages)``: an explicit argument wins,
+    else the autotune cache's entry for these shapes (read once per shape
+    and memoised), else ``cluster_size`` / ``ring_stages``; then clamped
+    to validity (``geometry.clamp_paged``)."""
+    if splits is None or stages is None:
+        shape = (max_pages, page, pairs, hkv, d, dtype, group, fused,
+                 device)
+        if shape in _PLANS:
+            hit = _PLANS[shape]
+        else:
+            hit = _PLANS[shape] = autotune.get_cache().get(_tune_key(
+                page, hkv, d, dtype, group, fused, max_pages * page, pairs,
+                device))
+        if hit is not None:
+            splits = hit[0] if splits is None else splits
+            stages = hit[1] if stages is None else stages
+        else:
+            if splits is None:
+                splits = cluster_size(max_pages, page, pairs, sms)
+            if stages is None:
+                stages = ring_stages(max_pages, page, splits)
+    return geometry.clamp_paged(splits, stages, max_pages, page)
 
 
 def paged_decode_attention_cost(lengths, n_heads, kv_heads, head_dim,
@@ -228,7 +276,8 @@ def _check_operands(q, k_pages, v_pages, page_table, lengths, k_row=None,
 
 
 def _launch(q, k_pages, v_pages, page_table, lengths, scale, stats,
-            k_row=None, v_row=None, write_pids=None):
+            k_row=None, v_row=None, write_pids=None, splits=None,
+            stages=None):
     b, hq, d = q.shape
     hkv, page = k_pages.shape[1], k_pages.shape[2]
     o = torch.empty_like(q)
@@ -242,8 +291,9 @@ def _launch(q, k_pages, v_pages, page_table, lengths, scale, stats,
     wrapper = paged_decode_attention if k_row is None else \
         paged_append_attend
     max_pages = page_table.shape[1]
-    splits = cluster_size(max_pages, page, b * hkv, sm_count(q.device))
-    stages = ring_stages(max_pages, page, splits)
+    splits, stages = _resolve_config(
+        splits, stages, max_pages, page, b * hkv, hkv, d, q.dtype,
+        hq // hkv, k_row is not None, q.device, sm_count(q.device))
     ptrs = [t for t in (q, k_pages, v_pages, k_row, v_row, o)
             if t is not None]
     aligned = int(d * q.element_size() % 16 == 0
@@ -263,14 +313,17 @@ def _launch(q, k_pages, v_pages, page_table, lengths, scale, stats,
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
-                           scale=None, return_stats=False):
+                           scale=None, return_stats=False, splits=None,
+                           stages=None):
     """One query row per sequence over a PAGED KV pool (K2').
 
     q (B, Hq, D); pools (P, Hkv, page, D); page_table (B, max_pages)
     int32, entries past ceil(lengths[b] / page) ignored; lengths (B,)
     int32. Returns o (B, Hq, D) in q's dtype, and with ``return_stats``
     also m, l (B, Hq) fp32 — the running max (-inf for an empty row) and
-    the softmax denominator."""
+    the softmax denominator. ``splits`` / ``stages``: the launch plan
+    (the module's docstring); unset, the cache's or the formula's. The
+    plan changes no result beyond fp32 summation order."""
     _check_operands(q, k_pages, v_pages, page_table, lengths)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -278,19 +331,21 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
         return paged_decode_attention_reference(
             q, k_pages, v_pages, page_table, lengths, scale, return_stats)
     o, m, l = _launch(q, k_pages, v_pages, page_table, lengths, scale,
-                      return_stats)
+                      return_stats, splits=splits, stages=stages)
     return (o, m, l) if return_stats else o
 
 
 def paged_append_attend(q, k_pages, v_pages, k_row, v_row, page_table,
-                        write_pids, lengths, scale=None):
+                        write_pids, lengths, scale=None, splits=None,
+                        stages=None):
     """FUSED append+attend decode step over a paged KV pool (K2).
 
     Attends row b over its prefix [0, lengths[b]) plus its fresh row
     (k_row/v_row (B, Hkv, D) in pool dtype), and writes the fresh row
     into ``k_pages/v_pages[write_pids[b], :, lengths[b] % page, :]`` IN
     PLACE. Callers point inactive rows' ``write_pids`` at a scratch page.
-    Returns (o, k_pages, v_pages); the pools are the input tensors."""
+    Returns (o, k_pages, v_pages); the pools are the input tensors.
+    ``splits`` / ``stages``: as for ``paged_decode_attention``."""
     _check_operands(q, k_pages, v_pages, page_table, lengths, k_row, v_row,
                     write_pids)
     if scale is None:
@@ -300,12 +355,72 @@ def paged_append_attend(q, k_pages, v_pages, k_row, v_row, page_table,
             q, k_pages, v_pages, k_row, v_row, page_table, write_pids,
             lengths, scale)
     o, _, _ = _launch(q, k_pages, v_pages, page_table, lengths, scale,
-                      False, k_row, v_row, write_pids)
+                      False, k_row, v_row, write_pids, splits, stages)
     return o, k_pages, v_pages
 
 
 paged_decode_attention.launches = 0
 paged_append_attend.launches = 0
+
+
+def paged_candidates(max_pages, page, pairs, sms):
+    """K2's default tuning candidates: splits {1, 2, 4, 8} x stages {1,
+    2, 4}, and the formula plan where it is not among them (the guard
+    refuses what cannot launch)."""
+    cands = [(s, st) for s in (1, 2, 4, 8) for st in (1, 2, 4)]
+    splits = cluster_size(max_pages, page, pairs, sms)
+    formula = (splits, ring_stages(max_pages, page, splits))
+    return cands + ([formula] if formula not in cands else [])
+
+
+def tune_paged_attention(q, k_pages, v_pages, page_table, lengths,
+                         scale=None, fused=True, candidates=None, iters=3):
+    """Measure K2 (``fused``) or K2' launch plans ``(splits, stages)`` on
+    these shapes and cache the fastest (``autotune.tune``; the JAX
+    tuner's knobs are ``(pages_per_program, head_block)``, see the
+    module's docstring). Later launches of the same shapes on this device
+    without an explicit plan take it. Candidates default to
+    ``paged_candidates``; ``geometry.paged_reason`` refuses the ones that
+    cannot launch before anything runs. On CUDA tensors the kernel is
+    timed on the device; on CPU tensors the plain version on the host's
+    clock (its result is the same for every plan).
+
+    The fused timing writes zero rows into the pools IN PLACE, at row
+    ``lengths[b] % page`` of page ``page_table[b, 0]``, as K2 does:
+    tune on throwaway pools. Keyed as ``_tune_key``. Returns (config,
+    timings)."""
+    b, hq, d = q.shape
+    hkv, page = k_pages.shape[1], k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    group = hq // hkv
+    crd = geometry.card(q.device)
+    key = _tune_key(page, hkv, d, q.dtype, group, fused, max_pages * page,
+                    b * hkv, q.device)
+    if candidates is None:
+        candidates = paged_candidates(max_pages, page, b * hkv, crd.sms)
+    if fused:
+        k_row = torch.zeros((b, hkv, d), dtype=k_pages.dtype,
+                            device=q.device)
+        v_row = torch.zeros_like(k_row)
+        wpids = page_table[:, 0].contiguous()
+
+    def build_and_run(cfg):
+        splits, stages = cfg
+        if fused:
+            paged_append_attend(q, k_pages, v_pages, k_row, v_row,
+                                page_table, wpids, lengths, scale,
+                                splits=splits, stages=stages)
+        else:
+            paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                                   scale, splits=splits, stages=stages)
+
+    def geom_check(cfg):
+        return geometry.paged_reason(cfg[0], cfg[1], max_pages, page, group,
+                                     d, q.element_size(), crd)
+
+    return autotune.tune("paged_append" if fused else "paged_attention",
+                         key, candidates, build_and_run, iters=iters,
+                         geom_check=geom_check, device=q.device)
 
 
 class PageAllocator:

@@ -1211,7 +1211,10 @@ def test_flash_kernels_each_bias_dropout_build(dev, dtype, with_bias, p):
 def test_incubate_encoder_block_on_gpu_matches_plain(dev):
     """One BERT-shaped post-LN block of the incubate functionals through
     the kernels (K1, K3, K4, K11) against the same block through their
-    plain versions, dropout on, in fp32."""
+    plain versions, dropout on, in fp32: both under one context key, so
+    both draw the same masks."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import random as prng
     B, S, L = 2, 128, 1
     w = chip_smoke.encoder_weights(torch, dev, L, 128, 2, 512,
                                    dtype=torch.float32)
@@ -1222,18 +1225,18 @@ def test_incubate_encoder_block_on_gpu_matches_plain(dev):
             < torch.tensor([[S], [77]], device=dev))[:, None, None, :]
     res = []
     for plain in (True, False):
-        g.manual_seed(1)
         for t in w.values():
             t.grad = None
-        if plain:
-            with chip_smoke.plain_kernels():
-                out = chip_smoke.encoder_forward(w, x, mask, g, L)
+        with pnn.stateful(training=True, rng=prng.PRNGKey(1)):
+            if plain:
+                with chip_smoke.plain_kernels():
+                    out = chip_smoke.encoder_forward(w, x, mask, L)
+                    out.square().mean().backward()
+            else:
+                chip_smoke._zero_counters()
+                out = chip_smoke.encoder_forward(w, x, mask, L)
                 out.square().mean().backward()
-        else:
-            chip_smoke._zero_counters()
-            out = chip_smoke.encoder_forward(w, x, mask, g, L)
-            out.square().mean().backward()
-            launches = chip_smoke._read_counters()
+                launches = chip_smoke._read_counters()
         res.append([out.detach()] + [t.grad for t in w.values()])
     torch.cuda.synchronize()
     assert launches["fused_layer_norm"] == L
@@ -1284,3 +1287,171 @@ def test_launch_floor_is_one_empty_kernel(dev):
                                     for name, _ in events), events
     with pytest.raises(ValueError):
         launch_floor("cpu")
+
+
+# ---- the launch plans the autotuner chooses from (ops/autotune.py) ------
+
+@pytest.mark.parametrize("block_k", [64, 128])
+@pytest.mark.parametrize("b, sq, sk, hq, hkv, d, causal, bshape, lens, p", [
+    (2, 256, 256, 4, 4, 128, True, None, None, 0.0),
+    (1, 200, 200, 2, 2, 64, True, None, [130], 0.0),
+    (2, 190, 190, 16, 4, 128, True, (2, 1, 1, 190), [190, 70], 0.1),
+    (2, 100, 300, 4, 2, 64, False, (1, 4, 100, 300), [300, 65], 0.2),
+    (1, 129, 129, 2, 1, 128, False, (1, 1, 1, 129), None, 0.1),
+    (2, 512, 512, 12, 12, 64, False, (2, 1, 1, 512), [512, 128], 0.1),
+])
+def test_flash_each_key_tile_matches_plain(dev, block_k, b, sq, sk, hq, hkv,
+                                           d, causal, bshape, lens, p):
+    """K1's 64- and 128-key instances against the plain version in bf16:
+    the causal diagonal, kv_len inside a 64-key tile, a ragged last tile,
+    the bias, the dropout hash's columns (Sk 300: its row stride 512)
+    and the LSE, within 2^-7 relative L2 per 64-row tile; then K3 and
+    K4 (fixed tiles) on each tile's LSE against the plain backward."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(block_k + sq)
+    bf = torch.bfloat16
+    q = _randn(gen, (b, sq, hq, d), bf, dev)
+    k = _randn(gen, (b, sk, hkv, d), bf, dev)
+    v = _randn(gen, (b, sk, hkv, d), bf, dev)
+    do = _randn(gen, (b, sq, hq, d), bf, dev)
+    bias = (None if bshape is None
+            else torch.randn(bshape, generator=gen, device=dev))
+    kv_lens = (None if lens is None
+               else torch.tensor(lens, dtype=torch.int32, device=dev))
+    kw = dict(causal=causal, kv_lens=kv_lens, bias=bias, dropout_p=p,
+              dropout_seed=3 if p else None)
+    res = []
+    for fn, cast, tile in ((flash_attention, lambda t: t, block_k),
+                           (fa.flash_attention_plain, lambda t: t.float(),
+                            None)):
+        ts = [cast(t).clone().requires_grad_() for t in (q, k, v)]
+        before = flash_attention.launches
+        o, lse = fn(*ts, return_lse=True, block_q=tile and 128,
+                    block_k=tile, **kw)
+        o.backward(cast(do))
+        res.append((o.detach(), lse, [t.grad for t in ts]))
+        if tile:
+            assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    (o, lse, grads), (ro, rlse, rgrads) = res
+    assert chip_smoke.tile_rel_l2(o, ro)[0] <= chip_smoke.REL_L2_TOL
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+    for g, r in zip(grads, rgrads):
+        assert (g.float() - r).abs().max().item() <= TOL[bf](r)
+
+
+def test_flash_refuses_a_tile_it_does_not_compile(dev):
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="compiles the tiles"):
+        flash_attention(q, q, q, block_q=128, block_k=256)
+    with pytest.raises(ValueError, match="compiles the tiles"):
+        flash_attention(q.float(), q.float(), q.float(), block_k=128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+def test_paged_kernels_under_every_plan_match_plain(dev, dtype, splits,
+                                                    stages):
+    """K2' and K2 at the per-layer engine's geometry under every plan
+    (splits, stages): outputs per (row, head) within REL_L2_TOL of the
+    plain version, the fresh rows written exactly."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10 * splits + stages)
+    q, kp, vp, table, lens, page = _paged_geometry(gen, dev, dtype,
+                                                   "engine", 16)
+    o = paged_decode_attention(q, kp, vp, table, lens, splits=splits,
+                               stages=stages)
+    ro = paged_decode_attention_reference(q.float(), kp, vp, table, lens)
+    b, hkv, d = q.shape[0], kp.shape[1], q.shape[-1]
+    k_row = _randn(gen, (b, hkv, d), dtype, dev)
+    v_row = _randn(gen, (b, hkv, d), dtype, dev)
+    wp = table.gather(1, (lens // page).long()[:, None])[:, 0].contiguous()
+    kp1, vp1, kp2, vp2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    of, _, _ = paged_append_attend(q, kp1, vp1, k_row, v_row, table, wp,
+                                   lens, splits=splits, stages=stages)
+    rof, _, _ = paged_append_attend_reference(q.float(), kp2, vp2, k_row,
+                                              v_row, table, wp, lens)
+    torch.cuda.synchronize()
+    worst, empty = _row_rel_l2(o, ro, lens)
+    assert worst <= chip_smoke.REL_L2_TOL and empty == 0.0
+    assert chip_smoke.rel_l2(of, rof, (2,)).max().item() <= \
+        chip_smoke.REL_L2_TOL
+    assert torch.equal(kp1, kp2) and torch.equal(vp1, vp2)
+
+
+@pytest.mark.parametrize("rows", [8, 32, 64])
+def test_mega_logits_every_plan_gives_the_same_tokens(dev, rows):
+    """The tensor-core K9 under every candidate plan the guard lets
+    through (groups, ring depths, grids) on the gpt3_1p3b tied head with
+    the planted tie, overflow and poisoned row: tokens and flags equal
+    the formula plan's bit for bit, and that one passes
+    mega_logits_check against the plain version."""
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import geometry
+    dm, V = 2048, 50304
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rows)
+    x = _randn(gen, (rows, dm), torch.bfloat16, dev)
+    wte = (0.02 * torch.randn((V, dm), generator=gen,
+                              device=dev)).to(torch.bfloat16)
+    s = 1.0 + 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((dm,), generator=gen, device=dev)
+    x, w, poison, ties = chip_smoke.mega_logits_inputs(torch, x, wte, s, b)
+    head = w.t()
+    crd = geometry.card(dev)
+    tok, nf = mega_logits_sample(x, s, b, head, poison)
+    rec = chip_smoke.mega_logits_check(
+        tok, nf, epilogue_logits(x, s, b, head, poison),
+        mega_logits_sample_reference(x, s, b, head, poison)[1], ties)
+    assert rec["ok"], rec
+    plans = [p for p in mk.logits_candidates(rows, dm, V, crd.sms,
+                                             crd.smem_optin)
+             if geometry.logits_reason(p, rows, dm, V, crd) is None]
+    assert len(plans) > 6
+    for plan in plans:
+        t2, f2 = mega_logits_sample(x, s, b, head, poison, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(t2, tok) and torch.equal(f2, nf), plan
+
+
+def test_tuners_time_the_kernels_and_hit_the_cache(dev, tmp_path):
+    """Each tuner on the card: every timed candidate launched the kernel
+    (never the plain version), the winner is cached under the card's
+    key, and a second call hits the cache and launches nothing."""
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import decode_megakernel as mk
+    from paddle_tpu_torch.ops import paged_attention as pa
+    at.use_cache(str(tmp_path / "autotune.json"))
+    try:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        q, kp, vp, table, lens, _ = _paged_geometry(
+            gen, dev, torch.bfloat16, "engine", 16)
+        x = _randn(gen, (8, 2048), torch.bfloat16, dev)
+        wte = _randn(gen, (50304, 2048), torch.bfloat16, dev)
+        s = torch.ones((2048,), device=dev)
+        qa = _randn(gen, (2, 256, 4, 64), torch.bfloat16, dev)
+        calls = [
+            (pa.paged_append_attend,
+             lambda: pa.tune_paged_attention(q, kp, vp, table, lens,
+                                             iters=2)),
+            (pa.paged_decode_attention,
+             lambda: pa.tune_paged_attention(q, kp, vp, table, lens,
+                                             fused=False, iters=2)),
+            (mega_logits_sample,
+             lambda: mk.tune_mega_epilogue(x, s, s, wte.t(), iters=2)),
+            (flash_attention,
+             lambda: fa.tune_flash_attention(qa, qa, qa, causal=True,
+                                             iters=2))]
+        for wrapper, call in calls:
+            before = wrapper.launches
+            best, timings = call()
+            assert best in timings and all(t > 0 for t in timings.values())
+            assert wrapper.launches - before >= 4 * len(timings)
+            assert "SMs)" in at.history[-1]["key"]
+            before = wrapper.launches
+            assert call() == (best, {})
+            assert wrapper.launches == before
+    finally:
+        at.use_cache()
