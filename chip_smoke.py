@@ -332,7 +332,36 @@ Phases, each fatal on failure:
    plan's and the winner's, each K1 tile's forward device ms (also at
    phase 14's encoder shape with kv_lens, checked as in (c)), the card.
 
-Phases 11, 4, 12, 6-10, 21, 22 and 25 run before 5 (which needs the
+26. KV across engines on one host (``kv_handoff_phase``) — the same
+   gpt3_1p3b (bf16, seed 0), 8 prompts of 192 tokens (two pages: 50.3 MB
+   of K+V a request), 32 new tokens each, every engine sharing the
+   model's weights in this process: (a) one default paged engine
+   (single-dispatch) serves them, and a contiguous one (cache 2048)
+   too; (b) a ``prefill_only`` paged engine detaches each request, the
+   fp32 wire carries it over the socket plane (one ``KVTransport``
+   offers, a second fetches over loopback) into
+   ``FrontEnd(decode engine).submit_handoff``: streams token for token
+   (a)'s, installed rows byte-equal to the sender's; (c) the same
+   handoffs on the int8 and fp8 wires over the store plane (the port's
+   ``TCPStore``): every budget complete, every installed row within its
+   block's half step (``kv_wire_check``), the wire ratio and the share
+   of streams equal to (a) reported; (d) a mid-decode migration after 8
+   decode steps, paged -> paged, contiguous -> contiguous, paged ->
+   contiguous and contiguous -> paged, fp32 wire: same-kind streams
+   token for token uninterrupted serving's, cross-kind ones complete
+   with installed rows byte-equal (the share equal to the source's
+   stream reported); (e) two paged engines on one store through
+   ``FleetPrefixDirectory`` (fp32): B's prompt shares A's first 256
+   tokens and must hit the fleet (``serve/fleet_prefix_hit_tokens`` >=
+   256, one suffix prefill through K2', no K1), its stream equal to one
+   engine without a fleet serving A's prompt and then B's. Launches
+   checked per part (``serve_expected``), and K1, K2', K8, K9 and K10
+   must all launch. Printed per handoff, beside the card: detach,
+   encode, offer / publish, fetch and decode ms (host clock) and install
+   ms (CUDA events around the ``index_copy_``), logical and wire bytes;
+   the phase's seconds.
+
+Phases 11, 4, 12, 6-10, 21, 22, 25 and 26 run before 5 (which needs the
 card's memory for training), 13, 14 and 17 before them, 19 (and its sweep)
 right after 5, 20 after the sweep, 15, 16, 23, 24 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
@@ -3755,6 +3784,473 @@ def autotune_phase(torch, dev, model):
     return {"autotune": served}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: KV across engines on one host — prefill-only engines, the KV
+# wire on the socket and store planes, mid-decode migration, the fleet
+# prefix directory
+# ---------------------------------------------------------------------------
+
+KV_PROMPT = 192           # tokens a request: two 128-row pages
+KV_NEW = 32
+KV_PAGES = 64
+KV_MIGRATE_STEPS = 8      # decode steps before a mid-decode detach
+KV_FLEET_PROMPT = 320     # replica A's prompt; B shares its first 256
+KV_FLEET_SHARED = 256
+KV_LIMIT_S = 30.0         # the phase's share of the script's time
+# the kernels this path must launch, by counter
+KV_PATH_KERNELS = {"K1": "flash_attention", "K2'": "paged_decode_attention",
+                   "K8": "mega_decode_layers", "K9": "mega_logits_sample",
+                   "K10": "decode_attention"}
+
+
+def kv_rows(k, n):
+    """(L, npages, Hkv, page, D) pages -> their first ``n`` rows as one
+    contiguous (L, Hkv, n, D) tensor."""
+    L, npg, H, page, D = k.shape
+    return k.transpose(1, 2).reshape(L, H, npg * page, D)[:, :, :n] \
+        .contiguous()
+
+
+def kv_installed(eng, req):
+    """The (K, V) rows [0, n) that ``req``'s slot of ``eng`` holds, as
+    (L, Hkv, n, D) CPU tensors: a paged engine's through its page table,
+    a contiguous engine's from its caches."""
+    slot = eng._slot_req.index(req)
+    n = req.kv_ntok
+    if hasattr(eng, "_tables"):
+        pages = eng._read_pages(eng._tables[slot][:-(-n // eng.page)])
+        return tuple(kv_rows(t, n) for t in pages)
+    return (eng.kc[:, slot, :, :n].cpu().contiguous(),
+            eng.vc[:, slot, :, :n].cpu().contiguous())
+
+
+def kv_bits_equal(torch, got, sent):
+    """Each of the (K, V) row tensors ``got`` byte-equal to ``sent``'s."""
+    def bits(t):
+        return t.contiguous().view({1: torch.int8, 2: torch.int16,
+                                    4: torch.int32}[t.element_size()])
+    return all(g.shape == s.shape and torch.equal(bits(g), bits(s))
+               for g, s in zip(got, sent))
+
+
+def kv_wire_check(torch, got, sent, n, wire, block):
+    """Rows [0, n) a receiver installed from a lossy wire (``got``,
+    (L, Hkv, n, D)) against the sender's pages (``sent``, (L, npages,
+    Hkv, page, D), the pool dtype): every element within its block's
+    half step — int8 amax_block / (2 * 127); fp8 half an e4m3 step at
+    the element's code (|code| / 16, at least 2^-10 in the subnormals)
+    times the block's scale — plus the pool's rounding of the dequantized
+    value (2^-8 of it). The blocks are the codec's: ``block`` values of
+    the flattened pages with the tail rows zeroed. Returns (the worst
+    error over its bound, ok)."""
+    x = sent.float().clone()
+    npg, page = x.shape[1], x.shape[3]
+    if npg and n % page:
+        x[:, npg - 1, :, n % page:] = 0
+    m = x.numel()
+    blk = max(1, min(int(block), m))
+    nb = -(-m // blk)
+    pad = torch.zeros((nb * blk,), device=x.device)
+    pad[:m] = x.reshape(-1)
+    blocks = pad.reshape(nb, blk).abs()
+    qmax = 127.0 if wire == "int8" else 448.0
+    s = blocks.amax(dim=1, keepdim=True) / qmax + 1e-30
+    if wire == "int8":
+        step = (s / 2).expand(nb, blk)
+    else:
+        step = s * torch.clamp(blocks / s / 16, min=2.0 ** -10)
+    step = step.reshape(-1)[:m].reshape(x.shape)
+    bound = kv_rows(step + (x.abs() + step) * 2.0 ** -8, n)
+    err = (got.float() - kv_rows(x, n)).abs()
+    worst = float((err / bound).max()) if err.numel() else 0.0
+    return worst, worst <= 1.0
+
+
+def kv_carry(meta, k, v, wire, plane, key):
+    """One handoff over the KV wire: encode, offer (``("socket", tx,
+    rx)``: ``tx`` offers, ``rx`` fetches from its locator) or publish
+    (``("store", store)``: the chunked store protocol), fetch, decode,
+    withdraw. Returns (meta stamped with the wire, k, v, the host ms of
+    each stage and the bytes)."""
+    from paddle_tpu_torch.serving import kv_transfer as kt
+    t0 = time.perf_counter()
+    h, blob = kt.encode_kv_pages(k, v, meta["n_tokens"], wire=wire, rid=key)
+    t1 = time.perf_counter()
+    if plane[0] == "socket":
+        tx, rx = plane[1], plane[2]
+        ep = kt.send_handoff(None, tx, key, h, blob)
+        t2 = time.perf_counter()
+        h2, blob2 = kt.fetch_handoff(None, rx, key, kv_ep=ep, timeout=30.0)
+        t3 = time.perf_counter()
+        tx.withdraw(key)
+        sent = "offer_ms"
+    else:
+        store = plane[1]
+        kt.send_handoff(store, None, key, h, blob)
+        t2 = time.perf_counter()
+        h2, blob2 = kt.fetch_handoff(store, None, key, timeout=30.0)
+        t3 = time.perf_counter()
+        kt.delete_handoff(store, None, key, nchunks=h2["nchunks"])
+        sent = "publish_ms"
+    k2, v2 = kt.decode_kv_pages(h2, blob2)
+    t4 = time.perf_counter()
+    return dict(meta, wire=wire), k2, v2, {
+        "encode_ms": (t1 - t0) * 1e3, sent: (t2 - t1) * 1e3,
+        "fetch_ms": (t3 - t2) * 1e3, "decode_ms": (t4 - t3) * 1e3,
+        "bytes_logical": h["bytes_logical"], "bytes_wire": h["bytes_wire"]}
+
+
+def _timed_installs(torch, eng):
+    """Time each of ``eng``'s page installs (``_install``: the
+    ``index_copy_`` into both pools, or the contiguous engine's cache
+    write) by CUDA events around it; returns the list of ms it fills."""
+    out = []
+    inner = eng._install
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        inner(*args)
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+
+    eng._install = timed
+    return out
+
+
+def _per_handoff(recs, installs, detach=None):
+    """Per-handoff stage times in ms (one list per stage) and bytes."""
+    out = {k: [r[k] for r in recs] for k in recs[0]}
+    out["install_ms"] = list(installs)
+    if detach is not None:
+        out["detach_ms"] = list(detach)
+    return out
+
+
+def _add_launches(total, launches):
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _kv_engine(model, kind, **kw):
+    from paddle_tpu_torch.inference.factory import make_engine
+    if kind == "contiguous":
+        return make_engine(model, engine="contiguous", max_slots=8,
+                           max_len=2048, **kw)
+    return make_engine(model, n_pages=KV_PAGES, max_slots=8, **kw)
+
+
+def _kv_served(eng, kind, names, L, steps0, cold):
+    """The launches ``serve_expected`` gives one engine of this phase:
+    paged single-dispatch (``cold`` full prefills) or contiguous."""
+    steps = (eng.steps - steps0) * eng.chunk
+    if kind == "contiguous":
+        return serve_expected("contiguous", names, L, steps, 0, 0, 0, 0)
+    return serve_expected("paged_mega", names, L, steps, cold, 0, 0, 0)
+
+
+def kv_disagg_part(torch, dev, model, prompts, ref, card, tx, rx, total):
+    """(b) prefill-only engine -> fp32 wire over the socket plane ->
+    ``FrontEnd(decode engine).submit_handoff``: streams equal to (a),
+    installed rows byte-equal to the sender's. Returns the handoffs as
+    sent ((meta, k, v) per request) for (c)."""
+    from paddle_tpu_torch.serving import FrontEnd
+    names = _counters().keys()
+    L = model.cfg.n_layers
+    pf = _kv_engine(model, "paged", prefill_only=True)
+    de = _kv_engine(model, "paged")
+    fe = FrontEnd(de)
+    installs = _timed_installs(torch, de)
+    _zero_counters()
+    preqs = [pf.submit(p, max_new_tokens=KV_NEW) for p in prompts]
+    while not all(r.tokens for r in preqs):
+        pf.step()
+        pf.drain()
+    torch.cuda.synchronize()
+    pf_launches = _read_counters()
+    pf_exp = _kv_served(pf, "paged", names, L, 0, len(prompts))
+    _zero_counters()
+    sent, recs, detach, sreqs = [], [], [], []
+    for i, r in enumerate(preqs):
+        t0 = time.perf_counter()
+        meta, k, v = pf.detach_handoff(r)
+        detach.append((time.perf_counter() - t0) * 1e3)
+        meta2, k2, v2, rec = kv_carry(meta, k, v, "fp32",
+                                      ("socket", tx, rx), f"kv-b/{i}")
+        sreqs.append(fe.submit_handoff(meta2, k2, v2))
+        sent.append((meta, k, v))
+        recs.append(rec)
+    steps0 = de.steps
+    fe.step()                       # admission installs every handoff
+    rows_ok = all(kv_bits_equal(torch, kv_installed(de, s.engine_req),
+                                (kv_rows(k, m["n_tokens"]),
+                                 kv_rows(v, m["n_tokens"])))
+                  for s, (m, k, v) in zip(sreqs, sent))
+    fe.run()
+    torch.cuda.synchronize()
+    de_launches = _read_counters()
+    de_exp = _kv_served(de, "paged", names, L, steps0, 0)
+    _add_launches(total, pf_launches)
+    _add_launches(total, de_launches)
+    same, first = streams_equal(sreqs, ref)
+    rec = {"phase": "kv_handoff_disagg", "card": card, "wire": "fp32",
+           "plane": "socket", "requests": len(sreqs),
+           "per_handoff": _per_handoff(recs, installs, detach),
+           "prefill_launches": pf_launches,
+           "prefill_expected": pf_exp, "decode_launches": de_launches,
+           "decode_expected": de_exp, "streams_equal_direct": same,
+           "first_difference": first, "installed_rows_equal": rows_ok,
+           "budgets_ok": full_budgets(sreqs)}
+    rec["ok"] = bool(same and rows_ok and rec["budgets_ok"]
+                     and pf_launches == pf_exp and de_launches == de_exp)
+    _phase(rec)
+    del pf, de, fe
+    torch.cuda.empty_cache()
+    return sent
+
+
+def kv_lossy_part(torch, dev, model, sent, ref, card, store, wire, total):
+    """(c) the handoffs of (b) over the ``wire`` (int8 or fp8) wire on the
+    store plane into a fresh decode engine: every request completes its
+    budget and every installed row is within its block's half step
+    (``kv_wire_check``); reported: the wire ratio and the share of
+    streams (and of tokens) equal to (a)."""
+    from paddle_tpu_torch.serving import kv_transfer as kt
+    names = _counters().keys()
+    L = model.cfg.n_layers
+    de = _kv_engine(model, "paged")
+    installs = _timed_installs(torch, de)
+    block = kt._block()
+    _zero_counters()
+    reqs, recs = [], []
+    for i, (meta, k, v) in enumerate(sent):
+        meta2, k2, v2, rec = kv_carry(meta, k, v, wire, ("store", store),
+                                      f"kv-c/{wire}/{i}")
+        reqs.append(de.submit_handoff(meta2, k2, v2))
+        recs.append(rec)
+    steps0 = de.steps
+    de.step()
+    worst = 0.0
+    for r, (meta, k, v) in zip(reqs, sent):
+        got = kv_installed(de, r)
+        for g, s in zip(got, (k, v)):
+            w, _ = kv_wire_check(torch, g.to(dev), s.to(dev),
+                                 meta["n_tokens"], wire, block)
+            worst = max(worst, w)
+    de.run()
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    exp = _kv_served(de, "paged", names, L, steps0, 0)
+    _add_launches(total, launches)
+    budgets = all(r.done and not r.failed and len(r.tokens) == KV_NEW
+                  for r in reqs)
+    logical = sum(r["bytes_logical"] for r in recs)
+    wire_b = sum(r["bytes_wire"] for r in recs)
+    rec = {"phase": f"kv_handoff_{wire}", "card": card, "wire": wire,
+           "plane": "store", "block": block, "requests": len(reqs),
+           "per_handoff": _per_handoff(recs, installs),
+           "wire_ratio": logical / wire_b,
+           "worst_error_over_half_step": worst, "budgets_ok": budgets,
+           "streams_equal_share": sum(
+               r.tokens == q.tokens for r, q in zip(reqs, ref)) / len(reqs),
+           "tokens_equal_share": equal_share(reqs, ref),
+           "launches": launches, "expected_launches": exp}
+    rec["ok"] = bool(budgets and worst <= 1.0 and launches == exp)
+    _phase(rec)
+    del de
+    torch.cuda.empty_cache()
+
+
+def kv_migrate_part(torch, dev, model, prompts, refs, card, tx, rx,
+                    src_kind, dst_kind, total):
+    """(d) one mid-decode migration: ``src_kind`` serves the prompts,
+    request 0 detaches after KV_MIGRATE_STEPS decode steps and moves
+    over the fp32 wire (socket plane) into a fresh ``dst_kind`` engine.
+    Same kind: its stream equals uninterrupted serving on that kind
+    (``refs[kind]``). Across kinds another kernel's bf16 arithmetic
+    continues it (K8 against K10): it must complete with installed rows
+    byte-equal to the sender's, and the share of its tokens equal to the
+    source's uninterrupted stream is reported."""
+    names = _counters().keys()
+    L = model.cfg.n_layers
+    src = _kv_engine(model, src_kind)
+    dst = _kv_engine(model, dst_kind)
+    installs = _timed_installs(torch, dst)
+    _zero_counters()
+    reqs = [src.submit(p, max_new_tokens=KV_NEW) for p in prompts]
+    while src.steps < KV_MIGRATE_STEPS:
+        src.step()
+    t0 = time.perf_counter()
+    meta, k, v = src.detach_handoff(reqs[0])
+    detach_ms = (time.perf_counter() - t0) * 1e3
+    meta2, k2, v2, rec_t = kv_carry(meta, k, v, "fp32", ("socket", tx, rx),
+                                    f"kv-d/{src_kind}/{dst_kind}")
+    moved = dst.submit_handoff(meta2, k2, v2)
+    dst.step()
+    n = meta["n_tokens"]
+    rows_ok = kv_bits_equal(torch, kv_installed(dst, moved),
+                            (kv_rows(k, n), kv_rows(v, n)))
+    src.run()
+    dst.run()
+    torch.cuda.synchronize()
+    launches = _read_counters()
+    exp = _kv_served(src, src_kind, names, L, 0, len(prompts))
+    _add_launches(exp, _kv_served(dst, dst_kind, names, L, 0, 0))
+    _add_launches(total, launches)
+    want = refs[src_kind][0].tokens
+    same_kind = src_kind == dst_kind
+    complete = moved.done and not moved.failed and len(
+        moved.tokens) == KV_NEW
+    others, _ = streams_equal(reqs[1:], refs[src_kind][1:])
+    rec = {"phase": f"kv_migrate_{src_kind}_to_{dst_kind}", "card": card,
+           "wire": "fp32", "plane": "socket",
+           "detached_after_tokens": len(meta["tokens"]), "n_tokens": n,
+           "per_handoff": _per_handoff([rec_t], installs, [detach_ms]),
+           "installed_rows_equal": rows_ok, "complete": complete,
+           "stream_equal_uninterrupted": moved.tokens == want,
+           "tokens_equal_source_share": equal_share([moved],
+                                                    [refs[src_kind][0]]),
+           "others_equal_uninterrupted": others,
+           "launches": launches, "expected_launches": exp}
+    rec["ok"] = bool(complete and rows_ok and launches == exp
+                     and (moved.tokens == want or not same_kind))
+    _phase(rec)
+    del src, dst
+    torch.cuda.empty_cache()
+
+
+def kv_fleet_part(torch, dev, model, card, store, total):
+    """(e) two paged engines share one store through
+    ``FleetPrefixDirectory`` (fp32 wire): A serves a KV_FLEET_PROMPT-token
+    prompt and publishes its full pages; B serves a prompt sharing its
+    first KV_FLEET_SHARED tokens with another suffix and must hit the
+    fleet (``serve/fleet_prefix_hit_tokens`` >= KV_FLEET_SHARED, no cold
+    prefill, one suffix prefill through K2'). B's stream equals one engine
+    without a fleet serving A's prompt and then B's (its local prefix
+    cache: the same suffix prefill over the same page bytes)."""
+    import numpy as np
+    from paddle_tpu_torch import stats
+    from paddle_tpu_torch.serving.disagg import FleetPrefixDirectory
+    names = _counters().keys()
+    L = model.cfg.n_layers
+    rs = np.random.RandomState(SEED + 26)
+    vocab = model.cfg.vocab_size
+    pa = rs.randint(0, vocab, size=KV_FLEET_PROMPT).tolist()
+    pb = pa[:KV_FLEET_SHARED] + rs.randint(
+        0, vocab, size=KV_FLEET_PROMPT - KV_FLEET_SHARED).tolist()
+    a, b = _kv_engine(model, "paged"), _kv_engine(model, "paged")
+    for eng, rid in ((a, "A"), (b, "B")):
+        eng.attach_fleet(FleetPrefixDirectory(store, rid, wire="fp32"))
+    stats.reset("serve/")
+    _zero_counters()
+    ra = a.submit(pa, max_new_tokens=KV_NEW)
+    a.run()
+    published = int(stats.get("serve/fleet_prefix_published"))
+    _add_launches(total, _read_counters())
+    stats.reset("serve/")
+    _zero_counters()
+    t0 = time.perf_counter()
+    rb = b.submit(pb, max_new_tokens=KV_NEW)
+    b.run()
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    launches = _read_counters()
+    _add_launches(total, launches)
+    hit = int(stats.get("serve/fleet_prefix_hit_tokens"))
+    fetch = stats.snapshot("serve/kv_transfer_s")
+    exp = serve_expected("paged_mega", names, L, b.steps * b.chunk, 0, 1,
+                         0, 0)
+    del a, b
+    torch.cuda.empty_cache()
+    ref = _kv_engine(model, "paged")
+    r1 = ref.submit(pa, max_new_tokens=KV_NEW)
+    ref.run()
+    r2 = ref.submit(pb, max_new_tokens=KV_NEW)
+    ref.run()
+    del ref
+    torch.cuda.empty_cache()
+    rec = {"phase": "kv_fleet_prefix", "card": card, "wire": "fp32",
+           "plane": "store", "published_pages": published,
+           "fleet_prefix_hit_tokens": hit,
+           "fetch_s": {k.rsplit(".", 1)[-1]: v for k, v in fetch.items()},
+           "b_request_s": b_s, "launches": launches,
+           "expected_launches": exp,
+           "a_equal_single_engine": ra.tokens == r1.tokens,
+           "b_equal_single_engine": rb.tokens == r2.tokens,
+           "b_complete": rb.done and not rb.failed
+           and len(rb.tokens) == KV_NEW}
+    rec["ok"] = bool(hit >= KV_FLEET_SHARED and launches == exp
+                     and published >= KV_FLEET_SHARED // 128
+                     and rec["a_equal_single_engine"]
+                     and rec["b_equal_single_engine"] and rec["b_complete"])
+    _phase(rec)
+
+
+def kv_handoff_phase(torch, dev, model):
+    """Phase 26: KV across engines on one host, on gpt3_1p3b (bf16, seed
+    SEED), 8 prompts of KV_PROMPT tokens, KV_NEW new tokens each, every
+    engine sharing the model's weights: (a) the reference, one default
+    paged engine (single-dispatch) serving them; (b) ``kv_disagg_part``;
+    (c) ``kv_lossy_part`` on the int8 and fp8 wires; (d)
+    ``kv_migrate_part`` paged -> paged, contiguous -> contiguous, paged
+    -> contiguous and contiguous -> paged; (e) ``kv_fleet_part``. Each
+    part's kernel counters are zeroed just before it and read just after,
+    and the phase fails unless K1, K2', K8, K9 and K10 all launched.
+    Returns path -> launches."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.serving import kv_transfer as kt
+    t0 = time.perf_counter()
+    card = _card_line()
+    names = _counters().keys()
+    L = model.cfg.n_layers
+    prompts = _slice_prompts(model.cfg, length=KV_PROMPT, seed=SEED + 26)
+    total = {}
+    refs = {}
+    for kind in ("paged", "contiguous"):
+        eng = _kv_engine(model, kind)
+        _zero_counters()
+        refs[kind] = [eng.submit(p, max_new_tokens=KV_NEW) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        _add_launches(total, launches)
+        if launches != _kv_served(eng, kind, names, L, 0, len(prompts)):
+            _fail(f"phase kv_handoff: the {kind} reference launched "
+                  f"{launches}")
+        del eng
+        torch.cuda.empty_cache()
+    store = native.TCPStore("127.0.0.1", 0, is_master=True)
+    tx, rx = kt.KVTransport(), kt.KVTransport()
+    try:
+        sent = kv_disagg_part(torch, dev, model, prompts, refs["paged"],
+                              card, tx, rx, total)
+        for wire in ("int8", "fp8"):
+            kv_lossy_part(torch, dev, model, sent, refs["paged"], card,
+                          store, wire, total)
+        del sent
+        for src, dst in (("paged", "paged"), ("contiguous", "contiguous"),
+                         ("paged", "contiguous"), ("contiguous", "paged")):
+            kv_migrate_part(torch, dev, model, prompts, refs, card, tx, rx,
+                            src, dst, total)
+        kv_fleet_part(torch, dev, model, card, store, total)
+    finally:
+        tx.close()
+        rx.close()
+        store.close()
+    seconds = time.perf_counter() - t0
+    missing = [k for k, n in KV_PATH_KERNELS.items() if not total.get(n)]
+    rec = {"phase": "kv_handoff", "card": card, "seconds": seconds,
+           "seconds_limit": KV_LIMIT_S,
+           "launches": {k: total.get(n, 0)
+                        for k, n in KV_PATH_KERNELS.items()},
+           "kernels_not_launched": missing}
+    rec["ok"] = not missing
+    _phase(rec)
+    return {"kv_handoff": total}
+
+
 def serving_paths(torch, dev, gen=None):
     """Every serving path on one gpt3_1p3b (seed SEED): K8 and K9 at the
     single-dispatch engine's shapes (phase 11), paged serving per layer
@@ -3762,8 +4258,8 @@ def serving_paths(torch, dev, gen=None):
     breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
     decode device time of all four engines (9), generate (10),
     speculative serving on all four (21), the serving front end over
-    both engines (22), the autotuner (25). Returns (path -> launches,
-    (K8 record, K9 record))."""
+    both engines (22), the autotuner (25), KV across engines (26).
+    Returns (path -> launches, (K8 record, K9 record))."""
     from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
     if gen is None:
@@ -3805,9 +4301,12 @@ def serving_paths(torch, dev, gen=None):
     front = frontend_phase(torch, dev, model)
     torch.cuda.empty_cache()
     tuned = autotune_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    handoff = kv_handoff_phase(torch, dev, model)
     return ({"serving": serve["launches"], "serving_mega": mega["launches"],
              "contiguous": contig["launches"], "int8": int8["launches"],
-             "generate": generated["launches"], **spec, **front, **tuned},
+             "generate": generated["launches"], **spec, **front, **tuned,
+             **handoff},
             k89)
 
 

@@ -70,8 +70,14 @@ Service hooks for the front end (``paddle_tpu_torch/serving``):
 ``on_token``, ``on_retire``, ``bucket_policy``, ``free_slots`` and
 ``queued`` (``ResilientScheduler``'s docstring).
 
-Not ported, raising ``NotImplementedError`` with their ROADMAP item:
-KV handoff (S4) and tensor-parallel serving (``mesh``).
+KV handoff (``detach_handoff`` / ``submit_handoff``, ``kv_bytes``): a
+request's rows leave mid-decode as ONE wire page of n rows (a drain
+migration) and arrive from any sender whose (n_layers, kv_heads,
+head_dim) match, paged or contiguous; ``serving/kv_transfer.py`` is the
+wire.
+
+Not ported, raising ``NotImplementedError``: tensor-parallel serving
+(``mesh``).
 """
 
 import collections
@@ -96,12 +102,6 @@ __all__ = ["DecodeEngine", "Request", "ResilientScheduler",
            "resolve_engine_weights", "block_matmul_cost",
            "decode_roofline_tokens_per_sec", "prompt_lookup_draft",
            "spec_accept", "append_history"]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP "
-        f"'Port queue' item {item})")
 
 
 def _nbytes(t) -> int:
@@ -294,6 +294,82 @@ class Request:
         return self.prompt + self.tokens
 
 
+class _HandoffRequest(Request):
+    """A request whose KV state was built on another replica: the wire
+    pages (paged receiver) or rows (contiguous receiver), the tokens
+    generated so far (one right after prefill; more when a draining
+    replica migrated it mid-decode), the valid-row count and the wire
+    they crossed, until admission installs them (``_admit_handoff``)."""
+
+    __slots__ = ("kv_pages", "kv_rows", "kv_wire", "kv_tokens", "kv_ntok")
+
+
+def handoff_meta(req: Request, n: int) -> dict:
+    """The handoff metadata of a detached request with ``n`` valid KV
+    rows (prompt + generated[:-1]): everything a receiver's
+    ``submit_handoff`` needs to rebuild its device state. ``tokens``
+    carries the whole generated history; the receiver re-emits the last
+    one, whose KV the next dispatch writes."""
+    return {"prompt": list(req.prompt), "n_tokens": n,
+            "first": int(req.tokens[0]),
+            "tokens": [int(t) for t in req.tokens],
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_id": req.eos_id, "rid": req.rid}
+
+
+def handoff_request(meta: dict, k, v, deadline_s=None) -> "_HandoffRequest":
+    """Validate a handoff's metadata and (L, npages, Hkv, page, D) pages
+    and build its request (``kv_pages`` holds them as CPU tensors).
+    Raises ValueError on inconsistent metadata."""
+    from paddle_tpu_torch.serving.kv_transfer import _host
+    req = _HandoffRequest(
+        meta["prompt"], meta["max_new_tokens"], meta["eos_id"],
+        deadline=(None if deadline_s is None
+                  else time.monotonic() + deadline_s),
+        rid=meta.get("rid"))
+    req.kv_tokens = [int(t) for t in meta.get("tokens", [meta["first"]])]
+    if len(req.prompt) < 1:
+        raise ValueError("empty prompt")
+    if not req.kv_tokens:
+        raise ValueError("handoff meta carries no tokens")
+    req.kv_ntok = int(meta.get(
+        "n_tokens", len(req.prompt) + len(req.kv_tokens) - 1))
+    if req.kv_ntok != len(req.prompt) + len(req.kv_tokens) - 1:
+        raise ValueError(
+            f"handoff meta inconsistent: n_tokens={req.kv_ntok} != "
+            f"prompt {len(req.prompt)} + generated {len(req.kv_tokens)} "
+            f"- 1")
+    if len(req.kv_tokens) > req.max_new_tokens:
+        raise ValueError("handoff carries more generated tokens than its "
+                         "budget")
+    req.kv_pages = (_host(k), _host(v))
+    req.kv_rows = None
+    # the wire these pages crossed (senders stamp it into the meta);
+    # absent -> assume lossy, so the pages are never re-published
+    req.kv_wire = str(meta.get("wire", "lossy"))
+    return req
+
+
+def handoff_rows(cfg, arr: torch.Tensor, n: int, name: str,
+                 want: str) -> torch.Tensor:
+    """The geometry screen of a handoff's (L, npages, Hkv, page, D)
+    pages — (n_layers, kv_heads, head_dim) must match ``cfg`` and the
+    pages must hold ``n`` rows, else ValueError (at submit, never as a
+    shape error inside a later step) — and their first ``n`` rows as
+    one (L, Hkv, n, D) tensor."""
+    ok = (arr.dim() == 5 and arr.shape[0] == cfg.n_layers
+          and arr.shape[2] == cfg.kv_heads
+          and arr.shape[4] == cfg.head_dim
+          and arr.shape[1] * arr.shape[3] >= n)
+    if not ok:
+        raise ValueError(
+            f"handoff {name} pages shaped {tuple(arr.shape)} do not fit "
+            f"this engine's geometry {want} — sender and receiver must "
+            f"share (n_layers, kv_heads, head_dim) and carry n_tokens rows")
+    L, npg, H, page, D = arr.shape
+    return arr.transpose(1, 2).reshape(L, H, npg * page, D)[:, :, :n]
+
+
 class _Inflight:
     """One in-flight dispatch awaiting harvest: the live (slot, request)
     snapshot it covered, and the on-device result. ``kind`` is
@@ -334,6 +410,9 @@ class ResilientScheduler:
     on_token = None
     on_retire = None
     bucket_policy = None
+    # the first-token histogram: a prefill-only engine's first token
+    # marks the end of prefill (``serve/prefill_s``), never a client TTFT
+    _ttft_metric = "serve/ttft_s"
     # speculative depth K (0: off); an engine's constructor sets it, and
     # the shared replay unpacks 'spec' records (chunk, S, K + 2) by it
     spec_k = 0
@@ -632,14 +711,15 @@ class ResilientScheduler:
     def _obs_first_token(self, req: Request):
         if req.t_first is None:
             req.t_first = time.perf_counter()
-            stats.observe("serve/ttft_s", req.t_first - req.t_submit)
+            stats.observe(self._ttft_metric, req.t_first - req.t_submit)
 
     def _obs_request_end(self, req: Request):
         """The request left the engine (done or evicted): stamp its end,
         record its TPOT, and close its ``serve/request`` span (submit to
         end) and, after a first token, its ``serve/decode`` span (first
-        token to end), once. The ``on_retire`` hook fires here, behind
-        the same once-only guard."""
+        token to end; a prefill-only engine has no decode phase), once.
+        The ``on_retire`` hook fires here, behind the same once-only
+        guard."""
         if req.t_end is not None:
             return
         req.t_end = time.perf_counter()
@@ -648,7 +728,7 @@ class ResilientScheduler:
         trace.complete("serve/request", req.t_submit, req.t_end,
                        rid=req.rid, prompt=len(req.prompt),
                        tokens=len(req.tokens), error=req.error)
-        if req.t_first is not None:
+        if req.t_first is not None and self._ttft_metric == "serve/ttft_s":
             trace.complete("serve/decode", req.t_first, req.t_end,
                            rid=req.rid, tokens=len(req.tokens))
         if self.on_retire is not None:
@@ -779,13 +859,123 @@ class DecodeEngine(ResilientScheduler):
         if warmup:
             self.warmup()
 
-    # -- not ported yet -----------------------------------------------------
+    @property
+    def kv_bytes(self) -> int:
+        """Outstanding KV bytes across live slots (the decode-placement
+        load gauge): a slot-contiguous engine charges each live slot its
+        whole cache window."""
+        live = sum(r is not None for r in self._slot_req)
+        cfg = self.cfg
+        return live * (2 * cfg.n_layers * cfg.kv_heads * self.T
+                       * cfg.head_dim * self.kc.element_size())
 
-    def detach_handoff(self, *args, **kwargs):
-        raise _not_ported("KV handoff and migration", "S4")
+    # -- mid-decode handoff (drain migration) -------------------------------
 
-    def submit_handoff(self, *args, **kwargs):
-        raise _not_ported("KV handoff and migration", "S4")
+    def detach_handoff(self, req: Request):
+        """Extract an in-flight request's KV rows and decode state and
+        retire it here WITHOUT finishing it — the sending half of a
+        drain migration. The pipeline drains first, so rows ``[0, n)``
+        hold prompt + generated[:-1] and ``meta["tokens"]`` every token
+        generated so far; the receiver re-emits the last one and
+        continues (token for token on the fp32 wire).
+
+        Returns ``(meta, k, v)`` with ``k``/``v`` as ONE wire page of
+        ``n_tokens`` rows — (L, 1, Hkv, n, D) CPU tensors — which
+        ``kv_transfer.encode_kv_pages`` and any ``submit_handoff``
+        (contiguous, or paged with matching geometry) accept."""
+        if req.failed:
+            raise ValueError(f"request failed before detach: {req.error}")
+        if not req.tokens:
+            raise ValueError("no generated token yet — pump step() until "
+                             "the request holds one")
+        self._drain()
+        if req.done:
+            raise ValueError("request completed during drain — publish "
+                             "its result directly")
+        try:
+            slot = self._slot_req.index(req)
+        except ValueError:
+            raise ValueError("request no longer holds a slot") from None
+        n = int(self.lengths[slot])
+        if n != len(req.prompt) + len(req.tokens) - 1:
+            raise ValueError(
+                f"slot {slot} length {n} inconsistent with prompt "
+                f"{len(req.prompt)} + generated {len(req.tokens)} - 1")
+        # a deliberate device->host copy: the migration payload
+        k = self.kc[:, slot, :, :n].cpu()[:, None]
+        v = self.vc[:, slot, :, :n].cpu()[:, None]
+        meta = handoff_meta(req, n)
+        flight.record(req.rid, "handoff-detach", n_tokens=n,
+                      generated=len(req.tokens))
+        self._slot_req[slot] = None
+        self.active[slot] = False
+        self._disp_rem[slot] = 0
+        req.done = True
+        self._obs_request_end(req)
+        return meta, k, v
+
+    def submit_handoff(self, meta: dict, k, v,
+                       deadline_s: Optional[float] = None) -> Request:
+        """Receiving half of a migration: queue a request whose KV rows
+        were built elsewhere. Accepts any page layout — (L, npages, Hkv,
+        page, D) host pages (torch or numpy) with npages x page >=
+        n_tokens — so contiguous (one page) and paged senders with
+        matching (L, Hkv, D) land here; a mismatch raises ValueError.
+        Admission installs the rows and rebuilds the sender's device
+        state; the last sender-emitted token rides the harvest queue
+        like a local prefill's first token."""
+        req = handoff_request(meta, k, v, deadline_s)
+        if len(req.prompt) + req.max_new_tokens > self.T:
+            raise ValueError(
+                f"{len(req.prompt)} prompt + {req.max_new_tokens} new "
+                f"tokens exceed cache length {self.T}")
+        cfg, n = self.cfg, req.kv_ntok
+        want = (f"(n_layers={cfg.n_layers}, kv_heads={cfg.kv_heads}, "
+                f"head_dim={cfg.head_dim}, rows>={n})")
+        req.kv_rows = tuple(handoff_rows(cfg, arr, n, name, want)
+                            for name, arr in zip("kv", req.kv_pages))
+        req.kv_pages = None
+        self._waiting.append(req)
+        return req
+
+    def _install(self, slot: int, n: int, k, v):
+        """Write (L, Hkv, n, D) device rows into the slot's caches at
+        positions [0, n)."""
+        self.kc[:, slot, :, :n] = k
+        self.vc[:, slot, :, :n] = v
+
+    def _admit_handoff(self, req: _HandoffRequest, slot: int):
+        """Install migrated rows instead of prefilling, then rebuild the
+        device state the sender's drained pipeline held: rows [0, n)
+        live, ``tokens[-1]`` pending as ``last`` (its KV is the next
+        dispatch's write), the drafts' history row on a speculative
+        engine."""
+        n = req.kv_ntok
+        flight.record(req.rid, "handoff-install", n_tokens=n, slot=slot,
+                      wire=req.kv_wire, generated=len(req.kv_tokens))
+        dev, dt = self.device, self.kc.dtype
+        rows_k, rows_v = req.kv_rows
+        self._install(slot, n, rows_k.to(dev, dt), rows_v.to(dev, dt))
+        req.kv_rows = None             # free the host copy
+        if self.toks is not None:
+            hist = torch.zeros((self.T,), dtype=torch.int32)
+            hist[:n + 1] = torch.tensor(req.prompt + req.kv_tokens,
+                                        dtype=torch.int32)
+            self.toks[slot] = hist.to(dev)
+        req.tokens = list(req.kv_tokens[:-1])
+        nxt = req.kv_tokens[-1]
+        rem0 = req.max_new_tokens - len(req.kv_tokens)
+        eos0 = -1 if req.eos_id is None else int(req.eos_id)
+        alive = rem0 > 0 and (eos0 < 0 or nxt != eos0)
+        self.lengths[slot] = n
+        self.last[slot] = nxt
+        self.active[slot] = bool(alive)
+        self.remaining[slot] = rem0
+        self.eos_ids[slot] = eos0
+        self._slot_req[slot] = req
+        self._disp_rem[slot] = rem0
+        self._pending.append(_Inflight(
+            "prefill", [(slot, req)], torch.tensor(nxt, dtype=torch.int32)))
 
     # -- weights ------------------------------------------------------------
 
@@ -980,6 +1170,10 @@ class DecodeEngine(ResilientScheduler):
         # the queue-wait phase ends here
         trace.complete("serve/queue", req.t_submit, rid=req.rid,
                        slot=slot)
+        if isinstance(req, _HandoffRequest):
+            # no prefill to run: install the transferred rows directly
+            self._admit_handoff(req, slot)
+            return True
         flight.record(req.rid, "admit", slot=slot, prompt=len(req.prompt))
         self._slot_req[slot] = req      # reserved; decode skips it until
         self._disp_rem[slot] = 0        # the final chunk flips it live
@@ -1046,6 +1240,10 @@ class DecodeEngine(ResilientScheduler):
         while budget > 0:
             if not self._admitting and not self._admit_next():
                 return
+            if not self._admitting:
+                # a handoff admission: rows installed directly, no
+                # prefill job — pull the next waiter
+                continue
             used, finished = self._dispatch_prefill_chunk(
                 self._admitting[0])
             budget -= used

@@ -50,9 +50,19 @@ Design, as in the JAX engine:
   and, with ``mega``, K9's at its decode rows and its verify rows
   (``ops/autotune.py``; the cache file is ``PT_AUTOTUNE_CACHE``).
 
-``prefill_only`` and the handoff and migration methods raise
-``NotImplementedError`` naming the ROADMAP item that ports them. The JAX
-engine's read-only-pool fallback (``fused=False``) is a reference
+- **KV handoff** (``serving/kv_transfer.py`` is the wire): a
+  ``prefill_only`` engine admits and prefills but never decodes (its
+  first-token metric is ``serve/prefill_s``); ``detach_handoff`` takes a
+  request's pages and decode state off any engine (right after prefill,
+  or mid-decode: a drain migration) and ``submit_handoff`` queues them
+  on a receiver, whose admission installs the pages (one ``index_copy_``
+  per pool) and continues the stream where the sender stopped;
+  ``kv_bytes`` is the pages held. ``attach_fleet`` wires a
+  ``serving/disagg.FleetPrefixDirectory``: admission extends a local
+  prefix miss through the fleet, new prefix pages publish, and local
+  invalidation or reclaim withdraws fleet-wide.
+
+The JAX engine's read-only-pool fallback (``fused=False``) is a reference
 formulation and has no counterpart here.
 """
 
@@ -69,9 +79,12 @@ from paddle_tpu_torch import device as device_lib
 from paddle_tpu_torch import stats
 from paddle_tpu_torch.inference.decode_engine import (Request,
                                                       ResilientScheduler,
+                                                      _HandoffRequest,
                                                       _Inflight,
-                                                      _not_ported,
                                                       block_matmul_cost,
+                                                      handoff_meta,
+                                                      handoff_request,
+                                                      handoff_rows,
                                                       resolve_engine_weights)
 from paddle_tpu_torch.inference.prefix_cache import PrefixCache
 from paddle_tpu_torch.models.gpt import GPTBlock
@@ -106,8 +119,6 @@ class PagedDecodeEngine(ResilientScheduler):
                  warmup: bool = False, prefix: bool = True,
                  prefill_only: bool = False, mega: Optional[bool] = None,
                  speculative_k: int = 0, device=None):
-        if prefill_only:
-            raise _not_ported("prefill-only engines", "S4")
         self.device = device_lib.resolve(device)
         cfg, head, layers, stacked = resolve_engine_weights(
             model, share_weights_with)
@@ -154,6 +165,17 @@ class PagedDecodeEngine(ResilientScheduler):
         self._alloc = PageAllocator(self.P, self.page)
         self._prefix = (PrefixCache(self._alloc, self.page)
                         if prefix else None)
+        # a prefill-only engine admits and prefills but never decodes: its
+        # slots stay bound, device-inactive, until detach_handoff; its
+        # "first token" marks the end of prefill, never a client TTFT
+        self.prefill_only = bool(prefill_only)
+        if self.prefill_only:
+            self._ttft_metric = "serve/prefill_s"
+        self.fleet = None
+        # pages whose KV arrived over a LOSSY wire (int8/fp8 handoff or
+        # fleet fetch): served and shared locally, never re-published to
+        # the fleet (re-quantizing compounds the half-step error)
+        self._lossy_pids: set = set()
         self._tables: List[List[int]] = [[] for _ in range(self.S)]
         # slots evicted for non-finite logits: their private pages are
         # zeroed as they return to the free list (see _release)
@@ -237,22 +259,20 @@ class PagedDecodeEngine(ResilientScheduler):
                                    page=self.page, iters=iters)
         return res
 
-    # -- not ported yet -----------------------------------------------------
-
-    def detach_handoff(self, *args, **kwargs):
-        raise _not_ported("KV handoff and migration", "S4")
-
-    def submit_handoff(self, *args, **kwargs):
-        raise _not_ported("KV handoff and migration", "S4")
-
-    def attach_fleet(self, *args, **kwargs):
-        raise _not_ported("the fleet prefix directory", "S4")
-
     # -- pool bookkeeping ---------------------------------------------------
 
     @property
     def free_pages(self) -> int:
         return self._alloc.free_pages
+
+    @property
+    def kv_bytes(self) -> int:
+        """Outstanding KV bytes (pages mapped by slots, both pools): the
+        decode-placement load gauge."""
+        cfg = self.cfg
+        per_page = (2 * cfg.n_layers * cfg.kv_heads * self.page
+                    * cfg.head_dim * self.kp.element_size())
+        return sum(len(t) for t in self._tables) * per_page
 
     def _update_pool_gauges(self):
         stats.set_value("serve/pool_pages_free", self._alloc.free_pages)
@@ -299,16 +319,49 @@ class PagedDecodeEngine(ResilientScheduler):
             self._tainted.discard(slot)
             scrub.extend(tab)
         self._alloc.release(tab)
+        self._lossy_pids.difference_update(tab)
+        self._lossy_pids.difference_update(scrub)
         if scrub:
             self._scrub_pages(scrub)
         self._update_pool_gauges()
 
+    def _page_rows(self, pids) -> torch.Tensor:
+        """The folded pool rows of ``pids`` in every layer, layer-major:
+        row ``l * P + pids[j]`` at ``l * len(pids) + j``."""
+        return (self._layer_base.long()[:, None]
+                + torch.as_tensor(pids, dtype=torch.long,
+                                  device=self.device)[None]).reshape(-1)
+
     def _scrub_pages(self, pids):
         """Zero ``pids``' rows in both pools, every layer's view."""
-        ids = (self._layer_base.long()[:, None]
-               + torch.as_tensor(pids, device=self.device)[None]).reshape(-1)
+        ids = self._page_rows(pids)
         self.kp[ids] = 0
         self.vp[ids] = 0
+
+    def _read_pages(self, pids):
+        """``pids``' K and V in every layer as (L, len(pids), Hkv, page,
+        D) CPU tensors: a deliberate device->host copy (the handoff and
+        fleet payloads)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, len(pids), cfg.kv_heads, self.page,
+                 cfg.head_dim)
+        ids = self._page_rows(pids)
+        return (self.kp[ids].cpu().reshape(shape),
+                self.vp[ids].cpu().reshape(shape))
+
+    def _install(self, ids, k, v):
+        """Write (rows, Hkv, page, D) device tensors into both pools at
+        the folded rows ``ids``: one ``index_copy_`` per pool."""
+        self.kp.index_copy_(0, ids, k)
+        self.vp.index_copy_(0, ids, v)
+
+    def _upload_pages(self, pids, k, v):
+        """Install (L, len(pids), Hkv, page, D) host pages at ``pids``."""
+        n = k.shape[0] * k.shape[1]
+        dev, dt = self.device, self.kp.dtype
+        self._install(self._page_rows(pids),
+                      k.reshape(n, *k.shape[2:]).to(dev, dt),
+                      v.reshape(n, *v.shape[2:]).to(dev, dt))
 
     def _table(self) -> torch.Tensor:
         """The (S, max_pages) int32 device page table at a fixed width
@@ -645,9 +698,12 @@ class PagedDecodeEngine(ResilientScheduler):
         source page (-1 = none) and the prompt's digest chain. An exact
         page-multiple full match keeps all but the last page: the last
         token must re-run for first-token logits and its KV row lands
-        inside that page, so it is copied to a private one."""
+        inside that page, so it is copied to a private one. With a fleet
+        directory attached, a local miss extends through the fleet."""
         chain = self._prefix.chain(prompt)
         matched = self._prefix.lookup(prompt, chain=chain)
+        if self.fleet is not None and len(matched) < len(chain):
+            matched.extend(self._fleet_extend(chain, len(matched)))
         n = len(prompt)
         sp, cow_src = 0, -1
         if matched and len(matched) * self.page >= n:
@@ -661,6 +717,110 @@ class PagedDecodeEngine(ResilientScheduler):
         if matched:
             self._table_dirty = True
         return sp, cow_src, chain
+
+    # -- fleet prefix directory ---------------------------------------------
+
+    def attach_fleet(self, fleet):
+        """Wire a ``serving/disagg.FleetPrefixDirectory`` into this
+        engine: admission lookups extend through the fleet on a local
+        miss, newly registered prefixes publish, and local invalidation
+        or reclaim withdraws fleet-wide (the prefix cache's ``on_drop``
+        hook — before the freed page can be remapped)."""
+        if self._prefix is None:
+            raise ValueError("fleet prefix directory needs the local "
+                             "prefix cache (prefix=True)")
+        self.fleet = fleet
+
+        def _drop(digest, pid):
+            fleet.withdraw(digest)
+            self._lossy_pids.discard(pid)
+
+        self._prefix.on_drop = _drop
+
+    def _alloc_one_page(self) -> int:
+        """One free page for a fleet-fetched prefix, reclaiming LRU
+        refcount-zero cache pages under pressure (``_reserve``'s policy);
+        MemoryError when the pool is truly full."""
+        tmp: List[int] = []
+        try:
+            self._alloc.reserve(tmp, self.page)
+        except MemoryError:
+            if self._prefix.reclaim(1) == 0:
+                raise
+            self._alloc.reserve(tmp, self.page)
+        return tmp[0]
+
+    def _fleet_extend(self, chain, start) -> List[int]:
+        """Continue a local prefix match through the fleet directory:
+        fetch each next digest's page over the KV wire into a private
+        page, adopt it into the local cache (ref'd for this admission),
+        stop at the first fleet miss or a full pool. One
+        ``serve/fleet_prefix_lookup`` per consulted admission,
+        ``serve/fleet_prefix_hit_tokens`` per page of prefill skipped."""
+        got: List[int] = []
+        uploads = []                      # (pid, k_page, v_page)
+        stats.add("serve/fleet_prefix_lookup")
+        for digest in chain[start:]:
+            # a stale DESCENDANT may still be canonical locally (its
+            # parent was reclaimed): revive it instead of refetching
+            pid = self._prefix.revive(digest)
+            if pid is not None:
+                got.append(pid)
+                continue
+            try:
+                res = self.fleet.fetch(digest)
+            except RuntimeError:
+                # the wire guard tripped on this fleet page: expunge the
+                # entry so the fleet heals, and prefill this prefix cold
+                self.fleet.withdraw(digest, force=True)
+                res = None
+            except TimeoutError:
+                res = None                # store hiccup: a miss
+            if res is None:
+                break
+            try:
+                pid = self._alloc_one_page()
+            except MemoryError:
+                break                     # a partial fleet hit is fine
+            self._prefix.adopt(digest, pid)
+            if self.fleet.wire != "fp32":
+                self._lossy_pids.add(pid)
+            got.append(pid)
+            uploads.append((pid, *res))
+            stats.add("serve/fleet_prefix_hit_tokens", self.page)
+        if uploads:
+            # one install per pool for the whole fetched run
+            self._upload_pages([u[0] for u in uploads],
+                               torch.cat([u[1] for u in uploads], dim=1),
+                               torch.cat([u[2] for u in uploads], dim=1))
+        return got
+
+    def _publish_pages(self, pids) -> int:
+        """Publish each of ``pids`` (with its digest) that arrived over no
+        lossy wire; returns how many were published."""
+        n = 0
+        for digest, pid in pids:
+            if pid in self._lossy_pids:
+                continue
+            k, v = self._read_pages([pid])
+            self.fleet.publish(digest, k, v)
+            n += 1
+        return n
+
+    def _fleet_publish(self):
+        """Publish the pages the LAST ``register`` made canonical to the
+        fleet directory (content-addressed: racing replicas converge)."""
+        self._publish_pages([(d, p) for _, d, p in
+                             self._prefix.last_registered])
+
+    def fleet_republish(self) -> int:
+        """Re-publish every live prefix page to the fleet directory (a
+        new store generation starts empty; the caller clears the
+        directory's published set first, ``fleet.reset_published()``).
+        Lossy-wire pages stay excluded. Returns the pages re-published."""
+        if self.fleet is None:
+            return 0
+        return self._publish_pages(list(self._prefix._nodes.items()))
 
     def _admit(self, req: Request, slot: int):
         """Reserve pages, run the one-pass (or suffix-only) prefill, and
@@ -706,6 +866,12 @@ class PagedDecodeEngine(ResilientScheduler):
                                            tab)
             else:
                 nxt = self._prefill(tokens, n, tab)
+        if self.fleet is not None and self._prefix is not None \
+                and n >= self.page:
+            # the prefill that fills the registered pages is enqueued;
+            # publication reads them back (stream order), newly
+            # canonical ones only
+            self._fleet_publish()
         rem0 = req.max_new_tokens - 1
         eos0 = -1 if req.eos_id is None else int(req.eos_id)
         # a budget-of-one request (or one whose first token is eos)
@@ -717,13 +883,15 @@ class PagedDecodeEngine(ResilientScheduler):
             self.toks[slot, n] = nxt
         self.lengths[slot] = n
         self.last[slot] = nxt
-        self.active[slot] = alive
+        # a prefill replica never decodes: the slot stays bound (its
+        # pages leave via detach_handoff) but device-inactive
+        self.active[slot] = False if self.prefill_only else alive
         self.remaining[slot] = rem0
         self.eos_ids[slot] = eos0
         self._slot_req[slot] = req
         self._host_len[slot] = n
         self._proj_len[slot] = n
-        self._disp_rem[slot] = rem0
+        self._disp_rem[slot] = 0 if self.prefill_only else rem0
         self._pending.append(_Inflight("prefill", [(slot, req)], nxt))
 
     def _emit(self, slot: int, req: Request, token: int):
@@ -741,6 +909,144 @@ class PagedDecodeEngine(ResilientScheduler):
             self._release(slot)
             self.active[slot] = False
             self._obs_request_end(req)
+
+    # -- KV handoff and migration -------------------------------------------
+
+    def detach_handoff(self, req: Request):
+        """Extract a request's KV pages and decode state and retire it
+        here WITHOUT finishing it — the sending half of both handoff
+        shapes. On a ``prefill_only`` engine the pages hold the prompt's
+        KV (prefill -> transfer -> decode); on a decode engine the
+        request may be MID-DECODE (a drain migration): the pipeline
+        drains first, so rows ``[0, n)`` hold prompt + generated[:-1] and
+        ``meta["tokens"]`` every token generated so far — the receiver
+        re-emits the last one and continues. Call once ``req.tokens`` is
+        non-empty.
+
+        Returns ``(meta, k, v)``: ``meta`` is what ``submit_handoff``
+        needs (prompt, tokens so far, valid row count, budget, eos, rid),
+        ``k``/``v`` the slot's pages as (L, npages, Hkv, page, D) CPU
+        tensors (rows past ``n_tokens`` are recycled-pool garbage: the
+        wire codec zeroes them)."""
+        if req.failed:
+            raise ValueError(f"request failed before detach: {req.error}")
+        if not req.tokens:
+            raise ValueError("prefill not harvested yet — pump step() "
+                             "until req.tokens holds the first token")
+        self._drain()
+        if req.done:
+            raise ValueError("request completed during drain — publish "
+                             "its result directly")
+        try:
+            slot = self._slot_req.index(req)
+        except ValueError:
+            raise ValueError("request no longer holds a slot (budget-1 "
+                             "requests retire at harvest — publish their "
+                             "result directly)") from None
+        n = int(self._host_len[slot])
+        npg = (n + self.page - 1) // self.page
+        k, v = self._read_pages(self._tables[slot][:npg])
+        meta = handoff_meta(req, n)
+        flight.record(req.rid, "handoff-detach", n_tokens=n, pages=npg)
+        # retire: registered prefix pages go warm, private ones free
+        self._slot_req[slot] = None
+        self._release(slot)
+        # a mid-decode detach leaves a device-live slot: deactivate it
+        self.active[slot] = False
+        self._disp_rem[slot] = 0
+        req.done = True
+        self._obs_request_end(req)
+        return meta, k, v
+
+    def submit_handoff(self, meta: dict, k, v,
+                       deadline_s: Optional[float] = None) -> Request:
+        """Receiving half of the handoff: queue a request whose KV state
+        was built elsewhere — right after prefill or mid-decode. ``k``/
+        ``v``: (L, npages, Hkv, page, D) host pages (torch or numpy) of
+        any page size holding ``n_tokens`` rows (another page size, or a
+        contiguous engine's single page of n rows, is repacked into this
+        pool's). Admission installs them and rebuilds the sender's device
+        state; the last sender-emitted token rides the harvest queue like
+        a local prefill's first token. A geometry mismatch raises
+        ValueError here."""
+        req = handoff_request(meta, k, v, deadline_s)
+        # not check_request: its bucket cap is a PREFILL constraint, and
+        # a handoff never prefills here
+        if len(req.prompt) + req.max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError("prompt + new tokens exceed max_seq_len")
+        cfg, n = self.cfg, req.kv_ntok
+        want_npg = (n + self.page - 1) // self.page
+        want = (cfg.n_layers, want_npg, cfg.kv_heads, self.page,
+                cfg.head_dim)
+        pages = []
+        for name, arr in zip("kv", req.kv_pages):
+            rows = handoff_rows(cfg, arr, n, name, want)
+            if arr.shape[1] == want_npg and arr.shape[3] == self.page:
+                pages.append(arr)
+                continue
+            # another blocking: the same rows, repacked into this pool's
+            # page size
+            pad = torch.zeros((cfg.n_layers, cfg.kv_heads,
+                               want_npg * self.page, cfg.head_dim),
+                              dtype=arr.dtype)
+            pad[:, :, :n] = rows
+            pages.append(pad.reshape(cfg.n_layers, cfg.kv_heads, want_npg,
+                                     self.page, cfg.head_dim).transpose(
+                                         1, 2).contiguous())
+        req.kv_pages = tuple(pages)
+        self._waiting.append(req)
+        return req
+
+    def _admit_handoff(self, req: _HandoffRequest, slot: int):
+        """Install transferred pages instead of prefilling: reserve,
+        upload the rows (one ``index_copy_`` per pool), register the
+        prompt's full pages locally (and publish them to the fleet, like
+        any registration) for post-prefill handoffs only, then rebuild
+        the device state the sender held."""
+        n = req.kv_ntok
+        flight.record(req.rid, "handoff-install", n_tokens=n, slot=slot,
+                      wire=req.kv_wire, generated=len(req.kv_tokens))
+        self._reserve(slot, n)
+        tab = self._tables[slot]
+        k, v = req.kv_pages
+        npg = k.shape[1]
+        self._upload_pages(tab[:npg], k, v)
+        req.kv_pages = None            # free the host copy
+        if req.kv_wire != "fp32":
+            self._lossy_pids.update(tab[:npg])
+        if self._prefix is not None and n >= self.page \
+                and n == len(req.prompt):
+            # a migrated mid-decode slot's tail pages hold GENERATED
+            # rows, which must never become prompt-prefix canon
+            self._prefix.register(np.asarray(req.prompt, np.int32), tab)
+            self._update_pool_gauges()
+            if self.fleet is not None:
+                self._fleet_publish()
+        # tokens[:-1] are final (their KV sits in the installed rows);
+        # tokens[-1] is pending, its KV the next dispatch's write
+        req.tokens = list(req.kv_tokens[:-1])
+        nxt = req.kv_tokens[-1]
+        rem0 = req.max_new_tokens - len(req.kv_tokens)
+        eos0 = -1 if req.eos_id is None else int(req.eos_id)
+        alive = rem0 > 0 and (eos0 < 0 or nxt != eos0)
+        if self.toks is not None:
+            # the drafts' history: prompt + generated[:-1] in rows
+            # [0, n), the pending token at n
+            hist = torch.zeros((self.cfg.max_seq_len,), dtype=torch.int32)
+            hist[:n + 1] = torch.tensor(req.prompt + req.kv_tokens,
+                                        dtype=torch.int32)
+            self.toks[slot] = hist.to(self.device)
+        self.lengths[slot] = n
+        self.last[slot] = nxt
+        self.active[slot] = bool(alive)
+        self.remaining[slot] = rem0
+        self.eos_ids[slot] = eos0
+        self._slot_req[slot] = req
+        self._host_len[slot] = n
+        self._proj_len[slot] = n
+        self._disp_rem[slot] = rem0
+        self._pending.append(_Inflight(
+            "prefill", [(slot, req)], torch.tensor(nxt, dtype=torch.int32)))
 
     def step(self) -> int:
         t0 = time.perf_counter()
@@ -765,7 +1071,10 @@ class PagedDecodeEngine(ResilientScheduler):
                 return
             req = self._waiting.popleft()
             try:
-                self._admit(req, slot)
+                if isinstance(req, _HandoffRequest):
+                    self._admit_handoff(req, slot)
+                else:
+                    self._admit(req, slot)
             except MemoryError:
                 # not enough pages now: return the partial reservation
                 # and requeue; retired pages may sit in unharvested
@@ -839,6 +1148,8 @@ class PagedDecodeEngine(ResilientScheduler):
     def _resync_budgets(self, live, cover=None):
         if cover is None:
             cover = self._pending_cover()
+        if self.prefill_only:
+            return          # its slots never decode: budgets stay 0
         super()._resync_budgets(live, cover)
         for slot, req in live:
             if req.done or self._slot_req[slot] is not req:

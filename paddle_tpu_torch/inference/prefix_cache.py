@@ -1,9 +1,9 @@
 """Prefix (radix) caching over the paged KV pool: identical prompt
 prefixes are prefilled once and their pages shared read-only across
 requests. A near-copy of ``paddle_tpu/inference/prefix_cache.py`` (which
-imports no JAX), without the fleet-directory hooks (``revive``,
-``adopt``, ``on_drop``, ``last_registered``), which come with the
-disaggregated-serving slice.
+imports no JAX), fleet-directory hooks included (``on_drop``,
+``reclaimable_pages``, ``revive``, ``adopt``, ``last_registered``: the
+``serving/disagg.FleetPrefixDirectory`` side of them).
 
 - **Page-aligned token-hash chains.** The unit of sharing is one FULL
   page of prompt tokens. Node ``i`` of a prompt's chain is keyed by
@@ -15,6 +15,12 @@ disaggregated-serving slice.
   count-zero page to an LRU of reclaimable pages (its KV stays warm for
   the next hit); ``reclaim`` frees LRU-oldest count-zero pages under
   pool pressure.
+- **Fleet hooks.** ``on_drop(digest, pid)`` runs whenever a trie node
+  is removed (invalidate or reclaim), so a fleet directory withdraws the
+  digest before the freed page can be remapped; ``adopt`` makes a page
+  fetched from the fleet canonical locally, ``revive`` re-refs a stale
+  descendant instead of refetching it, and ``last_registered`` lists the
+  pages the last ``register`` made canonical (the ones to publish).
 - **Read-only mapping + copy-on-write.** Matched pages enter a slot's
   table read-only: suffix prefill and decode only write positions at or
   past the match boundary, which live in private pages. The exception
@@ -28,7 +34,7 @@ Host-side bookkeeping only: no tensors.
 
 import collections
 import hashlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +73,12 @@ class PrefixCache:
         # invalidated (poisoned-KV) pages still mapped by live sharers:
         # their last unref frees them instead of warming the LRU
         self._dead: set = set()
+        # fleet hook: called with (digest, pid) whenever a trie node is
+        # REMOVED (invalidate / reclaim), before the page can be remapped
+        self.on_drop = None
+        # the (index, digest, pid) triples the last register made
+        # canonical: the fleet publication hook publishes exactly these
+        self.last_registered: List[Tuple[int, bytes, int]] = []
 
     def chain(self, tokens) -> List[bytes]:
         return chain_digests(tokens, self.page)
@@ -84,6 +96,10 @@ class PrefixCache:
     def shared_pages(self) -> int:
         """Cached pages currently mapped into at least one slot."""
         return self._n_shared
+
+    @property
+    def reclaimable_pages(self) -> int:
+        return len(self._zero)
 
     def ref(self, pid: int):
         if pid not in self._bypid:
@@ -124,7 +140,11 @@ class PrefixCache:
         if digest is None:
             return None
         if self._nodes.get(digest) == pid:
+            # a stale invalidation (digest since re-registered with a
+            # healthy page) leaves the new copy canonical
             self._nodes.pop(digest)
+            if self.on_drop is not None:
+                self.on_drop(digest, pid)
         if self._refs.get(pid, 0) == 0:
             self._zero.pop(pid, None)
             self._bypid.pop(pid)
@@ -148,13 +168,41 @@ class PrefixCache:
             pids.append(pid)
         return pids
 
+    def revive(self, digest: bytes) -> Optional[int]:
+        """Ref-and-return the page canonical under ``digest``, or None.
+        The fleet-extend path uses it for STALE DESCENDANTS: reclaim
+        drops one node and leaves its children canonical but unreachable
+        (lookup breaks at the hole); once the missing parents are
+        refetched, the surviving child pages serve again (their KV is
+        valid: the chain digest encodes the whole left context)."""
+        pid = self._nodes.get(digest)
+        if pid is None:
+            return None
+        self.ref(pid)
+        return pid
+
+    def adopt(self, digest: bytes, pid: int):
+        """Insert ONE already-populated page under ``digest`` with the
+        caller's mapping as its first ref — the fleet-fetch install path.
+        Refuses an occupied digest or an already-cached pid."""
+        if digest in self._nodes:
+            raise KeyError("digest already canonical")
+        if pid in self._bypid:
+            raise KeyError(f"page {pid} already cached")
+        self._nodes[digest] = pid
+        self._bypid[pid] = digest
+        self._refs[pid] = 1
+        self._n_shared += 1
+
     def register(self, tokens, table: List[int],
                  chain: Optional[List[bytes]] = None) -> int:
         """Insert ``tokens``' full pages (backed by ``table``'s leading
         page ids) into the trie; already-present digests are skipped.
         Returns the number of pages newly registered (each gains the
-        caller's mapping as its first ref)."""
+        caller's mapping as its first ref); their ``(index, digest, pid)``
+        triples land in ``last_registered``."""
         added = 0
+        self.last_registered = []
         for i, digest in enumerate(self.chain(tokens)
                                    if chain is None else chain):
             if digest in self._nodes:
@@ -166,6 +214,7 @@ class PrefixCache:
             self._bypid[pid] = digest
             self._refs[pid] = 1
             self._n_shared += 1
+            self.last_registered.append((i, digest, pid))
             added += 1
         return added
 
@@ -178,6 +227,8 @@ class PrefixCache:
             digest = self._bypid.pop(pid)
             if self._nodes.get(digest) == pid:
                 del self._nodes[digest]
+                if self.on_drop is not None:
+                    self.on_drop(digest, pid)
             self._refs.pop(pid, None)
             self._alloc.release([pid])
             freed += 1

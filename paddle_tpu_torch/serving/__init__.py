@@ -2,8 +2,11 @@
 S4a half): admission-controlled scheduling with deadline-aware queueing,
 slot backfill, streaming and dynamic prefill buckets over one engine
 (``scheduler.FrontEnd``), and deterministic Poisson or trace load
-generation (``loadgen``). The router, disaggregated serving, KV transfer
-and fleet observability are not ported yet (ROADMAP item S4).
+generation (``loadgen``); and its S4b-1 half, KV across engines on one
+host: the KV wire codec with its store and socket planes
+(``kv_transfer``) and the fleet prefix directory (``disagg``). The
+router, the replica serve loops, membership and fleet observability are
+not ported yet (ROADMAP item 7b, S4b-2).
 """
 
 from paddle_tpu_torch.serving.loadgen import (Arrival, default_seed,

@@ -33,8 +33,10 @@ callers ``submit()`` in. ``FrontEnd`` adds the policy:
 Single-threaded, like the engines: callers pump ``step()`` (or
 ``run()``, or iterate a stream, which pumps). The tensors stay on the
 engine's device; the front end holds host lists of token ids only.
-The multi-replica layer (router, disaggregated serving) is not ported
-yet (ROADMAP item S4).
+``submit_handoff`` and ``detach_migrate`` carry requests between engines
+(KV handoff, drain migration; ``serving/kv_transfer.py`` is the wire).
+The multi-process layer (router, replica serve loops, membership) is not
+ported yet (ROADMAP item 7b, S4b-2).
 """
 
 import json
@@ -259,9 +261,7 @@ class FrontEnd:
         bypasses the admission queue (admission ran where the request
         entered the fleet); the stream and retire hooks apply as for a
         local request. A mid-decode handoff's final tokens
-        (``meta["tokens"][:-1]``) pre-fill the stream buffer. The
-        engines' ``submit_handoff`` is not ported yet (ROADMAP item S4)
-        and raises."""
+        (``meta["tokens"][:-1]``) pre-fill the stream buffer."""
         eng = self.engine
         if not hasattr(eng, "submit_handoff"):
             raise ValueError("engine has no KV-handoff support")
@@ -303,8 +303,7 @@ class FrontEnd:
           queue or the engine's), with no device state to carry;
         - ``{"kv": True, "meta":, "k":, "v":}``: it held a slot
           mid-decode, and the engine detached its KV rows and token
-          history (``engine.detach_handoff``, not ported yet: ROADMAP
-          item S4, it raises).
+          history (``engine.detach_handoff``).
 
         On the non-None paths the request is locally terminal
         (``migrated``) and off every queue and slot."""

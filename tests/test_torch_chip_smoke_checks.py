@@ -2,9 +2,10 @@
 its fused write of the fresh rows) and K12 kernels to (K8 also at a
 speculative verify's rows), phase 20's (the MoE gating on the card
 against the CPU, the routing replay that pins a plain run to a kernel
-run's experts, the executed FLOPs) and phase 21's (the verify rows,
+run's experts, the executed FLOPs), phase 21's (the verify rows,
 launch groups, expected launches, acceptance, the share of tokens equal
-to the plain stream),
+to the plain stream) and phase 26's (a lossy KV wire's half-step bound,
+the byte equality of installed rows),
 rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
@@ -1379,3 +1380,39 @@ def test_plain_sdpa_takes_the_padding_bias_and_kv_lens():
                                   kv_lens=torch.tensor([12, 16],
                                                        dtype=torch.int32))
     assert not torch.allclose(wrong[1], want[1], atol=1e-3)
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_kv_wire_check_passes_the_codec_and_fails_a_planted_fault(wire):
+    """Phase 26's lossy-wire check: bf16 pages through the port's codec
+    pass; one element pushed by a full block step fails."""
+    from paddle_tpu_torch.serving import kv_transfer as kt
+    rs = np.random.RandomState(2)
+    k = torch.from_numpy(rs.randn(2, 2, 4, 128, 16).astype(np.float32) * 3)
+    k = k.to(torch.bfloat16)
+    n = 200
+    h, blob = kt.encode_kv_pages(k, k, n, wire=wire, block=256)
+    got, _ = kt.decode_kv_pages(h, blob)
+    rows = chip_smoke.kv_rows(got, n)
+    worst, ok = chip_smoke.kv_wire_check(torch, rows, k, n, wire, 256)
+    assert ok and 0.0 < worst <= 1.0
+    bad = rows.clone()
+    scale = float(k.float().reshape(-1)[:256].abs().max()) / (
+        127.0 if wire == "int8" else 448.0)
+    bad[0, 0, 0, 0] += 64 * scale
+    assert not chip_smoke.kv_wire_check(torch, bad, k, n, wire, 256)[1]
+
+
+def test_kv_bits_equal_and_rows():
+    k = torch.randn(2, 3, 4, 128, 8).to(torch.bfloat16)
+    rows = chip_smoke.kv_rows(k, 300)
+    assert tuple(rows.shape) == (2, 4, 300, 8) and rows.is_contiguous()
+    assert torch.equal(rows[:, :, 130], k[:, 1, :, 2])
+    assert chip_smoke.kv_bits_equal(torch, (rows, rows), (rows.clone(),
+                                                          rows.clone()))
+    flipped = rows.clone()
+    flipped.view(torch.int16)[1, 3, 299, 7] ^= 1
+    assert not chip_smoke.kv_bits_equal(torch, (rows, flipped),
+                                        (rows, rows))
+    assert not chip_smoke.kv_bits_equal(torch, (rows[:, :, :299],),
+                                        (rows,))

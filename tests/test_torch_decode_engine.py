@@ -394,9 +394,21 @@ def test_unported_and_bad_options_raise(models, kwargs, match):
 def test_unported_methods_raise(models):
     _, model = models
     eng = DecodeEngine(model, device="cpu")
-    for name in ("detach_handoff", "submit_handoff"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(eng, name)()
+    # ported since: a request detached mid-decode (one wire page of n
+    # rows) resubmits and finishes its stream (held against JAX in
+    # test_torch_handoff.py)
+    prompt = list(range(1, 12))
+    ref = eng.submit(prompt, max_new_tokens=6)
+    eng.run()
+    req = eng.submit(prompt, max_new_tokens=6)
+    eng.step()
+    eng.step()
+    meta, k, v = eng.detach_handoff(req)
+    assert k.shape[1] == 1 and k.shape[3] == meta["n_tokens"]
+    assert eng.kv_bytes == 0
+    moved = eng.submit_handoff(meta, k, v)
+    eng.run()
+    assert moved.tokens == ref.tokens
     # ported since: the speculative verify and chunk run on a
     # speculative engine (no live slot: nothing is emitted)
     spec = DecodeEngine(model, device="cpu", speculative_k=2)

@@ -1455,3 +1455,61 @@ def test_tuners_time_the_kernels_and_hit_the_cache(dev, tmp_path):
             assert wrapper.launches == before
     finally:
         at.use_cache()
+
+
+def test_kv_handoff_on_gpu_matches_direct_serving(dev):
+    """bf16 on the card: a prefill-only engine hands each request over
+    the fp32 wire to a single-dispatch decode engine, and a contiguous
+    engine migrates a request mid-decode to another: the streams equal
+    direct serving on the same kind token for token, and the installed
+    rows equal the sender's bit for bit."""
+    from paddle_tpu_torch.serving import kv_transfer as kt
+    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=1024, d_model=256,
+                        n_layers=2, n_heads=2, dtype=torch.bfloat16)
+    model = gpt.GPT(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, size=n).tolist() for n in (40, 170, 300)]
+
+    def carry(meta, k, v):
+        h, blob = kt.encode_kv_pages(k, v, meta["n_tokens"], wire="fp32")
+        return (dict(meta, wire="fp32"), *kt.decode_kv_pages(h, blob))
+
+    def bits(t):
+        return t.contiguous().view(torch.int16)
+
+    direct = PagedDecodeEngine(model, n_pages=16, max_slots=4, device=dev)
+    ref = [direct.submit(p, max_new_tokens=12) for p in prompts]
+    direct.run()
+    pf = PagedDecodeEngine(model, n_pages=16, max_slots=4,
+                           prefill_only=True, device=dev)
+    de = PagedDecodeEngine(model, n_pages=16, max_slots=4, device=dev)
+    assert de.mega
+    reqs = [pf.submit(p, max_new_tokens=12) for p in prompts]
+    while not all(r.tokens for r in reqs):
+        pf.step()
+        pf.drain()
+    sent = [pf.detach_handoff(r) for r in reqs]
+    moved = [de.submit_handoff(*carry(*s)) for s in sent]
+    de.step()
+    for m, (meta, k, v) in zip(moved, sent):
+        n = meta["n_tokens"]
+        slot = de._slot_req.index(m)
+        got = de._read_pages(de._tables[slot][:-(-n // 128)])
+        for g, s in zip(got, (k, v)):
+            assert torch.equal(bits(chip_smoke.kv_rows(g, n)),
+                               bits(chip_smoke.kv_rows(s, n)))
+    de.run()
+    assert [m.tokens for m in moved] == [r.tokens for r in ref]
+    src = DecodeEngine(model, max_slots=4, max_len=1024, device=dev)
+    dst = DecodeEngine(model, max_slots=4, max_len=1024, device=dev)
+    want = DecodeEngine(model, max_slots=4, max_len=1024, device=dev)
+    wreqs = [want.submit(p, max_new_tokens=12) for p in prompts]
+    want.run()
+    sreqs = [src.submit(p, max_new_tokens=12) for p in prompts]
+    while src.steps < 4:
+        src.step()
+    migrated = dst.submit_handoff(*carry(*src.detach_handoff(sreqs[0])))
+    src.run()
+    dst.run()
+    assert migrated.tokens == wreqs[0].tokens
+    assert [r.tokens for r in sreqs[1:]] == [r.tokens for r in wreqs[1:]]

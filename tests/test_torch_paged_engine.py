@@ -6,7 +6,7 @@ The single-dispatch decode (``mega``, the default: K8 + K9's plain
 versions on the CPU) emits the JAX ``mega=False`` streams too, and the
 port's own per-layer path's and ``generate``'s. Plus the engine's own
 contracts: eos and budget retirement, deadline and non-finite eviction,
-the mega default, and the options that are not ported yet."""
+the mega default, and the options ported since the first slice."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -238,16 +238,39 @@ def test_unported_options_raise(port_model, kwargs, match):
         PagedDecodeEngine(port_model, n_pages=4, device="cpu", **kwargs)
         assert stats.get("serve/warmup_s") == 1
         return
-    with pytest.raises(NotImplementedError, match=match):
-        PagedDecodeEngine(port_model, n_pages=4, device="cpu", **kwargs)
+    # ported since: a prefill-only engine prefills, never decodes, and
+    # holds the request's pages until detach_handoff (handoffs are held
+    # against JAX in test_torch_handoff.py)
+    assert match == "prefill-only"
+    eng = PagedDecodeEngine(port_model, n_pages=4, device="cpu", **kwargs)
+    req = eng.submit(_prompts()[1], max_new_tokens=8)
+    for _ in range(3):
+        eng.step()
+    assert eng.prefill_only and eng.steps == 0 and len(req.tokens) == 1
+    meta, k, v = eng.detach_handoff(req)
+    assert meta["n_tokens"] == len(_prompts()[1]) and req.done
+    assert tuple(k.shape) == tuple(v.shape) == (2, 1, 4, PAGE, 8)
 
 
 def test_unported_methods_and_engines_raise(port_model):
     eng = make_engine(port_model, n_pages=4, device="cpu")
-    # autotune is ported since (tests/test_torch_autotune.py)
-    for name in ("detach_handoff", "submit_handoff", "attach_fleet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(eng, name)()
+    # autotune is ported since (tests/test_torch_autotune.py), and so are
+    # the handoff methods and attach_fleet (test_torch_handoff.py): a
+    # request detached mid-decode resubmits and finishes its stream
+    ref = eng.submit(_prompts()[1], max_new_tokens=6)
+    eng.run()
+    req = eng.submit(_prompts()[1], max_new_tokens=6)
+    eng.step()
+    eng.step()
+    meta, k, v = eng.detach_handoff(req)
+    moved = eng.submit_handoff(meta, k, v)
+    eng.run()
+    assert moved.tokens == ref.tokens
+    with pytest.raises(ValueError, match="prefix cache"):
+        make_engine(port_model, n_pages=4, prefix=False,
+                    device="cpu").attach_fleet(object())
+    eng.attach_fleet(object())
+    assert eng._prefix.on_drop is not None
     # the contiguous engine is ported now: the factory builds it
     assert isinstance(make_engine(port_model, engine="contiguous",
                                   device="cpu"), DecodeEngine)

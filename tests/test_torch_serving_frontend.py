@@ -21,7 +21,7 @@ JAX package's, on the CPU, with a tiny fp32 GPT (2 layers, d 32, vocab
   (the paged engine's K1 plain-version calls counted);
 - ``projected_ttft`` / ``dynamic_bucket`` equal to JAX's over a grid of
   (remaining, occupancy); ``loadgen`` traces equal to JAX's for three
-  seeds; ``RequestJournal`` round-trips; the handoff paths raise.
+  seeds; ``RequestJournal`` round-trips; the handoff paths run.
 
 The JAX runs are shared per engine kind (module-level cache): building
 and compiling a JAX engine takes seconds."""
@@ -461,12 +461,15 @@ def test_request_journal_round_trips(tmp_path):
 
 @pytest.mark.parametrize("kind", ["plain", "paged"])
 def test_handoff_paths_raise_until_ported(models, kind):
+    """Ported since: the handoff paths run through the engines. A queued
+    request migrates without KV; a live one detaches with its KV
+    (``{"kv": True, ...}``) and, handed to a second front end, finishes
+    the stream it had (held against JAX in test_torch_handoff.py)."""
     _, model = models
+    direct = _port_engine(model, kind)
+    ref = direct.submit([1] * 5, max_new_tokens=8)
+    direct.run()
     fe = FrontEnd(_port_engine(model, kind), admit_ahead=0)
-    meta = {"prompt": [1, 2], "max_new_tokens": 3, "eos_id": None,
-            "first": 5, "n_tokens": 2}
-    with pytest.raises(NotImplementedError, match="S4"):
-        fe.submit_handoff(meta, None, None)
     reqs = [fe.submit([i + 1] * 5, max_new_tokens=8)
             for i in range(SLOTS + 1)]
     fe.step()
@@ -477,8 +480,11 @@ def test_handoff_paths_raise_until_ported(models, kind):
     assert queued.status == "migrated" and queued.done
     live = reqs[0]
     assert live.status == "admitted"
-    with pytest.raises(NotImplementedError, match="S4"):
-        fe.detach_migrate(live)
+    got = fe.detach_migrate(live)
+    assert got["kv"] is True and live.status == "migrated" and live.done
+    dst = FrontEnd(_port_engine(model, kind))
+    moved = dst.submit_handoff(got["meta"], got["k"], got["v"])
+    assert list(moved.stream()) == ref.tokens and moved.status == "done"
     fe.run()
     assert [r.status for r in reqs[1:]] == ["done"] * (SLOTS - 1) + [
         "migrated"]
