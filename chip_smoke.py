@@ -361,8 +361,44 @@ Phases, each fatal on failure:
    ms (CUDA events around the ``index_copy_``), logical and wire bytes;
    the phase's seconds.
 
-Phases 11, 4, 12, 6-10, 21, 22, 25 and 26 run before 5 (which needs the
-card's memory for training), 13, 14 and 17 before them, 19 (and its sweep)
+27. serving past one engine (``fleet_phase``) — the same gpt3_1p3b
+   (bf16, seed 0) in four replica processes on this card, each started
+   as ``python -c "import chip_smoke; chip_smoke.fleet_replica_main(...)"``
+   from the tree's root, loading the kernel libraries this process built
+   (a replica that would build fails) and holding its per-parameter fp64
+   weight sums (``weight_checksum``) to this process's; two
+   ``serving.Router``s here, each hosting a ``native.TCPStore``; phase
+   26's 8 prompts and its paged streams as the reference, the engines
+   built with phase 26's paged settings. (a) Two ``serve_replica``
+   processes (single-dispatch engines behind ``FrontEnd``), dead_after
+   3 s: the 8 requests at once, request 0 with a budget of 8 on the
+   victim; the victim SIGKILLed as soon as request 0's result lands, its
+   other requests mid-decode. (b) One ``serve_prefill_replica``
+   (``prefill_only``) and one ``serve_decode_replica`` (a
+   ``FleetPrefixDirectory`` attached), the fp32 wire over the socket
+   plane: the 8 requests placed prefill -> handoff -> decode, then a
+   prompt A of 320 tokens, then B, sharing A's first 256 tokens
+   (``fleet_hit_prompts``, from seed 27, with their single-engine
+   reference), whose full pages the decode replica's published pages
+   cover: the router skips the prefill tier and the decode replica
+   prefills only the suffix (K2', no K1). (c) Both
+   routers' ``enable_fleet_stats``. Checks (``fleet_check``, fatal):
+   every id returned exactly once, done, its stream equal to the
+   reference (a budget of 8: its first 8 tokens); every replica's weights
+   equal; (a) at least one request redistributed and both replicas
+   serving; (b) 9 handoffs and one prefill skipped; the telemetry: no
+   alert over (b), the tokens the merged loads hold equal to the sum the
+   replicas reported, the merged TTFT count equal to their exports', the
+   victim named dead or stalled; K1, K2', K8 and K9 launched across the
+   replicas' counters (each reports ``ops.launch_counters()`` when its
+   loop ends). Printed beside the card: each replica's spawn-to-announce
+   seconds, TTFT (the merged replicas' p50) and end-to-end medians on
+   the host clock, the redistribution delay after the kill, the handoff
+   fetch ms, a serve-loop iteration's store calls (ms), the phase's
+   seconds against FLEET_LIMIT_S.
+
+Phases 11, 4, 12, 6-10, 21, 22, 25, 26 and 27 run before 5 (which needs
+the card's memory for training), 13, 14 and 17 before them, 19 (and its sweep)
 right after 5, 20 after the sweep, 15, 16, 23, 24 and 18 after 20. Should
 the script near its time limit, phase 18's sweep may drop to prompts of
 128 and 1024 tokens, at full width.
@@ -4198,7 +4234,8 @@ def kv_handoff_phase(torch, dev, model):
     -> contiguous and contiguous -> paged; (e) ``kv_fleet_part``. Each
     part's kernel counters are zeroed just before it and read just after,
     and the phase fails unless K1, K2', K8, K9 and K10 all launched.
-    Returns path -> launches."""
+    Returns (path -> launches, the reference phase 27 reuses: the
+    prompts and (a)'s paged streams)."""
     from paddle_tpu_torch import native
     from paddle_tpu_torch.serving import kv_transfer as kt
     t0 = time.perf_counter()
@@ -4248,7 +4285,476 @@ def kv_handoff_phase(torch, dev, model):
            "kernels_not_launched": missing}
     rec["ok"] = not missing
     _phase(rec)
-    return {"kv_handoff": total}
+    return {"kv_handoff": total}, {
+        "prompts": prompts,
+        "streams": [list(r.tokens) for r in refs["paged"]]}
+
+
+FLEET_DEAD_AFTER = 3.0    # part (a)'s router: a stalled heartbeat's age
+FLEET_SHORT = 8           # the victim's first request's budget
+FLEET_LIMIT_S = 60.0      # the phase's share of the script's time
+FLEET_WAIT_S = 120.0      # the bound on every wait of the phase
+FLEET_STORE_ITERS = 50    # the serve-loop store rounds each replica times
+FLEET_KEY = "fleet27"     # the store keys of the replicas' reports
+# the kernels the replicas must launch, by counter
+FLEET_PATH_KERNELS = {"K1": "flash_attention",
+                      "K2'": "paged_decode_attention",
+                      "K8": "mega_decode_layers", "K9": "mega_logits_sample"}
+
+
+def weight_checksum(model):
+    """Per parameter, the fp64 sum of its values (name -> float): a
+    replica's draw against the main process's, so a stream that differs
+    can be told from weights that differ."""
+    return {n: float(p.detach().double().sum())
+            for n, p in model.named_parameters()}
+
+
+def fleet_check(ids, picked, ref, launches, checksums, main_sum,
+                kernels=None):
+    """Phase 27's checks over one part. ``picked``: every (id, result)
+    the router's polls returned, in order; ``ref``: id -> the expected
+    tokens; ``launches``: the replicas' summed counters; ``checksums``:
+    rid -> ``weight_checksum`` of its model. Returns the failures (empty:
+    the part passed): an id lost, returned twice or foreign, a result not
+    done, a stream that differs, a path kernel never launched, a
+    replica's weights that differ."""
+    seen = {}
+    for q, _ in picked:
+        seen[q] = seen.get(q, 0) + 1
+    res = dict(picked)
+    fails = []
+    lost = [q for q in ids if q not in seen]
+    dup = sorted(q for q, n in seen.items() if n > 1)
+    foreign = sorted(q for q in seen if q not in ids)
+    not_done = [q for q in ids if q in res
+                and res[q].get("status") != "done"]
+    differ = []
+    for q in ids:
+        got = list(res.get(q, {}).get("tokens", ref[q]))
+        if got != list(ref[q]):
+            # the first index where the stream leaves the reference
+            differ.append((q, next((i for i, (a, b) in enumerate(zip(
+                got, ref[q])) if a != b), min(len(got), len(ref[q])))))
+    kernels = FLEET_PATH_KERNELS if kernels is None else kernels
+    missing = [k for k, n in kernels.items() if not launches.get(n)]
+    bad_sum = sorted(r for r, c in checksums.items() if c != main_sum)
+    for what, got in (("lost", lost), ("returned twice", dup),
+                      ("foreign", foreign), ("not done", not_done),
+                      ("stream differs", differ),
+                      ("kernel not launched", missing),
+                      ("weights differ", bad_sum)):
+        if got:
+            fails.append(f"{what}: {got}")
+    return fails
+
+
+def fleet_replica_main(port, rid, role, device="cuda", config=None):
+    """One replica process of phase 27, started by ``fleet_phase`` as
+    ``python -c "import chip_smoke; chip_smoke.fleet_replica_main(...)"``
+    from the tree's root: gpt3_1p3b (``config``: a ``gpt_tiny`` for a CPU
+    rehearsal) from seed SEED on ``device``, one paged engine with
+    phase 26's settings (``role`` "both": ``serve_replica`` over
+    ``FrontEnd``; "prefill": a ``prefill_only`` engine under
+    ``serve_prefill_replica``; "decode": ``serve_decode_replica`` with a
+    ``FleetPrefixDirectory`` attached), on the router's store at
+    ``port``. Before it serves it writes its ``weight_checksum`` and
+    times FLEET_STORE_ITERS rounds of a serve-loop iteration's store calls
+    (the heartbeat add, the router probe, the shutdown and mailbox
+    probes); when its loop ends it writes its kernel counters, its
+    tokens and its stat export. It loads the kernel libraries the main
+    process built and refuses to start a build."""
+    import torch
+    from paddle_tpu_torch import native, ops, stats
+    from paddle_tpu_torch.distributed import resilience
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import FrontEnd, disagg, router
+    from paddle_tpu_torch.testing import faults
+    faults.install_from_env()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"replica {rid}: no CUDA device")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        built = _build._build_dir()
+        missing = sorted(n for n in _build.sources()
+                         if not (built / f"lib{n}.so").exists())
+        if missing:
+            raise RuntimeError(f"replica {rid}: kernel libraries not "
+                               f"built ({missing}); a replica never "
+                               f"starts a build")
+    cfg = (gpt.gpt3_1p3b() if config is None
+           else gpt.gpt_tiny(dtype=torch.bfloat16, **config))
+    model = gpt.GPT(cfg, seed=SEED, device=dev)
+    store = native.TCPStore("127.0.0.1", int(port))
+    guarded = resilience.GuardedStore(store)
+    key = f"{FLEET_KEY}/{rid}"
+    guarded.set(f"{key}/checksum", json.dumps(weight_checksum(model)))
+    iter_ms = []
+    for _ in range(FLEET_STORE_ITERS):
+        t0 = time.perf_counter()
+        guarded.add(f"{key}/hb_probe", 1)
+        guarded.probe("serve/router_hb")
+        router._shutdown_requested(guarded)
+        router._mailbox_pump(guarded, f"{rid}/probe", 0)
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+    eng = _kv_engine(model, "paged", device=dev,
+                     **({"prefill_only": True} if role == "prefill" else {}))
+    try:
+        if role == "prefill":
+            disagg.serve_prefill_replica(store, rid, eng,
+                                         max_idle_s=FLEET_WAIT_S)
+        elif role == "decode":
+            eng.attach_fleet(disagg.FleetPrefixDirectory(store, rid,
+                                                         wire="fp32"))
+            disagg.serve_decode_replica(store, rid, FrontEnd(eng),
+                                        max_idle_s=FLEET_WAIT_S)
+        else:
+            router.serve_replica(store, rid, FrontEnd(eng),
+                                 max_idle_s=FLEET_WAIT_S)
+    finally:
+        guarded.set(f"{key}/report", json.dumps({
+            "launches": {n: fn.launches
+                         for n, fn in ops.launch_counters().items()},
+            "store_iter_ms": iter_ms,
+            "tokens_emitted": int(eng.tokens_emitted),
+            "export": stats.export()}))
+
+
+def _fleet_spawn(port, rid, role, log_dir, device, config):
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import chip_smoke; chip_smoke.fleet_replica_main("
+            f"{port}, {rid!r}, {role!r}, {device!r}, {config!r})")
+    log = open(os.path.join(log_dir, f"{rid}.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", code], cwd=root,
+            env=dict(os.environ, PT_KV_WIRE="fp32"), stdout=log,
+            stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def _fleet_log(log_dir, rid, lines=20):
+    import os
+    try:
+        with open(os.path.join(log_dir, f"{rid}.log")) as f:
+            return f.read().splitlines()[-lines:]
+    except OSError:
+        return []
+
+
+def _fleet_wait(cond, what, procs, log_dir, timeout=FLEET_WAIT_S):
+    """Poll ``cond`` until true; fail with the replicas' log tails when a
+    replica process exits first or ``timeout`` passes."""
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        dead = {r: p.returncode for r, p in procs.items()
+                if p.poll() is not None}
+        if dead or time.perf_counter() > t_end:
+            _fail(f"phase fleet: {what} not met "
+                  f"({'exited ' + str(dead) if dead else 'timed out'}); "
+                  + json.dumps({r: _fleet_log(log_dir, r) for r in procs}))
+        time.sleep(0.002)
+
+
+def _fleet_pump(router, picked, t_done):
+    for q, res in router.poll().items():
+        picked.append((q, res))
+        t_done[q] = time.perf_counter()
+    router.check_replicas()
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def fleet_symmetric_part(torch, ra, victim, prompts, streams, procs,
+                         log_dir):
+    """(a) Two ``serve_replica`` processes behind one router (dead_after
+    FLEET_DEAD_AFTER). The 8 requests go out at once; least-outstanding
+    placement alternates, so the victim takes request 0, whose budget is
+    FLEET_SHORT, and three of KV_NEW. SIGKILL the victim as soon as
+    request 0's result lands: its other requests are mid-decode, and the
+    death sweep must send them to the survivor. Returns the part's
+    record (before the launch and checksum checks)."""
+    import os
+    import signal
+    from paddle_tpu_torch import stats
+    stats.reset("serve/router")
+    fleet = ra.enable_fleet_stats(refresh_s=0.5)
+    budgets = [FLEET_SHORT] + [KV_NEW] * (len(prompts) - 1)
+    ids, t_sub, picked, t_done = [], {}, [], {}
+    for p, n in zip(prompts, budgets):
+        ids.append(ra.submit(p, max_new_tokens=n))
+        t_sub[ids[-1]] = time.perf_counter()
+    placed = {q: ra._assigned[q] for q in ids}
+    if placed[ids[0]] != victim:
+        _fail(f"phase fleet: request 0 went to {placed[ids[0]]}, "
+              f"not {victim}")
+    _fleet_wait(lambda: (_fleet_pump(ra, picked, t_done)
+                         or ids[0] in ra.results),
+                "the victim's first result", procs, log_dir)
+    open_at_kill = [q for q in ids if placed[q] == victim
+                    and q not in ra.results]
+    # the victim leaves ``procs``, whose exits fail the waits below
+    proc = procs.pop(victim)
+    t_kill = time.perf_counter()
+    os.kill(ra.directory.members()[victim]["pid"], signal.SIGKILL)
+    proc.wait(timeout=30)
+    redist = []
+
+    def pump():
+        _fleet_pump(ra, picked, t_done)
+        if not redist and stats.get("serve/router_redistributed"):
+            redist.append(time.perf_counter() - t_kill)
+        return len(ra.results) == len(ids)
+    _fleet_wait(pump, "every result of part (a)", procs, log_dir)
+    # the fleet watch after the death sweep: the victim named dead (its
+    # heartbeat older than dead_after) or stalled
+    fleet.poll()
+    dead = sorted(r for r, a in fleet._alive.items() if not a)
+    stalled = [a["msg"] for a in fleet.alerts
+               if a["kind"] == "stalled_replica"]
+    merged = fleet.merged().snapshot("serve/")
+    ref = {q: streams[i][:n] for i, (q, n) in
+           enumerate(zip(ids, budgets))}
+    return {"ids": ids, "picked": picked, "ref": ref,
+            "served_by": sorted({r.get("replica") for _, r in picked}),
+            "open_at_kill": len(open_at_kill),
+            "redistributed": stats.get("serve/router_redistributed"),
+            "redistribution_delay_s": redist[0] if redist else None,
+            "dead_after_s": FLEET_DEAD_AFTER,
+            "victim_named": victim in dead
+            or any(victim in m for m in stalled),
+            "dead": dead, "stalled_alerts": stalled,
+            "ttft_p50_s": merged.get("serve/ttft_s.p50"),
+            "e2e_p50_s": _median([t_done[q] - t_sub[q] for q in ids
+                                  if q in t_done])}
+
+
+def fleet_hit_prompts(model):
+    """(b)'s prompts A and B (KV_FLEET_PROMPT tokens, B sharing A's first
+    KV_FLEET_SHARED) and their reference: one engine serving A, then B
+    (B's suffix prefill over A's cached pages, as on the decode
+    replica). Drawn from SEED + 27, not phase 26 (e)'s SEED + 26: that A
+    begins with phase 26's first prompt (the same generator's first
+    draws), so a replica that served the 8 would take a prefix hit on A
+    and prefill its suffix through K2', whose bf16 sums differ from the
+    reference's one-pass prefill."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 27)
+    vocab = model.cfg.vocab_size
+    pa = rs.randint(0, vocab, size=KV_FLEET_PROMPT).tolist()
+    pb = pa[:KV_FLEET_SHARED] + rs.randint(
+        0, vocab, size=KV_FLEET_PROMPT - KV_FLEET_SHARED).tolist()
+    eng = _kv_engine(model, "paged", device=model.wte.device)
+    ra = eng.submit(pa, max_new_tokens=KV_NEW)
+    eng.run()
+    rb = eng.submit(pb, max_new_tokens=KV_NEW)
+    eng.run()
+    return pa, pb, list(ra.tokens), list(rb.tokens)
+
+
+def fleet_disagg_part(torch, rb, kv_ref, procs, log_dir):
+    """(b) One ``serve_prefill_replica`` (``prefill_only`` engine) and one
+    ``serve_decode_replica`` (single-dispatch engine, a
+    ``FleetPrefixDirectory`` attached) behind a second router, fp32 wire
+    over the socket plane: the 8 requests, then ``fleet_hit_prompts``'s
+    A (KV_FLEET_PROMPT tokens) placed prefill -> handoff -> decode, then
+    B, which shares A's first KV_FLEET_SHARED tokens: the pages the
+    decode replica published cover B's full pages, so the router skips
+    the prefill tier and the decode replica prefills only the suffix.
+    Every stream equals its single-engine reference."""
+    from paddle_tpu_torch import stats
+    stats.reset("serve/router")
+    fleet = rb.enable_fleet_stats(refresh_s=0.5)
+    pa, pb, ta, tb = kv_ref["hit"]
+    ids, ref, t_sub, picked, t_done = [], {}, {}, [], {}
+
+    def submit(p, stream):
+        ids.append(rb.submit(p, max_new_tokens=KV_NEW))
+        ref[ids[-1]] = stream
+        t_sub[ids[-1]] = time.perf_counter()
+
+    def drained():
+        _fleet_pump(rb, picked, t_done)
+        return len(rb.results) == len(ids)
+    for p, stream in zip(kv_ref["prompts"], kv_ref["streams"]):
+        submit(p, stream)
+    _fleet_wait(drained, "part (b)'s 8 results", procs, log_dir)
+    submit(pa, ta)
+    _fleet_wait(drained, "prompt A's result", procs, log_dir)
+    submit(pb, tb)
+    _fleet_wait(drained, "prompt B's result", procs, log_dir)
+    # idle past two heartbeat refreshes: the exports the watch holds are
+    # the replicas' last
+    time.sleep(0.6)
+    fleet.poll()
+    merged = fleet.merged().snapshot("serve/")
+    return {"ids": ids, "picked": picked, "ref": ref,
+            "served_by": sorted({r.get("replica") for _, r in picked}),
+            "prefill_handoffs": stats.get("serve/router_prefill_handoffs"),
+            "prefill_skipped": stats.get("serve/router_prefill_skipped"),
+            "alerts": [a["kind"] for a in fleet.alerts],
+            "ttft_p50_s": merged.get("serve/ttft_s.p50"),
+            "prefill_p50_s": merged.get("serve/prefill_s.p50"),
+            "handoff_fetch_p50_ms": (
+                merged["serve/kv_transfer_s.p50"] * 1e3
+                if "serve/kv_transfer_s.p50" in merged else None),
+            "e2e_p50_s": _median([t_done[q] - t_sub[q] for q in ids
+                                  if q in t_done]),
+            "fleet": fleet}
+
+
+def _fleet_reports(router, rids):
+    out = {}
+    for rid in rids:
+        try:
+            out[rid] = json.loads(router.store.get(
+                f"{FLEET_KEY}/{rid}/report", timeout=5.0))
+        except TimeoutError:
+            out[rid] = None
+    return out
+
+
+def fleet_phase(torch, dev, model, kv_ref, device="cuda", config=None):
+    """Phase 27: serving past one engine, on gpt3_1p3b (bf16, seed SEED)
+    in four replica processes on this card (``fleet_replica_main``), two
+    routers in this process: (a) ``fleet_symmetric_part``, (b)
+    ``fleet_disagg_part``, (c) the fleet telemetry of both
+    (``Router.enable_fleet_stats``). Each replica checksums its weights
+    against this process's model and reports its kernel counters when its
+    loop ends; the phase fails unless K1, K2', K8 and K9 launched across
+    the replicas. ``device`` / ``config``: a CPU rehearsal's. Every wait
+    is bounded by FLEET_WAIT_S, and every replica is reaped. Returns
+    {"fleet": the replicas' summed launches}."""
+    import os
+    from paddle_tpu_torch.serving import Router
+    t0 = time.perf_counter()
+    card = _card_line()
+    main_sum = weight_checksum(model)
+    kv_ref = dict(kv_ref, hit=fleet_hit_prompts(model))
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(root, "build", "fleet")
+    os.makedirs(log_dir, exist_ok=True)
+    roles = {"sym0": "both", "sym1": "both", "pf0": "prefill",
+             "dc0": "decode"}
+    ra = Router(port=0, dead_after=FLEET_DEAD_AFTER)
+    rb = Router(port=0, dead_after=FLEET_WAIT_S)
+    router_of = {"sym0": ra, "sym1": ra, "pf0": rb, "dc0": rb}
+    procs, spawn_t, announce_s = {}, {}, {}
+    try:
+        for rid, role in roles.items():
+            spawn_t[rid] = time.perf_counter()
+            procs[rid] = _fleet_spawn(router_of[rid].store.port, rid, role,
+                                      log_dir, device, config)
+
+        def announced():
+            for rid in roles:
+                if rid not in announce_s and \
+                        rid in router_of[rid].directory.members():
+                    announce_s[rid] = time.perf_counter() - spawn_t[rid]
+            return len(announce_s) == len(roles)
+        _fleet_wait(announced, "every replica's announcement", procs,
+                    log_dir)
+        checksums = {rid: json.loads(router_of[rid].store.get(
+            f"{FLEET_KEY}/{rid}/checksum", timeout=5.0)) for rid in roles}
+        ra.wait_replicas(2, timeout=FLEET_WAIT_S)
+        rb.wait_replicas(2, timeout=FLEET_WAIT_S)
+        sym = fleet_symmetric_part(torch, ra, "sym0", kv_ref["prompts"],
+                                   kv_ref["streams"], procs, log_dir)
+        dis = fleet_disagg_part(torch, rb, kv_ref, procs, log_dir)
+    finally:
+        for r in (ra, rb):
+            r.shutdown()
+        for rid, p in procs.items():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=10)
+    reports = {**_fleet_reports(ra, ["sym1"]),
+               **_fleet_reports(rb, ["pf0", "dc0"])}
+    dis["fleet"].refresh()
+    merged = dis["fleet"].merged()
+    ra.close()
+    rb.close()
+    total = {}
+    for rep in reports.values():
+        if rep is not None:
+            _add_launches(total, rep["launches"])
+    telemetry = {
+        "tokens_merged": sum(int(ld.get("tokens", 0))
+                             for ld in dis["fleet"]._loads.values()),
+        "tokens_exported": sum((reports[r] or {}).get("tokens_emitted", 0)
+                               for r in ("pf0", "dc0")),
+        "ttft_count_merged": (merged.histogram("serve/ttft_s").count
+                              if merged.histogram("serve/ttft_s") else 0),
+        "ttft_count_exported": sum(
+            (reports[r] or {}).get("export", {}).get("histograms", {})
+            .get("serve/ttft_s", {}).get("count", 0)
+            for r in ("pf0", "dc0")),
+        "alerts_disagg": dis["alerts"],
+        "victim_named_dead_or_stalled": sym["victim_named"]}
+    telemetry["ok"] = bool(
+        telemetry["tokens_merged"] == telemetry["tokens_exported"] > 0
+        and telemetry["ttft_count_merged"]
+        == telemetry["ttft_count_exported"]
+        and not dis["alerts"] and sym["victim_named"])
+    iter_ms = [m for rep in reports.values() if rep
+               for m in rep["store_iter_ms"]]
+    sym_sums = {r: checksums[r] for r in ("sym0", "sym1")}
+    dis_sums = {r: checksums[r] for r in ("pf0", "dc0")}
+    sym_fails = fleet_check(sym["ids"], sym["picked"], sym["ref"], total,
+                            sym_sums, main_sum, kernels={})
+    if sym["redistributed"] < 1 or sym["open_at_kill"] < 1:
+        sym_fails.append(f"no redistribution (open at the kill "
+                         f"{sym['open_at_kill']}, redistributed "
+                         f"{sym['redistributed']})")
+    if sym["served_by"] != ["sym0", "sym1"]:
+        sym_fails.append(f"served by {sym['served_by']}")
+    dis_fails = fleet_check(dis["ids"], dis["picked"], dis["ref"], total,
+                            dis_sums, main_sum, kernels={})
+    if dis["prefill_skipped"] != 1 or \
+            dis["prefill_handoffs"] != len(dis["ids"]) - 1:
+        dis_fails.append(f"placement: {dis['prefill_handoffs']} handoffs, "
+                         f"{dis['prefill_skipped']} prefill skipped")
+    dc = (reports.get("dc0") or {}).get("launches", {})
+    if dc.get("flash_attention", 0) or not dc.get("paged_decode_attention"):
+        dis_fails.append(f"decode replica launches {dc}")
+    for name, part, fails in (("fleet_symmetric", sym, sym_fails),
+                              ("fleet_disagg", dis, dis_fails)):
+        rec = {"phase": name, "card": card,
+               **{k: v for k, v in part.items()
+                  if k not in ("picked", "ref", "ids", "fleet")},
+               "requests": len(part["ids"]), "failures": fails}
+        rec["ok"] = not fails
+        _phase(rec)
+    seconds = time.perf_counter() - t0
+    missing = [k for k, n in FLEET_PATH_KERNELS.items() if not total.get(n)]
+    rec = {"phase": "fleet", "card": card, "seconds": seconds,
+           "seconds_limit": FLEET_LIMIT_S,
+           "spawn_to_announce_s": announce_s,
+           "store_iter_ms_median": _median(iter_ms),
+           "store_iter_ms_max": max(iter_ms) if iter_ms else None,
+           "telemetry": telemetry,
+           "replica_reports": sorted(r for r, v in reports.items() if v),
+           "launches": {k: total.get(n, 0)
+                        for k, n in FLEET_PATH_KERNELS.items()},
+           "launches_by_replica": {
+               r: {k: (v or {}).get("launches", {}).get(n, 0)
+                   for k, n in FLEET_PATH_KERNELS.items()}
+               for r, v in reports.items()},
+           "kernels_not_launched": missing}
+    rec["ok"] = bool(not missing and telemetry["ok"]
+                     and all(reports.values()))
+    _phase(rec)
+    return {"fleet": total}
 
 
 def serving_paths(torch, dev, gen=None):
@@ -4258,7 +4764,8 @@ def serving_paths(torch, dev, gen=None):
     breakdown (12), contiguous bf16 serving (7), int8 serving (8), the
     decode device time of all four engines (9), generate (10),
     speculative serving on all four (21), the serving front end over
-    both engines (22), the autotuner (25), KV across engines (26).
+    both engines (22), the autotuner (25), KV across engines (26), the
+    routed fleet of replica processes (27).
     Returns (path -> launches, (K8 record, K9 record))."""
     from paddle_tpu_torch.inference.factory import make_engine
     from paddle_tpu_torch.models import gpt
@@ -4302,11 +4809,13 @@ def serving_paths(torch, dev, gen=None):
     torch.cuda.empty_cache()
     tuned = autotune_phase(torch, dev, model)
     torch.cuda.empty_cache()
-    handoff = kv_handoff_phase(torch, dev, model)
+    handoff, kv_ref = kv_handoff_phase(torch, dev, model)
+    torch.cuda.empty_cache()
+    fleet = fleet_phase(torch, dev, model, kv_ref)
     return ({"serving": serve["launches"], "serving_mega": mega["launches"],
              "contiguous": contig["launches"], "int8": int8["launches"],
              "generate": generated["launches"], **spec, **front, **tuned,
-             **handoff},
+             **handoff, **fleet},
             k89)
 
 

@@ -24,11 +24,31 @@ import collections
 import socket
 import struct
 import threading
+import time
 from datetime import timedelta
 
-__all__ = ["is_available", "TCPStore", "P2PEndpoint"]
+__all__ = ["is_available", "TCPStore", "P2PEndpoint",
+           "decode_counter"]
 
 _FRAME = struct.Struct("=QQ")          # tag, payload length
+
+
+def decode_counter(raw) -> int:
+    """Decode a store counter value, as the JAX ``native.decode_counter``
+    does for its own store. The JAX store's ``add`` keeps counters as
+    8 raw little-endian int64 bytes; ``torch.distributed.TCPStore``'s
+    keeps them as ASCII decimal, and a ``set`` writes ASCII on both. So
+    an ASCII integer is parsed first: read as little-endian, a counter of
+    8 digits (10,000,000 and up) would be misread. Only 8 bytes that are
+    not an ASCII integer fall back to little-endian."""
+    if isinstance(raw, (bytes, bytearray)):
+        try:
+            return int(raw)
+        except ValueError:
+            if len(raw) == 8:
+                return int.from_bytes(raw, "little", signed=True)
+            raise
+    return int(raw)
 
 
 def is_available() -> bool:
@@ -40,6 +60,8 @@ class TCPStore:
     """Rendezvous KV store over ``torch.distributed.TCPStore``.
 
     ``is_master=True`` also runs the server in this process."""
+
+    QUIET_WAIT_S = 0.05
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  is_master: bool = False, timeout: float = 30.0):
@@ -60,8 +82,21 @@ class TCPStore:
     def get(self, key: str, timeout: float = 30.0) -> bytes:
         """The value under ``key``, waiting up to ``timeout`` seconds for
         it to appear (torch's ``get`` waits the store's whole timeout, so
-        the per-call bound is a ``wait`` first)."""
+        the per-call bound is a ``check``, then a ``wait``).
+
+        A timeout of at most ``QUIET_WAIT_S`` is a probe of a key that is
+        most often absent (the serve loops probe the shutdown key and the
+        mailbox counter every iteration): it sleeps the timeout out and
+        checks once more instead of torch's ``wait``, which logs two c10d
+        warning lines each time it times out."""
         from torch.distributed import DistStoreError
+        if self._store.check([key]):
+            return self._store.get(key)
+        if timeout <= self.QUIET_WAIT_S:
+            time.sleep(max(timeout, 0.0))
+            if self._store.check([key]):
+                return self._store.get(key)
+            raise TimeoutError(f"get({key!r}) timed out")
         try:
             self._store.wait([key], timedelta(seconds=max(timeout, 1e-3)))
             return self._store.get(key)

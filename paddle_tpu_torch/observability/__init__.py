@@ -13,20 +13,21 @@
   tax (with the K13 probe) and step decomposition;
 - ``numerics`` — the train step's per-layer gradient and update
   statistics in one packed vector (``PT_NUMERICS_EVERY``), NaN
-  provenance and the host ``Monitor``.
+  provenance and the host ``Monitor``;
+- ``fleet`` — the router side's merge of the replicas' stat exports and
+  the SLO/anomaly watch (``FleetStats``).
 
 ``init_from_env()`` (called once by ``import paddle_tpu_torch``)
 activates only what the environment asks for: with neither
 ``PT_TRACE_DIR``/``PT_TRACE_FILE`` nor ``PT_STATSZ_PORT`` set it starts
-no thread and opens no socket. The JAX package's ``fleet`` module is
-not ported yet (ROADMAP).
+no thread and opens no socket.
 """
 
 import os
 
-from paddle_tpu_torch.observability import (comm, devprof, flight, merge,
-                                            numerics, runtime, statsz,
-                                            trace)
+from paddle_tpu_torch.observability import (comm, devprof, fleet, flight,
+                                            merge, numerics, runtime,
+                                            statsz, trace)
 from paddle_tpu_torch.observability.comm import (exposed_time,
                                                  record_step_overlap,
                                                  step_overlap)
@@ -47,7 +48,7 @@ __all__ = ["trace", "span", "begin", "end", "complete", "instant",
            "stitch_trace_files", "stitch_rank_traces",
            "request_segments", "init_from_env",
            "comm", "exposed_time", "step_overlap", "record_step_overlap",
-           "flight", "runtime", "devprof", "numerics"]
+           "flight", "runtime", "devprof", "numerics", "fleet"]
 
 
 def init_from_env():

@@ -35,8 +35,8 @@ Single-threaded, like the engines: callers pump ``step()`` (or
 engine's device; the front end holds host lists of token ids only.
 ``submit_handoff`` and ``detach_migrate`` carry requests between engines
 (KV handoff, drain migration; ``serving/kv_transfer.py`` is the wire).
-The multi-process layer (router, replica serve loops, membership) is not
-ported yet (ROADMAP item 7b, S4b-2).
+The multi-process layer is ``serving/router.py`` (the router and
+``serve_replica``) and ``serving/disagg.py`` (the role loops).
 """
 
 import json

@@ -4,8 +4,9 @@ speculative verify's rows), phase 20's (the MoE gating on the card
 against the CPU, the routing replay that pins a plain run to a kernel
 run's experts, the executed FLOPs), phase 21's (the verify rows,
 launch groups, expected launches, acceptance, the share of tokens equal
-to the plain stream) and phase 26's (a lossy KV wire's half-step bound,
-the byte equality of installed rows),
+to the plain stream), phase 26's (a lossy KV wire's half-step bound,
+the byte equality of installed rows) and phase 27's (``fleet_check``:
+request-id accounting, streams, path kernels, weight checksums),
 rehearsed on the CPU at small shapes: a stand-in for a
 correct bf16 kernel passes, and planted faults fail. The stand-in is the plain
 version on bf16 inputs (p, ds and dl rounded to bf16 before their
@@ -1416,3 +1417,62 @@ def test_kv_bits_equal_and_rows():
                                         (rows, rows))
     assert not chip_smoke.kv_bits_equal(torch, (rows[:, :, :299],),
                                         (rows,))
+
+
+def _fleet_case():
+    """A clean phase 27 part: three ids, each returned once, done, with
+    its reference stream; every path kernel launched; two replicas whose
+    checksums equal the main process's."""
+    ids = ["rq-000001", "rq-000002", "rq-000003"]
+    ref = {q: [i, i + 1, i + 2] for i, q in enumerate(ids)}
+    picked = [(q, {"id": q, "status": "done", "tokens": list(ref[q]),
+                   "replica": "sym1"}) for q in ids]
+    launches = {n: 24 for n in chip_smoke.FLEET_PATH_KERNELS.values()}
+    main_sum = {"wte": 1.5, "stacked.wqkv": -0.25}
+    sums = {"sym0": dict(main_sum), "sym1": dict(main_sum)}
+    return ids, picked, ref, launches, sums, main_sum
+
+
+def test_fleet_check_passes_and_fails_planted_faults():
+    """Phase 27's check: the clean case passes; a lost id, a duplicated
+    result, a differing stream, a result not done, a foreign id, a
+    missing path kernel and a replica's differing weights each fail,
+    named."""
+    ids, picked, ref, launches, sums, main_sum = _fleet_case()
+    assert chip_smoke.fleet_check(ids, picked, ref, launches, sums,
+                                  main_sum) == []
+    cases = {
+        "lost": (picked[:2], launches, sums),
+        "returned twice": (picked + [picked[1]], launches, sums),
+        "stream differs": (picked[:2] + [(ids[2], dict(
+            picked[2][1], tokens=[2, 3, 5]))], launches, sums),
+        "not done": (picked[:2] + [(ids[2], dict(
+            picked[2][1], status="failed"))], launches, sums),
+        "foreign": (picked + [("rq-999999", picked[0][1])], launches,
+                    sums),
+        "kernel not launched": (picked, dict(
+            launches, paged_decode_attention=0), sums),
+        "weights differ": (picked, launches, dict(
+            sums, sym1={"wte": 1.5, "stacked.wqkv": -0.2500001})),
+    }
+    for what, (got, lau, sm) in cases.items():
+        fails = chip_smoke.fleet_check(ids, got, ref, lau, sm, main_sum)
+        assert len(fails) == 1 and fails[0].startswith(what), (what, fails)
+    # the parts check no kernels themselves: the phase's record does
+    assert chip_smoke.fleet_check(ids, picked, ref, {}, sums, main_sum,
+                                  kernels={}) == []
+
+
+def test_weight_checksum_is_per_parameter_fp64():
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny(dtype=torch.bfloat16)
+    a = gpt.GPT(cfg, seed=0, device="cpu")
+    b = gpt.GPT(cfg, seed=0, device="cpu")
+    sa = chip_smoke.weight_checksum(a)
+    assert sa == chip_smoke.weight_checksum(b)
+    assert sorted(sa) == sorted(n for n, _ in a.named_parameters())
+    name, p = next(iter(b.named_parameters()))
+    with torch.no_grad():
+        p.view(-1)[0] = p.view(-1)[0] + 1.0
+    sb = chip_smoke.weight_checksum(b)
+    assert [n for n in sa if sa[n] != sb[n]] == [name]

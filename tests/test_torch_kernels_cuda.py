@@ -1513,3 +1513,58 @@ def test_kv_handoff_on_gpu_matches_direct_serving(dev):
     dst.run()
     assert migrated.tokens == wreqs[0].tokens
     assert [r.tokens for r in sreqs[1:]] == [r.tokens for r in wreqs[1:]]
+
+
+def test_fleet_router_on_gpu_matches_direct_serving(dev, monkeypatch):
+    """bf16 on the card, replicas in threads on a ``native.TCPStore`` the
+    router hosts: two ``serve_replica`` loops over single-dispatch
+    engines, then a ``serve_prefill_replica`` / ``serve_decode_replica``
+    pair on the fp32 wire over the socket plane. Every stream equals
+    direct serving token for token, and K1, K8 and K9 launched."""
+    import threading
+    from paddle_tpu_torch import native, ops
+    from paddle_tpu_torch.serving import (FrontEnd, Router,
+                                          serve_decode_replica,
+                                          serve_prefill_replica,
+                                          serve_replica)
+    monkeypatch.setenv("PT_KV_WIRE", "fp32")
+    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=1024, d_model=256,
+                        n_layers=2, n_heads=2, dtype=torch.bfloat16)
+    model = gpt.GPT(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, size=n).tolist()
+               for n in (40, 170, 300, 90)]
+
+    def engine(**kw):
+        return PagedDecodeEngine(model, n_pages=16, max_slots=4,
+                                 device=dev, **kw)
+    direct = engine()
+    ref = [direct.submit(p, max_new_tokens=12) for p in prompts]
+    direct.run()
+    for fn in ops.launch_counters().values():
+        fn.launches = 0
+    for loops in ((serve_replica, FrontEnd(engine())),
+                  (serve_replica, FrontEnd(engine()))), \
+            ((serve_prefill_replica, engine(prefill_only=True)),
+             (serve_decode_replica, FrontEnd(engine()))):
+        router = Router(port=0, dead_after=30.0)
+        ts = [threading.Thread(target=fn, args=(native.TCPStore(
+                  "127.0.0.1", router.store.port), f"r{i}", arg),
+                               kwargs={"max_idle_s": 60.0}, daemon=True)
+              for i, (fn, arg) in enumerate(loops)]
+        for t in ts:
+            t.start()
+        try:
+            router.wait_replicas(2, timeout=60)
+            ids = [router.submit(p, max_new_tokens=12) for p in prompts]
+            res = router.drain(timeout=60)
+        finally:
+            router.shutdown()
+            for t in ts:
+                t.join(60)
+            router.close()
+        assert [res[q]["tokens"] for q in ids] == [r.tokens for r in ref]
+        assert {res[q]["status"] for q in ids} == {"done"}
+    counts = {n: fn.launches for n, fn in ops.launch_counters().items()}
+    assert counts["flash_attention"] > 0
+    assert counts["mega_decode_layers"] == counts["mega_logits_sample"] > 0

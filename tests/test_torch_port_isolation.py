@@ -65,6 +65,10 @@ def test_import_in_fresh_interpreter_loads_no_jax():
             "import paddle_tpu_torch.serving.disagg\n"
             "import paddle_tpu_torch.native\n"
             "import paddle_tpu_torch.distributed.resilience\n"
+            "import paddle_tpu_torch.distributed.liveness\n"
+            "import paddle_tpu_torch.distributed.membership\n"
+            "import paddle_tpu_torch.serving.router\n"
+            "import paddle_tpu_torch.observability.fleet\n"
             "import threading\n"
             "assert threading.active_count() == 1, 'import started a thread'\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
